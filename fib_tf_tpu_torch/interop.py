@@ -1,0 +1,45 @@
+"""Hand state and parameters across between numpy (and so the JAX
+package) and the port's torch tensors."""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from fib_tf_tpu_torch.models.beeler_reuter import CHEBY_DEG, GATES
+
+
+def state_from_numpy(state: Mapping[str, np.ndarray],
+                     device) -> Dict[str, torch.Tensor]:
+    """Copy numpy planes into contiguous float32 tensors on `device`."""
+    return {
+        k: torch.tensor(np.asarray(v, np.float32), device=device)
+        for k, v in state.items()
+    }
+
+
+def state_to_numpy(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Copy a state's tensors back to numpy."""
+    return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+def cheby_coef_from_numpy(coef: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Validate Beeler-Reuter Chebyshev coefficients (e.g. the JAX
+    model's `_cheby_coef`) and return float64 copies, ready to assign to
+    a port model's `cheby_coef`, so both packages compute with the same
+    constants."""
+    need = [f"{g}_{kind}" for g in GATES for kind in ("inf", "rl")]
+    need += ["i_k1", "i_x1f"]
+    missing = [k for k in need if k not in coef]
+    if missing:
+        raise ValueError(f"coefficients missing {missing}")
+    out = {}
+    for k, v in coef.items():
+        a = np.array(v, dtype=np.float64)
+        if a.shape != (CHEBY_DEG + 1,) or not np.isfinite(a).all():
+            raise ValueError(
+                f"coefficient {k!r} must be {CHEBY_DEG + 1} finite values")
+        out[k] = a
+    return out

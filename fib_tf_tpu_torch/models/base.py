@@ -1,0 +1,169 @@
+"""Model base class and geometry (main-path subset of
+fib_tf_tpu/models/base.py).
+
+Models are function factories over a state dict of `[H, W]` float32
+tensors: `initial_state()` returns numpy planes, `solve(state, geom, n)`
+advances one substep and `step(state, geom)` one outer step of
+`dt_per_step` substeps.  Spatial operators are injected through a
+`Geometry` record, so the same model runs in 2D tissue or as a 0D cell.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from fib_tf_tpu.config import SimConfig
+from fib_tf_tpu_torch.ops import stencil
+
+State = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """Injected spatial operators: `laplace` is the 9-point REFLECT
+    stencil, `enforce_boundary` the SYMMETRIC no-flux border rewrite.
+    0D (single-cell) geometry nulls both."""
+
+    laplace: Callable[[torch.Tensor], torch.Tensor]
+    enforce_boundary: Callable[[torch.Tensor], torch.Tensor]
+
+
+def grid_geometry(
+    phase: Optional[np.ndarray] = None,
+    fiber_angle: Optional[float] = None,
+    fiber_ratio: float = 1.0,
+    dmap: Optional[np.ndarray] = None,
+) -> Geometry:
+    """Standard isotropic 2D tissue geometry.  Phase fields, fiber
+    anisotropy and diffusion maps are not ported yet."""
+    if phase is not None:
+        raise NotImplementedError(
+            "phase fields are not ported yet (ROADMAP Queue 1 item 9)")
+    if fiber_angle is not None or fiber_ratio != 1.0:
+        raise NotImplementedError(
+            "fiber anisotropy is not ported yet (ROADMAP Queue 1 item 9)")
+    if dmap is not None:
+        raise NotImplementedError(
+            "diffusion maps are not ported yet (ROADMAP Queue 1 item 9)")
+    return Geometry(laplace=stencil.laplace,
+                    enforce_boundary=stencil.enforce_boundary)
+
+
+def cell_geometry() -> Geometry:
+    """0D single-cell geometry: no diffusion, no boundary."""
+    return Geometry(laplace=torch.zeros_like, enforce_boundary=lambda x: x)
+
+
+class IonicModel:
+    """Base class of the port's model zoo.
+
+    Subclasses set `name`, `min_v`, `max_v`, `depol`, `dt_per_step`,
+    `pot_key` and `SCALE_PARAMS`, and implement `initial_state` and
+    `solve`; `step` defaults to `dt_per_step` x `solve`."""
+
+    name: str = "base"
+    min_v: float = 0.0
+    max_v: float = 1.0
+    depol: float = 0.0
+    dt_per_step: int = 1
+    pot_key: str = "V"
+    # channel names set_scale accepts
+    SCALE_PARAMS: tuple = ()
+    # tick-indexed fast/slow dispatch is not ported; the engine rejects
+    # models that set it (ROADMAP Queue 1 item 14)
+    fast_slow_ratio: Optional[int] = None
+
+    def __init__(self, cfg: SimConfig):
+        self.cfg = cfg
+        # per-channel conductance scale factors; {} = drug-free
+        self.scales: Dict[str, float] = {}
+        if cfg.g_scale:
+            self.set_scale(**dict(cfg.g_scale))
+
+    # -- channel block (drug) interface -----------------------------------
+
+    def set_scale(self, **factors):
+        """Attach per-channel conductance scale factors, e.g.
+        `model.set_scale(g_K1=0.5)`.  None removes a factor.  Returns
+        self."""
+        scales = dict(self.scales)
+        for name, f in factors.items():
+            if name not in self.SCALE_PARAMS:
+                raise ValueError(
+                    f"{type(self).__name__} has no scalable channel "
+                    f"{name!r}; available: {self.SCALE_PARAMS}"
+                )
+            if f is None:
+                scales.pop(name, None)
+                continue
+            f = float(f)
+            if not np.isfinite(f) or f < 0.0:
+                raise ValueError(
+                    f"g_scale[{name!r}] must be a finite factor >= 0 "
+                    f"(got {f})"
+                )
+            scales[name] = f
+        self.scales = scales
+        return self
+
+    def gscale(self, name: str, expr):
+        """Scale a conductance (Python float) or a current (tensor) by the
+        attached factor; with no factor (or exactly 1.0) the expression is
+        returned untouched."""
+        f = self.scales.get(name, 1.0)
+        return expr if f == 1.0 else f * expr
+
+    # -- state -------------------------------------------------------------
+
+    def state_shape(self):
+        return (self.cfg.height, self.cfg.width)
+
+    def _full(self, value: float) -> np.ndarray:
+        return np.full(self.state_shape(), value, dtype=np.float32)
+
+    def initial_state(self, s1: bool = True) -> Dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    def state_keys(self):
+        """Sorted state-plane names."""
+        return tuple(sorted(self.initial_state(s1=False).keys()))
+
+    # -- dynamics ----------------------------------------------------------
+
+    def solve(self, state: State, geom: Geometry, n: int = 1) -> State:
+        """One substep."""
+        raise NotImplementedError
+
+    def substep_fns(self, geom: Geometry):
+        """The outer step as `(fns, labels)`: composing `fns` in order is
+        `step(state, geom)`, and equal labels mean identical bodies."""
+        fn = lambda s: self.solve(s, geom)
+        return [fn] * self.dt_per_step, ("solve",) * self.dt_per_step
+
+    def step(self, state: State, geom: Geometry) -> State:
+        """One outer step = the `substep_fns` schedule."""
+        fns, _ = self.substep_fns(geom)
+        for fn in fns:
+            state = fn(state)
+        return state
+
+    # -- views -------------------------------------------------------------
+
+    def image(self, state: State) -> torch.Tensor:
+        """Potential normalized to [0, 1]."""
+        return (state[self.pot_key] - self.min_v) / (self.max_v - self.min_v)
+
+    @property
+    def probe_pixel(self):
+        """(row, col) of the wavefront-observer pixel."""
+        return (20, self.cfg.width // 2)
+
+    def probe(self, state: State) -> torch.Tensor:
+        """The normalized potential at `probe_pixel` (0-d tensor)."""
+        r, c = self.probe_pixel
+        return (state[self.pot_key][r, c] - self.min_v) / (
+            self.max_v - self.min_v)

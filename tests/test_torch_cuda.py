@@ -1,0 +1,79 @@
+"""The CUDA substep kernel against its plain PyTorch version, on the card.
+
+Marked `cuda`: without a CUDA device (and nvcc) every test here skips.  On
+the card:  python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q"""
+
+import numpy as np
+import pytest
+import torch
+
+from fib_tf_tpu_torch import SimConfig, interop
+from fib_tf_tpu_torch.engine import Simulation
+from fib_tf_tpu_torch.models import BeelerReuter
+from fib_tf_tpu_torch.ops import cuda_step
+
+pytestmark = pytest.mark.cuda
+
+CFG = SimConfig(width=96, height=64, dt=0.1, dt_per_plot=10, diff=0.809,
+                duration=20, cheby=True, skip=True)
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _state(model, device):
+    rng = np.random.RandomState(0)
+    st = model.initial_state()
+    st["V"] = st["V"] + rng.normal(0, 1.0, st["V"].shape).astype(np.float32)
+    return interop.state_from_numpy(st, device)
+
+
+@pytest.mark.parametrize("skip", [True, False])
+def test_kernel_matches_plain_version(device, skip):
+    model = BeelerReuter(CFG.replace(skip=skip))
+    base = _state(model, device)
+    before = dict(cuda_step.KERNEL.launches)
+    got = {k: v.clone() for k, v in base.items()}
+    want = {k: v.clone() for k, v in base.items()}
+    pk, pp = torch.zeros(3, device=device), torch.zeros(3, device=device)
+    step = cuda_step.make_cuda_step(model)
+    for i in range(3):
+        got = step(got, pk, i)
+        want = cuda_step.plain_step(model, want, pp, i)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=1e-5)
+    torch.testing.assert_close(pk, pp, rtol=1e-3, atol=1e-5)
+    launched = {k: cuda_step.KERNEL.launches[k] - before[k] for k in before}
+    assert launched == ({"slow": 3, "frozen": 12} if skip
+                        else {"slow": 15, "frozen": 0})
+
+
+def test_kernel_rejects_bad_planes(device):
+    model = BeelerReuter(CFG)
+    st = _state(model, device)
+    st["m"] = st["m"].double()
+    with pytest.raises(TypeError):
+        cuda_step.substep(model, st, True)
+    st = _state(model, device)
+    st["h"] = st["m"]
+    with pytest.raises(ValueError, match="share memory"):
+        cuda_step.substep(model, st, True)
+
+
+def test_simulate_routes_by_kernel_setting(device):
+    before = dict(cuda_step.KERNEL.launches)
+    ref = Simulation(BeelerReuter(CFG.replace(kernel="xla")),
+                     device=device).define().simulate()
+    assert cuda_step.KERNEL.launches == before
+    sim = Simulation(BeelerReuter(CFG.replace(kernel="pallas")),
+                     device=device).define()
+    cuda_step.KERNEL.reset_launches()
+    res = sim.simulate()
+    assert cuda_step.KERNEL.launches == {"slow": res.steps,
+                                         "frozen": 4 * res.steps}
+    np.testing.assert_allclose(res.state["V"], ref.state["V"], atol=0.12,
+                               rtol=0)

@@ -1,0 +1,178 @@
+"""The port's Simulation driver held against the JAX engine on the CPU,
+plus its routing rules and the features it does not carry yet."""
+
+import numpy as np
+import pytest
+import torch
+
+from fib_tf_tpu.config import SimConfig
+from fib_tf_tpu.engine import Simulation as JaxSimulation
+from fib_tf_tpu.engine.observers import CycleLengthDetector as JaxDetector
+from fib_tf_tpu.models import BeelerReuter as JaxBR
+from fib_tf_tpu_torch.engine import CycleLengthDetector, Simulation
+from fib_tf_tpu_torch.models import BeelerReuter, grid_geometry
+
+# 64x64 BR cheby+skip for 60 ms, with an S2 quadrant stimulus at 30 ms
+CFG = SimConfig(width=64, height=64, dt=0.1, dt_per_plot=10, diff=0.809,
+                duration=60, cheby=True, skip=True)
+SCHEDULE = [(30.0, "s2")]
+# whole-run bound: 1e-3 of the model's range (tests/test_golden.py); the
+# gates get 1e-3 of theirs ([0, 1]) and Ca 1e-3 relative
+V_ATOL = 1e-3 * (BeelerReuter.max_v - BeelerReuter.min_v)
+
+
+def _port_run(**kw):
+    sim = Simulation(BeelerReuter(CFG), device="cpu").define()
+    sim.add_pace_op("s2", "luq", 10.0)
+    return sim.simulate(schedule=SCHEDULE, **kw)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    jsim = JaxSimulation(JaxBR(CFG)).define()
+    jsim.add_pace_op("s2", "luq", 10.0)
+    return jsim.simulate(schedule=SCHEDULE), _port_run()
+
+
+def test_simulate_matches_jax_engine(runs):
+    want, got = runs
+    assert got.steps == want.steps == 120
+    assert got.cycle_lengths == want.cycle_lengths == [(42, 21.0)]
+    assert set(got.state) == set(want.state)
+    for k in want.state:
+        if k == "V":
+            tol = dict(atol=V_ATOL, rtol=0)
+        elif k == "C":
+            tol = dict(atol=0, rtol=1e-3)
+        else:
+            tol = dict(atol=1e-3, rtol=0)
+        np.testing.assert_allclose(got.state[k], want.state[k], err_msg=k,
+                                   **tol)
+    assert got.probes["v"].shape == want.probes["v"].shape == (120,)
+    np.testing.assert_allclose(got.probes["v"], want.probes["v"],
+                               atol=V_ATOL / 120.0, rtol=0)
+    assert got.frames is None and got.elapsed > 0
+    assert got.sim_seconds_per_wall_second > 0
+    assert got.cell_updates_per_sec > 0
+
+
+def test_chunking_does_not_change_the_run(runs):
+    _, whole = runs
+    chunked = _port_run(max_chunk_steps=7)
+    assert chunked.cycle_lengths == whole.cycle_lengths
+    np.testing.assert_array_equal(chunked.probes["v"], whole.probes["v"])
+    for k in whole.state:
+        np.testing.assert_array_equal(chunked.state[k], whole.state[k])
+
+
+def test_event_fires_after_its_step():
+    """An event at 30.5 ms lands after outer step 61 + 1 = 62, the last
+    of a 31 ms run: the final S2 quadrant holds max(V, 10 mV)."""
+    sim = Simulation(BeelerReuter(CFG.replace(duration=31)),
+                     device="cpu").define()
+    sim.add_pace_op("s2", "luq", 10.0)
+    fired = sim.simulate(schedule=[(30.5, "s2")])
+    plain = sim.simulate()
+    assert fired.steps == plain.steps == 62
+    assert (fired.state["V"][1:32, 1:32] >= 10.0).all()
+    assert not (plain.state["V"][1:32, 1:32] >= 10.0).all()
+    np.testing.assert_array_equal(
+        fired.state["V"],
+        np.maximum(plain.state["V"], sim._pace_masks["s2"].numpy()))
+
+
+def test_cycle_length_detector_matches_jax():
+    rng = np.random.RandomState(0)
+    series = np.clip(
+        0.5 + 0.6 * np.sin(np.arange(400) / 9.0)
+        + rng.normal(0, 0.05, 400), 0, 1).astype(np.float32)
+    seen, jseen = [], []
+    ours = CycleLengthDetector(0.1, 5, 2, lambda i, cl: seen.append((i, cl)))
+    ref = JaxDetector(0.1, 5, 2, lambda i, cl: jseen.append((i, cl)))
+    for start in range(0, 400, 37):
+        ours.feed(start, series[start:start + 37])
+        ref.feed(start, series[start:start + 37])
+    assert ours.cycle_lengths == ref.cycle_lengths == seen == jseen
+    assert len(seen) > 3
+
+
+def test_kernel_pallas_on_cpu_raises():
+    with pytest.raises(ValueError, match="CUDA"):
+        Simulation(BeelerReuter(CFG.replace(kernel="pallas")), device="cpu")
+
+
+def test_cuda_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Simulation(BeelerReuter(CFG), device="cuda")
+    assert Simulation(BeelerReuter(CFG)).device.type == "cpu"
+
+
+def test_xla_and_auto_agree_on_cpu():
+    a = Simulation(BeelerReuter(CFG.replace(duration=5)), device="cpu")
+    b = Simulation(BeelerReuter(CFG.replace(duration=5, kernel="xla")),
+                   device="cpu")
+    ra, rb = a.simulate(), b.simulate()
+    for k in ra.state:
+        np.testing.assert_array_equal(ra.state[k], rb.state[k])
+
+
+@pytest.mark.parametrize("call", [
+    lambda s: s.add_hole_to_phase_field(16, 16, 4),
+    lambda s: s.set_diffusion_map(np.ones((64, 64), np.float32)),
+    lambda s: s.add_electrode(10, 10),
+    lambda s: s.add_ecg_electrode(10, 10),
+    lambda s: s.run(),
+    lambda s: s.fire_op("s2"),
+    lambda s: s.simulate(record_frames_every_ms=1.0),
+], ids=["phase", "dmap", "electrode", "ecg", "run", "fire_op", "frames"])
+def test_unported_engine_features_raise(call):
+    sim = Simulation(BeelerReuter(CFG), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call(sim)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mesh_shape=(2,)),
+    dict(fiber_angle=0.5, fiber_ratio=0.5),
+    dict(rotor_probe=True),
+    dict(timeline=True),
+])
+def test_unported_config_features_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Simulation(BeelerReuter(CFG.replace(**kw)), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(phase=np.ones((8, 8))), dict(dmap=np.ones((8, 8))),
+    dict(fiber_angle=0.3, fiber_ratio=0.5),
+])
+def test_unported_geometry_raises(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        grid_geometry(**kw)
+
+
+def test_pacing_and_resume_errors():
+    sim = Simulation(BeelerReuter(CFG), device="cpu")
+    with pytest.raises(AssertionError):
+        sim.add_pace_op("s2", "luq", 10.0)
+    sim.define()
+    with pytest.raises(KeyError):
+        sim.simulate(schedule=[(1.0, "nope")])
+    bad = BeelerReuter(CFG).initial_state()
+    del bad["x1"]
+    with pytest.raises(ValueError):
+        sim.simulate(state=bad)
+    with pytest.raises(ValueError):
+        Simulation(BeelerReuter(CFG), device="cpu").define(state=bad)
+
+
+def test_non_finite_state_raises():
+    st = BeelerReuter(CFG).initial_state()
+    st["V"][10, 10] = np.nan
+    sim = Simulation(BeelerReuter(CFG.replace(duration=1)), device="cpu")
+    with pytest.raises(FloatingPointError):
+        sim.simulate(state=st)
+    res = sim.simulate(state=st, check_finite=False)
+    assert np.isnan(res.state["V"]).any()

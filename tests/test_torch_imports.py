@@ -1,0 +1,107 @@
+"""The port's import rule and its kernel builder, checked without a GPU.
+
+The rule: fib_tf_tpu_torch and chip_smoke.py import no JAX, and from the
+JAX package only fib_tf_tpu.config.  An import-time check cannot show it
+(jax may already be imported in the process), so this scans the sources."""
+
+import ast
+import os
+from pathlib import Path
+
+import pytest
+
+from fib_tf_tpu_torch.kernels import build
+
+ROOT = Path(__file__).resolve().parents[1]
+SOURCES = sorted((ROOT / "fib_tf_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            if node.level:
+                raise AssertionError(f"{path}: relative import {node.module}")
+            if node.module == "fib_tf_tpu":
+                yield from (f"fib_tf_tpu.{a.name}" for a in node.names)
+            else:
+                yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_imports(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib"), f"{path.name} imports {name}"
+        if top == "fib_tf_tpu":
+            assert name == "fib_tf_tpu.config", f"{path.name} imports {name}"
+
+
+def test_scan_sees_the_package():
+    names = {p.name for p in SOURCES}
+    assert {"cuda_step.py", "simulation.py", "build.py",
+            "chip_smoke.py"} <= names
+
+
+def _no_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path / "empty-bin"))
+    monkeypatch.setattr(build, "_DEFAULT_CUDA_HOME", str(tmp_path / "none"))
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    _no_nvcc(monkeypatch, tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build("br_substep", [build.CSRC_DIR / "br_substep.cu"])
+
+
+def _fake_nvcc(tmp_path, body):
+    home = tmp_path / "cuda"
+    (home / "bin").mkdir(parents=True)
+    nvcc = home / "bin" / "nvcc"
+    nvcc.write_text("#!/bin/sh\n" + body)
+    nvcc.chmod(0o755)
+    return home
+
+
+def test_build_invokes_nvcc_and_caches_by_source_hash(monkeypatch, tmp_path):
+    # a stand-in compiler that writes its arguments as the "library"
+    home = _fake_nvcc(tmp_path, 'for a; do case "$p" in -o) out=$a;; esac; '
+                      'p=$a; done\necho "$@" > "$out"\n'
+                      'echo "ptxas info : Used 8 registers"\n')
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    src = tmp_path / "k.cu"
+    src.write_text("// v1\n")
+    lib = build.build("k", [src])
+    args = lib.read_text()
+    assert "arch=compute_90a,code=sm_90a" in args and "-O3" in args
+    assert "use_fast_math" not in args
+    assert "Used 8 registers" in lib.with_name(lib.name + ".log").read_text()
+    assert build.build("k", [src]) == lib            # cached
+    src.write_text("// v2\n")
+    assert build.library_path("k", [src]) != lib     # edited source rebuilds
+    assert not list((tmp_path / "build").glob("*.tmp"))
+
+
+def test_failed_build_raises_with_log(monkeypatch, tmp_path):
+    home = _fake_nvcc(tmp_path, 'echo "error: bad kernel" >&2\nexit 2\n')
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    src = tmp_path / "k.cu"
+    src.write_text("broken")
+    with pytest.raises(RuntimeError, match="bad kernel"):
+        build.build("k", [src])
+    assert not build.library_path("k", [src]).exists()
+
+
+def test_kernel_sources_ship_with_the_package():
+    text = (ROOT / "pyproject.toml").read_text()
+    assert '"fib_tf_tpu_torch.csrc"' in text
+    assert (build.CSRC_DIR / "br_substep.cu").is_file()
+    assert os.path.commonpath([build.BUILD_DIR, ROOT]) == str(ROOT)

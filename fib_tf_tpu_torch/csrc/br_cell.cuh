@@ -1,0 +1,132 @@
+// The per-cell Beeler-Reuter update shared by the port's two kernels:
+// br_substep.cu (one substep per launch) and br_tiled.cu (one outer step
+// per launch).  Both kernels own the stencil and the memory traffic; this
+// header owns what happens at one cell once v0 and its Laplacian are known.
+//
+// A model's cell body is a struct with:
+//   Params        the kernel's by-value parameter block (plain floats);
+//   kPlanes       the number of per-cell planes besides V;
+//   update<SLOW>  (params, v0, lap, q[kPlanes]) -> new V, updating q in place;
+//   probe         (params, v) -> the normalised potential the probe records.
+// BeelerReuterCell is the first; a second model adds its own struct and the
+// kernels take it as a template argument.
+//
+// No --use_fast_math: logf feeds e_Ca and the fits want IEEE division.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace fibtorch {
+
+constexpr int kDeg = 8;
+constexpr int kTerms = kDeg + 1;
+
+// Order of the fits in BrParams::coef; fib_tf_tpu_torch/ops/cuda_step.py
+// packs them in the same order (FIT_ORDER).
+enum Fit {
+  X1_INF, X1_RL, M_INF, M_RL, H_INF, H_RL, J_INF, J_RL,
+  D_INF, D_RL, F_INF, F_RL, I_K1, I_X1F, kFits
+};
+
+struct BrParams {
+  float coef[kFits][kTerms];
+  // conductances with their g_scale factors folded in: g_Na*4, g_NaC*0.005,
+  // g_s*0.09, and the iK1 / ix1 factors
+  float g_na, g_nac, g_s, s_k1, s_x1;
+  float dt, diff_dt;      // dt and diff*dt, rounded from double once
+  float cheb_mid, cheb_half;   // Chebyshev domain: x = (v - mid) / half
+  float v_min, v_span;    // probe normalisation: (v - v_min) / v_span
+};
+
+constexpr int kParamFloats = sizeof(BrParams) / sizeof(float);
+
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  // NaN-propagating, like jnp.clip / torch.clamp
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// The SYMMETRIC boundary rewrite composed with the REFLECT pad of the
+// Laplacian: the stencil point k of an N-cell axis reads cell clamp(k).
+__device__ __forceinline__ int clamp_index(int k, int n) {
+  return min(max(k, 1), n - 2);
+}
+
+// The 9-point Laplacian of ops/stencil.py from the centre and its eight
+// neighbours (n/s = row -/+ 1, w/e = column -/+ 1).
+__device__ __forceinline__ float laplace9(float n, float s, float w, float e,
+                                          float nw, float sw, float ne,
+                                          float se, float c) {
+  return n + s + w + e + 0.5f * (nw + sw + ne + se) - 6.0f * c;
+}
+
+__device__ __forceinline__ float cheb(const float* d, const float* s) {
+  float r = d[0];
+#pragma unroll
+  for (int k = 1; k < kTerms; ++k) r = r + d[k] * s[k];
+  return r;
+}
+
+__device__ __forceinline__ float gate(const BrParams& p, int fit_inf,
+                                      float g, const float* s) {
+  const float inf = cheb(p.coef[fit_inf], s);
+  const float rl = cheb(p.coef[fit_inf + 1], s);
+  return clip(g + (g - inf) * rl, 0.00001f, 0.99999f);
+}
+
+struct BeelerReuterCell {
+  using Params = BrParams;
+  // the per-cell planes, in the order of cuda_step.CELL_PLANES
+  enum Plane { kC, kM, kH, kJ, kD, kF, kX1, kPlanes };
+
+  // One substep of the cell (beeler_reuter.py::solve with cheby +
+  // cheby_fold + cheby_currents): SLOW advances the slow gates x1/j/d/f,
+  // whose folded fit bakes 5*dt under skip; otherwise they stay frozen.
+  // The currents use the PRE-update gates; V is clipped to [-85, 25].
+  template <bool SLOW>
+  __device__ __forceinline__ static float update(const Params& p, float v0,
+                                                 float lap,
+                                                 float (&q)[kPlanes]) {
+    float s[kTerms];
+    const float x = (v0 - p.cheb_mid) / p.cheb_half;
+    const float x2 = 2.0f * x;
+    s[0] = 1.0f;
+    s[1] = x;
+#pragma unroll
+    for (int k = 2; k < kTerms; ++k) s[k] = x2 * s[k - 1];
+
+    const float c = q[kC];
+    const float m = q[kM];
+    const float h = q[kH];
+    const float jg = q[kJ];
+    const float d = q[kD];
+    const float f = q[kF];
+    const float x1 = q[kX1];
+
+    q[kM] = gate(p, M_INF, m, s);
+    q[kH] = gate(p, H_INF, h, s);
+    if (SLOW) {
+      q[kX1] = gate(p, X1_INF, x1, s);
+      q[kJ] = gate(p, J_INF, jg, s);
+      q[kD] = gate(p, D_INF, d, s);
+      q[kF] = gate(p, F_INF, f, s);
+    }
+
+    // currents from the pre-update gates
+    const float i_k1 = p.s_k1 * cheb(p.coef[I_K1], s);
+    const float i_x1 = p.s_x1 * (x1 * cheb(p.coef[I_X1F], s));
+    const float i_na = (p.g_na * (m * m * m) * h * jg + p.g_nac) * (v0 - 50.0f);
+    const float e_ca = -82.3f - 13.0278f * logf(c);
+    const float i_ca = p.g_s * d * f * (v0 - e_ca);
+    const float i_sum = i_k1 + i_x1 + i_na + i_ca;
+
+    q[kC] = c + p.dt * (-1.0e-7f * i_ca + 0.07f * (1.0e-7f - c));
+    return clip(v0 + p.diff_dt * lap - p.dt * i_sum, -85.0f, 25.0f);
+  }
+
+  __device__ __forceinline__ static float probe(const Params& p, float v) {
+    return (v - p.v_min) / p.v_span;
+  }
+};
+
+}  // namespace fibtorch

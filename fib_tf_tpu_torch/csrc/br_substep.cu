@@ -36,10 +36,12 @@
 // moves 3.35 TB/s from HBM, and the 8 MB state also fits its 50 MB L2.  The
 // arithmetic (14 degree-8 fits, one logf) is far below the FLOP roof.  This
 // first design is deliberately simple: no shared-memory tile (the 9-point
-// reads of V hit L1/L2), one launch per substep, no CUDA graph.  Later work:
-// shared-memory tiles, fusing the five substeps of an outer step with a
-// K-ring halo (the design of the TPU's tiled kernel, ops/pallas_tiled.py),
-// and CUDA graphs over a chunk to remove the host launch overhead.
+// reads of V hit L1/L2), one launch per substep, no CUDA graph.  The fused
+// design, five substeps per launch in shared-memory tiles with a K-ring
+// halo, is br_tiled.cu, which the engine runs past its 32 MB cutover.  CUDA
+// graphs over a chunk, against the host launch overhead, are later work.
+//
+// The per-cell arithmetic lives in br_cell.cuh, shared with br_tiled.cu.
 //
 // Built by fib_tf_tpu_torch/kernels/build.py with nvcc into a shared library
 // with a plain C interface (no --use_fast_math: logf feeds e_Ca).
@@ -47,52 +49,15 @@
 #include <cuda_runtime.h>
 #include <string.h>
 
+#include "br_cell.cuh"
+
 namespace {
 
-constexpr int kDeg = 8;
-constexpr int kTerms = kDeg + 1;
-
-// Order of the fits in BrParams::coef; fib_tf_tpu_torch/ops/cuda_step.py
-// packs them in the same order (FIT_ORDER).
-enum Fit {
-  X1_INF, X1_RL, M_INF, M_RL, H_INF, H_RL, J_INF, J_RL,
-  D_INF, D_RL, F_INF, F_RL, I_K1, I_X1F, kFits
-};
-
-struct BrParams {
-  float coef[kFits][kTerms];
-  // conductances with their g_scale factors folded in: g_Na*4, g_NaC*0.005,
-  // g_s*0.09, and the iK1 / ix1 factors
-  float g_na, g_nac, g_s, s_k1, s_x1;
-  float dt, diff_dt;      // dt and diff*dt, rounded from double once
-  float cheb_mid, cheb_half;   // Chebyshev domain: x = (v - mid) / half
-  float v_min, v_span;    // probe normalisation: (v - v_min) / v_span
-};
-
-constexpr int kParamFloats = sizeof(BrParams) / sizeof(float);
-
-__device__ __forceinline__ float clip(float x, float lo, float hi) {
-  // NaN-propagating, like jnp.clip / torch.clamp
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
-__device__ __forceinline__ float cheb(const float* d, const float* s) {
-  float r = d[0];
-#pragma unroll
-  for (int k = 1; k < kTerms; ++k) r = r + d[k] * s[k];
-  return r;
-}
-
-__device__ __forceinline__ float gate(const BrParams& p, int fit_inf,
-                                      float g, const float* s) {
-  const float inf = cheb(p.coef[fit_inf], s);
-  const float rl = cheb(p.coef[fit_inf + 1], s);
-  return clip(g + (g - inf) * rl, 0.00001f, 0.99999f);
-}
-
-__device__ __forceinline__ int clamp_index(int k, int n) {
-  return min(max(k, 1), n - 2);
-}
+using fibtorch::BeelerReuterCell;
+using fibtorch::BrParams;
+using fibtorch::clamp_index;
+using fibtorch::kParamFloats;
+using fibtorch::laplace9;
 
 template <bool SLOW>
 __global__ void br_substep_kernel(const BrParams p,
@@ -109,6 +74,7 @@ __global__ void br_substep_kernel(const BrParams p,
                                   float* __restrict__ probe,
                                   int probe_row, int probe_col,
                                   long long probe_index) {
+  using Cell = BeelerReuterCell;
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (row >= height || col >= width) return;
@@ -121,51 +87,28 @@ __global__ void br_substep_kernel(const BrParams p,
   const int ce = clamp_index(col + 1, width);
 
   const float v0 = v_in[rc + cc];
-  const float lap = v_in[rn + cc] + v_in[rs + cc] + v_in[rc + cw] +
-                    v_in[rc + ce] +
-                    0.5f * (v_in[rn + cw] + v_in[rs + cw] + v_in[rn + ce] +
-                            v_in[rs + ce]) -
-                    6.0f * v0;
+  const float lap = laplace9(v_in[rn + cc], v_in[rs + cc], v_in[rc + cw],
+                             v_in[rc + ce], v_in[rn + cw], v_in[rs + cw],
+                             v_in[rn + ce], v_in[rs + ce], v0);
 
-  float s[kTerms];
-  const float x = (v0 - p.cheb_mid) / p.cheb_half;
-  const float x2 = 2.0f * x;
-  s[0] = 1.0f;
-  s[1] = x;
-#pragma unroll
-  for (int k = 2; k < kTerms; ++k) s[k] = x2 * s[k - 1];
-
+  // the per-cell planes, in Cell::Plane order
+  float* const planes[Cell::kPlanes] = {c_pl, m_pl, h_pl, j_pl,
+                                        d_pl, f_pl, x1_pl};
   const long long idx = (long long)row * width + col;
-  const float c = c_pl[idx];
-  const float m = m_pl[idx];
-  const float h = h_pl[idx];
-  const float jg = j_pl[idx];
-  const float d = d_pl[idx];
-  const float f = f_pl[idx];
-  const float x1 = x1_pl[idx];
-
-  m_pl[idx] = gate(p, M_INF, m, s);
-  h_pl[idx] = gate(p, H_INF, h, s);
-  if (SLOW) {
-    x1_pl[idx] = gate(p, X1_INF, x1, s);
-    j_pl[idx] = gate(p, J_INF, jg, s);
-    d_pl[idx] = gate(p, D_INF, d, s);
-    f_pl[idx] = gate(p, F_INF, f, s);
-  }
-
-  // currents from the pre-update gates
-  const float i_k1 = p.s_k1 * cheb(p.coef[I_K1], s);
-  const float i_x1 = p.s_x1 * (x1 * cheb(p.coef[I_X1F], s));
-  const float i_na = (p.g_na * (m * m * m) * h * jg + p.g_nac) * (v0 - 50.0f);
-  const float e_ca = -82.3f - 13.0278f * logf(c);
-  const float i_ca = p.g_s * d * f * (v0 - e_ca);
-  const float i_sum = i_k1 + i_x1 + i_na + i_ca;
-
-  const float v1 = clip(v0 + p.diff_dt * lap - p.dt * i_sum, -85.0f, 25.0f);
+  float q[Cell::kPlanes];
+#pragma unroll
+  for (int k = 0; k < Cell::kPlanes; ++k) q[k] = planes[k][idx];
+  const float v1 = Cell::update<SLOW>(p, v0, lap, q);
   v_out[idx] = v1;
-  c_pl[idx] = c + p.dt * (-1.0e-7f * i_ca + 0.07f * (1.0e-7f - c));
+#pragma unroll
+  for (int k = 0; k < Cell::kPlanes; ++k) {
+    // the frozen body leaves the slow gates as they are: skip their stores
+    if (SLOW || k == Cell::kC || k == Cell::kM || k == Cell::kH) {
+      planes[k][idx] = q[k];
+    }
+  }
   if (probe != nullptr && row == probe_row && col == probe_col) {
-    probe[probe_index] = (v1 - p.v_min) / p.v_span;
+    probe[probe_index] = Cell::probe(p, v1);
   }
 }
 

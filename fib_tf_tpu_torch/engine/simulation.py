@@ -3,15 +3,18 @@ fib_tf_tpu/engine/simulation.py).
 
 `simulate()` cuts the run into chunks at pacing events (and at
 `max_chunk_steps`), exactly where the JAX engine does.  A chunk is a Python
-loop over outer steps that only enqueues work on the device: five kernel
-launches per outer step, the last of which writes the step's "v" probe
-into a device buffer.  At the end of a chunk one device-to-host copy brings
-back the probe buffer and the finiteness flag of V; the cycle-length
-detector consumes the probes.
+loop over outer steps that only enqueues work on the device; the last
+kernel launch of each outer step writes the step's "v" probe into a device
+buffer.  At the end of a chunk one device-to-host copy brings back the
+probe buffer and the finiteness flag of V; the cycle-length detector
+consumes the probes.
 
-Kernel routing (`SimConfig.kernel`): 'auto' runs the CUDA kernel on a CUDA
-device and the plain PyTorch path on the CPU; 'pallas' demands the kernel
-(and raises on the CPU); 'xla' runs the plain path anywhere.
+Kernel routing (`route`, as the JAX engine's `_use_pallas` / `_step_fn`
+route): 'xla' runs the plain PyTorch path anywhere; 'auto' and 'pallas' run
+a CUDA kernel on a CUDA device, the substep kernel (five launches per outer
+step) while the state fits WHOLE_GRID_STATE_MB_MAX and the tiled kernel
+(one launch per outer step) past it; on the CPU 'auto' runs the plain path
+and 'pallas' raises.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from fib_tf_tpu.config import SimConfig
 from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.engine.observers import CycleLengthDetector
 from fib_tf_tpu_torch.models.base import IonicModel
-from fib_tf_tpu_torch.ops import cuda_step, stencil
+from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled, stencil
 
 _GEOMETRY = "ROADMAP Queue 1 item 9"
 _ENGINE = "ROADMAP Queue 1 item 14"
@@ -80,18 +83,25 @@ class Simulation:
             _not_ported("timeline / save_graph export", _ENGINE)
         if model.fast_slow_ratio:
             _not_ported("fast_slow_ratio dispatch", _ENGINE)
-        if cfg.kernel == "pallas" and device.type != "cuda":
-            raise ValueError(
-                "kernel='pallas' runs the hand-written CUDA kernel and needs "
-                "a CUDA device; use kernel='auto' or 'xla' on the CPU")
         self.model = model
         self.cfg = cfg
         self.device = device
+        # 'substep', 'tiled' or 'plain': the outer step define() builds
+        self.route = route(model, device.type, cfg.kernel)
         self.cl_observer: Optional[Callable[[int, float], None]] = None
         self.state: Optional[Dict[str, np.ndarray]] = None
         self._pace_masks: Dict[str, torch.Tensor] = {}
         self._defined = False
         self._step = None
+
+    # Whole-grid vs tiled cutover in MB of state (planes x H x W x 4): the
+    # JAX engine's value (fib_tf_tpu/engine/simulation.py:507), where its
+    # whole-grid kernel gives way to the tiled one.  Not retuned for the
+    # card yet (PERF.md open questions).
+    WHOLE_GRID_STATE_MB_MAX = 32
+
+    def _state_mb(self) -> float:
+        return state_mb(self.model)
 
     # -- not ported yet --------------------------------------------------------
 
@@ -128,11 +138,12 @@ class Simulation:
                 f"state planes {sorted(init)} != model planes "
                 f"{sorted(self.model.state_keys())}")
         self._initial = init
-        if self.cfg.kernel == "xla":
-            self._step = functools.partial(cuda_step.plain_step, self.model)
-        else:
-            # routes by the tensors' device: kernel on CUDA, plain on CPU
+        if self.route == "tiled":
+            self._step = cuda_tiled.make_tiled_cuda_step(self.model)
+        elif self.route == "substep":
             self._step = cuda_step.make_cuda_step(self.model)
+        else:
+            self._step = functools.partial(cuda_step.plain_step, self.model)
         if self.device.type == "cuda":
             scratch = interop.state_from_numpy(init, self.device)
             probe = torch.empty(1, device=self.device)
@@ -259,3 +270,29 @@ class Simulation:
             sim_seconds_per_wall_second=sim_s / max(elapsed, 1e-9),
             cycle_lengths=detector.cycle_lengths,
         )
+
+
+def state_mb(model: IonicModel) -> float:
+    """The model's state in MB (2**20 bytes) on its true grid."""
+    h, w = model.state_shape()
+    return len(model.state_keys()) * h * w * 4 / 2**20
+
+
+def route(model: IonicModel, device_type: str, kernel: str) -> str:
+    """The outer step a run takes: 'substep' (the CUDA substep kernel,
+    five launches per outer step), 'tiled' (the CUDA tiled kernel, one
+    launch) or 'plain' (PyTorch).  As the JAX engine routes
+    (simulation.py:405-492, :568-617) on a CUDA device, with the state's
+    MB taken on the true grid; the reference's (8, 128) alignment and tile
+    divisibility conditions are Mosaic's and are not carried, since the
+    CUDA kernels take any shape.  kernel='pallas' without a CUDA device
+    raises."""
+    if kernel == "pallas" and device_type != "cuda":
+        raise ValueError(
+            "kernel='pallas' runs the hand-written CUDA kernels and needs "
+            "a CUDA device; use kernel='auto' or 'xla' on the CPU")
+    if kernel == "xla" or device_type != "cuda":
+        return "plain"
+    if state_mb(model) <= Simulation.WHOLE_GRID_STATE_MB_MAX:
+        return "substep"
+    return "tiled"

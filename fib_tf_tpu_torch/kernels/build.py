@@ -1,8 +1,11 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each library is compiled on first use into `build/fib_tf_tpu_torch/` at the
-root of the checkout, under a name that carries a hash of its sources and
-flags, so an edited `.cu` rebuilds and an unchanged one loads at once.  The
+root of the checkout, under a name that carries a hash of its sources, the
+headers they include and the flags, so an edited `.cu` or `.cuh` rebuilds
+and an unchanged one loads at once.  Sources include their headers with
+quoted relative includes (`#include "br_cell.cuh"`), which the compiler
+resolves against the including file's directory.  The
 libraries have a plain C interface (no PyTorch headers), which keeps a
 build to seconds.  A missing nvcc or a failed build raises; nothing falls
 back to the plain PyTorch path.
@@ -51,21 +54,24 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(name: str, sources: Sequence[Path]) -> Path:
+def library_path(name: str, sources: Sequence[Path],
+                 headers: Sequence[Path] = ()) -> Path:
     """Where `build` puts the library of `sources`: keyed by a hash of
-    their bytes and of the nvcc flags."""
+    their bytes, of the `headers` they include and of the nvcc flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *headers]:
         h.update(Path(src).name.encode())
         h.update(Path(src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, sources: Sequence[Path]) -> Path:
+def build(name: str, sources: Sequence[Path],
+          headers: Sequence[Path] = ()) -> Path:
     """Compile `sources` into one shared library unless a library of the
-    same sources exists; return its path.  The compiler's output (with
-    the -Xptxas -v resource report) is kept beside it as `<lib>.log`."""
-    out = library_path(name, sources)
+    same sources and `headers` exists; return its path.  The headers are
+    hashed, not passed to nvcc.  The compiler's output (with the -Xptxas
+    -v resource report) is kept beside it as `<lib>.log`."""
+    out = library_path(name, sources, headers)
     if out.exists():
         return out
     nvcc = find_nvcc()
@@ -84,6 +90,7 @@ def build(name: str, sources: Sequence[Path]) -> Path:
     return out
 
 
-def load(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
+def load(name: str, sources: Sequence[Path],
+         headers: Sequence[Path] = ()) -> ctypes.CDLL:
     """Build (if needed) and load the library of `sources`."""
-    return ctypes.CDLL(str(build(name, sources)))
+    return ctypes.CDLL(str(build(name, sources, headers)))

@@ -37,12 +37,13 @@ from fib_tf_tpu_torch.models.beeler_reuter import (
 State = Dict[str, torch.Tensor]
 
 SOURCE = build.CSRC_DIR / "br_substep.cu"
-# BrParams::coef order in br_substep.cu
+HEADERS = (build.CSRC_DIR / "br_cell.cuh",)
+# BrParams::coef order in br_cell.cuh
 FIT_ORDER = (
     "x1_inf", "x1_rl", "m_inf", "m_rl", "h_inf", "h_rl", "j_inf", "j_rl",
     "d_inf", "d_rl", "f_inf", "f_rl", "i_k1", "i_x1f",
 )
-# the per-cell planes, in the kernel's argument order after v_in / v_out
+# the per-cell planes, in the kernels' order (BeelerReuterCell::Plane)
 CELL_PLANES = ("C", "m", "h", "j", "d", "f", "x1")
 # 14 fits of 9 coefficients, then 11 scalars (pack_params)
 PARAM_FLOATS = len(FIT_ORDER) * 9 + 11
@@ -84,9 +85,13 @@ class BrSubstepKernel:
     def reset_launches(self):
         self.launches = {"slow": 0, "frozen": 0}
 
+    def build(self):
+        """Build the library (if needed) and return its path."""
+        return build.build("br_substep", [SOURCE], HEADERS)
+
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = build.load("br_substep", [SOURCE])
+            lib = build.load("br_substep", [SOURCE], HEADERS)
             lib.br_param_floats.argtypes = []
             lib.br_param_floats.restype = ctypes.c_int
             lib.br_substep.argtypes = (

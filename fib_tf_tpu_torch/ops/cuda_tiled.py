@@ -1,0 +1,180 @@
+"""The tiled Beeler-Reuter outer-step kernel's wrapper and its plain version.
+
+Counterpart of fib_tf_tpu/ops/pallas_tiled.py::make_tiled_pallas_step, the
+kernel the JAX engine runs for Beeler-Reuter past its 32 MB whole-grid
+cutover: one launch per outer step, all five substeps fused over 2D tiles
+with a halo of one ring per substep.  The kernel is csrc/br_tiled.cu (CUDA
+C++, built with nvcc and bound with ctypes); its source note says what
+bounds it and why the tiles are 2D.
+
+Routing is by the device of the state's tensors, as in ops/cuda_step.py:
+CPU tensors take the plain version, CUDA tensors launch the kernel, and a
+launch that fails raises.  Nothing falls back from the card to the plain
+version.
+
+State update contract: the state dict is updated IN PLACE and returned.
+On the card every plane is replaced by a new tensor (the kernel reads all
+eight planes of its neighbours' halos, so none can be rewritten in place);
+the new planes are views of one [8, H, W] allocation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from fib_tf_tpu_torch.kernels import build
+from fib_tf_tpu_torch.models.beeler_reuter import BeelerReuter
+from fib_tf_tpu_torch.ops import cuda_step
+from fib_tf_tpu_torch.ops.cuda_step import CELL_PLANES, PARAM_FLOATS, State
+
+SOURCE = build.CSRC_DIR / "br_tiled.cu"
+HEADERS = (build.CSRC_DIR / "br_cell.cuh",)
+# The tile shape br_tiled.cu is built for: (threads in x, threads in y,
+# cells per thread along y).  The extended tile is x-threads wide and
+# y-threads x cells tall, 64 x 64; its interior loses one ring per
+# substep on each side (54 x 54 for five).  The fastest of five shapes
+# timed at 2048x2048 on the card (PERF.md, Findings).
+TILE = (64, 16, 4)
+
+# The plain version of one outer step is the substep kernel's: the tiled
+# kernel computes the same function in one launch.
+plain_tiled_step = cuda_step.plain_step
+
+
+def tile_interior(n_sub: int):
+    """(rows, cols) of the interior that each block writes when it runs
+    `n_sub` substeps (its halo is n_sub rings)."""
+    bx, by, ry = TILE
+    return by * ry - 2 * n_sub, bx - 2 * n_sub
+
+
+def slow_mask(schedule) -> int:
+    """The kernel's schedule: bit s set when substep s is SLOW."""
+    return sum(1 << s for s, slow in enumerate(schedule) if slow)
+
+
+class TiledKernel:
+    """ctypes binding of csrc/br_tiled.cu.  The library is built and
+    loaded on the first launch; `launches` counts successful launches."""
+
+    def __init__(self):
+        self._lib = None
+        self.reset_launches()
+
+    def reset_launches(self):
+        self.launches = 0
+
+    def build(self):
+        """Build the library (if needed) and return its path."""
+        return build.build("br_tiled", [SOURCE], HEADERS)
+
+    def library(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = build.load("br_tiled", [SOURCE], HEADERS)
+            for fn in ("br_tiled_param_floats", "br_tiled_planes"):
+                getattr(lib, fn).argtypes = []
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.br_tiled_tile_shape.argtypes = [
+                ctypes.POINTER(ctypes.c_int)] * 3
+            lib.br_tiled_tile_shape.restype = None
+            lib.br_tiled.argtypes = (
+                [ctypes.c_void_p, ctypes.c_int,      # params, n_params
+                 ctypes.c_void_p, ctypes.c_void_p,   # v_in, v_out
+                 ctypes.c_void_p, ctypes.c_void_p,   # planes in / out
+                 ctypes.c_int,                       # n_planes
+                 ctypes.c_int, ctypes.c_int,         # height, width
+                 ctypes.c_int, ctypes.c_uint,        # n_sub, slow_mask
+                 ctypes.c_void_p,                    # probe (may be null)
+                 ctypes.c_int, ctypes.c_int,         # probe row, col
+                 ctypes.c_longlong,                  # probe index
+                 ctypes.c_int,                       # device ordinal
+                 ctypes.c_void_p]                    # cudaStream_t
+            )
+            lib.br_tiled.restype = ctypes.c_int
+            _check_layout(lib)
+            self._lib = lib
+        return self._lib
+
+    def launch(self, params: np.ndarray, state: State, schedule,
+               probe: Optional[torch.Tensor], probe_pixel, probe_index: int,
+               stream: int):
+        """One outer step on CUDA tensors already validated by the caller;
+        the state's planes are replaced by the new ones."""
+        lib = self.library()
+        v_in = state["V"]
+        h, w = v_in.shape
+        out = dict(zip(("V",) + CELL_PLANES, torch.empty(
+            (1 + len(CELL_PLANES), h, w), dtype=v_in.dtype,
+            device=v_in.device).unbind(0)))
+        ptrs = ctypes.c_void_p * len(CELL_PLANES)
+        err = lib.br_tiled(
+            params.ctypes.data, params.size,
+            v_in.data_ptr(), out["V"].data_ptr(),
+            ptrs(*[state[k].data_ptr() for k in CELL_PLANES]),
+            ptrs(*[out[k].data_ptr() for k in CELL_PLANES]),
+            len(CELL_PLANES), h, w, len(schedule), slow_mask(schedule),
+            probe.data_ptr() if probe is not None else None,
+            probe_pixel[0], probe_pixel[1], probe_index,
+            v_in.device.index, stream,
+        )
+        if err != 0:
+            raise RuntimeError(
+                f"br_tiled launch failed with CUDA error {err} "
+                f"({h}x{w}, {len(schedule)} substeps)")
+        self.launches += 1
+        state.update(out)
+
+
+def _check_layout(lib):
+    """The library's parameter block, planes and tile shape must be the
+    ones this module packs and sizes."""
+    shape = [ctypes.c_int() for _ in TILE]
+    lib.br_tiled_tile_shape(*map(ctypes.byref, shape))
+    got = (lib.br_tiled_param_floats(), lib.br_tiled_planes(),
+           tuple(s.value for s in shape))
+    want = (PARAM_FLOATS, len(CELL_PLANES), TILE)
+    if got != want:
+        raise RuntimeError(
+            f"br_tiled.cu takes (param floats, planes, tile) = {got}, this "
+            f"module packs {want}")
+
+
+# the process-wide binding: the built library is process-wide too
+KERNEL = TiledKernel()
+
+
+def make_tiled_cuda_step(model: BeelerReuter):
+    """Build `step(state, probe=None, probe_index=0) -> state`, one outer
+    step in one launch of the tiled kernel.  The kernel writes the probe
+    after the last substep.  CPU states take `plain_tiled_step`."""
+    if not isinstance(model, BeelerReuter):
+        raise NotImplementedError(
+            f"no CUDA kernel for model {model.name!r} yet (ROADMAP Queue 1)")
+    if model.cfg.substeps_per_launch is not None:
+        # fib_tf_tpu/engine/simulation.py:590-597
+        raise ValueError(
+            "substeps_per_launch applies to the whole-grid and per-shard "
+            "block kernels; the tiled kernel's temporal halo is sized for "
+            "the full substep group and cannot split — drop the knob or "
+            "stay under the whole-grid state budget")
+    schedule = cuda_step.slow_schedule(model)
+    if min(tile_interior(len(schedule))) < 1:
+        raise ValueError(f"tile {TILE} has no interior left after a "
+                         f"{len(schedule)}-ring halo")
+    params = cuda_step.pack_params(model)
+
+    def step(state: State, probe: Optional[torch.Tensor] = None,
+             probe_index: int = 0) -> State:
+        dev = cuda_step.check_state(model, state)
+        cuda_step._check_probe(model, probe, probe_index, dev)
+        if dev.type == "cpu":
+            return plain_tiled_step(model, state, probe, probe_index)
+        KERNEL.launch(params, state, schedule, probe, model.probe_pixel,
+                      probe_index, torch.cuda.current_stream(dev).cuda_stream)
+        return state
+
+    return step

@@ -1,4 +1,5 @@
-"""The CUDA substep kernel against its plain PyTorch version, on the card.
+"""The CUDA substep and tiled kernels against their plain PyTorch version,
+on the card.
 
 Marked `cuda`: without a CUDA device (and nvcc) every test here skips.  On
 the card:  python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q"""
@@ -10,7 +11,7 @@ import torch
 from fib_tf_tpu_torch import SimConfig, interop
 from fib_tf_tpu_torch.engine import Simulation
 from fib_tf_tpu_torch.models import BeelerReuter
-from fib_tf_tpu_torch.ops import cuda_step
+from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled
 
 pytestmark = pytest.mark.cuda
 
@@ -75,5 +76,40 @@ def test_simulate_routes_by_kernel_setting(device):
     res = sim.simulate()
     assert cuda_step.KERNEL.launches == {"slow": res.steps,
                                          "frozen": 4 * res.steps}
+    np.testing.assert_allclose(res.state["V"], ref.state["V"], atol=0.12,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("skip", [True, False])
+@pytest.mark.parametrize("hw", [(64, 96), (67, 131)],
+                         ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_tiled_kernel_matches_plain_version(device, hw, skip):
+    model = BeelerReuter(CFG.replace(height=hw[0], width=hw[1], skip=skip))
+    base = _state(model, device)
+    got = {k: v.clone() for k, v in base.items()}
+    want = {k: v.clone() for k, v in base.items()}
+    pk, pp = torch.zeros(3, device=device), torch.zeros(3, device=device)
+    step = cuda_tiled.make_tiled_cuda_step(model)
+    before = cuda_tiled.KERNEL.launches
+    for i in range(3):
+        got = step(got, pk, i)
+        want = cuda_tiled.plain_tiled_step(model, want, pp, i)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=1e-5)
+    torch.testing.assert_close(pk, pp, rtol=1e-3, atol=1e-5)
+    assert cuda_tiled.KERNEL.launches - before == 3
+
+
+def test_simulate_past_the_cutover_routes_tiled(device, monkeypatch):
+    monkeypatch.setattr(Simulation, "WHOLE_GRID_STATE_MB_MAX", 0.01)
+    ref = Simulation(BeelerReuter(CFG.replace(kernel="xla")),
+                     device=device).define().simulate()
+    sim = Simulation(BeelerReuter(CFG), device=device).define()
+    assert sim.route == "tiled"
+    cuda_step.KERNEL.reset_launches()
+    cuda_tiled.KERNEL.reset_launches()
+    res = sim.simulate()
+    assert cuda_tiled.KERNEL.launches == res.steps
+    assert cuda_step.KERNEL.launches == {"slow": 0, "frozen": 0}
     np.testing.assert_allclose(res.state["V"], ref.state["V"], atol=0.12,
                                rtol=0)

@@ -89,6 +89,35 @@ def test_build_invokes_nvcc_and_caches_by_source_hash(monkeypatch, tmp_path):
     assert not list((tmp_path / "build").glob("*.tmp"))
 
 
+def test_edited_header_changes_the_library_path(monkeypatch, tmp_path):
+    # headers are hashed into the name but not put on nvcc's command line
+    home = _fake_nvcc(tmp_path, 'for a; do case "$p" in -o) out=$a;; esac; '
+                      'p=$a; done\necho "$@" > "$out"\n')
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    src, hdr = tmp_path / "k.cu", tmp_path / "cell.cuh"
+    src.write_text('#include "cell.cuh"\n')
+    hdr.write_text("// v1\n")
+    lib = build.build("k", [src], [hdr])
+    assert str(src) in lib.read_text() and "cell.cuh" not in lib.read_text()
+    assert build.library_path("k", [src], [hdr]) == lib
+    hdr.write_text("// v2\n")
+    edited = build.library_path("k", [src], [hdr])
+    assert edited != lib and not edited.exists()
+    assert build.build("k", [src], [hdr]) == edited
+
+
+def test_bindings_hash_every_header_their_sources_include():
+    from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled
+    for mod in (cuda_step, cuda_tiled):
+        text = mod.SOURCE.read_text()
+        included = {line.split('"')[1] for line in text.splitlines()
+                    if line.startswith('#include "')}
+        assert included == {h.name for h in mod.HEADERS}, mod.__name__
+        for hdr in mod.HEADERS:
+            assert hdr.parent == mod.SOURCE.parent and hdr.is_file()
+
+
 def test_failed_build_raises_with_log(monkeypatch, tmp_path):
     home = _fake_nvcc(tmp_path, 'echo "error: bad kernel" >&2\nexit 2\n')
     monkeypatch.setenv("CUDA_HOME", str(home))
@@ -103,5 +132,6 @@ def test_failed_build_raises_with_log(monkeypatch, tmp_path):
 def test_kernel_sources_ship_with_the_package():
     text = (ROOT / "pyproject.toml").read_text()
     assert '"fib_tf_tpu_torch.csrc"' in text
-    assert (build.CSRC_DIR / "br_substep.cu").is_file()
+    for name in ("br_substep.cu", "br_tiled.cu", "br_cell.cuh"):
+        assert (build.CSRC_DIR / name).is_file()
     assert os.path.commonpath([build.BUILD_DIR, ROOT]) == str(ROOT)

@@ -5,15 +5,17 @@ Run from the root of the checkout:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase carries on after a failure):
   1. the card's name and power limit, the torch/CUDA versions, and the
-     build of both kernels from csrc/ with nvcc (in parallel): the substep
-     kernel br_substep.cu and the tiled outer-step kernel br_tiled.cu;
+     build of all four kernels from csrc/ with nvcc (in parallel): the
+     substep kernel br_substep.cu, the tiled outer-step kernel br_tiled.cu,
+     the volume substep kernel br_volume.cu and the tiled volume kernel
+     br_volume_tiled.cu;
   2. substep kernel vs plain PyTorch on the card at 512x512, on a seeded
      state that holds a wavefront: one slow (n=5) launch, one frozen (n=0)
      launch and two outer steps, all 8 planes at rtol 1e-3 / atol 1e-5;
   3. the 512x512 main path, Simulation(BeelerReuter(cfg), device='cuda')
      .define().simulate() at the bench configuration for 400 ms: it must
      route 'substep', launch the substep kernel exactly 5 times per outer
-     step and the tiled kernel never, stay finite, cross the probe at outer
+     step and no other kernel, stay finite, cross the probe at outer
      step 332 +- 2 (the JAX engine's crossing), and end within
      WHOLE_RUN_ATOL_MV of the same run forced to kernel='xla';
   4. timings at 512x512: each substep body's device time per launch
@@ -26,7 +28,7 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      and 2 outer steps against the substep kernel at 512x512;
   6. the 2048x2048 main path (past the 32 MB cutover) for 700 ms: it must
      route 'tiled', launch the tiled kernel exactly once per outer step and
-     the substep kernel never, stay finite, cross the probe at outer step
+     no other kernel, stay finite, cross the probe at outer step
      1332 +- 2 (the JAX engine's crossing), and end within
      WHOLE_RUN_ATOL_MV of, and cross with, the same run forced to
      kernel='xla';
@@ -35,7 +37,35 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      2048x2048 and at 512x512; simulate()'s wall seconds per simulated
      second on the tiled route (phase 6's run), and at 512x512 for 1000 ms
      with the cutover lowered so that it takes the tiled route (held
-     within WHOLE_RUN_ATOL_MV of phase 4's run).
+     within WHOLE_RUN_ATOL_MV of phase 4's run);
+  8. volume substep kernel vs plain PyTorch at the same tolerance: at
+     8x128x512 on a seeded state that holds a wavefront, one slow launch,
+     one frozen launch and 2 outer steps, and 2 outer steps with
+     dz_ratio=0.5; 2 outer steps at the ragged 5x67x131 and at depth 3,
+     skip on and off;
+  9. the volume path, run_volume(BeelerReuter(cfg), 8, 1000,
+     device='cuda') at 8x128x512 with the cross-field S2 of
+     examples/scroll_wave.py at outer step 700 over the lower half of the
+     depth: it must route 'substep', launch the volume substep kernel
+     exactly 1 slow + 4 frozen times per outer step and no other kernel,
+     stay finite, cross the mid-depth probe at (332, 166.0) +- 2 steps
+     (the 2D crossing: the S1 wave is planar), and end within
+     WHOLE_RUN_ATOL_MV of, and cross with, the same run with kernel='xla';
+ 10. tiled volume kernel vs plain PyTorch at the same tolerance, skip on
+     and off: 1 and 2 outer steps at 8x512x512 on a seeded state, 2 outer
+     steps at the ragged 5x67x131, at 4x9x12 (smaller than one tile) and
+     at the deepest depth the kernel takes, and 2 outer steps against the
+     volume substep kernel at 8x128x512;
+ 11. the volume path past the 32 MB cutover, run_volume at 8x512x512 with
+     phase 9's terms: it must route 'tiled', launch the tiled volume kernel
+     exactly once per outer step and no other kernel, and pass phase 9's
+     checks;
+ 12. volume timings: device time per launch of both volume substep bodies
+     (and of their plain versions), and per outer step of the tiled
+     volume kernel, the substep route and the plain outer step, at
+     8x128x512 and 8x512x512; run_volume's wall seconds per simulated
+     second for both configurations, on the kernels and with
+     kernel='xla'.
 
 Prints the nvidia-smi line and one JSON line describing the kernels before
 its last line, which is {"ok": true, "device": {...}}.  Needs a CUDA GPU and
@@ -75,6 +105,25 @@ CROSSING_STEP, CROSSING_SLACK = 332, 2
 CROSSING_STEP_LARGE = 1332
 # ragged grids, and one smaller than a tile, for the tiled kernel
 RAGGED = ((67, 131), (1031, 517), (9, 12))
+# the volume path: the reference's own BR volume, 8x128x512 (16 MB of
+# state), and the same with the rows doubled past the 32 MB cutover,
+# 8x512x512 (64 MB); 1000 outer steps (500 ms) with the cross-field S2 of
+# examples/scroll_wave.py at outer step 700 (350 ms) over the lower half of
+# the depth.  The S1 wave is planar, so the mid-depth probe crosses where
+# the 2D engine's does at W=512: (332, 166.0)
+DEPTH = 8
+VOL_CFG = dict(CFG, height=128, duration=500)
+VOL_CFG_LARGE = dict(VOL_CFG, height=512)
+VOL_STEPS, S2_STEP = 1000, 700
+# phase 8: ragged, and the shallowest depth
+VOL_RAGGED = ((5, 67, 131), (3, 64, 96))
+# phase 10: ragged and smaller than one tile (the deepest depth is added)
+VOL_TILED_SHAPES = ((5, 67, 131), (4, 9, 12))
+# the least time of a kernel (bound_ms): the larger of its bytes over the
+# H100 SXM's HBM rate and its float32 operations over its peak float32
+# rate outside the tensor cores (NVIDIA's data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 
 def fail(msg: str):
@@ -142,9 +191,12 @@ def main():
         fail("torch.cuda.is_available() is False: this run needs a CUDA GPU")
     try:
         from fib_tf_tpu_torch import SimConfig, interop
-        from fib_tf_tpu_torch.engine import Simulation
+        from fib_tf_tpu_torch.engine import (CycleLengthDetector,
+                                             Simulation, VolumeEvent,
+                                             run_volume, volume)
         from fib_tf_tpu_torch.models import BeelerReuter
-        from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled
+        from fib_tf_tpu_torch.ops import (cuda_step, cuda_tiled, cuda_volume,
+                                          cuda_volume_tiled)
     except ImportError as e:
         fail(f"cannot import the port ({e}); run from the repository root")
 
@@ -167,8 +219,9 @@ def main():
           f"python {sys.version.split()[0]}, "
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}", flush=True)
-    bindings = {"br_substep": (cuda_step.KERNEL, cuda_step.SOURCE),
-                "br_tiled": (cuda_tiled.KERNEL, cuda_tiled.SOURCE)}
+    bindings = {name: (mod.KERNEL, mod.SOURCE) for name, mod in (
+        ("br_substep", cuda_step), ("br_tiled", cuda_tiled),
+        ("br_volume", cuda_volume), ("br_volume_tiled", cuda_volume_tiled))}
     t0 = time.perf_counter()
     # one nvcc per source, all started together
     with concurrent.futures.ThreadPoolExecutor(len(bindings)) as pool:
@@ -181,17 +234,27 @@ def main():
     for name, (_, source) in bindings.items():
         path = lib_paths[name]
         print(f"phase 1: built {path.name} from {source.name} ({build_s:.2f} "
-              f"s for both)", flush=True)
+              f"s for all {len(bindings)})", flush=True)
         for line in path.with_name(path.name + ".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
 
     def reset_counts():
-        cuda_step.KERNEL.reset_launches()
-        cuda_tiled.KERNEL.reset_launches()
+        for kernel, _ in bindings.values():
+            kernel.reset_launches()
 
     def read_counts():
-        return dict(cuda_step.KERNEL.launches), cuda_tiled.KERNEL.launches
+        """Launches of every kernel since reset_counts(), by library."""
+        return {name: (dict(kernel.launches)
+                       if isinstance(kernel.launches, dict)
+                       else kernel.launches)
+                for name, (kernel, _) in bindings.items()}
+
+    def check_only(counts, name, run):
+        """No kernel but `name` launched in `run`."""
+        others = {k: c for k, c in counts.items()
+                  if k != name and total_launches(c)}
+        check(not others, f"{run} launched other kernels: {others}")
 
     # -- phase 2 ----------------------------------------------------------------
     cfg = SimConfig(**CFG)
@@ -228,17 +291,17 @@ def main():
     check(sim.route == "substep", f"512x512 routes {sim.route!r}")
     reset_counts()
     res = sim.simulate()
-    launches, tiled_launches = read_counts()
-    print(f"  route {sim.route}, steps {res.steps}, launches {launches}, "
-          f"tiled launches {tiled_launches}, cycle_lengths "
-          f"{res.cycle_lengths}", flush=True)
+    counts = read_counts()
+    launches = counts["br_substep"]
+    print(f"  route {sim.route}, steps {res.steps}, launches {counts}, "
+          f"cycle_lengths {res.cycle_lengths}", flush=True)
     check(res.steps == cfg.samples(model.dt_per_step),
           f"ran {res.steps} outer steps")
     check(launches["slow"] + launches["frozen"] == 5 * res.steps,
           f"launches {launches} != 5 x {res.steps} outer steps")
     check(launches["slow"] == res.steps and launches["frozen"] == 4 * res.steps,
           f"launch split {launches} is not 1 slow + 4 frozen per step")
-    check(tiled_launches == 0, "the 512x512 run launched the tiled kernel")
+    check_only(counts, "br_substep", "the 512x512 run")
     check_run(res, shape, CROSSING_STEP)
 
     before = read_counts()
@@ -308,16 +371,15 @@ def main():
     check(sim.route == "tiled", f"2048x2048 routes {sim.route!r}")
     reset_counts()
     res_large = sim.simulate()
-    launches_large, tiled_launches = read_counts()
-    print(f"  route {sim.route}, steps {res_large.steps}, tiled launches "
-          f"{tiled_launches}, substep launches {launches_large}, "
-          f"cycle_lengths {res_large.cycle_lengths}", flush=True)
+    counts = read_counts()
+    tiled_launches = counts["br_tiled"]
+    print(f"  route {sim.route}, steps {res_large.steps}, launches "
+          f"{counts}, cycle_lengths {res_large.cycle_lengths}", flush=True)
     check(res_large.steps == cfg_large.samples(large.dt_per_step),
           f"ran {res_large.steps} outer steps")
     check(tiled_launches == res_large.steps,
           f"{tiled_launches} tiled launches for {res_large.steps} outer steps")
-    check(launches_large == {"slow": 0, "frozen": 0},
-          f"the 2048x2048 run launched the substep kernel {launches_large}")
+    check_only(counts, "br_tiled", "the 2048x2048 run")
     check_run(res_large, large.state_shape(), CROSSING_STEP_LARGE)
     before = read_counts()
     t0 = time.perf_counter()
@@ -359,36 +421,192 @@ def main():
           f"wall-s/sim-s, against {wall_per_sim:.6f} on the substep route "
           f"(phase 4); final V {dv:.3g} mV apart [{card}]", flush=True)
 
-    kernels = [
-        {
-            "name": f"br_substep<SLOW={str(slow).lower()}>",
-            "route": "cuda",
-            "source": "fib_tf_tpu_torch/csrc/br_substep.cu",
-            "replaces": "fib_tf_tpu/ops/pallas_step.py:205",
-            "launches": launches[body],
-            "max_abs_err": errs[body],
-            "ms": timing[body]["kernel_us"] / 1e3,
-            "plain_ms": timing[body]["plain_us"] / 1e3,
-        }
-        for body, slow in (("slow", True), ("frozen", False))
-    ]
+    # -- phase 8 ----------------------------------------------------------------
+    vcfg = SimConfig(**VOL_CFG)
+    vmodel = BeelerReuter(vcfg)
+    vshape = cuda_volume.volume_shape(vmodel, DEPTH)
+    vname = "x".join(map(str, vshape))
+    print(f"phase 8: volume substep kernel vs plain PyTorch at {vname}",
+          flush=True)
+    vbase = seeded_volume(torch, interop, volume, cuda_volume, vmodel, DEPTH,
+                          dev, rng)
+    verrs = {}
+    for body, slow in (("slow", True), ("frozen", False)):
+        pk = torch.zeros(1, device=dev)
+        pp = torch.zeros(1, device=dev)
+        got = cuda_volume.volume_substep(vmodel, clone(vbase), slow, pk, 0)
+        want = cuda_volume.plain_volume_substep(vmodel, clone(vbase), slow,
+                                                pp, 0)
+        torch.cuda.synchronize()
+        verrs[body] = compare(f"one {body} launch", got, want)
+        compare_probes(f"{body} launch", pk, pp)
+    for dz in (1.0, 0.5):
+        step_err = check_outer_steps(
+            torch, cuda_volume.make_volume_step(vmodel, DEPTH, dz),
+            plain_volume(cuda_volume, vmodel, dz), vbase, 2,
+            f"{vname} dz_ratio={dz}")
+        for body in verrs:
+            verrs[body] = max(verrs[body], step_err)
+    for d, h, w in VOL_RAGGED:
+        for skip in (True, False):
+            m = BeelerReuter(vcfg.replace(height=h, width=w, skip=skip))
+            st = seeded_volume(torch, interop, volume, cuda_volume, m, d,
+                               dev, rng)
+            check_outer_steps(torch, cuda_volume.make_volume_step(m, d),
+                              plain_volume(cuda_volume, m), st, 2,
+                              f"{d}x{h}x{w} skip={skip}")
+
+    # -- phase 9 ----------------------------------------------------------------
+    events = [VolumeEvent(step=S2_STEP, loc="luq", z1=DEPTH // 2)]
+    print(f"phase 9: the volume path, run_volume(...) at {vname}, "
+          f"{VOL_STEPS} outer steps, S2 at step {S2_STEP} over z < "
+          f"{DEPTH // 2}", flush=True)
+    route = volume.volume_route(vmodel, DEPTH, "cuda", "auto")
+    check(route == "substep", f"{vname} routes {route!r}")
+    # warm-up: the timed runs start with the kernel loaded
+    run_volume(vmodel, DEPTH, 2, device="cuda")
+    reset_counts()
+    vrun = run_volume_timed(run_volume, vmodel, DEPTH, events)
+    counts = read_counts()
+    vlaunches = counts["br_volume"]
+    print(f"  route {route}, launches {counts}", flush=True)
+    check(vlaunches == {"slow": VOL_STEPS, "frozen": 4 * VOL_STEPS},
+          f"launches {vlaunches} are not 1 slow + 4 frozen per outer step")
+    check_only(counts, "br_volume", f"the {vname} run")
+    vcross = check_volume_run(CycleLengthDetector, vmodel, vrun, vshape)
+    before = read_counts()
+    vref = run_volume_timed(run_volume, vmodel, DEPTH, events, kernel="xla")
+    check(read_counts() == before, "the kernel='xla' run launched a kernel")
+    check_against_plain_volume(CycleLengthDetector, vmodel, vrun, vref,
+                               vcross)
+
+    # -- phase 10 ---------------------------------------------------------------
+    vcfg_large = SimConfig(**VOL_CFG_LARGE)
+    vlarge = BeelerReuter(vcfg_large)
+    vshape_large = cuda_volume.volume_shape(vlarge, DEPTH)
+    vname_large = "x".join(map(str, vshape_large))
+    print("phase 10: tiled volume kernel vs plain PyTorch", flush=True)
+    vbase_large = seeded_volume(torch, interop, volume, cuda_volume, vlarge,
+                                DEPTH, dev, rng)
+    vt_err = 0.0
+    for skip in (True, False):
+        m = BeelerReuter(vcfg_large.replace(skip=skip))
+        for n in (1, 2):
+            vt_err = max(vt_err, check_outer_steps(
+                torch, cuda_volume_tiled.make_tiled_volume_step(m, DEPTH),
+                plain_volume(cuda_volume, m), vbase_large, n,
+                f"{vname_large} skip={skip}"))
+    deepest = cuda_volume_tiled.max_depth(vlarge.dt_per_step)
+    for d, h, w in VOL_TILED_SHAPES + ((deepest, 40, 70),):
+        for skip in (True, False):
+            m = BeelerReuter(vcfg.replace(height=h, width=w, skip=skip))
+            st = (seeded_volume(torch, interop, volume, cuda_volume, m, d,
+                                dev, rng) if min(h, w) > 20
+                  else interop.state_from_numpy(
+                      volume.volume_state(m, d), dev))
+            vt_err = max(vt_err, check_outer_steps(
+                torch, cuda_volume_tiled.make_tiled_volume_step(m, d),
+                plain_volume(cuda_volume, m), st, 2,
+                f"{d}x{h}x{w} skip={skip} (tile rows "
+                f"{cuda_volume_tiled.tile_rows(d, m.dt_per_step)})"))
+    for skip in (True, False):
+        m = BeelerReuter(vcfg.replace(skip=skip))
+        vt_err = max(vt_err, check_outer_steps(
+            torch, cuda_volume_tiled.make_tiled_volume_step(m, DEPTH),
+            cuda_volume.make_volume_step(m, DEPTH), vbase, 2,
+            f"{vname} skip={skip}", against="volume substep kernel"))
+
+    # -- phase 11 ---------------------------------------------------------------
+    print(f"phase 11: the volume path past the 32 MB cutover, run_volume(...) "
+          f"at {vname_large}, {VOL_STEPS} outer steps", flush=True)
+    route = volume.volume_route(vlarge, DEPTH, "cuda", "auto")
+    check(route == "tiled", f"{vname_large} routes {route!r}")
+    reset_counts()
+    vrun_large = run_volume_timed(run_volume, vlarge, DEPTH, events)
+    counts = read_counts()
+    vt_launches = counts["br_volume_tiled"]
+    print(f"  route {route}, launches {counts}", flush=True)
+    check(vt_launches == VOL_STEPS,
+          f"{vt_launches} tiled volume launches for {VOL_STEPS} outer steps")
+    check_only(counts, "br_volume_tiled", f"the {vname_large} run")
+    vcross_large = check_volume_run(CycleLengthDetector, vlarge, vrun_large,
+                                    vshape_large)
+    before = read_counts()
+    vref_large = run_volume_timed(run_volume, vlarge, DEPTH, events,
+                                  kernel="xla")
+    check(read_counts() == before, "the kernel='xla' run launched a kernel")
+    check_against_plain_volume(CycleLengthDetector, vlarge, vrun_large,
+                               vref_large, vcross_large)
+
+    # -- phase 12 ---------------------------------------------------------------
+    print(f"phase 12: volume timings on {card}", flush=True)
+    vtiming = time_volume(torch, cuda_step, cuda_volume, cuda_volume_tiled,
+                          ((vname, vmodel, vbase),
+                           (vname_large, vlarge, vbase_large)))
+    for size, t in vtiming.items():
+        print(f"  {size}: volume substep kernel SLOW {t['slow_us']:.3f} / "
+              f"frozen {t['frozen_us']:.3f} us/launch, plain "
+              f"{t['plain_slow_us']:.1f} / {t['plain_frozen_us']:.1f} "
+              f"us/substep; per outer step: substep route (5 launches) "
+              f"{t['substep_us']:.2f}, tiled volume kernel "
+              f"{t['tiled_us']:.2f}, plain {t['plain_us']:.1f} us "
+              f"(device) [{card}]", flush=True)
+    sim_s = VOL_STEPS * vmodel.dt_per_step * vcfg.dt / 1000.0
+    for size, run, ref_run, rt in ((vname, vrun, vref, "substep"),
+                                   (vname_large, vrun_large, vref_large,
+                                    "tiled")):
+        print(f"  run_volume at {size}, {VOL_STEPS} outer steps, route {rt}: "
+              f"{run['wall_s'] / sim_s:.6f} wall-s/sim-s; kernel='xla': "
+              f"{ref_run['wall_s'] / sim_s:.6f} [{card}]", flush=True)
+
+    cells = int(np.prod(shape))
+    cells_large = int(np.prod(large.state_shape()))
+    vcells = int(np.prod(vshape))
+    vcells_large = int(np.prod(vshape_large))
+    kernels = []
+    for body, slow in (("slow", True), ("frozen", False)):
+        kernels.append(kernel_entry(
+            f"br_substep<SLOW={str(slow).lower()}>",
+            "fib_tf_tpu_torch/csrc/br_substep.cu",
+            "fib_tf_tpu/ops/pallas_step.py:205", launches[body], errs[body],
+            timing[body]["kernel_us"], timing[body]["plain_us"],
+            launch_bound(cells, slow, volume=False)))
     big = tiled_timing["2048x2048"]
-    kernels.append({
-        "name": "br_tiled",
-        "route": "cuda",
-        "source": "fib_tf_tpu_torch/csrc/br_tiled.cu",
-        "replaces": "fib_tf_tpu/ops/pallas_tiled.py:342",
-        "launches": tiled_launches,
-        "max_abs_err": tiled_err,
-        "ms": big["tiled_us"] / 1e3,
-        "plain_ms": big["plain_us"] / 1e3,
-    })
+    kernels.append(kernel_entry(
+        "br_tiled", "fib_tf_tpu_torch/csrc/br_tiled.cu",
+        "fib_tf_tpu/ops/pallas_tiled.py:342", tiled_launches, tiled_err,
+        big["tiled_us"], big["plain_us"],
+        outer_step_bound(cells_large, cuda_step.slow_schedule(large),
+                         volume=False)))
+    vt = vtiming[vname]
+    for body, slow in (("slow", True), ("frozen", False)):
+        kernels.append(kernel_entry(
+            f"br_volume<SLOW={str(slow).lower()}>",
+            "fib_tf_tpu_torch/csrc/br_volume.cu",
+            "fib_tf_tpu/ops/pallas_volume.py:499", vlaunches[body],
+            verrs[body], vt[f"{body}_us"], vt[f"plain_{body}_us"],
+            launch_bound(vcells, slow, volume=True)))
+    vtl = vtiming[vname_large]
+    kernels.append(kernel_entry(
+        "br_volume_tiled", "fib_tf_tpu_torch/csrc/br_volume_tiled.cu",
+        "fib_tf_tpu/ops/pallas_volume.py:659", vt_launches, vt_err,
+        vtl["tiled_us"], vtl["plain_us"],
+        outer_step_bound(vcells_large, cuda_step.slow_schedule(vlarge),
+                         volume=True)))
+    for k in kernels:
+        print(f"  {k['name']}: {k['ms'] * 1e3:.3f} us against a bound of "
+              f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}) [{card}]",
+              flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
+
+
+def total_launches(count) -> int:
+    return sum(count.values()) if isinstance(count, dict) else count
 
 
 def check_run(res, shape, crossing):
@@ -424,12 +642,20 @@ def check_tiled(torch, cuda_tiled, model, base, n_steps, reference, name,
     """`n_steps` outer steps of the tiled kernel vs the outer step
     `reference(state, probe, i)` from `base`: all planes and the probe
     (where the grid holds the probe pixel).  Returns the max abs error."""
-    h, w = model.state_shape()
-    has_probe = model.probe_pixel[0] < h
+    return check_outer_steps(
+        torch, cuda_tiled.make_tiled_cuda_step(model), reference, base,
+        n_steps, name, against,
+        has_probe=model.probe_pixel[0] < model.state_shape()[0])
+
+
+def check_outer_steps(torch, step, reference, base, n_steps, name,
+                      against="plain", has_probe=True):
+    """`n_steps` outer steps `step(state, probe, i)` vs `reference(state,
+    probe, i)` from `base`: all planes and, with `has_probe`, the probe.
+    Returns the max abs error over the planes."""
     dev = base["V"].device
     pk = torch.zeros(n_steps, device=dev) if has_probe else None
     pp = torch.zeros(n_steps, device=dev) if has_probe else None
-    step = cuda_tiled.make_tiled_cuda_step(model)
     got, want = clone(base), clone(base)
     for i in range(n_steps):
         got = step(got, pk, i)
@@ -439,6 +665,141 @@ def check_tiled(torch, cuda_tiled, model, base, n_steps, reference, name,
     if has_probe:
         compare_probes(name, pk, pp)
     return err
+
+
+# -- the volume path -------------------------------------------------------------
+
+
+def plain_volume(cuda_volume, model, dz_ratio=1.0):
+    """The plain outer step of a volume as `reference(state, probe, i)`."""
+    return lambda state, probe, i: cuda_volume.plain_volume_step(
+        model, state, probe, i, dz_ratio=dz_ratio)
+
+
+def seeded_volume(torch, interop, volume, cuda_volume, model, depth, dev,
+                  rng):
+    """The extruded initial state perturbed from `rng`, then 20 plain
+    outer steps (10 ms) on the card, so that a wavefront has left the S1
+    slab."""
+    init = volume.volume_state(model, depth)
+    shape = init["V"].shape
+    init["V"] = init["V"] + rng.normal(0.0, 1.0, shape).astype(np.float32)
+    for g in ("m", "h", "j", "d", "f", "x1"):
+        init[g] = np.clip(init[g] * rng.uniform(0.98, 1.02, shape),
+                          1e-5, 0.99999).astype(np.float32)
+    init["C"] = (init["C"] * rng.uniform(0.9, 1.1, shape)).astype(np.float32)
+    base = interop.state_from_numpy(init, dev)
+    for _ in range(20):
+        cuda_volume.plain_volume_step(model, base)
+    torch.cuda.synchronize()
+    check(bool(base["V"].isfinite().all()) and float(base["V"].max()) > 0.0,
+          f"{shape} seeded volume holds no wavefront")
+    return base
+
+
+def run_volume_timed(run_volume, model, depth, events, kernel="auto"):
+    """One run_volume call of VOL_STEPS outer steps on the card, timed on
+    the host clock: it returns host arrays, so its end is synchronised.
+    The time includes the state's upload and the final read-back."""
+    t0 = time.perf_counter()
+    final, probes, frames = run_volume(model, depth, VOL_STEPS,
+                                       events=events, kernel=kernel,
+                                       device="cuda")
+    return {"final": final, "probes": probes, "frames": frames,
+            "wall_s": time.perf_counter() - t0}
+
+
+def volume_crossings(detector_cls, model, probes):
+    """The probe stream's crossings, found as the 2D engine finds them."""
+    det = detector_cls(model.cfg.dt, model.dt_per_step,
+                       model.cfg.plot_interval(model.dt_per_step),
+                       lambda i, cl: None)
+    det.feed(0, probes)
+    return det.cycle_lengths
+
+
+def check_volume_run(detector_cls, model, run, shape):
+    """A volume run's final state is finite and of `shape`, its probe
+    stream has VOL_STEPS entries, and its first crossing is the 2D
+    engine's at W=512, (CROSSING_STEP, 166.0), within CROSSING_SLACK."""
+    for k, v in run["final"].items():
+        check(v.shape == shape and np.isfinite(v).all(),
+              f"final plane {k} not finite or of shape {v.shape}")
+    check(run["probes"].shape == (VOL_STEPS,)
+          and np.isfinite(run["probes"]).all(),
+          f"probe stream of shape {run['probes'].shape} or not finite")
+    check(run["frames"] is None, "frames recorded without frames_every")
+    crossings = volume_crossings(detector_cls, model, run["probes"])
+    print(f"  crossings {crossings}, wall {run['wall_s']:.3f} s", flush=True)
+    check(len(crossings) >= 1, "the probe saw no wavefront")
+    step, cl = crossings[0]
+    step_ms = model.dt_per_step * model.cfg.dt
+    check(abs(step - CROSSING_STEP) <= CROSSING_SLACK
+          and abs(cl - CROSSING_STEP * step_ms)
+          <= CROSSING_SLACK * step_ms + 1e-9,
+          f"first crossing {(step, cl)}, expected ({CROSSING_STEP}, "
+          f"{CROSSING_STEP * step_ms}) +- {CROSSING_SLACK} steps")
+    return crossings
+
+
+def check_against_plain_volume(detector_cls, model, run, ref, crossings):
+    """A kernel volume run ends within WHOLE_RUN_ATOL_MV of the
+    kernel='xla' run and crosses at the same step."""
+    dv = np.abs(run["final"]["V"] - ref["final"]["V"])
+    ref_crossings = volume_crossings(detector_cls, model, ref["probes"])
+    print(f"  final V vs kernel='xla' run: max abs {dv.max():.4g} mV "
+          f"(bound {WHOLE_RUN_ATOL_MV} mV); crossings {ref_crossings}; "
+          f"probe max abs "
+          f"{np.abs(run['probes'] - ref['probes']).max():.3g}; "
+          f"xla wall {ref['wall_s']:.3f} s", flush=True)
+    check(float(dv.max()) <= WHOLE_RUN_ATOL_MV,
+          f"final V differs from the kernel-free run by {dv.max()} mV")
+    check(ref_crossings[:1] == crossings[:1],
+          "kernel and kernel-free volume runs cross at different steps")
+
+
+def substep_flops(slow: bool, volume: bool) -> int:
+    """Float32 operations per cell of one BR substep (br_cell.cuh, counted
+    by hand; logf counts as one): the 9-point stencil 10 and the z term 4,
+    the Chebyshev terms 10, 16 per degree-8 fit (14 SLOW, 6 frozen), 4 per
+    gate update (6 SLOW, 2 frozen), 20 for the currents, 6 for Ca, 5 for
+    V."""
+    fits, gates = (14, 6) if slow else (6, 2)
+    return 10 + (4 if volume else 0) + 10 + 16 * fits + 4 * gates + 31
+
+
+def bound(n_bytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of the bytes over HBM's rate and
+    the operations over the float32 peak."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def launch_bound(cells: int, slow: bool, volume: bool):
+    """One substep launch: 8 planes read, 8 written (SLOW) or 4 (V, C, m,
+    h; frozen)."""
+    return bound(4 * cells * (8 + (8 if slow else 4)),
+                 cells * substep_flops(slow, volume))
+
+
+def outer_step_bound(cells: int, schedule, volume: bool):
+    """One fused outer step: 8 planes read once and written once, and the
+    operations of the interior's substeps (the halo's recompute is not
+    work the function needs)."""
+    return bound(4 * cells * 16,
+                 cells * sum(substep_flops(s, volume) for s in schedule))
+
+
+def kernel_entry(name, source, replaces, launches, err, us, plain_us,
+                 bound_pair):
+    bound_ms, bound_by = bound_pair
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": us / 1e3, "plain_ms": plain_us / 1e3,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes a BR substep
+            "library_ms": None}
 
 
 def device_us(torch, fn, reps: int) -> float:
@@ -533,6 +894,39 @@ def time_tiled(torch, cuda_step, cuda_tiled, large, base_large, model, base):
             "plain_us": sum(plain[slow]
                             for slow in cuda_step.slow_schedule(m)),
         }
+    return out
+
+
+def time_volume(torch, cuda_step, cuda_volume, cuda_volume_tiled, sizes):
+    """Device times at each (name, model, base) of `sizes`: both volume
+    substep bodies per launch and their plain versions per substep; per
+    outer step, the substep route (5 launches), the tiled volume kernel and
+    the plain step (its substeps timed one by one and summed over the
+    schedule, as in time_tiled)."""
+    out = {}
+    for size, m, b in sizes:
+        state = clone(b)
+        depth = state["V"].shape[0]
+        params = cuda_step.pack_params(m)
+        pixel = cuda_volume.volume_probe_pixel(m, depth)
+        stream = torch.cuda.current_stream().cuda_stream
+        t = {}
+        for body, slow in (("slow", True), ("frozen", False)):
+            t[f"{body}_us"] = device_us(
+                torch, lambda: cuda_volume.KERNEL.launch(
+                    params, state, slow, 1.0, None, pixel, 0, stream),
+                reps=200)
+            t[f"plain_{body}_us"] = device_us(
+                torch, lambda: cuda_volume.plain_volume_substep(
+                    m, state, slow), reps=1)
+        substep_route = cuda_volume.make_volume_step(m, depth)
+        tiled = cuda_volume_tiled.make_tiled_volume_step(m, depth)
+        t["substep_us"] = device_us(torch, lambda: substep_route(state),
+                                    reps=100)
+        t["tiled_us"] = device_us(torch, lambda: tiled(state), reps=100)
+        t["plain_us"] = sum(t["plain_slow_us" if slow else "plain_frozen_us"]
+                            for slow in cuda_step.slow_schedule(m))
+        out[size] = t
     return out
 
 

@@ -1,27 +1,36 @@
 """fib_tf_tpu_torch — the PyTorch + CUDA port of fib_tf_tpu.
 
 The JAX package `fib_tf_tpu/` is the reference; this package carries the
-same simulation to PyTorch on an NVIDIA GPU.  Its first slice is the main
-path that `bench.py` measures: Beeler-Reuter with `cheby` + `skip` (and
-the default `cheby_fold` + `cheby_currents`), driven by
-`Simulation(BeelerReuter(cfg)).define().simulate()`.  On a CUDA device each
-substep runs the hand-written kernel in `csrc/br_substep.cu`; on the CPU
-the plain PyTorch path runs.
+same simulation to PyTorch on an NVIDIA GPU.  Its slices so far:
 
-The package imports `torch` and never `jax`.  From the JAX package it
-imports only `fib_tf_tpu.config`, so both packages read the same
-`SimConfig`.
+- the 2D main path that `bench.py` measures: Beeler-Reuter with `cheby` +
+  `skip` (and the default `cheby_fold` + `cheby_currents`), driven by
+  `Simulation(BeelerReuter(cfg)).define().simulate()`, with the substep
+  kernel `csrc/br_substep.cu` and, past the 32 MB cutover, the tiled
+  kernel `csrc/br_tiled.cu`;
+- the 3D volume path `run_volume(model, depth, n_outer)`, with the
+  volume substep kernel `csrc/br_volume.cu` and, past the 32 MB cutover,
+  the tiled volume kernel `csrc/br_volume_tiled.cu`.
+
+The entry points run on the card unless the caller passes
+`device='cpu'`, where the plain PyTorch path runs.
+
+The package imports `torch` and never `jax`, and nothing of the JAX
+package: `SimConfig` is its own copy (config.py), pinned equal to the
+reference by tests/test_torch_config.py.
 
 Layering (mirrors fib_tf_tpu):
   csrc/ + kernels/   CUDA C++ sources and the nvcc/ctypes builder
-  ops/               stencil, Chebyshev, integrators, the kernel wrapper
+  ops/               stencils (2D, 3D), Chebyshev, integrators, the kernel
+                     wrappers
   models/            Geometry, IonicModel, BeelerReuter
-  engine/            the chunked Simulation driver and its observers
+  engine/            the chunked Simulation engine, run_volume and the
+                     observers
   interop.py         numpy <-> torch state and parameter hand-over
 """
 
 __version__ = "0.1.0"
 
-from fib_tf_tpu.config import SimConfig
+from fib_tf_tpu_torch.config import SimConfig
 
 __all__ = ["SimConfig", "__version__"]

@@ -27,7 +27,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fib_tf_tpu.config import SimConfig
+from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.engine.observers import CycleLengthDetector
 from fib_tf_tpu_torch.models.base import IonicModel
@@ -59,18 +59,11 @@ class SimResult:
 class Simulation:
     """Owns a model, its pacing ops and the device, and drives the run."""
 
-    def __init__(self, model: IonicModel, device=None):
-        """`device`: 'cuda', 'cpu' or a torch.device; None picks 'cuda'
-        when a card is present and 'cpu' otherwise.  Asking for 'cuda'
+    def __init__(self, model: IonicModel, device="cuda"):
+        """`device`: 'cuda' (the default), 'cpu' or a torch.device.  The
+        run takes the card unless the caller asks for the CPU; 'cuda'
         without a card raises."""
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "device='cuda' but torch.cuda.is_available() is False")
-        if device.type not in ("cpu", "cuda"):
-            raise ValueError(f"unsupported device {device}")
+        device = resolve_device(device)
         cfg: SimConfig = model.cfg
         if cfg.mesh_shape is not None:
             _not_ported("mesh sharding (SimConfig.mesh_shape)", _PARALLEL)
@@ -270,6 +263,20 @@ class Simulation:
             sim_seconds_per_wall_second=sim_s / max(elapsed, 1e-9),
             cycle_lengths=detector.cycle_lengths,
         )
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: 'cuda', 'cpu' or a
+    torch.device.  A CUDA device without a card raises; nothing falls
+    back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' but torch.cuda.is_available() is False; pass "
+            "device='cpu' to run the plain PyTorch path on the CPU")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
 
 
 def state_mb(model: IonicModel) -> float:

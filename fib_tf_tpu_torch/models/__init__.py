@@ -5,6 +5,7 @@ from fib_tf_tpu_torch.models.base import (
     IonicModel,
     cell_geometry,
     grid_geometry,
+    volume_geometry,
 )
 from fib_tf_tpu_torch.models.beeler_reuter import BeelerReuter
 
@@ -14,4 +15,5 @@ __all__ = [
     "IonicModel",
     "cell_geometry",
     "grid_geometry",
+    "volume_geometry",
 ]

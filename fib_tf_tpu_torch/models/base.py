@@ -1,11 +1,12 @@
 """Model base class and geometry (main-path subset of
 fib_tf_tpu/models/base.py).
 
-Models are function factories over a state dict of `[H, W]` float32
-tensors: `initial_state()` returns numpy planes, `solve(state, geom, n)`
-advances one substep and `step(state, geom)` one outer step of
-`dt_per_step` substeps.  Spatial operators are injected through a
-`Geometry` record, so the same model runs in 2D tissue or as a 0D cell.
+Models are function factories over a state dict of `[H, W]` (or, in a
+volume, `[D, H, W]`) float32 tensors: `initial_state()` returns numpy
+planes, `solve(state, geom, n)` advances one substep and
+`step(state, geom)` one outer step of `dt_per_step` substeps.  Spatial
+operators are injected through a `Geometry` record, so the same model
+runs in 2D tissue, in a 3D volume or as a 0D cell.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from fib_tf_tpu.config import SimConfig
-from fib_tf_tpu_torch.ops import stencil
+from fib_tf_tpu_torch.config import SimConfig
+from fib_tf_tpu_torch.ops import stencil, stencil3d
 
 State = Dict[str, torch.Tensor]
 
@@ -51,6 +52,30 @@ def grid_geometry(
             "diffusion maps are not ported yet (ROADMAP Queue 1 item 9)")
     return Geometry(laplace=stencil.laplace,
                     enforce_boundary=stencil.enforce_boundary)
+
+
+def volume_geometry(
+    phase: Optional[np.ndarray] = None,
+    dz_ratio: float = 1.0,
+    fiber: Optional[tuple] = None,
+) -> Geometry:
+    """3D `[D, H, W]` tissue geometry: the per-slice 9-point stencil plus
+    a 2x-scaled z second difference (ops/stencil3d.laplace3d) and the
+    SYMMETRIC rewrite on all faces.  Models run in 3D unchanged: their
+    math is elementwise except these two operators.  Extruded phase
+    fields and fiber tensors are not ported yet."""
+    if phase is not None:
+        raise NotImplementedError(
+            f"phase fields in 3D are not ported yet "
+            f"({stencil3d.GEOMETRY_ITEM})")
+    if fiber is not None:
+        raise NotImplementedError(
+            f"fiber tensors in 3D are not ported yet "
+            f"({stencil3d.GEOMETRY_ITEM})")
+    return Geometry(
+        laplace=lambda x: stencil3d.laplace3d(x, dz_ratio=dz_ratio),
+        enforce_boundary=stencil3d.enforce_boundary3d,
+    )
 
 
 def cell_geometry() -> Geometry:

@@ -23,7 +23,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from fib_tf_tpu.config import SimConfig
+from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.models.base import Geometry, IonicModel, State
 from fib_tf_tpu_torch.ops.chebyshev import (
     chebyshev_eval,

@@ -142,11 +142,13 @@ class BrSubstepKernel:
 KERNEL = BrSubstepKernel()
 
 
-def check_state(model: BeelerReuter, state: State) -> torch.device:
+def check_state(model: BeelerReuter, state: State,
+                shape=None) -> torch.device:
     """Validate the planes a substep reads and writes; return their
     device.  Raises on a missing plane or on any other device, dtype,
-    shape or memory layout than the kernel takes."""
-    shape = model.state_shape()
+    shape (`shape`, default the model's [H, W]) or memory layout than the
+    kernel takes."""
+    shape = model.state_shape() if shape is None else tuple(shape)
     keys = model.state_keys()
     missing = [k for k in keys if k not in state]
     if missing:
@@ -172,8 +174,10 @@ def check_state(model: BeelerReuter, state: State) -> torch.device:
     return dev
 
 
-def _check_probe(model: BeelerReuter, probe: Optional[torch.Tensor],
-                 probe_index: int, dev: torch.device):
+def check_probe(probe: Optional[torch.Tensor], probe_index: int,
+                dev: torch.device, pixel, shape):
+    """Validate a probe buffer and index, and that `pixel` lies in
+    `shape`."""
     if probe is None:
         return
     if (probe.device != dev or probe.dtype != torch.float32
@@ -183,10 +187,26 @@ def _check_probe(model: BeelerReuter, probe: Optional[torch.Tensor],
     if not 0 <= probe_index < probe.numel():
         raise IndexError(f"probe_index {probe_index} outside "
                          f"[0, {probe.numel()})")
-    r, c = model.probe_pixel
-    h, w = model.state_shape()
-    if not (0 <= r < h and 0 <= c < w):
-        raise ValueError(f"probe pixel {(r, c)} outside the {h}x{w} grid")
+    if not all(0 <= p < n for p, n in zip(pixel, shape)):
+        raise ValueError(f"probe pixel {tuple(pixel)} outside the "
+                         f"{'x'.join(map(str, shape))} grid")
+
+
+def _check_probe(model: BeelerReuter, probe: Optional[torch.Tensor],
+                 probe_index: int, dev: torch.device):
+    check_probe(probe, probe_index, dev, model.probe_pixel,
+                model.state_shape())
+
+
+def write_back(state: State, new: State) -> State:
+    """Write `model.solve`'s result into `state` under the kernels'
+    contract: V is replaced, the other planes are overwritten in place."""
+    for k, t in new.items():
+        if k == "V":
+            state["V"] = t
+        elif t is not state[k]:
+            state[k].copy_(t)
+    return state
 
 
 def plain_substep(model: BeelerReuter, state: State, slow: bool,
@@ -195,12 +215,8 @@ def plain_substep(model: BeelerReuter, state: State, slow: bool,
     """Plain PyTorch version of one kernel launch: `model.solve` with
     n = model.slow_n when `slow`, else n = 0, written back into `state`
     under the kernel's contract."""
-    new = model.solve(state, grid_geometry(), n=model.slow_n if slow else 0)
-    for k, t in new.items():
-        if k == "V":
-            state["V"] = t
-        elif t is not state[k]:
-            state[k].copy_(t)
+    write_back(state, model.solve(state, grid_geometry(),
+                                  n=model.slow_n if slow else 0))
     if probe is not None:
         probe[probe_index] = model.probe(state)
     return state

@@ -1,4 +1,5 @@
-"""Finite-difference grid operators on `[H, W]` float32 tensors.
+"""Finite-difference grid operators on `[H, W]` float32 tensors (or
+stacks of them, `[..., H, W]`, taken slice by slice).
 
 The main-path subset of fib_tf_tpu/ops/stencil.py, held to it by
 tests/test_torch_ops.py:
@@ -20,27 +21,31 @@ import torch.nn.functional as F
 
 
 def _pad1(x: torch.Tensor, mode: str) -> torch.Tensor:
-    # F.pad's reflect/replicate modes want a batched (3D/4D) tensor
-    return F.pad(x[None, None], (1, 1, 1, 1), mode=mode)[0, 0]
+    # pads the last two axes; F.pad's reflect/replicate modes want a
+    # batched (3D/4D) tensor, so [H, W] and [D, H, W] get one leading axis
+    return F.pad(x[None], (1, 1, 1, 1), mode=mode)[0]
 
 
 def laplace(x: torch.Tensor) -> torch.Tensor:
-    """2D 9-point Laplacian with REFLECT boundary handling:
-    l = N + S + W + E + 0.5*(NW + SW + NE + SE) - 6*C, summed in the
-    order of fib_tf_tpu.ops.stencil.laplace."""
+    """2D 9-point Laplacian with REFLECT boundary handling, per slice of
+    `[..., H, W]`: l = N + S + W + E + 0.5*(NW + SW + NE + SE) - 6*C,
+    summed in the order of fib_tf_tpu.ops.stencil.laplace."""
     xp = _pad1(x, "reflect")
     return (
-        xp[:-2, 1:-1] + xp[2:, 1:-1] + xp[1:-1, :-2] + xp[1:-1, 2:]
-        + 0.5 * (xp[:-2, :-2] + xp[2:, :-2] + xp[:-2, 2:] + xp[2:, 2:])
-        - 6.0 * xp[1:-1, 1:-1]
+        xp[..., :-2, 1:-1] + xp[..., 2:, 1:-1] + xp[..., 1:-1, :-2]
+        + xp[..., 1:-1, 2:]
+        + 0.5 * (xp[..., :-2, :-2] + xp[..., 2:, :-2] + xp[..., :-2, 2:]
+                 + xp[..., 2:, 2:])
+        - 6.0 * xp[..., 1:-1, 1:-1]
     )
 
 
 def enforce_boundary(x: torch.Tensor) -> torch.Tensor:
-    """No-flux (Neumann) boundary: border rows/columns take their inner
-    neighbours' values.  torch has no 'symmetric' pad; a 1-cell symmetric
-    pad of the interior equals a 'replicate' pad."""
-    return _pad1(x[1:-1, 1:-1], "replicate")
+    """No-flux (Neumann) boundary, per slice of `[..., H, W]`: border
+    rows/columns take their inner neighbours' values.  torch has no
+    'symmetric' pad; a 1-cell symmetric pad of the interior equals a
+    'replicate' pad."""
+    return _pad1(x[..., 1:-1, 1:-1], "replicate")
 
 
 PACE_LOCATIONS = (

@@ -2,6 +2,7 @@
 substep, held against fib_tf_tpu's model and its fused Pallas kernel (run
 in interpret mode on the CPU, as tests/test_pallas.py runs it)."""
 
+import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -11,12 +12,19 @@ import torch
 
 import fib_tf_tpu.models.beeler_reuter as jbr
 import fib_tf_tpu_torch.models.beeler_reuter as tbr
-from fib_tf_tpu.config import SimConfig
+from fib_tf_tpu.config import SimConfig as JaxSimConfig
 from fib_tf_tpu.models import grid_geometry as jax_grid_geometry
 from fib_tf_tpu.ops.pallas_step import make_pallas_step
 from fib_tf_tpu_torch import interop
+from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.models import cell_geometry, grid_geometry
 from fib_tf_tpu_torch.ops import cuda_step
+
+
+def jax_cfg(c):
+    """The JAX package's SimConfig with the same fields as the port's `c`."""
+    return JaxSimConfig(**dataclasses.asdict(c))
+
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 MODEL_TOL = dict(rtol=1e-3, atol=1e-5)   # tests/test_pallas.py:90-97
@@ -67,7 +75,7 @@ def test_constants_equal_jax():
 @pytest.mark.parametrize("skip,dt", [(True, 0.1), (False, 0.1), (True, 0.05)])
 def test_cheby_coef_bit_equal_jax(skip, dt):
     c = cfg(skip=skip, dt=dt)
-    want = jbr.BeelerReuter(c)._cheby_coef
+    want = jbr.BeelerReuter(jax_cfg(c))._cheby_coef
     got = tbr.BeelerReuter(c).cheby_coef
     assert set(got) == set(want)
     for k in want:
@@ -76,7 +84,7 @@ def test_cheby_coef_bit_equal_jax(skip, dt):
 
 def test_cheby_coef_from_numpy():
     c = cfg()
-    jm = jbr.BeelerReuter(c)
+    jm = jbr.BeelerReuter(jax_cfg(c))
     coef = interop.cheby_coef_from_numpy(jm._cheby_coef)
     assert all(np.array_equal(coef[k], jm._cheby_coef[k]) for k in coef)
     assert coef["m_rl"] is not jm._cheby_coef["m_rl"]
@@ -99,7 +107,7 @@ def test_cheby_coef_from_numpy():
 @pytest.mark.parametrize("n", [5, 0])
 def test_plain_substep_matches_jax_solve(n):
     c = cfg()
-    jm, tm = jbr.BeelerReuter(c), tbr.BeelerReuter(c)
+    jm, tm = jbr.BeelerReuter(jax_cfg(c)), tbr.BeelerReuter(c)
     st = seeded_state(tm)
     want = jm.solve({k: jnp.asarray(v) for k, v in st.items()},
                     jax_grid_geometry(), n=n)
@@ -116,7 +124,7 @@ def test_two_outer_steps_match_jax_pallas_kernel(skip):
     """The port's plain step vs the JAX fused kernel as the engine routes
     BR (one substep per launch), interpreted on the CPU."""
     c = cfg(skip=skip)
-    jm, tm = jbr.BeelerReuter(c), tbr.BeelerReuter(c)
+    jm, tm = jbr.BeelerReuter(jax_cfg(c)), tbr.BeelerReuter(c)
     st = seeded_state(tm, seed=1)
     pstep = make_pallas_step(jm, substeps_per_launch=1)
     want = {k: jnp.asarray(v) for k, v in st.items()}
@@ -134,7 +142,7 @@ def test_g_scale_matches_jax():
     scale = {"g_Na": 0.8, "g_NaC": 0.9, "g_s": 1.2, "g_K1": 0.5,
              "g_x1": 0.7}
     c = cfg(g_scale=scale)
-    jm, tm = jbr.BeelerReuter(c), tbr.BeelerReuter(c)
+    jm, tm = jbr.BeelerReuter(jax_cfg(c)), tbr.BeelerReuter(c)
     assert tm.scales == jm.scales == scale
     st = seeded_state(tm, seed=2)
     want = {k: jnp.asarray(v) for k, v in st.items()}
@@ -194,7 +202,7 @@ def test_substep_schedule_and_state_keys():
     assert cuda_step.slow_schedule(tm) == (True, False, False, False, False)
     assert cuda_step.slow_schedule(
         tbr.BeelerReuter(cfg(skip=False))) == (True,) * 5
-    assert tm.state_keys() == jbr.BeelerReuter(cfg()).state_keys()
+    assert tm.state_keys() == jbr.BeelerReuter(jax_cfg(cfg())).state_keys()
 
 
 def test_pack_params_layout():

@@ -1,16 +1,25 @@
 """The port's Simulation driver held against the JAX engine on the CPU,
 plus its routing rules and the features it does not carry yet."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from fib_tf_tpu.config import SimConfig
+from fib_tf_tpu.config import SimConfig as JaxSimConfig
 from fib_tf_tpu.engine import Simulation as JaxSimulation
 from fib_tf_tpu.engine.observers import CycleLengthDetector as JaxDetector
 from fib_tf_tpu.models import BeelerReuter as JaxBR
+from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import CycleLengthDetector, Simulation
 from fib_tf_tpu_torch.models import BeelerReuter, grid_geometry
+
+
+def jax_cfg(c):
+    """The JAX package's SimConfig with the same fields as the port's `c`."""
+    return JaxSimConfig(**dataclasses.asdict(c))
+
 
 # 64x64 BR cheby+skip for 60 ms, with an S2 quadrant stimulus at 30 ms
 CFG = SimConfig(width=64, height=64, dt=0.1, dt_per_plot=10, diff=0.809,
@@ -29,7 +38,7 @@ def _port_run(**kw):
 
 @pytest.fixture(scope="module")
 def runs():
-    jsim = JaxSimulation(JaxBR(CFG)).define()
+    jsim = JaxSimulation(JaxBR(jax_cfg(CFG))).define()
     jsim.add_pace_op("s2", "luq", 10.0)
     return jsim.simulate(schedule=SCHEDULE), _port_run()
 
@@ -101,12 +110,15 @@ def test_kernel_pallas_on_cpu_raises():
         Simulation(BeelerReuter(CFG.replace(kernel="pallas")), device="cpu")
 
 
-def test_cuda_device_without_cuda_raises():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
+def test_cuda_device_without_cuda_raises(monkeypatch):
+    """The entry point runs on the card unless asked for the CPU: without
+    a card, the default device and 'cuda' both raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         Simulation(BeelerReuter(CFG), device="cuda")
-    assert Simulation(BeelerReuter(CFG)).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Simulation(BeelerReuter(CFG))
+    assert Simulation(BeelerReuter(CFG), device="cpu").device.type == "cpu"
 
 
 def test_xla_and_auto_agree_on_cpu():

@@ -1,8 +1,10 @@
 """The port's import rule and its kernel builder, checked without a GPU.
 
-The rule: fib_tf_tpu_torch and chip_smoke.py import no JAX, and from the
-JAX package only fib_tf_tpu.config.  An import-time check cannot show it
-(jax may already be imported in the process), so this scans the sources."""
+The rule: fib_tf_tpu_torch and chip_smoke.py import no JAX and nothing of
+the JAX package fib_tf_tpu, not even a module that does not import JAX
+(importing fib_tf_tpu.config runs fib_tf_tpu/__init__.py).  An import-time
+check cannot show it (jax may already be imported in the process), so
+this scans the sources."""
 
 import ast
 import os
@@ -34,15 +36,15 @@ def _imports(path):
 def test_no_jax_imports(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib"), f"{path.name} imports {name}"
-        if top == "fib_tf_tpu":
-            assert name == "fib_tf_tpu.config", f"{path.name} imports {name}"
+        assert top not in ("jax", "jaxlib", "fib_tf_tpu"), (
+            f"{path.name} imports {name}")
 
 
 def test_scan_sees_the_package():
     names = {p.name for p in SOURCES}
-    assert {"cuda_step.py", "simulation.py", "build.py",
-            "chip_smoke.py"} <= names
+    assert {"cuda_step.py", "simulation.py", "build.py", "config.py",
+            "stencil3d.py", "volume.py", "cuda_volume.py",
+            "cuda_volume_tiled.py", "chip_smoke.py"} <= names
 
 
 def _no_nvcc(monkeypatch, tmp_path):
@@ -108,8 +110,9 @@ def test_edited_header_changes_the_library_path(monkeypatch, tmp_path):
 
 
 def test_bindings_hash_every_header_their_sources_include():
-    from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled
-    for mod in (cuda_step, cuda_tiled):
+    from fib_tf_tpu_torch.ops import (cuda_step, cuda_tiled, cuda_volume,
+                                      cuda_volume_tiled)
+    for mod in (cuda_step, cuda_tiled, cuda_volume, cuda_volume_tiled):
         text = mod.SOURCE.read_text()
         included = {line.split('"')[1] for line in text.splitlines()
                     if line.startswith('#include "')}
@@ -132,6 +135,7 @@ def test_failed_build_raises_with_log(monkeypatch, tmp_path):
 def test_kernel_sources_ship_with_the_package():
     text = (ROOT / "pyproject.toml").read_text()
     assert '"fib_tf_tpu_torch.csrc"' in text
-    for name in ("br_substep.cu", "br_tiled.cu", "br_cell.cuh"):
+    for name in ("br_substep.cu", "br_tiled.cu", "br_volume.cu",
+                 "br_volume_tiled.cu", "br_cell.cuh"):
         assert (build.CSRC_DIR / name).is_file()
     assert os.path.commonpath([build.BUILD_DIR, ROOT]) == str(ROOT)

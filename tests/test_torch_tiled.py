@@ -3,6 +3,8 @@ the plain version of the tiled kernel against the JAX tiled Pallas kernel
 (run in interpret mode on the CPU, as tests/test_pallas.py runs it), and
 the engine's kernel choice against the JAX engine's."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,12 +13,19 @@ import torch
 
 import fib_tf_tpu.models.beeler_reuter as jbr
 import fib_tf_tpu_torch.models.beeler_reuter as tbr
-from fib_tf_tpu.config import SimConfig
+from fib_tf_tpu.config import SimConfig as JaxSimConfig
 from fib_tf_tpu.engine import Simulation as JaxSimulation
 from fib_tf_tpu.ops.pallas_tiled import make_tiled_pallas_step
 from fib_tf_tpu_torch import interop
+from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import Simulation, simulation
 from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled
+
+
+def jax_cfg(c):
+    """The JAX package's SimConfig with the same fields as the port's `c`."""
+    return JaxSimConfig(**dataclasses.asdict(c))
+
 
 TILED_TOL = dict(rtol=2e-3, atol=1e-5)   # tests/test_pallas.py:151-174
 
@@ -49,7 +58,7 @@ def test_plain_tiled_step_matches_jax_tiled_kernel(skip):
     """64x128, tile_rows=16 (four row tiles, two of them at the domain's
     edges), 2 outer steps from a seeded state."""
     c = cfg(skip=skip)
-    jm, tm = jbr.BeelerReuter(c), tbr.BeelerReuter(c)
+    jm, tm = jbr.BeelerReuter(jax_cfg(c)), tbr.BeelerReuter(c)
     st = seeded_state(tm, seed=1)
     jstep = make_tiled_pallas_step(jm, tile_rows=16, interpret=True)
     want = {k: jnp.asarray(v) for k, v in st.items()}
@@ -78,7 +87,7 @@ def reference_route(c, monkeypatch):
     no fused kernel -> 'plain'; the whole-grid kernel -> 'substep'; the
     tiled kernel -> 'tiled'.  __init__ allocates no state."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    sim = JaxSimulation(jbr.BeelerReuter(c))
+    sim = JaxSimulation(jbr.BeelerReuter(jax_cfg(c)))
     if not sim._use_pallas():
         return "plain"
     fits = sim._state_mb(padded=True) <= sim.WHOLE_GRID_STATE_MB_MAX
@@ -139,7 +148,7 @@ def test_cutover_constant_equals_reference():
         c = cfg(height=hw[0], width=hw[1])
         sim = Simulation(tbr.BeelerReuter(c), device="cpu")
         assert sim._state_mb() == JaxSimulation(
-            jbr.BeelerReuter(c))._state_mb()
+            jbr.BeelerReuter(jax_cfg(c)))._state_mb()
 
 
 # -- the wrapper on the CPU -------------------------------------------------------------
@@ -264,7 +273,7 @@ def test_engine_on_the_tiled_route_matches_jax_engine(monkeypatch):
     sim.add_pace_op("s2", "luq", 10.0)
     got = sim.simulate(schedule=SCHEDULE)
 
-    jsim = JaxSimulation(jbr.BeelerReuter(ENGINE_CFG)).define()
+    jsim = JaxSimulation(jbr.BeelerReuter(jax_cfg(ENGINE_CFG))).define()
     jsim.add_pace_op("s2", "luq", 10.0)
     want = jsim.simulate(schedule=SCHEDULE)
     assert got.steps == want.steps == 120

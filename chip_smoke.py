@@ -5,10 +5,11 @@ Run from the root of the checkout:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase carries on after a failure):
   1. the card's name and power limit, the torch/CUDA versions, and the
-     build of all four kernels from csrc/ with nvcc (in parallel): the
+     build of all six kernels from csrc/ with nvcc (in parallel): the
      substep kernel br_substep.cu, the tiled outer-step kernel br_tiled.cu,
-     the volume substep kernel br_volume.cu and the tiled volume kernel
-     br_volume_tiled.cu;
+     the volume substep kernel br_volume.cu, the tiled volume kernel
+     br_volume_tiled.cu, and the per-shard block kernels br_block.cu and
+     br_volume_block.cu of the sharded paths;
   2. substep kernel vs plain PyTorch on the card at 512x512, on a seeded
      state that holds a wavefront: one slow (n=5) launch, one frozen (n=0)
      launch and two outer steps, all 8 planes at rtol 1e-3 / atol 1e-5;
@@ -65,7 +66,35 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      volume kernel, the substep route and the plain outer step, at
      8x128x512 and 8x512x512; run_volume's wall seconds per simulated
      second for both configurations, on the kernels and with
-     kernel='xla'.
+     kernel='xla';
+ 13. block kernel vs plain PyTorch at the same tolerance: one shard's
+     halo-extended block of the 2048x2048 domain, its ghosts cut from the
+     seeded state (522x2048 on a 4x1 mesh: the top, an interior and the
+     bottom shard; 1034x1034 on a 2x2 mesh: a corner shard), 1 and 2 outer
+     steps, skip on and off, and a ragged 23x41 block of a 67x131 domain;
+ 14. volume block kernel vs plain PyTorch: one shard's 18x128x512 block
+     (8 slices and 5 ghost slices each way) of a 32x128x512 volume, the
+     top, an interior and the bottom shard, dz_ratio 1 and 0.5, 1 and 2
+     outer steps, and groups of one substep without skip (halo_k=1);
+ 15. the sharded 2D main path, Simulation(BeelerReuter(cfg),
+     mesh=make_mesh(devices=['cuda:0'] * 4), wide_halo=True).define()
+     .simulate() at 2048x2048 for phase 6's 700 ms, four row shards on the
+     one card, each on its own stream: it must launch the block kernel
+     exactly 4 times per outer step and no other kernel, cross where phase
+     6 did, and end within WHOLE_RUN_ATOL_MV of phase 6's unsharded run
+     and of its kernel='xla' run; the same on a 2x2 mesh for 100 ms against
+     an unsharded run of that length;
+ 16. the sharded volume path, run_volume(BeelerReuter(cfg), 32, 1000,
+     mesh=<four z shards on cuda:0>, wide_halo=True) at 32x128x512 with the
+     S2 of phase 9 over the lower half of the depth: it must launch the
+     volume block kernel exactly 4 x (1 slow + 4 frozen) times per outer
+     step and no other kernel, cross at (332, 166.0) +- 2 steps, and end
+     within WHOLE_RUN_ATOL_MV of the unsharded run_volume of the same
+     volume on the kernels; a 100-step run is held against kernel='xla';
+ 17. timings of the sharded paths: device time per outer step per shard
+     of both block kernels and of their plain versions, the halo copies of
+     one shard, the host-paced time per outer step, and wall seconds per
+     simulated second of both sharded runs beside the unsharded ones.
 
 Prints the nvidia-smi line and one JSON line describing the kernels before
 its last line, which is {"ok": true, "device": {...}}.  Needs a CUDA GPU and
@@ -78,6 +107,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -119,6 +149,14 @@ VOL_STEPS, S2_STEP = 1000, 700
 VOL_RAGGED = ((5, 67, 131), (3, 64, 96))
 # phase 10: ragged and smaller than one tile (the deepest depth is added)
 VOL_TILED_SHAPES = ((5, 67, 131), (4, 9, 12))
+# the sharded paths: four shards, all on the one card.  2D: 2048x2048 in four
+# 512-row shards (4x1) or four 1024x1024 shards (2x2), K = 5 ghost rows.
+# 3D: the reference's per-shard shape of its z-sharded volume, 8x128x512
+# per shard (docs/OPTIMIZATIONS.md section 14b, sizes only): 32x128x512
+N_SHARDS = 4
+SHARDED_DEPTH = 32
+SHORT_MS = 100          # the 2x2 run
+SHORT_VOL_STEPS = 100   # the sharded volume run held against kernel='xla'
 # the least time of a kernel (bound_ms): the larger of its bytes over the
 # H100 SXM's HBM rate and its float32 operations over its peak float32
 # rate outside the tensor cores (NVIDIA's data sheet, 700 W)
@@ -195,8 +233,10 @@ def main():
                                              Simulation, VolumeEvent,
                                              run_volume, volume)
         from fib_tf_tpu_torch.models import BeelerReuter
-        from fib_tf_tpu_torch.ops import (cuda_step, cuda_tiled, cuda_volume,
+        from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
+                                          cuda_volume, cuda_volume_block,
                                           cuda_volume_tiled)
+        from fib_tf_tpu_torch.parallel import make_mesh
     except ImportError as e:
         fail(f"cannot import the port ({e}); run from the repository root")
 
@@ -221,7 +261,8 @@ def main():
           f"count {torch.cuda.device_count()}", flush=True)
     bindings = {name: (mod.KERNEL, mod.SOURCE) for name, mod in (
         ("br_substep", cuda_step), ("br_tiled", cuda_tiled),
-        ("br_volume", cuda_volume), ("br_volume_tiled", cuda_volume_tiled))}
+        ("br_volume", cuda_volume), ("br_volume_tiled", cuda_volume_tiled),
+        ("br_block", cuda_block), ("br_volume_block", cuda_volume_block))}
     t0 = time.perf_counter()
     # one nvcc per source, all started together
     with concurrent.futures.ThreadPoolExecutor(len(bindings)) as pool:
@@ -559,6 +600,169 @@ def main():
               f"{run['wall_s'] / sim_s:.6f} wall-s/sim-s; kernel='xla': "
               f"{ref_run['wall_s'] / sim_s:.6f} [{card}]", flush=True)
 
+
+    # -- phase 13 ---------------------------------------------------------------
+    print("phase 13: block kernel vs plain PyTorch (one shard's extended "
+          "block)", flush=True)
+    k_halo = large.dt_per_step
+    block_err = 0.0
+    # (own rows, own columns or None on a 1D mesh, origin of the shard)
+    shards_2d = [("4x1 top", 512, None, (0, 0)),
+                 ("4x1 interior", 512, None, (512, 0)),
+                 ("4x1 bottom", 512, None, (1536, 0)),
+                 ("2x2 corner", 1024, 1024, (1024, 1024))]
+    for skip in (True, False):
+        m = BeelerReuter(cfg_large.replace(skip=skip))
+        for name, h_own, w_own, origin in shards_2d:
+            for n in (1, 2):
+                block_err = max(block_err, check_block(
+                    torch, cuda_block, cuda_tiled, m, base_large, h_own,
+                    w_own, origin, n, f"2048x2048 {name} skip={skip}"))
+        m = BeelerReuter(cfg.replace(height=67, width=131, skip=skip))
+        st = seeded_state(torch, interop, m, dev, cuda_step.plain_step, rng)
+        for w_own, origin in ((None, (44, 0)), (41, (13, 90))):
+            block_err = max(block_err, check_block(
+                torch, cuda_block, cuda_tiled, m, st, 23, w_own, origin, 2,
+                f"67x131 ragged at {origin} skip={skip}"))
+
+    # -- phase 14 ---------------------------------------------------------------
+    d_own = SHARDED_DEPTH // N_SHARDS
+    print(f"phase 14: volume block kernel vs plain PyTorch (one shard's "
+          f"{d_own + 2 * k_halo}x{vcfg.height}x{vcfg.width} block of "
+          f"{SHARDED_DEPTH}x{vcfg.height}x{vcfg.width})", flush=True)
+    sbase = seeded_volume(torch, interop, volume, cuda_volume, vmodel,
+                          SHARDED_DEPTH, dev, rng)
+    vblock_errs = {"slow": 0.0, "frozen": 0.0}
+    for name, z0 in (("top", 0), ("interior", d_own),
+                     ("bottom", SHARDED_DEPTH - d_own)):
+        for dz in (1.0, 0.5):
+            for n in (1, 2):
+                err = check_volume_block(
+                    torch, cuda_volume, cuda_volume_block, vmodel, sbase,
+                    d_own, z0, n, dz, None, f"{name} shard dz_ratio={dz}")
+                vblock_errs = {b: max(e, err)
+                               for b, e in vblock_errs.items()}
+        noskip = BeelerReuter(vcfg.replace(skip=False))
+        vblock_errs["slow"] = max(vblock_errs["slow"], check_volume_block(
+            torch, cuda_volume, cuda_volume_block, noskip, sbase, d_own, z0,
+            2, 1.0, 1, f"{name} shard skip=False substeps=1"))
+
+    # -- phase 15 ---------------------------------------------------------------
+    print(f"phase 15: the sharded 2D main path, Simulation(mesh=4 shards on "
+          f"cuda:0, wide_halo=True) at {cfg_large.width}x{cfg_large.height}, "
+          f"{cfg_large.duration} ms", flush=True)
+    mesh_rows = make_mesh(devices=["cuda:0"] * N_SHARDS)
+    sim = Simulation(BeelerReuter(cfg_large), mesh=mesh_rows,
+                     wide_halo=True).define()
+    check(sim.route == "block", f"the sharded run routes {sim.route!r}")
+    reset_counts()
+    res_rows = sim.simulate()
+    counts = read_counts()
+    block_launches = counts["br_block"]
+    print(f"  mesh 4x1, route {sim.route}, steps {res_rows.steps}, launches "
+          f"{counts}, cycle_lengths {res_rows.cycle_lengths}", flush=True)
+    check(block_launches == N_SHARDS * res_rows.steps
+          and res_rows.steps == res_large.steps,
+          f"{block_launches} block launches for {res_rows.steps} outer steps "
+          f"on {N_SHARDS} shards")
+    check_only(counts, "br_block", "the sharded 2048x2048 run")
+    check_run(res_rows, large.state_shape(), CROSSING_STEP_LARGE)
+    check_against_plain_run(res_rows, ref_large)
+    check_sharded_against_unsharded(res_rows, res_large, "4x1")
+    cfg_short = cfg_large.replace(duration=SHORT_MS)
+    short = Simulation(BeelerReuter(cfg_short), device="cuda").define()
+    check(short.route == "tiled", f"the short run routes {short.route!r}")
+    res_short = short.simulate()
+    sim = Simulation(BeelerReuter(cfg_short),
+                     mesh=make_mesh(shape=(2, 2),
+                                    devices=["cuda:0"] * N_SHARDS),
+                     wide_halo=True).define()
+    reset_counts()
+    res_grid = sim.simulate()
+    counts = read_counts()
+    print(f"  mesh 2x2, {SHORT_MS} ms, steps {res_grid.steps}, launches "
+          f"{counts}", flush=True)
+    check(counts["br_block"] == N_SHARDS * res_grid.steps,
+          f"{counts['br_block']} block launches for {res_grid.steps} steps")
+    check_only(counts, "br_block", "the sharded 2x2 run")
+    check_sharded_against_unsharded(res_grid, res_short, "2x2")
+
+    # -- phase 16 ---------------------------------------------------------------
+    sshape = cuda_volume.volume_shape(vmodel, SHARDED_DEPTH)
+    sname = "x".join(map(str, sshape))
+    sevents = [VolumeEvent(step=S2_STEP, loc="luq", z1=SHARDED_DEPTH // 2)]
+    print(f"phase 16: the sharded volume path, run_volume(mesh=4 z shards on "
+          f"cuda:0, wide_halo=True) at {sname}, {VOL_STEPS} outer steps, S2 "
+          f"at step {S2_STEP} over z < {SHARDED_DEPTH // 2}", flush=True)
+    vmesh = make_mesh(devices=["cuda:0"] * N_SHARDS)
+    run_volume(vmodel, SHARDED_DEPTH, 2, mesh=vmesh, wide_halo=True)
+    reset_counts()
+    srun = run_volume_timed(run_volume, vmodel, SHARDED_DEPTH, sevents,
+                            mesh=vmesh, wide_halo=True)
+    counts = read_counts()
+    vblock_launches = counts["br_volume_block"]
+    print(f"  launches {counts}", flush=True)
+    check(vblock_launches == {"slow": N_SHARDS * VOL_STEPS,
+                              "frozen": N_SHARDS * 4 * VOL_STEPS},
+          f"launches {vblock_launches} are not {N_SHARDS} x (1 slow + 4 "
+          f"frozen) per outer step")
+    check_only(counts, "br_volume_block", f"the sharded {sname} run")
+    scross = check_volume_run(CycleLengthDetector, vmodel, srun, sshape)
+    # the unsharded run of the same volume on the kernels: too deep for the
+    # tiled volume kernel, so it takes the volume substep kernel
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sroute = volume.volume_route(vmodel, SHARDED_DEPTH, "cuda", "auto")
+        uns = run_volume_timed(run_volume, vmodel, SHARDED_DEPTH, sevents)
+    print(f"  unsharded run: route {sroute}, wall {uns['wall_s']:.3f} s",
+          flush=True)
+    check_sharded_volume(CycleLengthDetector, vmodel, srun, uns, scross,
+                         "the unsharded kernel run")
+    before = read_counts()
+    short_kw = dict(n_outer=SHORT_VOL_STEPS)
+    sref = run_volume_timed(run_volume, vmodel, SHARDED_DEPTH, [],
+                            kernel="xla", **short_kw)
+    check(read_counts() == before, "the kernel='xla' run launched a kernel")
+    sshort = run_volume_timed(run_volume, vmodel, SHARDED_DEPTH, [],
+                              mesh=vmesh, wide_halo=True, **short_kw)
+    check_sharded_volume(CycleLengthDetector, vmodel, sshort, sref, None,
+                         f"the unsharded kernel='xla' run over "
+                         f"{SHORT_VOL_STEPS} steps")
+
+    # -- phase 17 ---------------------------------------------------------------
+    print(f"phase 17: timings of the sharded paths on {card}", flush=True)
+    bt = time_block(torch, cuda_step, cuda_block, large, base_large, 512,
+                    (512, 0))
+    print(f"  br_block, 522x2048 block (interior shard of 4x1): kernel "
+          f"{bt['kernel_us']:.2f} us/outer step, plain {bt['plain_us']:.1f}; "
+          f"one shard's halo copies (2 x 8 planes x 5x2048) "
+          f"{bt['copies_us']:.2f} us (device) [{card}]", flush=True)
+    vbt = time_volume_block(torch, cuda_step, cuda_volume_block, vmodel,
+                            sbase, d_own, d_own)
+    print(f"  br_volume_block, 18x128x512 block (interior shard): group of "
+          f"5 launches {vbt['group_us']:.2f} us/outer step; SLOW launch "
+          f"({vbt['slow_slices']} slices) {vbt['slow_us']:.3f} us, frozen "
+          f"launches (mean of {vbt['frozen_slices']} slices) "
+          f"{vbt['frozen_us']:.3f} us; plain SLOW / frozen substep on the "
+          f"block {vbt['plain_slow_us']:.1f} / {vbt['plain_frozen_us']:.1f} "
+          f"us; one shard's halo copies (2 x 8 planes x 5x128x512) "
+          f"{vbt['copies_us']:.2f} us (device) [{card}]", flush=True)
+    for name, run, uns_run in (("4x1, 700 ms", res_rows, res_large),
+                               (f"2x2, {SHORT_MS} ms", res_grid, res_short)):
+        print(f"  sharded simulate() at 2048x2048, mesh {name}: "
+              f"{1.0 / run.sim_seconds_per_wall_second:.6f} wall-s/sim-s, "
+              f"host-paced {run.elapsed / run.steps * 1e6:.2f} us/outer "
+              f"step; unsharded tiled route "
+              f"{1.0 / uns_run.sim_seconds_per_wall_second:.6f} wall-s/sim-s, "
+              f"{uns_run.elapsed / uns_run.steps * 1e6:.2f} us/outer step "
+              f"[{card}]", flush=True)
+    print(f"  sharded run_volume at {sname}, {VOL_STEPS} outer steps: "
+          f"{srun['wall_s'] / sim_s:.6f} wall-s/sim-s, host-paced "
+          f"{srun['wall_s'] / VOL_STEPS * 1e6:.2f} us/outer step; unsharded "
+          f"(route {sroute}) {uns['wall_s'] / sim_s:.6f} wall-s/sim-s, "
+          f"{uns['wall_s'] / VOL_STEPS * 1e6:.2f} us/outer step [{card}]",
+          flush=True)
+
     cells = int(np.prod(shape))
     cells_large = int(np.prod(large.state_shape()))
     vcells = int(np.prod(vshape))
@@ -593,6 +797,20 @@ def main():
         vtl["tiled_us"], vtl["plain_us"],
         outer_step_bound(vcells_large, cuda_step.slow_schedule(vlarge),
                          volume=True)))
+    kernels.append(kernel_entry(
+        "br_block", "fib_tf_tpu_torch/csrc/br_block.cu",
+        "fib_tf_tpu/ops/pallas_tiled.py:202", block_launches, block_err,
+        bt["kernel_us"], bt["plain_us"],
+        block_bound(bt["ext_cells"], bt["own_cells"],
+                    cuda_step.slow_schedule(large))))
+    for body, slow in (("slow", True), ("frozen", False)):
+        kernels.append(kernel_entry(
+            f"br_volume_block<SLOW={str(slow).lower()}>",
+            "fib_tf_tpu_torch/csrc/br_volume_block.cu",
+            "fib_tf_tpu/ops/pallas_volume.py:397", vblock_launches[body],
+            vblock_errs[body], vbt[f"{body}_us"], vbt[f"plain_{body}_us"],
+            launch_bound(int(vbt[f"{body}_slices"] * vcfg.height
+                             * vcfg.width), slow, volume=True)))
     for k in kernels:
         print(f"  {k['name']}: {k['ms'] * 1e3:.3f} us against a bound of "
               f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}) [{card}]",
@@ -697,14 +915,15 @@ def seeded_volume(torch, interop, volume, cuda_volume, model, depth, dev,
     return base
 
 
-def run_volume_timed(run_volume, model, depth, events, kernel="auto"):
-    """One run_volume call of VOL_STEPS outer steps on the card, timed on
+def run_volume_timed(run_volume, model, depth, events, kernel="auto",
+                     n_outer=VOL_STEPS, **kw):
+    """One run_volume call of `n_outer` outer steps on the card, timed on
     the host clock: it returns host arrays, so its end is synchronised.
     The time includes the state's upload and the final read-back."""
     t0 = time.perf_counter()
-    final, probes, frames = run_volume(model, depth, VOL_STEPS,
+    final, probes, frames = run_volume(model, depth, n_outer,
                                        events=events, kernel=kernel,
-                                       device="cuda")
+                                       device="cuda", **kw)
     return {"final": final, "probes": probes, "frames": frames,
             "wall_s": time.perf_counter() - t0}
 
@@ -756,6 +975,258 @@ def check_against_plain_volume(detector_cls, model, run, ref, crossings):
           f"final V differs from the kernel-free run by {dv.max()} mV")
     check(ref_crossings[:1] == crossings[:1],
           "kernel and kernel-free volume runs cross at different steps")
+
+
+# -- the sharded paths --------------------------------------------------------------
+
+
+def wrapped_window(state, starts, sizes):
+    """The window of a device state that starts at `starts` with `sizes`
+    along its leading axes, wrapped round the domain's edges, as the first
+    halo exchange wraps the ghosts beyond the domain."""
+    import torch
+
+    out = {}
+    for k, v in state.items():
+        for axis, (start, size) in enumerate(zip(starts, sizes)):
+            index = (start + torch.arange(size, device=v.device)) % v.shape[
+                axis]
+            v = v.index_select(axis, index)
+        out[k] = v.contiguous()
+    return out
+
+
+def check_block(torch, cuda_block, cuda_tiled, model, full, h_own, w_own,
+                origin, n_steps, name):
+    """`n_steps` outer steps of one shard's block, `h_own` rows (x `w_own`
+    columns; None: the full width, a 1D mesh) at `origin` of `full`: each
+    step the block is cut from the whole grid with its ghosts, the block
+    kernel and its plain version advance it, and the whole grid advances
+    through the tiled kernel (phase 5).  Returns the max abs error."""
+    k = model.dt_per_step
+    two_d = w_own is not None
+    h, w = model.state_shape()
+    rstart = origin[0] - k
+    cstart = origin[1] - k if two_d else 0
+    sizes = (h_own + 2 * k, w_own + 2 * k if two_d else w)
+    owns = (origin[0] <= model.probe_pixel[0] < origin[0] + h_own and (
+        not two_d or origin[1] <= model.probe_pixel[1] < origin[1] + w_own))
+    step = cuda_block.make_block_step(model, two_d)
+    whole = cuda_tiled.make_tiled_cuda_step(model)
+    full = clone(full)
+    worst = 0.0
+    for i in range(n_steps):
+        ext = wrapped_window(full, (rstart, cstart), sizes)
+        got = {kk: torch.zeros_like(v) for kk, v in ext.items()}
+        want = {kk: torch.zeros_like(v) for kk, v in ext.items()}
+        pk = torch.zeros(1, device=ext["V"].device) if owns else None
+        pp = torch.zeros(1, device=ext["V"].device) if owns else None
+        step(ext, got, rstart, cstart, pk, 0)
+        cuda_block.plain_block_step(model, ext, want, rstart, cstart, two_d,
+                                    pp, 0)
+        full = whole(full)
+        torch.cuda.synchronize()
+        worst = max(worst, compare(
+            f"{name}, {'x'.join(map(str, sizes))} block, outer step {i + 1} "
+            f"of {n_steps}", got, want))
+        if owns:
+            compare_probes(name, pk, pp)
+        centre = cuda_block.centre(got["V"], k, two_d)
+        own = full["V"][origin[0]:origin[0] + h_own]
+        own = own[:, origin[1]:origin[1] + w_own] if two_d else own
+        check(torch.equal(centre, own) or bool(
+            ((centre - own).abs() <= ATOL + RTOL * own.abs()).all()),
+            f"{name}: the block's centre differs from the tiled kernel's")
+    return worst
+
+
+def check_volume_block(torch, cuda_volume, cuda_volume_block, model, full,
+                       d_own, z0, n_groups, dz_ratio, substeps, name):
+    """`n_groups` groups of one shard's z-block, `d_own` slices at `z0` of
+    `full`: each group the block is cut from the whole volume with its
+    ghosts, the volume block kernel and its plain version advance it, and
+    the whole volume advances through the volume substep kernel (phase
+    8).  Returns the max abs error over the block's centre."""
+    k = model.dt_per_step if substeps is None else substeps
+    depth = full["V"].shape[0]
+    ext_d = d_own + 2 * k
+    zstart = z0 - k
+    zmid = depth // 2
+    owns = z0 <= zmid < z0 + d_own
+    step = cuda_volume_block.make_volume_block_step(model, ext_d, depth,
+                                                    dz_ratio, substeps)
+    full = clone(full)
+    worst = 0.0
+    for i in range(n_groups):
+        ext = wrapped_window(full, (zstart,), (ext_d,))
+        want = clone(ext)
+        dev = ext["V"].device
+        pk = torch.zeros(1, device=dev) if owns else None
+        pp = torch.zeros(1, device=dev) if owns else None
+        got, _ = step(ext, torch.empty_like(ext["V"]), zstart, pk, 0,
+                      zmid - zstart)
+        cuda_volume_block.plain_volume_block_step(
+            model, want, zstart, depth, dz_ratio, substeps, pp, 0,
+            zmid - zstart)
+        if substeps is None:
+            full = cuda_volume.make_volume_step(model, depth, dz_ratio)(full)
+        else:
+            for _ in range(substeps):
+                full = cuda_volume.volume_substep(model, full, True,
+                                                  dz_ratio=dz_ratio)
+        torch.cuda.synchronize()
+        worst = max(worst, compare(
+            f"{name}, group {i + 1} of {n_groups}",
+            {kk: v[k:-k] for kk, v in got.items()},
+            {kk: v[k:-k] for kk, v in want.items()}))
+        if owns:
+            compare_probes(name, pk, pp)
+        own = full["V"][z0:z0 + d_own]
+        check(bool(((got["V"][k:-k] - own).abs()
+                    <= ATOL + RTOL * own.abs()).all()),
+              f"{name}: the block's centre differs from the volume substep "
+              f"kernel's")
+    return worst
+
+
+def check_sharded_against_unsharded(res, uns, name):
+    """A sharded run ends within WHOLE_RUN_ATOL_MV of the unsharded tiled
+    run, with the same crossings; says whether it is equal bit for bit
+    (the per-cell code is the same)."""
+    dv = float(np.abs(res.state["V"] - uns.state["V"]).max())
+    same = all(np.array_equal(res.state[k], uns.state[k]) for k in uns.state)
+    print(f"  mesh {name}: final V vs the unsharded tiled run: max abs "
+          f"{dv:.4g} mV; all 8 planes bit-equal: {same}; probes bit-equal: "
+          f"{np.array_equal(res.probes['v'], uns.probes['v'])}", flush=True)
+    check(dv <= WHOLE_RUN_ATOL_MV,
+          f"the {name} sharded run ends {dv} mV from the unsharded one")
+    check(res.cycle_lengths == uns.cycle_lengths,
+          f"the {name} sharded run crosses at {res.cycle_lengths}, the "
+          f"unsharded one at {uns.cycle_lengths}")
+
+
+def check_sharded_volume(detector_cls, model, run, ref, crossings, against):
+    """A sharded volume run ends within WHOLE_RUN_ATOL_MV of `ref` and,
+    where `crossings` are given, crosses with it."""
+    dv = float(np.abs(run["final"]["V"] - ref["final"]["V"]).max())
+    dp = float(np.abs(run["probes"] - ref["probes"]).max())
+    same = all(np.array_equal(run["final"][k], ref["final"][k])
+               for k in ref["final"])
+    print(f"  final V vs {against}: max abs {dv:.4g} mV (bound "
+          f"{WHOLE_RUN_ATOL_MV} mV); probe max abs {dp:.3g}; all 8 planes "
+          f"bit-equal: {same}", flush=True)
+    check(np.isfinite(run["final"]["V"]).all() and dv <= WHOLE_RUN_ATOL_MV,
+          f"the sharded volume run ends {dv} mV from {against}")
+    if crossings is not None:
+        check(volume_crossings(detector_cls, model, ref["probes"])[:1]
+              == crossings[:1],
+              f"the sharded volume run and {against} cross at different "
+              f"steps")
+
+
+def block_bound(ext_cells: int, own_cells: int, schedule):
+    """One outer step of a shard's block: 8 planes of the extended block
+    read once, 8 planes of its centre written once, and the operations of
+    the centre's substeps."""
+    return bound(4 * 8 * (ext_cells + own_cells),
+                 own_cells * sum(substep_flops(s, False) for s in schedule))
+
+
+def time_copies(torch, state, k, volume):
+    """Device time of one shard's halo copies as the sharded paths make
+    them: k ghost rows (slices) of all planes from each of two neighbours,
+    the planes stacked in one allocation.  2D: one strided copy per
+    neighbour; volume: two, V from its own buffer and the other seven
+    planes together."""
+    a = torch.stack(list(state.values()))
+    b = a.clone()
+    parts = (slice(0, 1), slice(1, None)) if volume else (slice(None),)
+
+    def copies():
+        for dst, src in ((slice(0, k), slice(-2 * k, -k)),
+                         (slice(-k, None), slice(k, 2 * k))):
+            for planes in parts:
+                a[planes, dst].copy_(b[planes, src], non_blocking=True)
+    return device_us(torch, copies, reps=50)
+
+
+def time_block(torch, cuda_step, cuda_block, model, full, h_own, origin):
+    """Device time per outer step of the block kernel on one row shard's
+    extended block, of its plain version (substep by substep, summed over
+    the schedule, as in time_tiled) and of the shard's halo copies."""
+    k = model.dt_per_step
+    h, w = model.state_shape()
+    rstart = origin[0] - k
+    ext = wrapped_window(full, (rstart, 0), (h_own + 2 * k, w))
+    out = {kk: torch.zeros_like(v) for kk, v in ext.items()}
+    step = cuda_block.make_block_step(model, False)
+    geom = cuda_block.block_geometry(
+        cuda_block.global_rows(rstart, h_own + 2 * k, ext["V"].device), h)
+    plain = {slow: device_us(torch, lambda: model.solve(
+        ext, geom, n=model.slow_n if slow else 0), reps=1)
+        for slow in (True, False)}
+    return {
+        "kernel_us": device_us(torch, lambda: step(ext, out, rstart, 0),
+                               reps=50),
+        "plain_us": sum(plain[slow]
+                        for slow in cuda_step.slow_schedule(model)),
+        "copies_us": time_copies(torch, ext, k, volume=False),
+        "ext_cells": (h_own + 2 * k) * w, "own_cells": h_own * w,
+    }
+
+
+def time_volume_block(torch, cuda_step, cuda_volume_block, model, full,
+                      d_own, z0):
+    """Device times of the volume block kernel on one shard's z-block: the
+    group of an outer step, its SLOW launch alone (the frozen launches
+    are the rest, each on the slices its substep still needs), the plain
+    substeps on the block, and the shard's halo copies."""
+    k = model.dt_per_step
+    depth = full["V"].shape[0]
+    ext_d = d_own + 2 * k
+    zstart = z0 - k
+    ext = wrapped_window(full, (zstart,), (ext_d,))
+    spare = torch.empty_like(ext["V"])
+    step = cuda_volume_block.make_volume_block_step(model, ext_d, depth)
+    params = cuda_step.pack_params(model)
+    stream = torch.cuda.current_stream().cuda_stream
+    geom = cuda_volume_block.zblock_geometry(
+        cuda_volume_block.global_slices(zstart, ext_d, ext["V"].device),
+        depth)
+    schedule = cuda_step.slow_schedule(model)
+    check(schedule == (True, False, False, False, False),
+          f"the timed model's schedule is {schedule}")
+    # substep i runs on the slices [i + 1, ext_d - 1 - i)
+    slices = [ext_d - 2 - 2 * i for i in range(len(schedule))]
+
+    def group():
+        nonlocal spare
+        _, spare = step(ext, spare, zstart)
+
+    t = {
+        "group_us": device_us(torch, group, reps=100),
+        "slow_us": device_us(torch, lambda: cuda_volume_block.KERNEL.launch(
+            params, ext, spare, True, 1.0, zstart, depth, 1, ext_d - 1, None,
+            (0, 0, 0), 0, stream), reps=200),
+        "slow_slices": slices[0],
+        "frozen_slices": sum(slices[1:]) / (len(slices) - 1),
+        "copies_us": time_copies(torch, ext, k, volume=True),
+    }
+
+    def frozen():
+        # substeps 1-4 of the group, V back in its buffer after the four
+        other_v = spare
+        for i in range(1, len(schedule)):
+            cuda_volume_block.KERNEL.launch(
+                params, ext, other_v, False, 1.0, zstart, depth, i + 1,
+                ext_d - 1 - i, None, (0, 0, 0), 0, stream)
+            ext["V"], other_v = other_v, ext["V"]
+
+    t["frozen_us"] = device_us(torch, frozen, reps=50) / (len(schedule) - 1)
+    for body, slow in (("slow", True), ("frozen", False)):
+        t[f"plain_{body}_us"] = device_us(torch, lambda: model.solve(
+            ext, geom, n=model.slow_n if slow else 0), reps=1)
+    return t
 
 
 def substep_flops(slow: bool, volume: bool) -> int:

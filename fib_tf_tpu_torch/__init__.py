@@ -10,10 +10,16 @@ same simulation to PyTorch on an NVIDIA GPU.  Its slices so far:
   kernel `csrc/br_tiled.cu`;
 - the 3D volume path `run_volume(model, depth, n_outer)`, with the
   volume substep kernel `csrc/br_volume.cu` and, past the 32 MB cutover,
-  the tiled volume kernel `csrc/br_volume_tiled.cu`.
+  the tiled volume kernel `csrc/br_volume_tiled.cu`;
+- the sharded wide-halo paths, `Simulation(model, mesh=..., wide_halo=True)`
+  and `run_volume(..., mesh=..., wide_halo=True)`: one process drives a
+  mesh of devices (`parallel.make_mesh`), the shards exchange K ghost rows
+  or slices per outer step, and each shard runs the block kernel
+  `csrc/br_block.cu` or `csrc/br_volume_block.cu`.
 
 The entry points run on the card unless the caller passes
-`device='cpu'`, where the plain PyTorch path runs.
+`device='cpu'` (or a mesh of CPU entries), where the plain PyTorch path
+runs.
 
 The package imports `torch` and never `jax`, and nothing of the JAX
 package: `SimConfig` is its own copy (config.py), pinned equal to the
@@ -24,6 +30,8 @@ Layering (mirrors fib_tf_tpu):
   ops/               stencils (2D, 3D), Chebyshev, integrators, the kernel
                      wrappers
   models/            Geometry, IonicModel, BeelerReuter
+  parallel/          the device mesh, the sharded state and the halo
+                     exchange of the sharded paths
   engine/            the chunked Simulation engine, run_volume and the
                      observers
   interop.py         numpy <-> torch state and parameter hand-over

@@ -161,15 +161,14 @@ class SimConfig:
     mesh_shape: Optional[Tuple[int, ...]] = None
     mesh_axes: Tuple[str, ...] = ("x", "y")
     # Which sharded execution path mesh_shape selects:
-    #   'auto'  — the measured-best path: explicit shard_map with wide
-    #             (K-row) halos + the per-shard fused block kernel when
-    #             the model/grid qualify (BR 512x512 on a 1-device TPU
-    #             mesh: 12.6 us/substep vs 25.4 wide-XLA vs ~45 GSPMD-XLA,
-    #             docs/OPTIMIZATIONS.md §10b), falling back to GSPMD with
-    #             a warning naming the disqualifier;
-    #   'spmd'  — force the shard_map wide-halo path (raise if it can't);
-    #   'gspmd' — force the GSPMD NamedSharding path (XLA infers the halo
-    #             collectives; Pallas kernels unavailable there).
+    #   'auto'  — the explicit halo-exchange path with wide (K-row) halos
+    #             and the per-shard fused block kernel when the model and
+    #             grid qualify; where they do not, the reference falls back
+    #             to GSPMD with a warning naming the disqualifier, and the
+    #             port, which has no GSPMD mode yet, raises with it;
+    #   'spmd'  — force the wide-halo exchange path (raise if it can't);
+    #   'gspmd' — the reference's NamedSharding path (XLA infers the halo
+    #             collectives); not ported, raises.
     mesh_mode: str = "auto"
 
     def __post_init__(self):

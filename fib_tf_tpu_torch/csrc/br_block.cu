@@ -1,0 +1,119 @@
+// One whole Beeler-Reuter outer step (all five substeps) of ONE shard's
+// halo-extended block per launch on Hopper (sm_90a): the per-shard compute
+// of the wide-halo sharded path (fib_tf_tpu_torch/parallel/spmd.py).
+//
+// Replaces the TPU kernel fib_tf_tpu/ops/pallas_tiled.py::make_block_kernel,
+// which holds a shard's whole extended block in VMEM for the fused substep
+// group.  No SM holds such a block, so this is the tiled outer-step kernel
+// (br_tiled.cu) on other arrays: the tile skeleton of br_tile.cuh with
+//   * the planes being the shard's block extended by `halo` ghost rows on
+//     each side (and `halo` ghost columns on a 2D mesh), whose element
+//     (0, 0) is the global cell (rstart, cstart);
+//   * the window being the shard's own cells, rows [rstart + halo,
+//     rstart + ext_h - halo): each tile's halo is read from the ghosts,
+//     never from outside the array (n_sub <= halo);
+//   * the clamp running against the DOMAIN's height and width, so only a
+//     shard that owns a domain edge reflects there (the TPU kernel's
+//     global-index masks from the runtime rstart / cstart,
+//     block_geometry in ops/pallas_tiled.py).  Ghost rows beyond the domain
+//     (the first shard's top ghosts, the last one's bottom ghosts) are never
+//     read.
+// On a 1D mesh the block spans the full width: cstart = 0, no ghost
+// columns, pitch = the domain's width.
+//
+// Memory: inputs and outputs are two extended buffers of the same layout;
+// the kernel writes only the window (the centre) of the output, which fuses
+// the reference's crop and leaves the halo exchange to fill the output's
+// ghosts for the next step.
+//
+// What bounds it: the bytes of the extended block read once and of the
+// centre written once (8 planes each), as for br_tiled.cu, whose notes on
+// the redundant ring compute apply unchanged.
+//
+// Built by fib_tf_tpu_torch/kernels/build.py with nvcc into a shared library
+// with a plain C interface (no --use_fast_math: logf feeds e_Ca).
+
+#include <cuda_runtime.h>
+#include <string.h>
+
+#include "br_cell.cuh"
+#include "br_tile.cuh"
+
+namespace {
+
+using fibtorch::BeelerReuterCell;
+using fibtorch::BrParams;
+using fibtorch::kBx;
+using fibtorch::kBy;
+using fibtorch::kParamFloats;
+using fibtorch::kRy;
+
+}  // namespace
+
+extern "C" {
+
+// Number of floats the host passes as `params` (the BrParams layout).
+int br_block_param_floats() { return kParamFloats; }
+
+// Number of per-cell planes besides V (BeelerReuterCell::kPlanes).
+int br_block_planes() { return BeelerReuterCell::kPlanes; }
+
+// Launch one outer step of `n_sub` substeps on the ext_h x ext_w extended
+// block whose element (0, 0) is global cell (rstart, cstart) of a
+// height x width domain, on `stream` of device `device`; return
+// cudaGetLastError().  The block carries `halo` ghost rows on each side and,
+// when `two_d`, `halo` ghost columns; otherwise ext_w == width and cstart
+// == 0.  `planes_in` / `planes_out` are host arrays of `n_planes` device
+// pointers in cuda_step.CELL_PLANES order, all of the extended layout; only
+// the centre of the outputs is written.  No output may alias an input.
+// `probe` may be null; otherwise the shard must own the global pixel
+// (probe_row, probe_col).
+int br_block(const float* params, int n_params, const float* v_in,
+             float* v_out, void* const* planes_in, void* const* planes_out,
+             int n_planes, int ext_h, int ext_w, int rstart, int cstart,
+             int halo, int two_d, int height, int width, int n_sub,
+             unsigned slow_mask, float* probe, int probe_row, int probe_col,
+             long long probe_index, int device, void* stream) {
+  using Body = BeelerReuterCell;
+  if (n_params != kParamFloats || n_planes != Body::kPlanes ||
+      height < 3 || width < 3 || n_sub < 1 || n_sub > 32 || halo < n_sub ||
+      ext_h <= 2 * halo) {
+    return (int)cudaErrorInvalidValue;
+  }
+  fibtorch::Window win;
+  win.rstart = rstart;
+  win.cstart = cstart;
+  win.pitch = ext_w;
+  win.row0 = rstart + halo;
+  win.row1 = rstart + ext_h - halo;
+  if (two_d) {
+    if (ext_w <= 2 * halo) return (int)cudaErrorInvalidValue;
+    win.col0 = cstart + halo;
+    win.col1 = cstart + ext_w - halo;
+  } else {
+    if (cstart != 0 || ext_w != width) return (int)cudaErrorInvalidValue;
+    win.col0 = 0;
+    win.col1 = width;
+  }
+  if (probe != nullptr &&
+      (probe_row < win.row0 || probe_row >= win.row1 ||
+       probe_col < win.col0 || probe_col >= win.col1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  fibtorch::Planes<Body::kPlanes> planes;
+  if (!fibtorch::gather_planes(v_in, v_out, planes_in, planes_out,
+                               &planes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  BrParams p;
+  memcpy(&p, params, sizeof(BrParams));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // launch_tiles refuses a window that leaves the domain
+  return (int)fibtorch::launch_tiles<Body, kBx, kBy, kRy>(
+      p, v_in, v_out, planes, win, height, width, n_sub, slow_mask, probe,
+      probe_row, probe_col, probe_index, s);
+}
+
+}  // extern "C"

@@ -13,15 +13,9 @@
 // false: the four n=0 substeps that freeze them).
 //
 // Per cell (z, i, j), with clamp(k) = min(max(k, 1), N-2) on each axis:
-//   * every stencil point (z+dz, i+di, j+dj) reads
-//     V[clamp(z+dz), clamp(i+di), clamp(j+dj)]: the SYMMETRIC face rewrite
-//     composed with the REFLECT pad, per axis (ops/stencil3d.py
-//     enforce_boundary3d + laplace3d);
-//   * lap = planar + (2*dz_ratio) * ((up - 2*v0) + down), where planar is
-//     the 2D 9-point stencil of slice clamp(z) (laplace9), and up / down are
-//     V at slices clamp(z-1) / clamp(z+1), summed in the reference's order
-//     (stencil3d.py:91-93);
-//   * then the cell update of br_cell.cuh.
+// every stencil point (z+dz, i+di, j+dj) reads V[clamp(z+dz), clamp(i+di),
+// clamp(j+dj)]; the stencil and the update are br_volume_cell.cuh, shared
+// with br_volume_block.cu, and this kernel clamps z over the whole depth.
 //
 // Memory: V is double-buffered (v_out must not alias v_in); the seven
 // per-cell planes are read and rewritten in place, each thread its own cell.
@@ -40,6 +34,7 @@
 #include <string.h>
 
 #include "br_cell.cuh"
+#include "br_volume_cell.cuh"
 
 namespace {
 
@@ -47,7 +42,6 @@ using fibtorch::BeelerReuterCell;
 using fibtorch::BrParams;
 using fibtorch::clamp_index;
 using fibtorch::kParamFloats;
-using fibtorch::laplace9;
 
 template <bool SLOW>
 __global__ void br_volume_kernel(const BrParams p, const float dz2,
@@ -70,39 +64,13 @@ __global__ void br_volume_kernel(const BrParams p, const float dz2,
   const int z = blockIdx.z;
   if (row >= height || col >= width) return;
 
-  const long long plane = (long long)height * width;
-  const float* sc = v_in + clamp_index(z, depth) * plane;
-  const float* su = v_in + clamp_index(z - 1, depth) * plane;
-  const float* sd = v_in + clamp_index(z + 1, depth) * plane;
-  const int rn = clamp_index(row - 1, height) * width;
-  const int rc = clamp_index(row, height) * width;
-  const int rs = clamp_index(row + 1, height) * width;
-  const int cw = clamp_index(col - 1, width);
-  const int cc = clamp_index(col, width);
-  const int ce = clamp_index(col + 1, width);
-
-  const float v0 = sc[rc + cc];
-  const float planar = laplace9(sc[rn + cc], sc[rs + cc], sc[rc + cw],
-                                sc[rc + ce], sc[rn + cw], sc[rs + cw],
-                                sc[rn + ce], sc[rs + ce], v0);
-  const float lap = planar + dz2 * ((su[rc + cc] - 2.0f * v0) + sd[rc + cc]);
-
   // the per-cell planes, in Cell::Plane order
   float* const planes[Cell::kPlanes] = {c_pl, m_pl, h_pl, j_pl,
                                         d_pl, f_pl, x1_pl};
-  const long long idx = z * plane + (long long)row * width + col;
-  float q[Cell::kPlanes];
-#pragma unroll
-  for (int k = 0; k < Cell::kPlanes; ++k) q[k] = planes[k][idx];
-  const float v1 = Cell::update<SLOW>(p, v0, lap, q);
-  v_out[idx] = v1;
-#pragma unroll
-  for (int k = 0; k < Cell::kPlanes; ++k) {
-    // the frozen body leaves the slow gates as they are: skip their stores
-    if (SLOW || k == Cell::kC || k == Cell::kM || k == Cell::kH) {
-      planes[k][idx] = q[k];
-    }
-  }
+  const float v1 = fibtorch::volume_cell<SLOW>(
+      p, dz2, v_in, v_out, planes, z, clamp_index(z, depth),
+      clamp_index(z - 1, depth), clamp_index(z + 1, depth), row, col, height,
+      width);
   if (probe != nullptr && z == probe_z && row == probe_row &&
       col == probe_col) {
     probe[probe_index] = Cell::probe(p, v1);

@@ -1,0 +1,136 @@
+// One Beeler-Reuter substep of ONE shard's z-halo-extended volume block on
+// Hopper (sm_90a), one thread per cell: the per-shard compute of the
+// wide-halo z-sharded volume path (fib_tf_tpu_torch/parallel/
+// volume_spmd.py).
+//
+// Replaces the TPU kernel fib_tf_tpu/ops/pallas_volume.py::
+// make_volume_block_kernel, which keeps a shard's [d + 2k, H, W] block in
+// VMEM, in a flat [(d + 2k)*H, W] layout, for a fused group of substeps,
+// with the global z-face masks taken from a plane of global slice indices.
+// No SM holds such a block, so this is the volume substep kernel
+// (br_volume.cu) on the extended block: one launch per substep of the group,
+// V double-buffered, the per-cell planes in place, the state left to the
+// L2.  Three ints carry what the TPU kernel's index planes carry: the
+// block's slice 0 is the volume's slice `zstart`, and the volume is
+// `d_total` slices deep.
+//
+// Per cell of local slice z (global slice zg = zstart + z):
+//   * slices outside the volume (zg < 0 or zg >= d_total: the first shard's
+//     upper ghosts, the last one's lower ghosts) are skipped;
+//   * the z neighbours are the local slices clamp(zg - 1) - zstart,
+//     clamp(zg) - zstart and clamp(zg + 1) - zstart, clamped over d_total, so
+//     only a shard that owns a z face reflects there; the in-plane faces
+//     reflect everywhere (br_volume_cell.cuh);
+//   * a launch covers the local slices [z_lo, z_hi), 1 <= z_lo, z_hi <=
+//     ext_d - 1, so no cell reads past the array.  Substep s of a group (from
+//     0) is exact on the slices [s + 1, ext_d - 1 - s): their neighbours
+//     were exact after substep s - 1.  The wrapper shrinks the range so, and
+//     after k substeps the centre [k, ext_d - k) is exact.
+//
+// What bounds it: bandwidth, as for br_volume.cu.  A SLOW substep reads 8
+// planes and writes 8 per computed cell, a frozen one reads 8 and writes 4.
+//
+// Built by fib_tf_tpu_torch/kernels/build.py with nvcc into a shared library
+// with a plain C interface (no --use_fast_math: logf feeds e_Ca).
+
+#include <cuda_runtime.h>
+#include <string.h>
+
+#include "br_cell.cuh"
+#include "br_volume_cell.cuh"
+
+namespace {
+
+using fibtorch::BeelerReuterCell;
+using fibtorch::BrParams;
+using fibtorch::clamp_index;
+using fibtorch::kParamFloats;
+
+struct BlockPlanes {
+  float* p[BeelerReuterCell::kPlanes];
+};
+
+template <bool SLOW>
+__global__ void br_volume_block_kernel(
+    const BrParams p, const float dz2, const float* __restrict__ v_in,
+    float* __restrict__ v_out, const BlockPlanes planes, int height,
+    int width, int zstart, int d_total, int z_lo, float* __restrict__ probe,
+    int probe_z, int probe_row, int probe_col, long long probe_index) {
+  using Cell = BeelerReuterCell;
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  const int z = z_lo + blockIdx.z;
+  const int zg = zstart + z;
+  if (row >= height || col >= width || zg < 0 || zg >= d_total) return;
+
+  const float v1 = fibtorch::volume_cell<SLOW>(
+      p, dz2, v_in, v_out, planes.p, z, clamp_index(zg, d_total) - zstart,
+      clamp_index(zg - 1, d_total) - zstart,
+      clamp_index(zg + 1, d_total) - zstart, row, col, height, width);
+  if (probe != nullptr && z == probe_z && row == probe_row &&
+      col == probe_col) {
+    probe[probe_index] = Cell::probe(p, v1);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of floats the host passes as `params` (the BrParams layout).
+int br_volume_block_param_floats() { return kParamFloats; }
+
+// Number of per-cell planes besides V (BeelerReuterCell::kPlanes).
+int br_volume_block_planes() { return BeelerReuterCell::kPlanes; }
+
+// Launch one substep on the local slices [z_lo, z_hi) of an
+// ext_d x height x width block whose slice 0 is slice `zstart` of a volume
+// `d_total` deep, on `stream` of device `device`; return
+// cudaGetLastError().  `planes` is a host array of `n_planes` device
+// pointers in cuda_step.CELL_PLANES order, updated in place; `v_out` must
+// not alias `v_in`.  `probe` may be null; otherwise the thread at the LOCAL
+// cell (probe_z, probe_row, probe_col) writes the normalised new V to
+// probe[probe_index].
+int br_volume_block(int slow, const float* params, int n_params,
+                    float dz_ratio, const float* v_in, float* v_out,
+                    void* const* planes, int n_planes, int ext_d, int height,
+                    int width, int zstart, int d_total, int z_lo, int z_hi,
+                    float* probe, int probe_z, int probe_row, int probe_col,
+                    long long probe_index, int device, void* stream) {
+  using Cell = BeelerReuterCell;
+  const dim3 block(32, 8);
+  if (n_params != kParamFloats || n_planes != Cell::kPlanes || d_total < 3 ||
+      height < 3 || width < 3 || z_lo < 1 || z_hi > ext_d - 1 ||
+      z_lo >= z_hi || z_hi - z_lo > 65535 || v_in == v_out) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((width + block.x - 1) / block.x,
+                  (height + block.y - 1) / block.y, z_hi - z_lo);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  BlockPlanes pl;
+  for (int k = 0; k < Cell::kPlanes; ++k) {
+    pl.p[k] = static_cast<float*>(planes[k]);
+    if (pl.p[k] == v_in || pl.p[k] == v_out) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  BrParams p;
+  memcpy(&p, params, sizeof(BrParams));
+  // (2*dz_ratio) in float, as the plain version's scalar
+  const float dz2 = 2.0f * dz_ratio;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (slow) {
+    br_volume_block_kernel<true><<<grid, block, 0, s>>>(
+        p, dz2, v_in, v_out, pl, height, width, zstart, d_total, z_lo, probe,
+        probe_z, probe_row, probe_col, probe_index);
+  } else {
+    br_volume_block_kernel<false><<<grid, block, 0, s>>>(
+        p, dz2, v_in, v_out, pl, height, width, zstart, d_total, z_lo, probe,
+        probe_z, probe_row, probe_col, probe_index);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

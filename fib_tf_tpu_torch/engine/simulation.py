@@ -15,6 +15,17 @@ a CUDA kernel on a CUDA device, the substep kernel (five launches per outer
 step) while the state fits WHOLE_GRID_STATE_MB_MAX and the tiled kernel
 (one launch per outer step) past it; on the CPU 'auto' runs the plain path
 and 'pallas' raises.
+
+Sharded runs (`Simulation(model, mesh=..., wide_halo=...)`, or
+`SimConfig.mesh_shape` with `mesh_mode` 'auto' / 'spmd'): the grid is
+sharded over a `parallel.Mesh` and every chunk runs through
+parallel/spmd.make_spmd_chunk, with the state, the pacing masks and the
+finiteness flag sharded alike.  With `wide_halo`, 'auto' on a CUDA mesh and
+'pallas' run the per-shard block kernel (csrc/br_block.cu, one launch per
+shard per outer step), 'xla' the plain wide-halo step; without `wide_halo`
+the per-substep exchange runs, which has no kernel.  The GSPMD modes
+(`sharding=`, `mesh_mode='gspmd'`, and 'auto' when the configuration
+cannot take the halo-exchange path) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -32,6 +43,8 @@ from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.engine.observers import CycleLengthDetector
 from fib_tf_tpu_torch.models.base import IonicModel
 from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled, stencil
+from fib_tf_tpu_torch.parallel import sharding as mesh_sharding
+from fib_tf_tpu_torch.parallel import spmd
 
 _GEOMETRY = "ROADMAP Queue 1 item 9"
 _ENGINE = "ROADMAP Queue 1 item 14"
@@ -59,14 +72,28 @@ class SimResult:
 class Simulation:
     """Owns a model, its pacing ops and the device, and drives the run."""
 
-    def __init__(self, model: IonicModel, device="cuda"):
+    def __init__(self, model: IonicModel, device="cuda",
+                 mesh: Optional[mesh_sharding.Mesh] = None,
+                 wide_halo: bool = False, sharding=None):
         """`device`: 'cuda' (the default), 'cpu' or a torch.device.  The
         run takes the card unless the caller asks for the CPU; 'cuda'
-        without a card raises."""
-        device = resolve_device(device)
+        without a card raises.
+
+        `mesh` (parallel.make_mesh) runs the explicit halo-exchange path
+        on the mesh's devices and wins over `device`; `wide_halo` selects
+        one K-row exchange per outer step instead of one row per substep.
+        With `SimConfig.mesh_shape` and no `mesh`, the mesh is built of
+        the visible cards (`device='cuda'`; fewer cards than the shape
+        needs raise) or of that many CPU entries (`device='cpu'`).
+        `sharding` (the reference's GSPMD mode) is not ported."""
         cfg: SimConfig = model.cfg
-        if cfg.mesh_shape is not None:
-            _not_ported("mesh sharding (SimConfig.mesh_shape)", _PARALLEL)
+        if sharding is not None:
+            _not_ported("the GSPMD path (sharding=...)", _PARALLEL)
+        if mesh is None and cfg.mesh_shape:
+            mesh, wide_halo = _config_mesh(model, device), True
+        if mesh is not None:
+            device = mesh.devices.flat[0]
+        device = resolve_device(device)
         if cfg.fiber_angle is not None:
             _not_ported("fiber anisotropy (SimConfig.fiber_angle)",
                         _GEOMETRY)
@@ -76,11 +103,19 @@ class Simulation:
             _not_ported("timeline / save_graph export", _ENGINE)
         if model.fast_slow_ratio:
             _not_ported("fast_slow_ratio dispatch", _ENGINE)
+        if mesh is not None:
+            _check_mesh(model, mesh, wide_halo)
         self.model = model
         self.cfg = cfg
         self.device = device
-        # 'substep', 'tiled' or 'plain': the outer step define() builds
-        self.route = route(model, device.type, cfg.kernel)
+        self._mesh = mesh
+        self._wide_halo = wide_halo
+        # 'substep', 'tiled' or 'plain': the outer step define() builds; on
+        # a mesh 'block' (the per-shard block kernel) or 'plain'
+        self.route = (route(model, device.type, cfg.kernel) if mesh is None
+                      else spmd_route(model, device.type, cfg.kernel,
+                                      wide_halo))
+        self._spmd_chunks: Dict[int, Callable] = {}
         self.cl_observer: Optional[Callable[[int, float], None]] = None
         self.state: Optional[Dict[str, np.ndarray]] = None
         self._pace_masks: Dict[str, torch.Tensor] = {}
@@ -131,6 +166,11 @@ class Simulation:
                 f"state planes {sorted(init)} != model planes "
                 f"{sorted(self.model.state_keys())}")
         self._initial = init
+        if self._mesh is not None:
+            if self.device.type == "cuda":
+                self._run_chunk(self._to_device(init), 1)
+            self._defined = True
+            return self
         if self.route == "tiled":
             self._step = cuda_tiled.make_tiled_cuda_step(self.model)
         elif self.route == "substep":
@@ -149,17 +189,24 @@ class Simulation:
         """Register a stimulation op (call after define)."""
         if not self._defined:
             raise AssertionError("add_pace_op must be called after define()")
-        self._pace_masks[name] = torch.tensor(
-            stencil.pace_mask(self.cfg.height, self.cfg.width, loc, v,
-                              self.model.min_v),
-            device=self.device,
-        )
+        mask = stencil.pace_mask(self.cfg.height, self.cfg.width, loc, v,
+                                 self.model.min_v)
+        self._pace_masks[name] = (
+            torch.tensor(mask, device=self.device) if self._mesh is None
+            else mesh_sharding.shard_array(mask, self._mesh))
 
-    def fire_on(self, state: Dict[str, torch.Tensor], name: str):
+    def fire_on(self, state, name: str):
         """Apply a registered pacing op to a device state in place:
-        pot <- max(pot, mask).  Returns the state."""
+        pot <- max(pot, mask), shard by shard on a mesh (the mask is
+        sharded with the state).  Returns the state."""
         key = self.model.pot_key
-        state[key] = stencil.apply_pace(state[key], self._pace_masks[name])
+        mask = self._pace_masks[name]
+        if self._mesh is None:
+            state[key] = stencil.apply_pace(state[key], mask)
+        else:
+            pots = state[key] = state[key].copy()
+            for i in range(pots.size):
+                pots.flat[i] = stencil.apply_pace(pots.flat[i], mask.flat[i])
         return state
 
     def millisecond_to_step(self, t_ms: float) -> int:
@@ -167,9 +214,43 @@ class Simulation:
 
     def _read_chunk(self, probe: torch.Tensor, state) -> np.ndarray:
         """The chunk's one device-to-host copy: the probe buffer followed
-        by the finiteness flag of the potential."""
-        finite = torch.isfinite(state[self.model.pot_key]).all()
+        by the finiteness flag of the potential (on a mesh, the AND of the
+        shards' own cells, gathered on the probe's device)."""
+        pot = state[self.model.pot_key]
+        if self._mesh is None:
+            finite = torch.isfinite(pot).all()
+        else:
+            finite = torch.stack([torch.isfinite(t).all().to(probe.device)
+                                  for t in pot.flat]).all()
         return torch.cat([probe, finite.to(probe.dtype).reshape(1)]).cpu().numpy()
+
+    def _to_device(self, state: Dict[str, np.ndarray]):
+        """Host planes to the device state: tensors, or shards on a mesh."""
+        if self._mesh is None:
+            return interop.state_from_numpy(state, self.device)
+        return interop.shard_state(state, self._mesh)
+
+    def _run_chunk(self, state, n: int):
+        """`n` outer steps and the chunk's read-back: (state, host array of
+        the n probes and the finiteness flag)."""
+        if self._mesh is None:
+            probe = torch.empty(n, dtype=torch.float32, device=self.device)
+            for k in range(n):
+                state = self._step(state, probe, k)
+            return state, self._read_chunk(probe, state)
+        if n not in self._spmd_chunks:
+            self._spmd_chunks[n] = spmd.make_spmd_chunk(
+                self.model, self._mesh, n, wide_halo=self._wide_halo,
+                use_kernel=self.route == "block")
+        state, probes = self._spmd_chunks[n](state)
+        return state, self._read_chunk(probes["v"], state)
+
+    def _synchronize(self):
+        devices = ([self.device] if self._mesh is None
+                   else set(self._mesh.devices.flat))
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     # -- the scheduled run ---------------------------------------------------------
 
@@ -209,16 +290,14 @@ class Simulation:
         if state is not None and set(state) != set(model.state_keys()):
             raise ValueError(f"state planes {sorted(state)} != model planes "
                              f"{sorted(model.state_keys())}")
-        dev_state = interop.state_from_numpy(
-            state if state is not None else self._initial, self.device)
+        dev_state = self._to_device(
+            state if state is not None else self._initial)
         detector = CycleLengthDetector(
             cfg.dt, model.dt_per_step, plot_interval, self.cl_observer)
-        cuda = self.device.type == "cuda"
-        if cuda:
+        if self.device.type == "cuda":
             if events:  # load the pacing op's kernels outside the timing
-                stencil.apply_pace(dev_state[model.pot_key],
-                                   self._pace_masks[events[0][1]])
-            torch.cuda.synchronize(self.device)
+                self.fire_on(dict(dev_state), events[0][1])
+            self._synchronize()
 
         probes_acc: List[np.ndarray] = []
         ev_idx = 0
@@ -228,11 +307,7 @@ class Simulation:
             seg = b - a
             while seg > 0:
                 n = min(seg, max_chunk_steps)
-                probe = torch.empty(n, dtype=torch.float32,
-                                    device=self.device)
-                for k in range(n):
-                    dev_state = self._step(dev_state, probe, k)
-                host = self._read_chunk(probe, dev_state)
+                dev_state, host = self._run_chunk(dev_state, n)
                 if check_finite and not host[-1]:
                     raise FloatingPointError(
                         f"non-finite {model.pot_key} detected at outer "
@@ -244,14 +319,15 @@ class Simulation:
             if ev_idx < len(events) and events[ev_idx][0] == b:
                 dev_state = self.fire_on(dev_state, events[ev_idx][1])
                 ev_idx += 1
-        if cuda:
-            torch.cuda.synchronize(self.device)
+        self._synchronize()
         elapsed = time.perf_counter() - then
 
         total_substeps = step * model.dt_per_step
         cups = cfg.height * cfg.width * total_substeps / max(elapsed, 1e-9)
         sim_s = total_substeps * cfg.dt / 1000.0
-        self.state = interop.state_to_numpy(dev_state)
+        self.state = (interop.state_to_numpy(dev_state)
+                      if self._mesh is None
+                      else interop.gather_state(dev_state))
         probes = {"v": np.concatenate(probes_acc)} if probes_acc else {}
         return SimResult(
             state=self.state,
@@ -277,6 +353,95 @@ def resolve_device(device) -> torch.device:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def _config_mesh(model: IonicModel, device) -> mesh_sharding.Mesh:
+    """The mesh `SimConfig.mesh_shape` asks for, when `mesh_mode` lands on
+    the halo-exchange path ('spmd', or 'auto' without a disqualifier); the
+    engine then runs it with wide halos, the reference's best sharded
+    configuration (fib_tf_tpu/engine/simulation.py:75-106).  The reference
+    sends 'gspmd', and 'auto' with a disqualifier, to GSPMD; that mode is
+    not ported, so both raise here instead of taking another path."""
+    cfg = model.cfg
+    if cfg.mesh_mode == "gspmd":
+        _not_ported("the GSPMD path (mesh_mode='gspmd')", _PARALLEL)
+    n = int(np.prod(cfg.mesh_shape))
+    if torch.device(device).type == "cpu":
+        mesh = mesh_sharding.make_mesh(cfg.mesh_shape, cfg.mesh_axes,
+                                       devices=["cpu"] * n)
+    else:
+        mesh = mesh_sharding.make_mesh(cfg.mesh_shape, cfg.mesh_axes,
+                                       n_devices=n)
+    reason = spmd_disqualifier(model, mesh)
+    if reason and cfg.mesh_mode == "spmd":
+        raise ValueError(
+            f"mesh_mode='spmd' cannot run this configuration: {reason}")
+    if reason:
+        _not_ported(f"mesh_mode='auto' would fall back to the GSPMD path "
+                    f"({reason}), which", _PARALLEL)
+    return mesh
+
+
+def spmd_disqualifier(model: IonicModel,
+                      mesh: mesh_sharding.Mesh) -> Optional[str]:
+    """Why this configuration can't take the wide-halo exchange path
+    (None = it can).  Single source of truth for the mesh_mode routing."""
+    cfg = model.cfg
+    if cfg.adaptive_dv is not None:
+        return ("adaptive_dv refines substeps locally, which would read "
+                "stale halos")
+    if model.fast_slow_ratio:
+        return ("fast_slow_ratio models scan ratio-groups outside the "
+                "sharded chunk")
+    n_rows, n_cols = mesh.grid
+    if cfg.height % n_rows or cfg.width % n_cols:
+        return (f"grid {cfg.height}x{cfg.width} is not divisible by the "
+                f"{n_rows}x{n_cols} mesh (the halo exchange needs even "
+                f"shards)")
+    try:
+        spmd.check_wide_halo_shards(cfg.height // n_rows,
+                                    cfg.width // n_cols, model.dt_per_step,
+                                    n_cols > 1)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _check_mesh(model: IonicModel, mesh: mesh_sharding.Mesh,
+                wide_halo: bool):
+    """The construction checks of a sharded run
+    (fib_tf_tpu/engine/simulation.py:109-137)."""
+    cfg = model.cfg
+    if cfg.kernel == "pallas" and not wide_halo:
+        raise ValueError(
+            "kernel='pallas' on the halo-exchange (mesh=...) path requires "
+            "wide_halo=True: the per-substep exchange path has no fused "
+            "block to hand the kernel")
+    n_rows, n_cols = mesh.grid
+    if cfg.height % n_rows or cfg.width % n_cols:
+        raise ValueError(
+            f"grid {cfg.height}x{cfg.width} is not divisible by the "
+            f"{n_rows}x{n_cols} mesh (the halo exchange needs even shards)")
+    if wide_halo:
+        spmd.check_wide_halo_shards(cfg.height // n_rows,
+                                    cfg.width // n_cols, model.dt_per_step,
+                                    n_cols > 1)
+
+
+def spmd_route(model: IonicModel, device_type: str, kernel: str,
+               wide_halo: bool) -> str:
+    """The per-shard step of a sharded run: 'block' (csrc/br_block.cu, one
+    launch per shard per outer step) or 'plain'.  As the JAX engine's
+    `_spmd_use_kernel` (simulation.py:750-785) on a CUDA mesh: 'pallas'
+    forces the block kernel, 'auto' takes it with wide halos, 'xla' runs
+    the plain step.  kernel='pallas' on a CPU mesh raises."""
+    if kernel == "pallas" and device_type != "cuda":
+        raise ValueError(
+            "kernel='pallas' runs the hand-written CUDA kernels and needs "
+            "a mesh of CUDA devices; use kernel='auto' or 'xla' on the CPU")
+    if kernel == "xla" or device_type != "cuda" or not wide_halo:
+        return "plain"
+    return "block"
 
 
 def state_mb(model: IonicModel) -> float:

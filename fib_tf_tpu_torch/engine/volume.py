@@ -20,11 +20,16 @@ path and 'pallas' raises.  The reference's Mosaic caps (the cell cap, the
 tiled block budget, its tile-row rules and the padded path) are not
 carried: both CUDA kernels take any D >= 3, H, W >= 3.
 
+`run_volume(..., mesh=, wide_halo=True, halo_k=)` shards the volume along
+z over a `parallel.Mesh` and runs parallel/volume_spmd's wide-halo chunk:
+per shard the volume block kernel (csrc/br_volume_block.cu) under
+`_use_shard_kernel`, or the plain step.
+
 Not ported yet, and raising NotImplementedError when asked for: phase
 fields, fiber twist / ratio / elevation (ROADMAP Queue 1 items 9 and 18),
-the z-sharded mesh and wide-halo paths (item 19), volume ECG electrodes,
-the rotor census and custom probe callables (item 18), and adaptive_dv
-(item 15).
+a mesh without `wide_halo` (the reference's GSPMD volume path, item 19),
+volume ECG electrodes, the rotor census and custom probe callables
+(item 18), and adaptive_dv (item 15).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.engine.simulation import resolve_device
 from fib_tf_tpu_torch.models.base import IonicModel
 from fib_tf_tpu_torch.ops import cuda_volume, cuda_volume_tiled, stencil3d
+from fib_tf_tpu_torch.parallel import volume_spmd
 
 _GEOMETRY = "ROADMAP Queue 1 items 9 and 18"
 _VOLUME = "ROADMAP Queue 1 item 18"
@@ -131,15 +137,15 @@ def _not_ported(what: str, item: str):
 
 def _check_unported(model, phase, fiber_twist, fiber_angle0, fiber_ratio,
                     fiber_elevation, mesh, probe, rotor_probe, electrodes,
-                    wide_halo, halo_k):
+                    wide_halo):
     if phase is not None:
         _not_ported("phase fields in run_volume", _GEOMETRY)
     if (fiber_twist != 0.0 or fiber_angle0 != 0.0 or fiber_ratio != 1.0
             or fiber_elevation != 0.0):
         _not_ported("fiber twist / ratio / elevation in run_volume",
                     _GEOMETRY)
-    if mesh is not None or wide_halo or halo_k is not None:
-        _not_ported("the z-sharded volume (mesh, wide_halo, halo_k)",
+    if mesh is not None and not wide_halo:
+        _not_ported("the GSPMD z-sharded volume (mesh without wide_halo)",
                     _PARALLEL)
     if electrodes:
         _not_ported("volume ECG electrodes", _VOLUME)
@@ -149,6 +155,25 @@ def _check_unported(model, phase, fiber_twist, fiber_angle0, fiber_ratio,
         _not_ported("custom probe callables in run_volume", _VOLUME)
     if model.cfg.adaptive_dv is not None:
         _not_ported("adaptive_dv", _ADAPTIVE)
+
+
+def _use_shard_kernel(model: IonicModel, device_type: str,
+                      kernel: str) -> bool:
+    """Kernel selection for the wide-halo z-sharded path: does the
+    per-shard substep group run in the volume block kernel
+    (csrc/br_volume_block.cu)?  As the reference's `_use_shard_kernel`
+    (engine/volume.py:202-237) on a CUDA mesh: 'xla' never, 'pallas'
+    always, 'auto' on the card.  The reference's (8, 128) alignment rule
+    and its VMEM caps on the extended block are Mosaic's and are not
+    carried: the CUDA kernel takes any H, W >= 3 and leaves the block to
+    device memory.  kernel='pallas' on a CPU mesh raises."""
+    if kernel not in ("auto", "pallas", "xla"):
+        raise ValueError(f"kernel must be auto|pallas|xla, got {kernel!r}")
+    if kernel == "pallas" and device_type != "cuda":
+        raise ValueError(
+            "kernel='pallas' runs the hand-written CUDA kernels and needs "
+            "a mesh of CUDA devices; use kernel='auto' or 'xla' on the CPU")
+    return kernel != "xla" and device_type == "cuda"
 
 
 def make_route_step(model: IonicModel, depth: int, route: str,
@@ -202,6 +227,10 @@ def run_volume(
       this many outer steps (host-side chunking).
     - `kernel`: 'auto' | 'pallas' | 'xla' (see `volume_route`).
     - `device`: 'cuda' (the default; raises without a card) or 'cpu'.
+    - `mesh` with `wide_halo=True`: shard the volume along z over the
+      mesh's devices (parallel.make_mesh; the mesh wins over `device`) and
+      exchange `halo_k` (default `dt_per_step`) ghost slices per group of
+      `halo_k` substeps.
     - The other arguments are the reference's and raise
       NotImplementedError when set (not ported yet).
 
@@ -223,7 +252,7 @@ def run_volume(
         raise ValueError("fiber_ratio must be in (0, 1]")
     _check_unported(model, phase, fiber_twist, fiber_angle0, fiber_ratio,
                     fiber_elevation, mesh, probe, rotor_probe, electrodes,
-                    wide_halo, halo_k)
+                    wide_halo)
     dt_limit = 2.0 / ((8.0 + 8.0 * dz_ratio) * model.cfg.diff)
     if model.cfg.dt > dt_limit and not allow_unstable_dt:
         raise ValueError(
@@ -232,14 +261,20 @@ def run_volume(
             f"dz_ratio, or pass allow_unstable_dt=True (e.g. for z-uniform "
             f"fields)"
         )
-    device = resolve_device(device)
-    route = volume_route(model, depth, device.type, kernel)
-    step = make_route_step(model, depth, route, dz_ratio)
     if state is None:
         state = volume_state(model, depth)
     if set(state) != set(model.state_keys()):
         raise ValueError(f"state planes {sorted(state)} != model planes "
                          f"{sorted(model.state_keys())}")
+    if wide_halo:
+        return _run_sharded(model, depth, n_outer, state, dz_ratio, mesh,
+                            events, frames_every, kernel, halo_k)
+    if halo_k is not None:
+        raise ValueError("halo_k is the wide-halo exchange cadence: it "
+                         "needs mesh= and wide_halo=True")
+    device = resolve_device(device)
+    route = volume_route(model, depth, device.type, kernel)
+    step = make_route_step(model, depth, route, dz_ratio)
     dev_state = interop.state_from_numpy(state, device)
 
     pot_key = model.pot_key
@@ -271,8 +306,11 @@ def run_volume(
         if frames is not None:
             frames.append(model.image(dev_state).cpu().numpy())
 
-    final = interop.state_to_numpy(dev_state)
-    if not np.isfinite(final[pot_key]).all():
+    return _result(model, interop.state_to_numpy(dev_state), probes, frames)
+
+
+def _result(model, final, probes, frames):
+    if not np.isfinite(final[model.pot_key]).all():
         raise FloatingPointError(
             "non-finite potential in run_volume (the reference's disabled "
             "NaN check, ionic.py:208-212, would have integrated on)"
@@ -282,3 +320,39 @@ def run_volume(
         np.concatenate(probes) if probes else np.zeros(0, np.float32),
         np.stack(frames) if frames else None,
     )
+
+
+def _run_sharded(model, depth, n_outer, state, dz_ratio, mesh, events,
+                 frames_every, kernel, halo_k):
+    """run_volume's wide-halo path: the z-sharded volume advanced chunk by
+    chunk through parallel/volume_spmd (engine/volume.py:430-452, :542-552
+    of the reference)."""
+    if mesh is None:
+        raise ValueError("wide_halo needs a mesh (z-sharded volume)")
+    n_shards = mesh.grid[0]
+    k = volume_spmd.resolve_halo_k(model, halo_k)
+    volume_spmd.check_volume_shards(depth, n_shards, k)
+    use_kernel = _use_shard_kernel(model, mesh.devices.flat[0].type, kernel)
+    masks = [(int(e.step), e.resolve_mask(model, depth)) for e in events]
+    dev_state = interop.shard_state(state, mesh)
+
+    probes: List[np.ndarray] = []
+    frames: Optional[List[np.ndarray]] = None if frames_every is None else []
+    chunk_len = n_outer if frames_every is None else frames_every
+    done = 0
+    while done < n_outer:
+        length = min(chunk_len, n_outer - done)
+        fire = [(t - done, m) for t, m in masks if done <= t < done + length]
+        chunk = volume_spmd.make_volume_spmd_chunk(
+            model, mesh, length, depth, fire=fire, dz_ratio=dz_ratio,
+            use_kernel=use_kernel, halo_k=halo_k)
+        dev_state, p = chunk(dev_state)
+        probes.append(p["v"].cpu().numpy())
+        done += length
+        if frames is not None:
+            pot = interop.gather_state(
+                {model.pot_key: dev_state[model.pot_key]})
+            frames.append(
+                model.image({k: torch.from_numpy(v)
+                             for k, v in pot.items()}).numpy())
+    return _result(model, interop.gather_state(dev_state), probes, frames)

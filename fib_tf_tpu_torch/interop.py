@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from fib_tf_tpu_torch.models.beeler_reuter import CHEBY_DEG, GATES
+from fib_tf_tpu_torch.parallel import sharding
 
 
 def state_from_numpy(state: Mapping[str, np.ndarray],
@@ -23,6 +24,20 @@ def state_from_numpy(state: Mapping[str, np.ndarray],
 def state_to_numpy(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Copy a state's tensors back to numpy."""
     return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+def shard_state(state: Mapping[str, np.ndarray],
+                mesh: sharding.Mesh) -> Dict[str, np.ndarray]:
+    """Numpy planes (`[H, W]`, or `[D, H, W]` volumes) to a state sharded
+    over `mesh`: per key an object array of per-shard float32 tensors on
+    the mesh's devices, laid out as the mesh."""
+    return sharding.shard_state(
+        {k: np.asarray(v, np.float32) for k, v in state.items()}, mesh)
+
+
+def gather_state(state: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A sharded state back to whole numpy planes."""
+    return sharding.gather_state(state)
 
 
 def cheby_coef_from_numpy(coef: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:

@@ -169,6 +169,25 @@ class IonicModel:
         fn = lambda s: self.solve(s, geom)
         return [fn] * self.dt_per_step, ("solve",) * self.dt_per_step
 
+    @property
+    def has_uniform_substeps(self) -> bool:
+        """True when `step` is exactly `dt_per_step` identical `solve`
+        substeps, each applying the stencil once: the precondition for
+        splitting an outer step into arbitrary contiguous groups (the
+        wide-halo volume path's `halo_k` sub-cadence).  Models with custom
+        substep schedules (BR's skip groups) override this."""
+        return (type(self).step is IonicModel.step
+                and type(self).substep_fns is IonicModel.substep_fns
+                and self.cfg.adaptive_dv is None)
+
+    def substep_group(self, state: State, geom: Geometry,
+                      count: int) -> State:
+        """`count` consecutive substeps; only meaningful when
+        `has_uniform_substeps` (callers must check)."""
+        for _ in range(count):
+            state = self.solve(state, geom)
+        return state
+
     def step(self, state: State, geom: Geometry) -> State:
         """One outer step = the `substep_fns` schedule."""
         fns, _ = self.substep_fns(geom)

@@ -211,6 +211,13 @@ class BeelerReuter(IonicModel):
         out["C"] = c + dt * (-1.0e-7 * i_ca + 0.07 * (1.0e-7 - c))
         return out
 
+    @property
+    def has_uniform_substeps(self) -> bool:
+        """Without `skip` the 5 substeps are identical solve(n=1) calls;
+        the skip schedule (one n=5 + four n=0) is not splittable at
+        arbitrary boundaries."""
+        return not self.cfg.skip and self.cfg.adaptive_dv is None
+
     def substep_fns(self, geom: Geometry):
         """With `skip`, substep 0 advances the slow gates 5 dt (n=5) and
         substeps 1-4 freeze them (n=0); without, five n=1 substeps."""

@@ -1,0 +1,332 @@
+"""The per-shard block kernel's wrapper, its geometry and its plain version.
+
+Counterpart of fib_tf_tpu/ops/pallas_tiled.py::make_block_kernel, the
+per-shard compute of the wide-halo sharded path (parallel/spmd.py): one
+outer step (all `dt_per_step` substeps) on ONE shard's block extended by
+K = dt_per_step ghost rows on each side and, on a 2D mesh, K ghost columns.
+The ghosts came from the neighbouring shards; the block's global origin
+(`rstart`, `cstart`) and the domain's size decide where the REFLECT /
+SYMMETRIC edge rules apply, so only a shard that owns a domain edge reflects
+there.  The kernel is csrc/br_block.cu (CUDA C++, built with nvcc and bound
+with ctypes), the tile skeleton of the tiled outer-step kernel
+(csrc/br_tile.cuh) reading from the extended block.
+
+`block_geometry` is the plain geometry of an extended block (the isotropic
+branch of the reference's `block_geometry`, pallas_tiled.py:61-181): the
+wide-halo path's `kernel='xla'` step and the kernel's plain version.
+
+Routing is by the device of the block's tensors, as in ops/cuda_step.py:
+CPU tensors take the plain version, CUDA tensors launch the kernel, and a
+launch that fails raises.  Nothing falls back from the card to the plain
+version.
+
+Update contract: a step reads the extended planes of `ext_in` and writes
+the CENTRE (the shard's own cells) of the extended planes of `ext_out`,
+which must be other memory; `ext_out`'s ghosts are left for the halo
+exchange to fill.  Writing into the other buffer of a double-buffered pair
+fuses the reference's crop (spmd.py:400-404).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from fib_tf_tpu_torch.kernels import build
+from fib_tf_tpu_torch.models.base import Geometry
+from fib_tf_tpu_torch.models.beeler_reuter import BeelerReuter
+from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled
+from fib_tf_tpu_torch.ops.cuda_step import CELL_PLANES, PARAM_FLOATS, State
+
+SOURCE = build.CSRC_DIR / "br_block.cu"
+HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh")
+
+
+# -- the plain geometry of an extended block -----------------------------------------
+
+
+def _row_up(x):     # y[i] = x[i-1]; row 0 keeps itself
+    return torch.cat([x[:1], x[:-1]], dim=0)
+
+
+def _row_down(x):   # y[i] = x[i+1]; the last row keeps itself
+    return torch.cat([x[1:], x[-1:]], dim=0)
+
+
+def _col_left(x):   # y[:, j] = x[:, j-1]; column 0 keeps itself
+    return torch.cat([x[:, :1], x[:, :-1]], dim=1)
+
+
+def _col_right(x):  # y[:, j] = x[:, j+1]; the last column keeps itself
+    return torch.cat([x[:, 1:], x[:, -1:]], dim=1)
+
+
+def global_rows(start: int, n: int, device) -> torch.Tensor:
+    """`[n, 1]` global row indices of a block whose row 0 is row `start`."""
+    return start + torch.arange(n, dtype=torch.int32, device=device)[:, None]
+
+
+def global_cols(start: int, n: int, device) -> torch.Tensor:
+    """`[1, n]` global column indices."""
+    return start + torch.arange(n, dtype=torch.int32, device=device)[None, :]
+
+
+def block_geometry(
+    rg: torch.Tensor,
+    h_total: int,
+    cg: Optional[torch.Tensor] = None,
+    w_total: Optional[int] = None,
+) -> Geometry:
+    """Geometry over a block extended with halo rows (and, when `cg` is
+    given, halo columns).
+
+    `rg` is the `[ext_h, 1]` int tensor of global row indices of the
+    block's rows; rows outside [0, h_total) are halo garbage that shrinks
+    away one ring per substep.  Without `cg`, columns span the full width
+    and use plain REFLECT semantics; with `cg` (`[1, ext_w]` global column
+    indices) the same global-edge masking applies along columns: the 2D
+    wide-halo case.  Phase fields, fiber tensors and diffusion maps are not
+    ported yet (ROADMAP Queue 1 item 9)."""
+    top = rg == 0
+    bottom = rg == h_total - 1
+
+    def north(x):
+        # reflect at the global top edge: row 0's north neighbour is row 1
+        return torch.where(top, _row_down(x), _row_up(x))
+
+    def south(x):
+        return torch.where(bottom, _row_up(x), _row_down(x))
+
+    if cg is None:
+        def west(x):
+            return torch.cat([x[:, 1:2], x[:, :-1]], dim=1)
+
+        def east(x):
+            return torch.cat([x[:, 1:], x[:, -2:-1]], dim=1)
+
+        def col_fix(x):
+            return torch.cat([x[:, 1:2], x[:, 1:-1], x[:, -2:-1]], dim=1)
+    else:
+        left_edge = cg == 0
+        right_edge = cg == w_total - 1
+
+        def west(x):
+            return torch.where(left_edge, _col_right(x), _col_left(x))
+
+        def east(x):
+            return torch.where(right_edge, _col_left(x), _col_right(x))
+
+        def col_fix(x):
+            x = torch.where(left_edge, _col_right(x), x)
+            return torch.where(right_edge, _col_left(x), x)
+
+    def laplace(x):
+        n = north(x)
+        s = south(x)
+        w = west(x)
+        e = east(x)
+        return (n + s + w + e
+                + 0.5 * (west(n) + east(n) + west(s) + east(s)) - 6.0 * x)
+
+    def enforce_boundary(x):
+        x = torch.where(top, _row_down(x), x)       # row 0 <- row 1
+        x = torch.where(bottom, _row_up(x), x)      # row H-1 <- row H-2
+        return col_fix(x)
+
+    return Geometry(laplace=laplace, enforce_boundary=enforce_boundary)
+
+
+# -- the binding --------------------------------------------------------------------------
+
+
+class BlockKernel:
+    """ctypes binding of csrc/br_block.cu.  The library is built and loaded
+    on the first launch; `launches` counts successful launches."""
+
+    def __init__(self):
+        self._lib = None
+        self.reset_launches()
+
+    def reset_launches(self):
+        self.launches = 0
+
+    def build(self):
+        """Build the library (if needed) and return its path."""
+        return build.build("br_block", [SOURCE], HEADERS)
+
+    def library(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = build.load("br_block", [SOURCE], HEADERS)
+            for fn in ("br_block_param_floats", "br_block_planes"):
+                getattr(lib, fn).argtypes = []
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.br_block.argtypes = (
+                [ctypes.c_void_p, ctypes.c_int,      # params, n_params
+                 ctypes.c_void_p, ctypes.c_void_p,   # v_in, v_out
+                 ctypes.c_void_p, ctypes.c_void_p,   # planes in / out
+                 ctypes.c_int,                       # n_planes
+                 ctypes.c_int, ctypes.c_int,         # ext_h, ext_w
+                 ctypes.c_int, ctypes.c_int,         # rstart, cstart
+                 ctypes.c_int, ctypes.c_int,         # halo, two_d
+                 ctypes.c_int, ctypes.c_int,         # domain height, width
+                 ctypes.c_int, ctypes.c_uint,        # n_sub, slow_mask
+                 ctypes.c_void_p,                    # probe (may be null)
+                 ctypes.c_int, ctypes.c_int,         # probe row, col (global)
+                 ctypes.c_longlong,                  # probe index
+                 ctypes.c_int,                       # device ordinal
+                 ctypes.c_void_p]                    # cudaStream_t
+            )
+            lib.br_block.restype = ctypes.c_int
+            got = (lib.br_block_param_floats(), lib.br_block_planes())
+            if got != (PARAM_FLOATS, len(CELL_PLANES)):
+                raise RuntimeError(
+                    f"br_block.cu takes (param floats, planes) = {got}, this "
+                    f"module packs {(PARAM_FLOATS, len(CELL_PLANES))}")
+            self._lib = lib
+        return self._lib
+
+    def launch(self, params: np.ndarray, ext_in: State, ext_out: State,
+               rstart: int, cstart: int, halo: int, two_d: bool,
+               h_total: int, w_total: int, schedule,
+               probe: Optional[torch.Tensor], probe_pixel, probe_index: int,
+               stream: int):
+        """One outer step on CUDA tensors already validated by the
+        caller: reads `ext_in`, writes the centre of `ext_out`."""
+        lib = self.library()
+        v_in = ext_in["V"]
+        ext_h, ext_w = v_in.shape
+        ptrs = ctypes.c_void_p * len(CELL_PLANES)
+        err = lib.br_block(
+            params.ctypes.data, params.size,
+            v_in.data_ptr(), ext_out["V"].data_ptr(),
+            ptrs(*[ext_in[k].data_ptr() for k in CELL_PLANES]),
+            ptrs(*[ext_out[k].data_ptr() for k in CELL_PLANES]),
+            len(CELL_PLANES), ext_h, ext_w, rstart, cstart, halo, int(two_d),
+            h_total, w_total, len(schedule), cuda_tiled.slow_mask(schedule),
+            probe.data_ptr() if probe is not None else None,
+            probe_pixel[0], probe_pixel[1], probe_index,
+            v_in.device.index, stream,
+        )
+        if err != 0:
+            raise RuntimeError(
+                f"br_block launch failed with CUDA error {err} "
+                f"({ext_h}x{ext_w} block at ({rstart}, {cstart}) of "
+                f"{h_total}x{w_total}, {len(schedule)} substeps)")
+        self.launches += 1
+
+
+# the process-wide binding: the built library is process-wide too
+KERNEL = BlockKernel()
+
+
+# -- the step -------------------------------------------------------------------------------
+
+
+def block_shape(h_local: int, w_local: int, halo: int, two_d: bool):
+    """(ext_h, ext_w) of a shard's `h_local x w_local` block extended by
+    `halo` ghost rows (and, when `two_d`, ghost columns) on each side."""
+    return h_local + 2 * halo, w_local + (2 * halo if two_d else 0)
+
+
+def centre(x: torch.Tensor, halo: int, two_d: bool) -> torch.Tensor:
+    """The shard's own cells of an extended plane (a view)."""
+    return x[halo:-halo, halo:-halo] if two_d else x[halo:-halo]
+
+
+def plain_block_step(model: BeelerReuter, ext_in: State, ext_out: State,
+                     rstart: int, cstart: int, two_d: bool,
+                     probe: Optional[torch.Tensor] = None,
+                     probe_index: int = 0) -> State:
+    """Plain PyTorch version of one launch: `model.step` on the extended
+    block under `block_geometry`, its centre copied into `ext_out`
+    (spmd.py:406-414).  With `probe` (the owning shard only), the
+    normalised new V at the model's probe pixel goes to
+    `probe[probe_index]`."""
+    cfg = model.cfg
+    halo = model.dt_per_step
+    ext_h, ext_w = ext_in["V"].shape
+    dev = ext_in["V"].device
+    geom = block_geometry(
+        global_rows(rstart, ext_h, dev), cfg.height,
+        global_cols(cstart, ext_w, dev) if two_d else None,
+        cfg.width if two_d else None)
+    new = model.step(dict(ext_in), geom)
+    for k, t in new.items():
+        centre(ext_out[k], halo, two_d).copy_(centre(t, halo, two_d))
+    if probe is not None:
+        r, c = model.probe_pixel
+        v = new[model.pot_key][r - rstart, c - cstart]
+        probe[probe_index] = (v - model.min_v) / (model.max_v - model.min_v)
+    return ext_out
+
+
+def make_block_step(model: BeelerReuter, two_d: bool):
+    """Build `step(ext_in, ext_out, rstart, cstart, probe=None,
+    probe_index=0, stream=None) -> ext_out`: one outer step of one shard's
+    extended block in one launch of the block kernel.  `rstart` / `cstart`
+    are the global indices of the block's element (0, 0), ghosts included
+    (`cstart` is 0 on a 1D mesh).  Pass `probe` only on the shard that owns
+    the model's probe pixel.  `stream` is the CUDA stream to launch on
+    (default: the device's current one).  CPU blocks take
+    `plain_block_step`.
+
+    `SimConfig.substeps_per_launch`, which the reference's block kernel
+    takes to bound its compile time, has no effect here: the launch always
+    fuses the whole outer step."""
+    if not isinstance(model, BeelerReuter):
+        raise NotImplementedError(
+            f"no CUDA kernel for model {model.name!r} yet (ROADMAP Queue 1)")
+    schedule = cuda_step.slow_schedule(model)
+    halo = model.dt_per_step
+    if min(cuda_tiled.tile_interior(len(schedule))) < 1:
+        raise ValueError(f"tile {cuda_tiled.TILE} has no interior left "
+                         f"after a {len(schedule)}-ring halo")
+    params = cuda_step.pack_params(model)
+    h_total, w_total = model.state_shape()
+
+    def step(ext_in: State, ext_out: State, rstart: int, cstart: int = 0,
+             probe: Optional[torch.Tensor] = None, probe_index: int = 0,
+             stream: Optional[torch.cuda.Stream] = None) -> State:
+        shape = tuple(ext_in["V"].shape)
+        dev = cuda_step.check_state(model, ext_in, shape)
+        if cuda_step.check_state(model, ext_out, shape) != dev:
+            raise ValueError("ext_in and ext_out are on different devices")
+        _check_block(shape, rstart, cstart, halo, two_d, h_total, w_total)
+        if probe is not None:
+            r, c = model.probe_pixel
+            lr, lc = r - rstart - halo, c - cstart - (halo if two_d else 0)
+            own_h = shape[0] - 2 * halo
+            own_w = shape[1] - (2 * halo if two_d else 0)
+            cuda_step.check_probe(probe, probe_index, dev, (lr, lc),
+                                  (own_h, own_w))
+        if dev.type == "cpu":
+            return plain_block_step(model, ext_in, ext_out, rstart, cstart,
+                                    two_d, probe, probe_index)
+        s = stream if stream is not None else torch.cuda.current_stream(dev)
+        KERNEL.launch(params, ext_in, ext_out, rstart, cstart, halo, two_d,
+                      h_total, w_total, schedule, probe, model.probe_pixel,
+                      probe_index, s.cuda_stream)
+        return ext_out
+
+    return step
+
+
+def _check_block(shape, rstart, cstart, halo, two_d, h_total, w_total):
+    """The extended block's centre must be a non-empty window of the
+    domain."""
+    ext_h, ext_w = shape
+    ok = (ext_h > 2 * halo and rstart + halo >= 0
+          and rstart + ext_h - halo <= h_total)
+    if two_d:
+        ok = ok and (ext_w > 2 * halo and cstart + halo >= 0
+                     and cstart + ext_w - halo <= w_total)
+    else:
+        ok = ok and cstart == 0 and ext_w == w_total
+    if not ok:
+        raise ValueError(
+            f"a {ext_h}x{ext_w} block at ({rstart}, {cstart}) with a "
+            f"{halo}-cell halo is not a window of the {h_total}x{w_total} "
+            f"domain")

@@ -4,8 +4,9 @@ Counterpart of fib_tf_tpu/ops/pallas_tiled.py::make_tiled_pallas_step, the
 kernel the JAX engine runs for Beeler-Reuter past its 32 MB whole-grid
 cutover: one launch per outer step, all five substeps fused over 2D tiles
 with a halo of one ring per substep.  The kernel is csrc/br_tiled.cu (CUDA
-C++, built with nvcc and bound with ctypes); its source note says what
-bounds it and why the tiles are 2D.
+C++, built with nvcc and bound with ctypes) over the tile skeleton of
+csrc/br_tile.cuh, which the per-shard block kernel shares; its source note
+says what bounds it and why the tiles are 2D.
 
 Routing is by the device of the state's tensors, as in ops/cuda_step.py:
 CPU tensors take the plain version, CUDA tensors launch the kernel, and a
@@ -32,7 +33,7 @@ from fib_tf_tpu_torch.ops import cuda_step
 from fib_tf_tpu_torch.ops.cuda_step import CELL_PLANES, PARAM_FLOATS, State
 
 SOURCE = build.CSRC_DIR / "br_tiled.cu"
-HEADERS = (build.CSRC_DIR / "br_cell.cuh",)
+HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh")
 # The tile shape br_tiled.cu is built for: (threads in x, threads in y,
 # cells per thread along y).  The extended tile is x-threads wide and
 # y-threads x cells tall, 64 x 64; its interior loses one ring per

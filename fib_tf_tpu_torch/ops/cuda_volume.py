@@ -37,7 +37,8 @@ from fib_tf_tpu_torch.ops import cuda_step
 from fib_tf_tpu_torch.ops.cuda_step import CELL_PLANES, PARAM_FLOATS, State
 
 SOURCE = build.CSRC_DIR / "br_volume.cu"
-HEADERS = (build.CSRC_DIR / "br_cell.cuh",)
+HEADERS = (build.CSRC_DIR / "br_cell.cuh",
+           build.CSRC_DIR / "br_volume_cell.cuh")
 
 
 def volume_shape(model: BeelerReuter, depth: int):

@@ -1,0 +1,299 @@
+"""The per-shard volume block kernel's wrapper, its geometry and its plain
+version.
+
+Counterpart of fib_tf_tpu/ops/pallas_volume.py::make_volume_block_kernel,
+the per-shard compute of the wide-halo z-sharded volume path
+(parallel/volume_spmd.py): a fused group of substeps (all `dt_per_step` of
+an outer step, or `halo_k` of them) on ONE shard's `[d + 2k, H, W]` block,
+extended by k ghost slices on each side.  The ghosts came from the
+neighbouring shards; the block's global start slice `zstart` and the
+volume's depth decide where the z faces reflect, so only a shard that owns
+a z face reflects there; in the plane each shard owns the whole sheet.  The
+kernel is csrc/br_volume_block.cu (CUDA C++, built with nvcc and bound with
+ctypes): one launch per substep of the group, as the volume substep kernel,
+each on the slices that are still exact.
+
+`zblock_geometry` is the plain geometry of an extended block (the
+reference's `zblock_geometry`, pallas_volume.py:310-394, without phase
+fields and fibers): the wide-halo volume path's `kernel='xla'` step and the
+kernel's plain version.
+
+Routing is by the device of the block's tensors, as in ops/cuda_step.py:
+CPU tensors take the plain version, CUDA tensors launch the kernel, and a
+launch that fails raises.  Nothing falls back from the card to the plain
+version.
+
+Update contract: the block's state dict is updated IN PLACE and returned.
+After a group of n substeps the centre `[n, ext_d - n)` of every plane is
+exact and the slices outside it are garbage, for the halo exchange to
+refill.  The planes keep their memory (a caller may hold them as views of
+one allocation): on the card "V" alternates between the block's two V
+buffers (the dict's "V" and `spare`, which the step returns swapped) and
+the other seven planes are overwritten; the plain version overwrites all
+eight.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from fib_tf_tpu_torch.kernels import build
+from fib_tf_tpu_torch.models.base import Geometry
+from fib_tf_tpu_torch.models.beeler_reuter import BeelerReuter
+from fib_tf_tpu_torch.ops import cuda_step, stencil
+from fib_tf_tpu_torch.ops.cuda_step import CELL_PLANES, PARAM_FLOATS, State
+
+SOURCE = build.CSRC_DIR / "br_volume_block.cu"
+HEADERS = (build.CSRC_DIR / "br_cell.cuh",
+           build.CSRC_DIR / "br_volume_cell.cuh")
+
+
+# -- the plain geometry of a z-extended block -----------------------------------------
+
+
+def _zup(x):     # y[z] = x[z-1]; slice 0 keeps itself (halo garbage)
+    return torch.cat([x[:1], x[:-1]], dim=0)
+
+
+def _zdown(x):   # y[z] = x[z+1]; the last slice keeps itself
+    return torch.cat([x[1:], x[-1:]], dim=0)
+
+
+def global_slices(zstart: int, n: int, device) -> torch.Tensor:
+    """`[n, 1, 1]` global slice indices of a block whose slice 0 is slice
+    `zstart`."""
+    return zstart + torch.arange(n, dtype=torch.int32,
+                                 device=device)[:, None, None]
+
+
+def zblock_geometry(zg: torch.Tensor, d_total: int,
+                    dz_ratio: float = 1.0) -> Geometry:
+    """Geometry over a volume block extended with k ghost z-slices.
+
+    `zg` is the `[ext_d, 1, 1]` int tensor of global z indices of the
+    block's slices; slices outside [0, d_total) are halo garbage that
+    shrinks away one ring per substep.  In the plane each shard owns the
+    full `[H, W]` sheet, so the in-plane operators are the plain ones
+    (REFLECT / SYMMETRIC at the true edges); only the z direction needs
+    global-edge masking (REFLECT at global z = 0 / d_total - 1, ghost
+    slices elsewhere).  Phase fields and fiber tensors are not ported yet
+    (ROADMAP Queue 1 items 9 and 18)."""
+    top = zg == 0
+    bottom = zg == d_total - 1
+
+    def laplace(x):
+        zu = _zup(x)
+        zd = _zdown(x)
+        # reflect at the global faces: slice 0's z neighbour is slice 1
+        z_term = (torch.where(top, zd, zu) - 2.0 * x
+                  + torch.where(bottom, zu, zd))
+        return stencil.laplace(x) + (2.0 * dz_ratio) * z_term
+
+    def enforce_boundary(x):
+        # SYMMETRIC z faces only at the global edges, in-plane faces
+        # everywhere; raw shifts from the pre-rewrite array
+        zd = _zdown(x)
+        zu = _zup(x)
+        x = torch.where(top, zd, x)
+        x = torch.where(bottom, zu, x)
+        return stencil.enforce_boundary(x)
+
+    return Geometry(laplace=laplace, enforce_boundary=enforce_boundary)
+
+
+# -- the binding --------------------------------------------------------------------------
+
+
+class VolumeBlockKernel:
+    """ctypes binding of csrc/br_volume_block.cu.  The library is built and
+    loaded on the first launch; `launches` counts successful launches per
+    body ("slow" = SLOW=true, "frozen" = SLOW=false)."""
+
+    def __init__(self):
+        self._lib = None
+        self.reset_launches()
+
+    def reset_launches(self):
+        self.launches = {"slow": 0, "frozen": 0}
+
+    def build(self):
+        """Build the library (if needed) and return its path."""
+        return build.build("br_volume_block", [SOURCE], HEADERS)
+
+    def library(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = build.load("br_volume_block", [SOURCE], HEADERS)
+            for fn in ("br_volume_block_param_floats",
+                       "br_volume_block_planes"):
+                getattr(lib, fn).argtypes = []
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.br_volume_block.argtypes = (
+                [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,  # slow, params
+                 ctypes.c_float,                               # dz_ratio
+                 ctypes.c_void_p, ctypes.c_void_p,   # v_in, v_out
+                 ctypes.c_void_p, ctypes.c_int]      # planes, n_planes
+                + [ctypes.c_int] * 3                 # ext_d, height, width
+                + [ctypes.c_int] * 4                 # zstart, d_total, z_lo/hi
+                + [ctypes.c_void_p,                  # probe (may be null)
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,  # local z, r, c
+                   ctypes.c_longlong,                # probe index
+                   ctypes.c_int,                     # device ordinal
+                   ctypes.c_void_p]                  # cudaStream_t
+            )
+            lib.br_volume_block.restype = ctypes.c_int
+            got = (lib.br_volume_block_param_floats(),
+                   lib.br_volume_block_planes())
+            if got != (PARAM_FLOATS, len(CELL_PLANES)):
+                raise RuntimeError(
+                    f"br_volume_block.cu takes (param floats, planes) = "
+                    f"{got}, this module packs "
+                    f"{(PARAM_FLOATS, len(CELL_PLANES))}")
+            self._lib = lib
+        return self._lib
+
+    def launch(self, params: np.ndarray, state: State, v_out: torch.Tensor,
+               slow: bool, dz_ratio: float, zstart: int, d_total: int,
+               z_lo: int, z_hi: int, probe: Optional[torch.Tensor], pixel,
+               probe_index: int, stream: int):
+        """One substep on the slices [z_lo, z_hi) of CUDA tensors already
+        validated by the caller: V goes from state["V"] to `v_out`, the
+        other planes are updated in place."""
+        lib = self.library()
+        v_in = state["V"]
+        ext_d, h, w = v_in.shape
+        ptrs = ctypes.c_void_p * len(CELL_PLANES)
+        err = lib.br_volume_block(
+            int(slow), params.ctypes.data, params.size, dz_ratio,
+            v_in.data_ptr(), v_out.data_ptr(),
+            ptrs(*[state[k].data_ptr() for k in CELL_PLANES]),
+            len(CELL_PLANES), ext_d, h, w, zstart, d_total, z_lo, z_hi,
+            probe.data_ptr() if probe is not None else None,
+            *pixel, probe_index, v_in.device.index, stream,
+        )
+        if err != 0:
+            raise RuntimeError(
+                f"br_volume_block launch failed with CUDA error {err} "
+                f"({ext_d}x{h}x{w} block at slice {zstart} of {d_total}, "
+                f"slices [{z_lo}, {z_hi}), slow={slow})")
+        self.launches["slow" if slow else "frozen"] += 1
+
+
+# the process-wide binding: the built library is process-wide too
+KERNEL = VolumeBlockKernel()
+
+
+# -- the step -------------------------------------------------------------------------------
+
+
+def group_schedule(model: BeelerReuter, substeps: Optional[int]):
+    """`slow` flag of each substep of one group: the whole outer step's
+    schedule (`substeps=None`), or `substeps` uniform substeps, which only a
+    model with uniform substeps has (no-skip BR: all SLOW)."""
+    schedule = cuda_step.slow_schedule(model)
+    if substeps is None:
+        return schedule
+    if not model.has_uniform_substeps:
+        raise ValueError(
+            f"a group of {substeps} substeps needs uniform substeps, which "
+            f"{model.name} does not have with this config")
+    return schedule[:substeps]
+
+
+def plain_volume_block_step(model: BeelerReuter, state: State, zstart: int,
+                            d_total: int, dz_ratio: float = 1.0,
+                            substeps: Optional[int] = None,
+                            probe: Optional[torch.Tensor] = None,
+                            probe_index: int = 0,
+                            probe_slice: int = 0) -> State:
+    """Plain PyTorch version of one group: `model.step` (or
+    `substep_group`) on the extended block under `zblock_geometry`
+    (volume_spmd.py:254-262).  With `probe` (the owning shard only), the
+    normalised new V at the model's probe pixel of LOCAL slice
+    `probe_slice` goes to `probe[probe_index]`."""
+    v = state[model.pot_key]
+    geom = zblock_geometry(global_slices(zstart, v.shape[0], v.device),
+                           d_total, dz_ratio)
+    new = (model.step(dict(state), geom) if substeps is None
+           else model.substep_group(dict(state), geom, substeps))
+    for key, t in new.items():
+        state[key].copy_(t)
+    if probe is not None:
+        probe[probe_index] = block_probe(model, state, probe_slice)
+    return state
+
+
+def block_probe(model: BeelerReuter, state: State,
+                local_slice: int) -> torch.Tensor:
+    """The normalised potential at the volume's probe pixel on the block's
+    slice `local_slice` (0-d)."""
+    h, w = model.state_shape()
+    r, c = model.probe_pixel
+    v = state[model.pot_key][local_slice, min(r, h - 1), min(c, w - 1)]
+    return (v - model.min_v) / (model.max_v - model.min_v)
+
+
+def make_volume_block_step(model: BeelerReuter, ext_d: int, d_total: int,
+                           dz_ratio: float = 1.0,
+                           substeps: Optional[int] = None):
+    """Build `step(state, spare, zstart, probe=None, probe_index=0,
+    probe_slice=0, stream=None) -> (state, spare)`: one group of substeps
+    on one shard's `[ext_d, H, W]` extended block whose slice 0 is global
+    slice `zstart` (ghosts included), one launch per substep.  `spare` is
+    the block's second V buffer; the pair comes back swapped when the group
+    has an odd number of substeps.  Pass `probe` only on the shard that
+    owns the probe pixel, with its LOCAL slice; the group's last launch
+    writes it.  `stream` is the CUDA stream to launch on (default: the
+    device's current one).  CPU blocks take `plain_volume_block_step`."""
+    if not isinstance(model, BeelerReuter):
+        raise NotImplementedError(
+            f"no CUDA kernel for model {model.name!r} yet (ROADMAP Queue 1)")
+    schedule = group_schedule(model, substeps)
+    n = len(schedule)
+    if ext_d <= 2 * n:
+        raise ValueError(f"a {ext_d}-slice block has no centre left after "
+                         f"{n} substeps")
+    params = cuda_step.pack_params(model)
+    h, w = model.state_shape()
+    shape = (ext_d, h, w)
+    pixel = (min(model.probe_pixel[0], h - 1), min(model.probe_pixel[1], w - 1))
+
+    def step(state: State, spare: torch.Tensor, zstart: int,
+             probe: Optional[torch.Tensor] = None, probe_index: int = 0,
+             probe_slice: int = 0,
+             stream: Optional[torch.cuda.Stream] = None
+             ) -> Tuple[State, torch.Tensor]:
+        dev = cuda_step.check_state(model, state, shape)
+        if not (zstart + n >= 0 and zstart + ext_d - n <= d_total):
+            raise ValueError(
+                f"a {ext_d}-slice block at slice {zstart} with a {n}-slice "
+                f"halo is not a window of the {d_total}-slice volume")
+        cuda_step.check_probe(probe, probe_index, dev,
+                              (probe_slice - n,) + pixel,
+                              (ext_d - 2 * n, h, w))
+        if dev.type == "cpu":
+            plain_volume_block_step(model, state, zstart, d_total, dz_ratio,
+                                    substeps, probe, probe_index,
+                                    probe_slice)
+            return state, spare
+        if (spare.shape != shape or spare.device != dev
+                or spare.dtype != torch.float32 or not spare.is_contiguous()
+                or spare.data_ptr() in {t.data_ptr()
+                                        for t in state.values()}):
+            raise ValueError(
+                f"spare must be another contiguous float32 {shape} tensor "
+                f"on {dev}")
+        s = stream if stream is not None else torch.cuda.current_stream(dev)
+        for i, slow in enumerate(schedule):
+            # substep i is exact on [i + 1, ext_d - 1 - i)
+            KERNEL.launch(params, state, spare, slow, dz_ratio, zstart,
+                          d_total, i + 1, ext_d - 1 - i,
+                          probe if i == n - 1 else None,
+                          (probe_slice,) + pixel, probe_index, s.cuda_stream)
+            state["V"], spare = spare, state["V"]
+        return state, spare
+
+    return step

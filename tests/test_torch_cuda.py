@@ -1,5 +1,6 @@
-"""The CUDA kernels (2D substep and tiled, volume substep and tiled) against
-their plain PyTorch version, on the card.
+"""The CUDA kernels (2D substep and tiled, volume substep and tiled, and the
+per-shard block kernels of the sharded paths) against their plain PyTorch
+version, on the card.
 
 Marked `cuda`: without a CUDA device (and nvcc) every test here skips.  On
 the card:  python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q"""
@@ -12,8 +13,10 @@ from fib_tf_tpu_torch import SimConfig, interop
 from fib_tf_tpu_torch.engine import (Simulation, VolumeEvent, run_volume,
                                      volume, volume_state)
 from fib_tf_tpu_torch.models import BeelerReuter
-from fib_tf_tpu_torch.ops import (cuda_step, cuda_tiled, cuda_volume,
+from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
+                                  cuda_volume, cuda_volume_block,
                                   cuda_volume_tiled)
+from fib_tf_tpu_torch.parallel import make_mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -183,3 +186,139 @@ def test_run_volume_routes_and_matches_plain_run(device, cutover_mb,
     np.testing.assert_allclose(got[0]["V"], ref[0]["V"], atol=0.12, rtol=0)
     np.testing.assert_allclose(got[1], ref[1], atol=1e-3, rtol=0)
     assert got[1][6] == ref[1][6] == 1.0
+
+
+# -- the per-shard block kernels and the sharded paths ---------------------------------
+
+
+def _extended(st, r0, r1, c0, c1, device):
+    """The window [r0, r1) x [c0, c1) of a host state, wrapped round the
+    domain's edges like the first exchange, as device planes."""
+    out = {}
+    for k, v in st.items():
+        rows = np.arange(r0, r1) % v.shape[0]
+        cols = np.arange(c0, c1) % v.shape[1]
+        out[k] = torch.tensor(v[np.ix_(rows, cols)], device=device)
+    return out
+
+
+@pytest.mark.parametrize("skip", [True, False])
+@pytest.mark.parametrize("origin", [(0, 0), (40, 0), (96, 0), (0, None),
+                                    (67, None), (96, None), (64, 80),
+                                    (5, 3), (0, 40)],
+                         ids=lambda o: f"r{o[0]}c{o[1]}")
+def test_block_kernel_matches_plain_version(device, origin, skip):
+    """A 32-row (x 50-column) shard block of a 128x130 domain, at the
+    domain's edges, corners and interior; column origin None = 1D mesh."""
+    model = BeelerReuter(CFG.replace(height=128, width=130, skip=skip))
+    k = model.dt_per_step
+    rng = np.random.RandomState(2)
+    st = model.initial_state()
+    st["V"] = st["V"] + rng.normal(0, 3.0, st["V"].shape).astype(np.float32)
+    two_d = origin[1] is not None
+    r0, c0 = origin[0] - k, (origin[1] - k if two_d else 0)
+    r1, c1 = origin[0] + 32 + k, (origin[1] + 50 + k if two_d else 130)
+    cur = _extended(st, r0, r1, c0, c1, device)
+    got_out = {kk: torch.zeros_like(v) for kk, v in cur.items()}
+    want_out = {kk: torch.zeros_like(v) for kk, v in cur.items()}
+    owns = origin[0] <= 20 < origin[0] + 32 and (
+        not two_d or origin[1] <= 65 < origin[1] + 50)
+    pk = torch.zeros(1, device=device) if owns else None
+    pp = torch.zeros(1, device=device) if owns else None
+    before = cuda_block.KERNEL.launches
+    cuda_block.make_block_step(model, two_d)(cur, got_out, r0, c0, pk, 0)
+    cuda_block.plain_block_step(model, cur, want_out, r0, c0, two_d, pp, 0)
+    assert cuda_block.KERNEL.launches - before == 1
+    for kk in want_out:
+        torch.testing.assert_close(got_out[kk], want_out[kk], rtol=1e-3,
+                                   atol=1e-5)
+        # only the centre is written
+        assert float(got_out[kk][:k].abs().max()) == 0.0
+    if owns:
+        torch.testing.assert_close(pk, pp, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("skip,substeps", [(True, None), (False, None),
+                                           (False, 1)])
+@pytest.mark.parametrize("zstart", [-5, 3, 11], ids=lambda z: f"z{z}")
+@pytest.mark.parametrize("dz_ratio", [1.0, 0.5])
+def test_volume_block_kernel_matches_plain_version(device, zstart, skip,
+                                                   substeps, dz_ratio):
+    """A 6-slice shard (16 slices with its ghosts; 8 with `substeps=1`) of
+    a 22-slice volume: the top shard, an interior one and the bottom
+    one."""
+    n = 5 if substeps is None else substeps
+    zstart = zstart + 5 - n
+    model = BeelerReuter(CFG.replace(height=40, width=67, skip=skip))
+    full = volume_state(model, 22)
+    rng = np.random.RandomState(3)
+    full["V"] = full["V"] + rng.normal(0, 3.0, full["V"].shape).astype(
+        np.float32)
+    ext_d = 6 + 2 * n
+    zs = np.arange(zstart, zstart + ext_d) % 22
+    base = {k: torch.tensor(v[zs], device=device) for k, v in full.items()}
+    got = {k: v.clone() for k, v in base.items()}
+    want = {k: v.clone() for k, v in base.items()}
+    probe_slice = n + 2
+    pk, pp = torch.zeros(1, device=device), torch.zeros(1, device=device)
+    cuda_volume_block.KERNEL.reset_launches()
+    step = cuda_volume_block.make_volume_block_step(model, ext_d, 22,
+                                                    dz_ratio, substeps)
+    got, _ = step(got, torch.empty_like(got["V"]), zstart, pk, 0, probe_slice)
+    cuda_volume_block.plain_volume_block_step(
+        model, want, zstart, 22, dz_ratio, substeps, pp, 0, probe_slice)
+    for k in want:
+        torch.testing.assert_close(got[k][n:-n], want[k][n:-n], rtol=1e-3,
+                                   atol=1e-5)
+    torch.testing.assert_close(pk, pp, rtol=1e-3, atol=1e-5)
+    assert cuda_volume_block.KERNEL.launches == (
+        {"slow": 1, "frozen": 4} if skip else {"slow": n, "frozen": 0})
+
+
+@pytest.mark.parametrize("shape", [(4,), (2, 2)], ids=["4x1", "2x2"])
+def test_sharded_simulate_launches_block_kernel(device, shape):
+    """Four shards on one card: the block kernel once per shard per outer
+    step and no other kernel, equal to the unsharded tiled run."""
+    cfg = CFG.replace(height=64, width=96, duration=20)
+    mesh = make_mesh(shape=shape, devices=[device] * 4)
+    ref = Simulation(BeelerReuter(cfg.replace(kernel="xla")),
+                     device=device).define().simulate()
+    sim = Simulation(BeelerReuter(cfg), mesh=mesh, wide_halo=True).define()
+    assert sim.route == "block"
+    for kern in (cuda_block.KERNEL, cuda_step.KERNEL, cuda_tiled.KERNEL):
+        kern.reset_launches()
+    res = sim.simulate()
+    assert cuda_block.KERNEL.launches == 4 * res.steps
+    assert cuda_tiled.KERNEL.launches == 0
+    assert cuda_step.KERNEL.launches == {"slow": 0, "frozen": 0}
+    np.testing.assert_allclose(res.state["V"], ref.state["V"], atol=0.12,
+                               rtol=0)
+    np.testing.assert_allclose(res.probes["v"], ref.probes["v"], atol=1e-3,
+                               rtol=0)
+    tiled = cuda_tiled.make_tiled_cuda_step(BeelerReuter(cfg))
+    st = interop.state_from_numpy(BeelerReuter(cfg).initial_state(), device)
+    for _ in range(res.steps):
+        st = tiled(st)
+    # the per-cell code is the tiled kernel's; only the tiling differs
+    for k, v in interop.state_to_numpy(st).items():
+        np.testing.assert_allclose(res.state[k], v, rtol=0, atol=1e-4,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("skip,halo_k", [(True, None), (False, None),
+                                         (False, 1)])
+def test_sharded_run_volume_launches_block_kernel(device, skip, halo_k):
+    model = BeelerReuter(CFG.replace(height=40, width=67, skip=skip))
+    mesh = make_mesh(devices=[device] * 4)
+    events = [VolumeEvent(step=6, loc="ruq", z1=12)]
+    ref = run_volume(model, 24, 10, events=events, dz_ratio=0.5,
+                     kernel="xla", device=device)
+    cuda_volume_block.KERNEL.reset_launches()
+    cuda_volume.KERNEL.reset_launches()
+    got = run_volume(model, 24, 10, events=events, dz_ratio=0.5, mesh=mesh,
+                     wide_halo=True, halo_k=halo_k)
+    assert cuda_volume_block.KERNEL.launches == (
+        {"slow": 40, "frozen": 160} if skip else {"slow": 200, "frozen": 0})
+    assert cuda_volume.KERNEL.launches == {"slow": 0, "frozen": 0}
+    np.testing.assert_allclose(got[0]["V"], ref[0]["V"], atol=0.12, rtol=0)
+    np.testing.assert_allclose(got[1], ref[1], atol=1e-3, rtol=0)

@@ -146,7 +146,7 @@ def test_unported_engine_features_raise(call):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh_shape=(2,)),
+    dict(mesh_shape=(2,), mesh_mode="gspmd"),
     dict(fiber_angle=0.5, fiber_ratio=0.5),
     dict(rotor_probe=True),
     dict(timeline=True),

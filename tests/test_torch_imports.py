@@ -44,7 +44,9 @@ def test_scan_sees_the_package():
     names = {p.name for p in SOURCES}
     assert {"cuda_step.py", "simulation.py", "build.py", "config.py",
             "stencil3d.py", "volume.py", "cuda_volume.py",
-            "cuda_volume_tiled.py", "chip_smoke.py"} <= names
+            "cuda_volume_tiled.py", "chip_smoke.py", "cuda_block.py",
+            "cuda_volume_block.py", "sharding.py", "halo.py", "spmd.py",
+            "volume_spmd.py"} <= names
 
 
 def _no_nvcc(monkeypatch, tmp_path):
@@ -109,16 +111,33 @@ def test_edited_header_changes_the_library_path(monkeypatch, tmp_path):
     assert build.build("k", [src], [hdr]) == edited
 
 
+def _quoted_includes(path):
+    return {line.split('"')[1] for line in path.read_text().splitlines()
+            if line.startswith('#include "')}
+
+
+BINDINGS = ("cuda_step", "cuda_tiled", "cuda_volume", "cuda_volume_tiled",
+            "cuda_block", "cuda_volume_block")
+
+
 def test_bindings_hash_every_header_their_sources_include():
-    from fib_tf_tpu_torch.ops import (cuda_step, cuda_tiled, cuda_volume,
-                                      cuda_volume_tiled)
-    for mod in (cuda_step, cuda_tiled, cuda_volume, cuda_volume_tiled):
-        text = mod.SOURCE.read_text()
-        included = {line.split('"')[1] for line in text.splitlines()
-                    if line.startswith('#include "')}
+    """A source names every header it depends on, also those that reach it
+    through another header, and its binding hashes them all."""
+    import importlib
+    for name in BINDINGS:
+        mod = importlib.import_module(f"fib_tf_tpu_torch.ops.{name}")
+        included = _quoted_includes(mod.SOURCE)
         assert included == {h.name for h in mod.HEADERS}, mod.__name__
         for hdr in mod.HEADERS:
             assert hdr.parent == mod.SOURCE.parent and hdr.is_file()
+            assert _quoted_includes(hdr) <= included, hdr.name
+
+
+def test_block_kernels_share_the_earlier_kernels_headers():
+    from fib_tf_tpu_torch.ops import (cuda_block, cuda_tiled, cuda_volume,
+                                      cuda_volume_block)
+    assert set(cuda_block.HEADERS) == set(cuda_tiled.HEADERS)
+    assert set(cuda_volume_block.HEADERS) == set(cuda_volume.HEADERS)
 
 
 def test_failed_build_raises_with_log(monkeypatch, tmp_path):
@@ -136,6 +155,7 @@ def test_kernel_sources_ship_with_the_package():
     text = (ROOT / "pyproject.toml").read_text()
     assert '"fib_tf_tpu_torch.csrc"' in text
     for name in ("br_substep.cu", "br_tiled.cu", "br_volume.cu",
-                 "br_volume_tiled.cu", "br_cell.cuh"):
+                 "br_volume_tiled.cu", "br_cell.cuh", "br_block.cu",
+                 "br_volume_block.cu", "br_tile.cuh", "br_volume_cell.cuh"):
         assert (build.CSRC_DIR / name).is_file()
     assert os.path.commonpath([build.BUILD_DIR, ROOT]) == str(ROOT)

@@ -25,6 +25,7 @@ from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import VolumeEvent, run_volume, volume
 from fib_tf_tpu_torch.ops import (cuda_step, cuda_volume, cuda_volume_tiled,
                                   stencil3d)
+from fib_tf_tpu_torch.parallel import make_mesh
 
 
 def jax_cfg(c):
@@ -372,7 +373,10 @@ def test_tile_rows_table():
     dict(phase=np.ones((16, 24), np.float32)),
     dict(fiber_twist=2.1), dict(fiber_ratio=0.3), dict(fiber_elevation=0.2),
     dict(fiber_angle0=0.3),
-    dict(mesh=object()), dict(wide_halo=True), dict(halo_k=2),
+    dict(mesh=object()),
+    dict(wide_halo=True, mesh=make_mesh(devices=["cpu"]), rotor_probe=True),
+    dict(halo_k=5, wide_halo=True, mesh=make_mesh(devices=["cpu"]),
+         electrodes=[(-5.0, 8.0, 12.0)]),
     dict(electrodes=[(-5.0, 8.0, 12.0)]), dict(rotor_probe=True),
     dict(probe=lambda s: s["V"].mean()),
 ], ids=lambda kw: next(iter(kw)))

@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      substep kernel br_substep.cu, the tiled outer-step kernel br_tiled.cu,
      the volume substep kernel br_volume.cu, the tiled volume kernel
      br_volume_tiled.cu, and the per-shard block kernels br_block.cu and
-     br_volume_block.cu of the sharded paths;
+     br_volume_block.cu of the sharded paths; the -Xptxas -v lines of
+     every kernel, and none of the tile skeleton's two instantiations
+     (br_tiled, br_block) may spill;
   2. substep kernel vs plain PyTorch on the card at 512x512, on a seeded
      state that holds a wavefront: one slow (n=5) launch, one frozen (n=0)
      launch and two outer steps, all 8 planes at rtol 1e-3 / atol 1e-5;
@@ -25,8 +27,10 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
   5. tiled kernel vs plain PyTorch on the card, all 8 planes and the probe
      at the same tolerance, skip on and off: 1 and 2 outer steps at
      2048x2048 on a seeded state that holds a wavefront, 2 outer steps at
-     the ragged 67x131 and 1031x517 and at 9x12 (smaller than one tile),
-     and 2 outer steps against the substep kernel at 512x512;
+     the ragged 67x131, 1031x517 and 2047x2047 (tiles of two sizes, many
+     per persistent block), at 160x160 (a clamp-free tile among edge tiles
+     in one launch) and at 9x12 (smaller than one tile), and 2 outer steps
+     against the substep kernel at 512x512;
   6. the 2048x2048 main path (past the 32 MB cutover) for 700 ms: it must
      route 'tiled', launch the tiled kernel exactly once per outer step and
      no other kernel, stay finite, cross the probe at outer step
@@ -38,7 +42,10 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      2048x2048 and at 512x512; simulate()'s wall seconds per simulated
      second on the tiled route (phase 6's run), and at 512x512 for 1000 ms
      with the cutover lowered so that it takes the tiled route (held
-     within WHOLE_RUN_ATOL_MV of phase 4's run);
+     within WHOLE_RUN_ATOL_MV of phase 4's run); the ratio of the tiled
+     kernel to the substep route at 2048x2048; and the tiled kernel's
+     memory-vs-compute split (time_split: n_sub = 1..5, all frozen and all
+     SLOW, per tile);
   8. volume substep kernel vs plain PyTorch at the same tolerance: at
      8x128x512 on a seeded state that holds a wavefront, one slow launch,
      one frozen launch and 2 outer steps, and 2 outer steps with
@@ -71,7 +78,8 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      halo-extended block of the 2048x2048 domain, its ghosts cut from the
      seeded state (522x2048 on a 4x1 mesh: the top, an interior and the
      bottom shard; 1034x1034 on a 2x2 mesh: a corner shard), 1 and 2 outer
-     steps, skip on and off, and a ragged 23x41 block of a 67x131 domain;
+     steps, skip on and off, a 67x131 block of 2048x2048 (rows and columns
+     split unevenly), and ragged 23x41 blocks of a 67x131 domain;
  14. volume block kernel vs plain PyTorch: one shard's 18x128x512 block
      (8 slices and 5 ghost slices each way) of a 32x128x512 volume, the
      top, an interior and the bottom shard, dz_ratio 1 and 0.5, 1 and 2
@@ -82,8 +90,8 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      one card, each on its own stream: it must launch the block kernel
      exactly 4 times per outer step and no other kernel, cross where phase
      6 did, and end within WHOLE_RUN_ATOL_MV of phase 6's unsharded run
-     and of its kernel='xla' run; the same on a 2x2 mesh for 100 ms against
-     an unsharded run of that length;
+     and of its kernel='xla' run, and bit-equal to phase 6's run; the same
+     on a 2x2 mesh for 100 ms against an unsharded run of that length;
  16. the sharded volume path, run_volume(BeelerReuter(cfg), 32, 1000,
      mesh=<four z shards on cuda:0>, wide_halo=True) at 32x128x512 with the
      S2 of phase 9 over the lower half of the depth: it must launch the
@@ -93,7 +101,8 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      volume on the kernels; a 100-step run is held against kernel='xla';
  17. timings of the sharded paths: device time per outer step per shard
      of both block kernels and of their plain versions, the halo copies of
-     one shard, the host-paced time per outer step, and wall seconds per
+     one shard, the block kernel's memory-vs-compute split on the 522x2048
+     block, the host-paced time per outer step, and wall seconds per
      simulated second of both sharded runs beside the unsharded ones.
 
 Prints the nvidia-smi line and one JSON line describing the kernels before
@@ -104,6 +113,7 @@ nvcc; exits 1 without them.  Imports no JAX.
 import concurrent.futures
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -134,7 +144,7 @@ WHOLE_RUN_ATOL_MV = 0.12
 CROSSING_STEP, CROSSING_SLACK = 332, 2
 CROSSING_STEP_LARGE = 1332
 # ragged grids, and one smaller than a tile, for the tiled kernel
-RAGGED = ((67, 131), (1031, 517), (9, 12))
+RAGGED = ((67, 131), (1031, 517), (2047, 2047), (160, 160), (9, 12))
 # the volume path: the reference's own BR volume, 8x128x512 (16 MB of
 # state), and the same with the rows doubled past the 32 MB cutover,
 # 8x512x512 (64 MB); 1000 outer steps (500 ms) with the cross-field S2 of
@@ -279,6 +289,12 @@ def main():
         for line in path.with_name(path.name + ".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
+    for name in ("br_tiled", "br_block"):
+        log = lib_paths[name].with_name(lib_paths[name].name + ".log")
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", log.read_text())
+        check(bool(spills) and all(a == b == "0" for a, b in spills),
+              f"{name}: the tile skeleton spills ({spills})")
 
     def reset_counts():
         for kernel, _ in bindings.values():
@@ -436,8 +452,12 @@ def main():
                               base_large, model, base)
     for size, t in tiled_timing.items():
         print(f"  {size}: tiled kernel {t['tiled_us']:.2f} us/outer step, "
-              f"substep route (5 launches) {t['substep_us']:.2f}, plain "
+              f"substep route (5 launches) {t['substep_us']:.2f}, ratio "
+              f"{t['tiled_us'] / t['substep_us']:.4f}, plain "
               f"{t['plain_us']:.1f} (device) [{card}]", flush=True)
+    tiled_split = split_tiled(torch, cuda_step, cuda_tiled, large,
+                              base_large)
+    print_split("br_tiled at 2048x2048", tiled_split, card)
     print(f"  simulate() on the tiled route at 2048x2048: "
           f"{1.0 / res_large.sim_seconds_per_wall_second:.6f} wall-s/sim-s "
           f"over {res_large.steps} outer steps (700 ms); "
@@ -618,6 +638,9 @@ def main():
                 block_err = max(block_err, check_block(
                     torch, cuda_block, cuda_tiled, m, base_large, h_own,
                     w_own, origin, n, f"2048x2048 {name} skip={skip}"))
+        block_err = max(block_err, check_block(
+            torch, cuda_block, cuda_tiled, m, base_large, 67, 131,
+            (700, 900), 2, f"2048x2048 67x131 block skip={skip}"))
         m = BeelerReuter(cfg.replace(height=67, width=131, skip=skip))
         st = seeded_state(torch, interop, m, dev, cuda_step.plain_step, rng)
         for w_own, origin in ((None, (44, 0)), (41, (13, 90))):
@@ -731,12 +754,18 @@ def main():
 
     # -- phase 17 ---------------------------------------------------------------
     print(f"phase 17: timings of the sharded paths on {card}", flush=True)
-    bt = time_block(torch, cuda_step, cuda_block, large, base_large, 512,
-                    (512, 0))
+    bt = time_block(torch, cuda_step, cuda_block, cuda_tiled, large,
+                    base_large, 512, (512, 0))
     print(f"  br_block, 522x2048 block (interior shard of 4x1): kernel "
           f"{bt['kernel_us']:.2f} us/outer step, plain {bt['plain_us']:.1f}; "
           f"one shard's halo copies (2 x 8 planes x 5x2048) "
           f"{bt['copies_us']:.2f} us (device) [{card}]", flush=True)
+    print_split("br_block on the 522x2048 block", bt["split"], card)
+    t2k = tiled_timing["2048x2048"]
+    print(f"  beside it, phase 7's br_tiled at 2048x2048: "
+          f"{t2k['tiled_us']:.2f} us against the substep route's "
+          f"{t2k['substep_us']:.2f} us, ratio "
+          f"{t2k['tiled_us'] / t2k['substep_us']:.4f} [{card}]", flush=True)
     vbt = time_volume_block(torch, cuda_step, cuda_volume_block, vmodel,
                             sbase, d_own, d_own)
     print(f"  br_volume_block, 18x128x512 block (interior shard): group of "
@@ -1091,8 +1120,8 @@ def check_volume_block(torch, cuda_volume, cuda_volume_block, model, full,
 
 def check_sharded_against_unsharded(res, uns, name):
     """A sharded run ends within WHOLE_RUN_ATOL_MV of the unsharded tiled
-    run, with the same crossings; says whether it is equal bit for bit
-    (the per-cell code is the same)."""
+    run, bit-equal to it (the per-cell code is the same), with the same
+    crossings."""
     dv = float(np.abs(res.state["V"] - uns.state["V"]).max())
     same = all(np.array_equal(res.state[k], uns.state[k]) for k in uns.state)
     print(f"  mesh {name}: final V vs the unsharded tiled run: max abs "
@@ -1100,6 +1129,10 @@ def check_sharded_against_unsharded(res, uns, name):
           f"{np.array_equal(res.probes['v'], uns.probes['v'])}", flush=True)
     check(dv <= WHOLE_RUN_ATOL_MV,
           f"the {name} sharded run ends {dv} mV from the unsharded one")
+    # kernels 2 and 3 share the tile skeleton and the cell body, so the
+    # tiling does not change a cell's value
+    check(same, f"the {name} sharded run is not bit-equal to the unsharded "
+                f"tiled run")
     check(res.cycle_lengths == uns.cycle_lengths,
           f"the {name} sharded run crosses at {res.cycle_lengths}, the "
           f"unsharded one at {uns.cycle_lengths}")
@@ -1150,10 +1183,12 @@ def time_copies(torch, state, k, volume):
     return device_us(torch, copies, reps=50)
 
 
-def time_block(torch, cuda_step, cuda_block, model, full, h_own, origin):
+def time_block(torch, cuda_step, cuda_block, cuda_tiled, model, full, h_own,
+               origin):
     """Device time per outer step of the block kernel on one row shard's
     extended block, of its plain version (substep by substep, summed over
-    the schedule, as in time_tiled) and of the shard's halo copies."""
+    the schedule, as in time_tiled) and of the shard's halo copies, and the
+    kernel's memory-vs-compute split (time_split)."""
     k = model.dt_per_step
     h, w = model.state_shape()
     rstart = origin[0] - k
@@ -1165,6 +1200,13 @@ def time_block(torch, cuda_step, cuda_block, model, full, h_own, origin):
     plain = {slow: device_us(torch, lambda: model.solve(
         ext, geom, n=model.slow_n if slow else 0), reps=1)
         for slow in (True, False)}
+    params = cuda_step.pack_params(model)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(schedule):
+        cuda_block.KERNEL.launch(params, ext, out, rstart, 0, k, False, h, w,
+                                 schedule, None, model.probe_pixel, 0, stream)
+
     return {
         "kernel_us": device_us(torch, lambda: step(ext, out, rstart, 0),
                                reps=50),
@@ -1172,6 +1214,8 @@ def time_block(torch, cuda_step, cuda_block, model, full, h_own, origin):
                         for slow in cuda_step.slow_schedule(model)),
         "copies_us": time_copies(torch, ext, k, volume=False),
         "ext_cells": (h_own + 2 * k) * w, "own_cells": h_own * w,
+        "split": time_split(torch, launch, lambda n: tile_count(
+            cuda_tiled, n, h_own, w), ext_rows=tile_rows(cuda_tiled)),
     }
 
 
@@ -1366,6 +1410,79 @@ def time_tiled(torch, cuda_step, cuda_tiled, large, base_large, model, base):
                             for slow in cuda_step.slow_schedule(m)),
         }
     return out
+
+
+def tile_rows(cuda_tiled) -> int:
+    """Rows of the tile skeleton's extended tile (ops/cuda_tiled.py TILE)."""
+    return cuda_tiled.TILE[1] * cuda_tiled.TILE[2]
+
+
+def tile_count(cuda_tiled, n_sub: int, rows: int, cols: int) -> int:
+    """Tiles of a rows x cols window at `n_sub` substeps: as many per axis
+    as the largest interior needs."""
+    th, tw = cuda_tiled.tile_interior(n_sub)
+    return -(-rows // th) * -(-cols // tw)
+
+
+def ring_rows(n_sub: int, rows: int) -> float:
+    """The rows `n_sub` substeps update on a `rows`-row tile, in units of
+    the first substep's (rows - 2): substep s updates rows - 2 - 2s."""
+    return sum(rows - 2 - 2 * s for s in range(n_sub)) / (rows - 2)
+
+
+def fit_line(xs, ys):
+    """(intercept, slope) of the least-squares line through the points."""
+    n = len(xs)
+    mx, my = sum(xs) / n, sum(ys) / n
+    slope = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+             / sum((x - mx) ** 2 for x in xs))
+    return my - slope * mx, slope
+
+
+def time_split(torch, launch, tiles, ext_rows: int, reps: int = 30):
+    """The memory-vs-compute split of a fused outer-step kernel from its
+    existing arguments: device time of `launch(schedule)` for n_sub =
+    1..5, all frozen and all SLOW, divided by `tiles(n_sub)` and fitted by
+    a straight line in ring_rows(n_sub).  The intercept is what a tile
+    costs besides its substeps (its load and store, where the compute does
+    not hide them), the slopes one frozen and one SLOW substep over a
+    whole (ext_rows - 2)-row ring (ns per tile)."""
+    out = {}
+    for body, slow in (("frozen", False), ("slow", True)):
+        xs, ys = [], []
+        for n in range(1, 6):
+            us = device_us(torch, lambda: launch((slow,) * n), reps=reps)
+            out[f"{body}_n{n}_us"] = us
+            out[f"{body}_n{n}_tiles"] = tiles(n)
+            xs.append(ring_rows(n, ext_rows))
+            ys.append(us * 1e3 / tiles(n))
+        out[f"{body}_intercept_ns"], out[f"{body}_slope_ns"] = fit_line(xs,
+                                                                         ys)
+    return out
+
+
+def split_tiled(torch, cuda_step, cuda_tiled, model, base):
+    """time_split of the tiled kernel on `base`."""
+    state = clone(base)
+    h, w = model.state_shape()
+    params = cuda_step.pack_params(model)
+    stream = torch.cuda.current_stream().cuda_stream
+    return time_split(
+        torch, lambda schedule: cuda_tiled.KERNEL.launch(
+            params, state, schedule, None, model.probe_pixel, 0, stream),
+        lambda n: tile_count(cuda_tiled, n, h, w),
+        ext_rows=tile_rows(cuda_tiled))
+
+
+def print_split(name, split, card):
+    for body in ("frozen", "slow"):
+        points = ", ".join(f"n={n} {split[f'{body}_n{n}_us']:.2f} us / "
+                           f"{split[f'{body}_n{n}_tiles']} tiles"
+                           for n in range(1, 6))
+        print(f"  {name}, split all {body}: {points}; per tile "
+              f"{split[f'{body}_intercept_ns']:.2f} ns + "
+              f"{split[f'{body}_slope_ns']:.2f} ns per substep of a whole "
+              f"ring (device) [{card}]", flush=True)
 
 
 def time_volume(torch, cuda_step, cuda_volume, cuda_volume_tiled, sizes):

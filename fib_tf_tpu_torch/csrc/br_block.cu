@@ -27,8 +27,15 @@
 // ghosts for the next step.
 //
 // What bounds it: the bytes of the extended block read once and of the
-// centre written once (8 planes each), as for br_tiled.cu, whose notes on
-// the redundant ring compute apply unchanged.
+// centre written once (8 planes each), 20.2 us for a 522x2048 block at
+// 3.35 TB/s, but as for br_tiled.cu (whose note says what was measured)
+// the cell body's instructions in the rings bind.  A 512-row shard of
+// 2048^2 is cut into 10 x 38 = 380 equal tiles (52 or 51 rows, 54 or 53
+// columns), 2.88 for each of 132 persistent blocks: the blocks with three
+// tiles set the time, three tiles of compute plus the first tile's load,
+// which nothing overlaps.  Measured on an NVIDIA H100 80GB HBM3 at a
+// 700 W limit: 79.7-80.4 us, against 98.9-100.0 us for the previous
+// skeleton (tools/torch_tile_bench.py, PERF.md).
 //
 // Built by fib_tf_tpu_torch/kernels/build.py with nvcc into a shared library
 // with a plain C interface (no --use_fast_math: logf feeds e_Ca).
@@ -113,7 +120,7 @@ int br_block(const float* params, int n_params, const float* v_in,
   // launch_tiles refuses a window that leaves the domain
   return (int)fibtorch::launch_tiles<Body, kBx, kBy, kRy>(
       p, v_in, v_out, planes, win, height, width, n_sub, slow_mask, probe,
-      probe_row, probe_col, probe_index, s);
+      probe_row, probe_col, probe_index, device, s);
 }
 
 }  // extern "C"

@@ -14,25 +14,22 @@
 // domain and the planes are the grid's own arrays.  Any H, W >= 3 runs.
 //
 // What bounds it.  Per outer step it reads the state once and writes it
-// once: 8 planes each way, 268 MB at 2048^2 float32, plus the halo
-// overfetch (EH*EW / TH*TW, mostly served by L2, since neighbouring blocks
-// read the same rings).  Five launches of br_substep.cu move four times as
-// much (1.07 GB).  The price is redundant compute in the rings: about 180
-// FLOP per cell per substep (14 degree-8 fits, the stencil, the currents,
-// one logf), times the lanes the shrinking ring keeps busy per interior
-// cell.  From the H100's data sheet (3.35 TB/s, 67 TFLOP/s fp32) both
-// sides come to about 80 us per outer step at 2048^2.  Measured on an
-// NVIDIA H100 80GB HBM3 at a 700 W limit, the kernel takes 334 us there
-// against 395 us for five br_substep.cu launches (PERF.md): neither roof
-// binds.  The likely binders, not yet profiled: instruction issue for the
-// cell body, on 64-lane rows that stay busy across the ring, and the load
-// and store phases, which one block per SM does not overlap with compute.
-// The tile shape trades halo compute (larger tiles waste less) against
-// registers per thread and threads per block.  Five shapes were timed
-// against each other on the card (32x32 to 64x64 extended, 256 to 1024
-// threads); the one built below was the fastest at 2048^2 (PERF.md).
-//
-// Simple first: plain loads and stores, no TMA, cp.async or wgmma.
+// once: 8 planes each way, 268 MB at 2048^2 float32 (80 us at 3.35 TB/s),
+// plus the halo overfetch (64^2 loaded per 54^2 written, mostly served by
+// L2).  Five launches of br_substep.cu move four times as much.  The price
+// is redundant compute in the rings, and that is what binds: measured on
+// an NVIDIA H100 80GB HBM3 at a 700 W limit (tools/torch_tile_bench.py,
+// PERF.md), the skeleton runs at the SM clock's 1980 MHz, 64 registers a
+// thread and no spills, and a variant with no copies and no stores takes
+// 234-240 us of the kernel's 265-268 us at 2048^2: the cell body's
+// instructions (in SASS about 300 per SLOW and 170 per frozen
+// cell-substep in the clamp-free body, 1.27 lane-substeps per useful
+// cell-substep) on 1024 threads that meet at a barrier after every
+// substep, issued at about two thirds of the SMs' peak rate.  The copies of the
+// next tile, spread over the substeps, add about 16-30 us; the stores,
+// issued from the last substep, add nothing measurable.  The previous,
+// non-persistent skeleton (one tile per block, load, compute, store in
+// turn, clamps on every cell) took 327-331 us.
 //
 // Built by fib_tf_tpu_torch/kernels/build.py with nvcc into a shared library
 // with a plain C interface (no --use_fast_math: logf feeds e_Ca).
@@ -71,6 +68,16 @@ void br_tiled_tile_shape(int* threads_x, int* threads_y,
   *rows_per_thread = kRy;
 }
 
+// How a window axis of `len` cells is cut into tiles of at most `max_tile`
+// (fibtorch::split_axis): `n` tiles, the first `rem` of `base + 1` cells,
+// the others of `base`.
+void br_tiled_split(int len, int max_tile, int* n, int* base, int* rem) {
+  const fibtorch::Split s = fibtorch::split_axis(len, max_tile);
+  *n = s.n;
+  *base = s.base;
+  *rem = s.rem;
+}
+
 // Launch one outer step of `n_sub` substeps on `stream` of device
 // `device` and return cudaGetLastError().  `params` is a host array of
 // br_tiled_param_floats() floats; `planes_in` / `planes_out` are host
@@ -101,7 +108,7 @@ int br_tiled(const float* params, int n_params, const float* v_in,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)fibtorch::launch_tiles<Body, kBx, kBy, kRy>(
       p, v_in, v_out, planes, win, height, width, n_sub, slow_mask, probe,
-      probe_row, probe_col, probe_index, s);
+      probe_row, probe_col, probe_index, device, s);
 }
 
 }  // extern "C"

@@ -47,10 +47,28 @@ plain_tiled_step = cuda_step.plain_step
 
 
 def tile_interior(n_sub: int):
-    """(rows, cols) of the interior that each block writes when it runs
+    """(rows, cols) of the largest interior a tile writes when it runs
     `n_sub` substeps (its halo is n_sub rings)."""
     bx, by, ry = TILE
     return by * ry - 2 * n_sub, bx - 2 * n_sub
+
+
+def tile_spans(length: int, max_tile: int):
+    """[(start, size), ...] of the interior tiles that cut one axis of a
+    launch's window, `length` cells, relative to its start: as few tiles as
+    `max_tile` allows, of equal size to within one cell, the larger first
+    (csrc/br_tile.cuh split_axis)."""
+    n = -(-length // max_tile)
+    base, rem = divmod(length, n)
+    return [(i * base + min(i, rem), base + (i < rem)) for i in range(n)]
+
+
+def tile_walk(n_tiles: int, n_blocks: int):
+    """The tiles each persistent block computes, in order: block b takes
+    b, b + grid, b + 2 grid, ... with grid = min(n_tiles, n_blocks)
+    (csrc/br_tile.cuh tile_kernel)."""
+    grid = min(n_tiles, n_blocks)
+    return [list(range(b, n_tiles, grid)) for b in range(grid)]
 
 
 def slow_mask(schedule) -> int:
@@ -82,6 +100,9 @@ class TiledKernel:
             lib.br_tiled_tile_shape.argtypes = [
                 ctypes.POINTER(ctypes.c_int)] * 3
             lib.br_tiled_tile_shape.restype = None
+            lib.br_tiled_split.argtypes = [ctypes.c_int, ctypes.c_int] + [
+                ctypes.POINTER(ctypes.c_int)] * 3
+            lib.br_tiled_split.restype = None
             lib.br_tiled.argtypes = (
                 [ctypes.c_void_p, ctypes.c_int,      # params, n_params
                  ctypes.c_void_p, ctypes.c_void_p,   # v_in, v_out
@@ -142,6 +163,17 @@ def _check_layout(lib):
         raise RuntimeError(
             f"br_tiled.cu takes (param floats, planes, tile) = {got}, this "
             f"module packs {want}")
+    for length, max_tile in ((2048, 54), (512, 54), (1024, 54), (131, 62),
+                             (9, 54), (2047, 60)):
+        n, base, rem = (ctypes.c_int() for _ in range(3))
+        lib.br_tiled_split(length, max_tile, *map(ctypes.byref,
+                                                  (n, base, rem)))
+        spans = [(i * base.value + min(i, rem.value),
+                  base.value + (i < rem.value)) for i in range(n.value)]
+        if spans != tile_spans(length, max_tile):
+            raise RuntimeError(
+                f"br_tiled.cu cuts {length} cells into tiles {spans}, "
+                f"tile_spans into {tile_spans(length, max_tile)}")
 
 
 # the process-wide binding: the built library is process-wide too

@@ -105,6 +105,63 @@ def test_tiled_kernel_matches_plain_version(device, hw, skip):
     assert cuda_tiled.KERNEL.launches - before == 3
 
 
+def _seeded(model, device, seed):
+    rng = np.random.RandomState(seed)
+    st = model.initial_state()
+    st["V"] = st["V"] + rng.normal(0, 3.0, st["V"].shape).astype(np.float32)
+    return interop.state_from_numpy(st, device)
+
+
+@pytest.mark.parametrize("hw", [(2047, 2047), (160, 160), (9, 12)],
+                         ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_tiled_kernel_on_ragged_and_small_grids(device, hw):
+    """2047^2: 38 x 38 tiles of 54 and 53 cells, 10 or 11 for each
+    persistent block; 160^2: 3 x 3 tiles, the clamp-free centre among edge
+    tiles in one launch; 9x12: smaller than one tile (no probe pixel)."""
+    h, w = hw
+    model = BeelerReuter(CFG.replace(height=h, width=w))
+    base = _seeded(model, device, 4)
+    got = {k: v.clone() for k, v in base.items()}
+    want = {k: v.clone() for k, v in base.items()}
+    has_probe = model.probe_pixel[0] < h
+    pk = torch.zeros(2, device=device) if has_probe else None
+    pp = torch.zeros(2, device=device) if has_probe else None
+    step = cuda_tiled.make_tiled_cuda_step(model)
+    before = cuda_tiled.KERNEL.launches
+    for i in range(2):
+        got = step(got, pk, i)
+        want = cuda_tiled.plain_tiled_step(model, want, pp, i)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=1e-5)
+    if has_probe:
+        torch.testing.assert_close(pk, pp, rtol=1e-3, atol=1e-5)
+    assert cuda_tiled.KERNEL.launches - before == 2
+
+
+@pytest.mark.parametrize("skip", [True, False])
+@pytest.mark.parametrize("n_sub", [1, 2, 3, 4, 5])
+def test_tiled_kernel_for_every_substep_count(device, n_sub, skip):
+    """One launch of n_sub substeps (the first n_sub of the model's
+    schedule) against n_sub plain substeps, on 131 x 200 cells: tiles of
+    every interior size the halo leaves."""
+    model = BeelerReuter(CFG.replace(height=131, width=200, skip=skip))
+    schedule = cuda_step.slow_schedule(model)[:n_sub]
+    base = _seeded(model, device, 5)
+    got = {k: v.clone() for k, v in base.items()}
+    want = {k: v.clone() for k, v in base.items()}
+    pk, pp = torch.zeros(1, device=device), torch.zeros(1, device=device)
+    cuda_tiled.KERNEL.launch(cuda_step.pack_params(model), got, schedule, pk,
+                             model.probe_pixel, 0,
+                             torch.cuda.current_stream(device).cuda_stream)
+    for s, slow in enumerate(schedule):
+        last = s == len(schedule) - 1
+        want = cuda_step.plain_substep(model, want, slow,
+                                       pp if last else None, 0)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=1e-5)
+    torch.testing.assert_close(pk, pp, rtol=1e-3, atol=1e-5)
+
+
 def test_simulate_past_the_cutover_routes_tiled(device, monkeypatch):
     monkeypatch.setattr(Simulation, "WHOLE_GRID_STATE_MB_MAX", 0.01)
     ref = Simulation(BeelerReuter(CFG.replace(kernel="xla")),
@@ -236,6 +293,35 @@ def test_block_kernel_matches_plain_version(device, origin, skip):
         assert float(got_out[kk][:k].abs().max()) == 0.0
     if owns:
         torch.testing.assert_close(pk, pp, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("h_own,w_own,origin", [
+    (512, None, (512, 0)), (1024, 1024, (1024, 1024)), (67, 131, (700, 900))],
+    ids=["4x1-interior", "2x2-corner", "67x131"])
+def test_block_kernel_on_blocks_of_2048(device, h_own, w_own, origin):
+    """Shards of the 2048^2 domain: a 512-row shard of a 4x1 mesh (10 row
+    tiles of 52 and 51 rows), the corner shard of a 2x2 mesh (ext_w 1034,
+    edge and clamp-free tiles in one launch), and a 67 x 131 block whose
+    rows and columns split unevenly."""
+    model = BeelerReuter(CFG.replace(height=2048, width=2048))
+    k = model.dt_per_step
+    rng = np.random.RandomState(6)
+    st = model.initial_state()
+    st["V"] = st["V"] + rng.normal(0, 3.0, st["V"].shape).astype(np.float32)
+    two_d = w_own is not None
+    r0, c0 = origin[0] - k, (origin[1] - k if two_d else 0)
+    r1, c1 = origin[0] + h_own + k, (origin[1] + w_own + k if two_d
+                                     else 2048)
+    cur = _extended(st, r0, r1, c0, c1, device)
+    got_out = {kk: torch.zeros_like(v) for kk, v in cur.items()}
+    want_out = {kk: torch.zeros_like(v) for kk, v in cur.items()}
+    before = cuda_block.KERNEL.launches
+    cuda_block.make_block_step(model, two_d)(cur, got_out, r0, c0)
+    cuda_block.plain_block_step(model, cur, want_out, r0, c0, two_d)
+    assert cuda_block.KERNEL.launches - before == 1
+    for kk in want_out:
+        torch.testing.assert_close(got_out[kk], want_out[kk], rtol=1e-3,
+                                   atol=1e-5)
 
 
 @pytest.mark.parametrize("skip,substeps", [(True, None), (False, None),

@@ -158,6 +158,53 @@ def test_tile_table():
     assert cuda_tiled.tile_interior(5) == (54, 54)
     assert cuda_tiled.slow_mask((True, False, False, False, False)) == 1
     assert cuda_tiled.slow_mask((True,) * 5) == 31
+    # a 512-row shard: 10 row tiles of 52 and 51 rows, not 9 x 54 + 26
+    assert cuda_tiled.tile_spans(512, 54) == [(0, 52), (52, 52)] + [
+        (104 + 51 * i, 51) for i in range(8)]
+    # 2048: 38 tiles, 34 of 54 and 4 of 53
+    sizes = [n for _, n in cuda_tiled.tile_spans(2048, 54)]
+    assert sizes == [54] * 34 + [53] * 4
+    assert cuda_tiled.tile_walk(5, 3) == [[0, 3], [1, 4], [2]]
+    assert cuda_tiled.tile_walk(2, 132) == [[0], [1]]
+
+
+@pytest.mark.parametrize("n_sub", [1, 3, 5])
+def test_tile_spans_cover_an_axis_once(n_sub):
+    """Brute force over every window length up to 300: the tiles cover
+    each cell exactly once, as few as the largest interior allows, of
+    sizes within one cell of each other."""
+    for max_tile in cuda_tiled.tile_interior(n_sub):
+        for length in range(1, 301):
+            spans = cuda_tiled.tile_spans(length, max_tile)
+            hits = np.zeros(length, dtype=int)
+            for start, size in spans:
+                hits[start:start + size] += 1
+            sizes = [size for _, size in spans]
+            assert (hits == 1).all(), (length, max_tile)
+            assert len(spans) == -(-length // max_tile)
+            assert max(sizes) <= max_tile and max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("rows,cols,n_blocks", [
+    (2048, 2048, 132), (2047, 2047, 132), (512, 2048, 132),
+    (1024, 1024, 132), (67, 131, 132), (9, 12, 132), (300, 200, 7)],
+    ids=lambda v: str(v))
+def test_persistent_walk_writes_every_cell_once(rows, cols, n_blocks):
+    """The persistent blocks' static walk over the tiles of a rows x cols
+    window writes every cell exactly once, and no block takes more than
+    one tile beyond any other."""
+    th, tw = cuda_tiled.tile_interior(5)
+    rs, cs = cuda_tiled.tile_spans(rows, th), cuda_tiled.tile_spans(cols, tw)
+    walk = cuda_tiled.tile_walk(len(rs) * len(cs), n_blocks)
+    hits = np.zeros((rows, cols), dtype=int)
+    for tiles in walk:
+        for t in tiles:
+            (r, h), (c, w) = rs[t // len(cs)], cs[t % len(cs)]
+            hits[r:r + h, c:c + w] += 1
+    assert (hits == 1).all()
+    assert len(walk) == min(n_blocks, len(rs) * len(cs))
+    counts = [len(tiles) for tiles in walk]
+    assert max(counts) - min(counts) <= 1
 
 
 def test_empty_interior_raises(monkeypatch):

@@ -10,8 +10,8 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      the volume substep kernel br_volume.cu, the tiled volume kernel
      br_volume_tiled.cu, and the per-shard block kernels br_block.cu and
      br_volume_block.cu of the sharded paths; the -Xptxas -v lines of
-     every kernel, and none of the tile skeleton's two instantiations
-     (br_tiled, br_block) may spill;
+     every kernel, and neither the tile skeleton's two instantiations
+     (br_tiled, br_block) nor the tiled volume kernel may spill;
   2. substep kernel vs plain PyTorch on the card at 512x512, on a seeded
      state that holds a wavefront: one slow (n=5) launch, one frozen (n=0)
      launch and two outer steps, all 8 planes at rtol 1e-3 / atol 1e-5;
@@ -59,21 +59,26 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      stay finite, cross the mid-depth probe at (332, 166.0) +- 2 steps
      (the 2D crossing: the S1 wave is planar), and end within
      WHOLE_RUN_ATOL_MV of, and cross with, the same run with kernel='xla';
- 10. tiled volume kernel vs plain PyTorch at the same tolerance, skip on
-     and off: 1 and 2 outer steps at 8x512x512 on a seeded state, 2 outer
-     steps at the ragged 5x67x131, at 4x9x12 (smaller than one tile) and
-     at the deepest depth the kernel takes, and 2 outer steps against the
-     volume substep kernel at 8x128x512;
- 11. the volume path past the 32 MB cutover, run_volume at 8x512x512 with
-     phase 9's terms: it must route 'tiled', launch the tiled volume kernel
-     exactly once per outer step and no other kernel, and pass phase 9's
-     checks;
+ 10. tiled volume kernel (z-streaming, any depth) vs plain PyTorch at the
+     same tolerance, skip on and off: 1 and 2 outer steps at 8x512x512 on
+     a seeded state, 2 outer steps at 32x128x512, the ragged 37x67x131 and
+     5x67x131, at 4x9x12 (smaller than one tile) and at depth 3, and 2
+     outer steps against the volume substep kernel at 8x128x512 (the max
+     |diff| and whether the two routes are bit-equal);
+ 11. the tiled volume path: run_volume at 8x512x512 with phase 9's terms
+     and the reference's 32 MB cutover: it must route 'tiled', launch the
+     tiled volume kernel exactly once per outer step and no other kernel,
+     and pass phase 9's checks; then the same run on the card's cutover,
+     which routes 'substep' (the tiled kernel lost to it on the card) and
+     must launch the volume substep kernel 1 slow + 4 frozen times per
+     outer step and pass the same checks;
  12. volume timings: device time per launch of both volume substep bodies
      (and of their plain versions), and per outer step of the tiled
      volume kernel, the substep route and the plain outer step, at
-     8x128x512 and 8x512x512; run_volume's wall seconds per simulated
-     second for both configurations, on the kernels and with
-     kernel='xla';
+     8x128x512, 8x512x512 and 32x128x512, with the tiled kernel's ratio to
+     the substep route and its bound; run_volume's wall seconds per
+     simulated second at 8x128x512 and at 8x512x512 on both routes, and
+     with kernel='xla';
  13. block kernel vs plain PyTorch at the same tolerance: one shard's
      halo-extended block of the 2048x2048 domain, its ghosts cut from the
      seeded state (522x2048 on a 4x1 mesh: the top, an interior and the
@@ -98,7 +103,12 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      volume block kernel exactly 4 x (1 slow + 4 frozen) times per outer
      step and no other kernel, cross at (332, 166.0) +- 2 steps, and end
      within WHOLE_RUN_ATOL_MV of the unsharded run_volume of the same
-     volume on the kernels; a 100-step run is held against kernel='xla';
+     volume on the kernels, which must route 'substep' (the card's
+     cutover) with no warning and launch the volume substep kernel 1 slow
+     + 4 frozen times per outer step, and of the same run at the
+     reference's cutover, which must route 'tiled' with no warning and
+     launch the tiled volume kernel once per outer step; a 100-step run is
+     held against kernel='xla';
  17. timings of the sharded paths: device time per outer step per shard
      of both block kernels and of their plain versions, the halo copies of
      one shard, the block kernel's memory-vs-compute split on the 522x2048
@@ -111,6 +121,7 @@ nvcc; exits 1 without them.  Imports no JAX.
 """
 
 import concurrent.futures
+import contextlib
 import functools
 import json
 import re
@@ -155,10 +166,15 @@ DEPTH = 8
 VOL_CFG = dict(CFG, height=128, duration=500)
 VOL_CFG_LARGE = dict(VOL_CFG, height=512)
 VOL_STEPS, S2_STEP = 1000, 700
+# the reference's whole-volume cutover (fib_tf_tpu/engine/volume.py:78): the
+# tiled volume path runs under it; the port's own cutover is the card's
+REFERENCE_VOLUME_MB = 32.0
 # phase 8: ragged, and the shallowest depth
 VOL_RAGGED = ((5, 67, 131), (3, 64, 96))
-# phase 10: ragged and smaller than one tile (the deepest depth is added)
-VOL_TILED_SHAPES = ((5, 67, 131), (4, 9, 12))
+# phase 10: deeper than the substep route's cutover takes (the sharded
+# volume's 32x128x512), ragged, smaller than one tile, and the shallowest
+VOL_TILED_SHAPES = ((32, 128, 512), (37, 67, 131), (5, 67, 131), (4, 9, 12),
+                    (3, 64, 96))
 # the sharded paths: four shards, all on the one card.  2D: 2048x2048 in four
 # 512-row shards (4x1) or four 1024x1024 shards (2x2), K = 5 ghost rows.
 # 3D: the reference's per-shard shape of its z-sharded volume, 8x128x512
@@ -289,12 +305,12 @@ def main():
         for line in path.with_name(path.name + ".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
-    for name in ("br_tiled", "br_block"):
+    for name in ("br_tiled", "br_block", "br_volume_tiled"):
         log = lib_paths[name].with_name(lib_paths[name].name + ".log")
         spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
                             r"loads", log.read_text())
         check(bool(spills) and all(a == b == "0" for a, b in spills),
-              f"{name}: the tile skeleton spills ({spills})")
+              f"{name}: the kernel spills ({spills})")
 
     def reset_counts():
         for kernel, _ in bindings.values():
@@ -557,34 +573,51 @@ def main():
                 torch, cuda_volume_tiled.make_tiled_volume_step(m, DEPTH),
                 plain_volume(cuda_volume, m), vbase_large, n,
                 f"{vname_large} skip={skip}"))
-    deepest = cuda_volume_tiled.max_depth(vlarge.dt_per_step)
-    for d, h, w in VOL_TILED_SHAPES + ((deepest, 40, 70),):
+    sbase = None
+    for d, h, w in VOL_TILED_SHAPES:
         for skip in (True, False):
             m = BeelerReuter(vcfg.replace(height=h, width=w, skip=skip))
             st = (seeded_volume(torch, interop, volume, cuda_volume, m, d,
                                 dev, rng) if min(h, w) > 20
                   else interop.state_from_numpy(
                       volume.volume_state(m, d), dev))
+            if (d, h, w) == (SHARDED_DEPTH, vcfg.height, vcfg.width) and skip:
+                sbase = st   # phases 12 and 14 time and cut it
+            plan = cuda_volume_tiled.tile_plan(d, h, w, m.dt_per_step)
             vt_err = max(vt_err, check_outer_steps(
                 torch, cuda_volume_tiled.make_tiled_volume_step(m, d),
                 plain_volume(cuda_volume, m), st, 2,
-                f"{d}x{h}x{w} skip={skip} (tile rows "
-                f"{cuda_volume_tiled.tile_rows(d, m.dt_per_step)})"))
+                f"{d}x{h}x{w} skip={skip} ({len(plan.tiles)} tiles)"))
     for skip in (True, False):
         m = BeelerReuter(vcfg.replace(skip=skip))
-        vt_err = max(vt_err, check_outer_steps(
+        tiled = run_outer_steps(
             torch, cuda_volume_tiled.make_tiled_volume_step(m, DEPTH),
-            cuda_volume.make_volume_step(m, DEPTH), vbase, 2,
-            f"{vname} skip={skip}", against="volume substep kernel"))
+            vbase, 2)
+        substep = run_outer_steps(
+            torch, cuda_volume.make_volume_step(m, DEPTH), vbase, 2)
+        diff = compare(
+            f"{vname} skip={skip}, 2 outer steps vs volume substep kernel",
+            tiled, substep)
+        vt_err = max(vt_err, diff)
+        same = all(torch.equal(tiled[k], substep[k]) for k in substep)
+        print(f"  {vname} skip={skip}: tiled volume kernel vs the substep "
+              f"route, max |diff| {diff:.3g} over the 8 planes, "
+              f"bit-equal: {same}", flush=True)
 
     # -- phase 11 ---------------------------------------------------------------
-    print(f"phase 11: the volume path past the 32 MB cutover, run_volume(...) "
-          f"at {vname_large}, {VOL_STEPS} outer steps", flush=True)
-    route = volume.volume_route(vlarge, DEPTH, "cuda", "auto")
-    check(route == "tiled", f"{vname_large} routes {route!r}")
-    reset_counts()
-    vrun_large = run_volume_timed(run_volume, vlarge, DEPTH, events)
-    counts = read_counts()
+    print(f"phase 11: the tiled volume path, run_volume(...) at "
+          f"{vname_large} with the reference's {REFERENCE_VOLUME_MB} MB "
+          f"cutover, {VOL_STEPS} outer steps, and the same run on the "
+          f"card's cutover", flush=True)
+    card_route = volume.volume_route(vlarge, DEPTH, "cuda", "auto")
+    check(card_route == "substep",
+          f"{vname_large} routes {card_route!r} on the card's cutover")
+    with reference_cutover(volume):
+        route = volume.volume_route(vlarge, DEPTH, "cuda", "auto")
+        check(route == "tiled", f"{vname_large} routes {route!r}")
+        reset_counts()
+        vrun_large = run_volume_timed(run_volume, vlarge, DEPTH, events)
+        counts = read_counts()
     vt_launches = counts["br_volume_tiled"]
     print(f"  route {route}, launches {counts}", flush=True)
     check(vt_launches == VOL_STEPS,
@@ -598,24 +631,47 @@ def main():
     check(read_counts() == before, "the kernel='xla' run launched a kernel")
     check_against_plain_volume(CycleLengthDetector, vlarge, vrun_large,
                                vref_large, vcross_large)
+    reset_counts()
+    vsub_large = run_volume_timed(run_volume, vlarge, DEPTH, events)
+    counts = read_counts()
+    print(f"  the card's route {card_route}, launches {counts}", flush=True)
+    check(counts["br_volume"] == {"slow": VOL_STEPS,
+                                  "frozen": 4 * VOL_STEPS},
+          f"launches {counts['br_volume']} are not 1 slow + 4 frozen per "
+          f"outer step")
+    check_only(counts, "br_volume", f"the {vname_large} run on the card's "
+               f"cutover")
+    check_against_plain_volume(
+        CycleLengthDetector, vlarge, vsub_large, vref_large,
+        check_volume_run(CycleLengthDetector, vlarge, vsub_large,
+                         vshape_large))
 
     # -- phase 12 ---------------------------------------------------------------
     print(f"phase 12: volume timings on {card}", flush=True)
+    sname = f"{SHARDED_DEPTH}x{vcfg.height}x{vcfg.width}"
     vtiming = time_volume(torch, cuda_step, cuda_volume, cuda_volume_tiled,
                           ((vname, vmodel, vbase),
-                           (vname_large, vlarge, vbase_large)))
+                           (vname_large, vlarge, vbase_large),
+                           (sname, vmodel, sbase)))
     for size, t in vtiming.items():
+        cells = int(np.prod(t["shape"]))
+        tb_ms, tb_by = outer_step_bound(
+            cells, cuda_step.slow_schedule(vmodel), volume=True)
         print(f"  {size}: volume substep kernel SLOW {t['slow_us']:.3f} / "
               f"frozen {t['frozen_us']:.3f} us/launch, plain "
               f"{t['plain_slow_us']:.1f} / {t['plain_frozen_us']:.1f} "
               f"us/substep; per outer step: substep route (5 launches) "
               f"{t['substep_us']:.2f}, tiled volume kernel "
-              f"{t['tiled_us']:.2f}, plain {t['plain_us']:.1f} us "
-              f"(device) [{card}]", flush=True)
+              f"{t['tiled_us']:.2f} (bound {tb_ms * 1e3:.3f}, {tb_by}), "
+              f"ratio tiled / substep route "
+              f"{t['tiled_us'] / t['substep_us']:.4f}, plain "
+              f"{t['plain_us']:.1f} us (device) [{card}]", flush=True)
     sim_s = VOL_STEPS * vmodel.dt_per_step * vcfg.dt / 1000.0
     for size, run, ref_run, rt in ((vname, vrun, vref, "substep"),
                                    (vname_large, vrun_large, vref_large,
-                                    "tiled")):
+                                    "tiled"),
+                                   (vname_large, vsub_large, vref_large,
+                                    "substep")):
         print(f"  run_volume at {size}, {VOL_STEPS} outer steps, route {rt}: "
               f"{run['wall_s'] / sim_s:.6f} wall-s/sim-s; kernel='xla': "
               f"{ref_run['wall_s'] / sim_s:.6f} [{card}]", flush=True)
@@ -652,9 +708,8 @@ def main():
     d_own = SHARDED_DEPTH // N_SHARDS
     print(f"phase 14: volume block kernel vs plain PyTorch (one shard's "
           f"{d_own + 2 * k_halo}x{vcfg.height}x{vcfg.width} block of "
-          f"{SHARDED_DEPTH}x{vcfg.height}x{vcfg.width})", flush=True)
-    sbase = seeded_volume(torch, interop, volume, cuda_volume, vmodel,
-                          SHARDED_DEPTH, dev, rng)
+          f"{SHARDED_DEPTH}x{vcfg.height}x{vcfg.width}, phase 10's seeded "
+          f"volume)", flush=True)
     vblock_errs = {"slow": 0.0, "frozen": 0.0}
     for name, z0 in (("top", 0), ("interior", d_own),
                      ("bottom", SHARDED_DEPTH - d_own)):
@@ -712,7 +767,6 @@ def main():
 
     # -- phase 16 ---------------------------------------------------------------
     sshape = cuda_volume.volume_shape(vmodel, SHARDED_DEPTH)
-    sname = "x".join(map(str, sshape))
     sevents = [VolumeEvent(step=S2_STEP, loc="luq", z1=SHARDED_DEPTH // 2)]
     print(f"phase 16: the sharded volume path, run_volume(mesh=4 z shards on "
           f"cuda:0, wide_halo=True) at {sname}, {VOL_STEPS} outer steps, S2 "
@@ -731,16 +785,50 @@ def main():
           f"frozen) per outer step")
     check_only(counts, "br_volume_block", f"the sharded {sname} run")
     scross = check_volume_run(CycleLengthDetector, vmodel, srun, sshape)
-    # the unsharded run of the same volume on the kernels: too deep for the
-    # tiled volume kernel, so it takes the volume substep kernel
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
+    # the unsharded run of the same volume on the kernels, on the card's
+    # cutover: the volume substep kernel, with no warning (phase 10 holds
+    # the tiled volume kernel at this depth)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
         sroute = volume.volume_route(vmodel, SHARDED_DEPTH, "cuda", "auto")
+        reset_counts()
         uns = run_volume_timed(run_volume, vmodel, SHARDED_DEPTH, sevents)
-    print(f"  unsharded run: route {sroute}, wall {uns['wall_s']:.3f} s",
-          flush=True)
+        counts = read_counts()
+    print(f"  unsharded run: route {sroute}, launches {counts}, wall "
+          f"{uns['wall_s']:.3f} s", flush=True)
+    check(sroute == "substep",
+          f"the unsharded {sname} run routes {sroute!r}")
+    check(not caught, f"the unsharded {sname} run warned: "
+          f"{[str(w.message) for w in caught]}")
+    check(counts["br_volume"] == {"slow": VOL_STEPS,
+                                  "frozen": 4 * VOL_STEPS},
+          f"{counts['br_volume']} volume substep launches for {VOL_STEPS} "
+          f"outer steps")
+    check_only(counts, "br_volume", f"the unsharded {sname} run")
     check_sharded_volume(CycleLengthDetector, vmodel, srun, uns, scross,
                          "the unsharded kernel run")
+    # and the unsharded run on the tiled volume kernel, at the reference's
+    # cutover: 32 slices deep, with no warning
+    with reference_cutover(volume), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        troute = volume.volume_route(vmodel, SHARDED_DEPTH, "cuda", "auto")
+        reset_counts()
+        uns_tiled = run_volume_timed(run_volume, vmodel, SHARDED_DEPTH,
+                                     sevents)
+        counts = read_counts()
+    print(f"  unsharded run at the reference's cutover: route {troute}, "
+          f"launches {counts}, wall {uns_tiled['wall_s']:.3f} s", flush=True)
+    check(troute == "tiled", f"the unsharded {sname} run routes {troute!r} "
+          f"at the reference's cutover")
+    check(not caught, f"the unsharded tiled {sname} run warned: "
+          f"{[str(w.message) for w in caught]}")
+    check(counts["br_volume_tiled"] == VOL_STEPS,
+          f"{counts['br_volume_tiled']} tiled volume launches for "
+          f"{VOL_STEPS} outer steps")
+    check_only(counts, "br_volume_tiled", f"the unsharded tiled {sname} run")
+    check_sharded_volume(CycleLengthDetector, vmodel, srun, uns_tiled,
+                         scross, "the unsharded tiled volume kernel run")
     before = read_counts()
     short_kw = dict(n_outer=SHORT_VOL_STEPS)
     sref = run_volume_timed(run_volume, vmodel, SHARDED_DEPTH, [],
@@ -789,8 +877,9 @@ def main():
           f"{srun['wall_s'] / sim_s:.6f} wall-s/sim-s, host-paced "
           f"{srun['wall_s'] / VOL_STEPS * 1e6:.2f} us/outer step; unsharded "
           f"(route {sroute}) {uns['wall_s'] / sim_s:.6f} wall-s/sim-s, "
-          f"{uns['wall_s'] / VOL_STEPS * 1e6:.2f} us/outer step [{card}]",
-          flush=True)
+          f"{uns['wall_s'] / VOL_STEPS * 1e6:.2f} us/outer step; unsharded "
+          f"on the tiled volume kernel {uns_tiled['wall_s'] / sim_s:.6f} "
+          f"wall-s/sim-s [{card}]", flush=True)
 
     cells = int(np.prod(shape))
     cells_large = int(np.prod(large.state_shape()))
@@ -852,6 +941,18 @@ def main():
     }}), flush=True)
 
 
+@contextlib.contextmanager
+def reference_cutover(volume):
+    """run_volume routes as the reference does, at its 32 MB volume
+    cutover: past it, the tiled volume kernel."""
+    saved = volume.VOLUME_KERNEL_STATE_MB_MAX
+    volume.VOLUME_KERNEL_STATE_MB_MAX = REFERENCE_VOLUME_MB
+    try:
+        yield
+    finally:
+        volume.VOLUME_KERNEL_STATE_MB_MAX = saved
+
+
 def total_launches(count) -> int:
     return sum(count.values()) if isinstance(count, dict) else count
 
@@ -893,6 +994,15 @@ def check_tiled(torch, cuda_tiled, model, base, n_steps, reference, name,
         torch, cuda_tiled.make_tiled_cuda_step(model), reference, base,
         n_steps, name, against,
         has_probe=model.probe_pixel[0] < model.state_shape()[0])
+
+
+def run_outer_steps(torch, step, base, n_steps):
+    """A copy of `base` after `n_steps` outer steps `step(state)`."""
+    state = clone(base)
+    for _ in range(n_steps):
+        state = step(state)
+    torch.cuda.synchronize()
+    return state
 
 
 def check_outer_steps(torch, step, reference, base, n_steps, name,
@@ -1514,6 +1624,7 @@ def time_volume(torch, cuda_step, cuda_volume, cuda_volume_tiled, sizes):
         t["tiled_us"] = device_us(torch, lambda: tiled(state), reps=100)
         t["plain_us"] = sum(t["plain_slow_us" if slow else "plain_frozen_us"]
                             for slow in cuda_step.slow_schedule(m))
+        t["shape"] = tuple(state["V"].shape)
         out[size] = t
     return out
 

@@ -14,9 +14,11 @@ engine/volume.py:132-199, on the true shape): 'xla' runs the plain PyTorch
 path anywhere; 'auto' on a CUDA device runs the volume substep kernel
 (csrc/br_volume.cu, five launches per outer step) while the state fits
 VOLUME_KERNEL_STATE_MB_MAX and the tiled volume kernel
-(csrc/br_volume_tiled.cu, one launch per outer step) past it; 'pallas'
-forces the substep kernel at any size; on the CPU 'auto' runs the plain
-path and 'pallas' raises.  The reference's Mosaic caps (the cell cap, the
+(csrc/br_volume_tiled.cu, one launch per outer step, any depth) past it;
+'pallas' forces the substep kernel at any size; on the CPU 'auto' runs the
+plain path and 'pallas' raises.  The cutover is the card's, not the
+reference's 32 MB: the tiled kernel lost to the substep route at every
+size measured on the H100, so 'auto' stays on the substep kernel.  The reference's Mosaic caps (the cell cap, the
 tiled block budget, its tile-row rules and the padded path) are not
 carried: both CUDA kernels take any D >= 3, H, W >= 3.
 
@@ -35,7 +37,7 @@ volume ECG electrodes, the rotor census and custom probe callables
 from __future__ import annotations
 
 import dataclasses
-import warnings
+import math
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -52,10 +54,15 @@ _VOLUME = "ROADMAP Queue 1 item 18"
 _PARALLEL = "ROADMAP Queue 1 item 19"
 _ADAPTIVE = "ROADMAP Queue 1 item 15"
 
-# Whole-volume vs tiled cutover in MB of state (planes x D x H x W x 4):
-# the reference's value (fib_tf_tpu/engine/volume.py:78), the same as the
-# 2D engine's whole-grid cutover.  Not retuned for the card yet.
-VOLUME_KERNEL_STATE_MB_MAX = 32.0
+# Whole-volume vs tiled cutover in MB of state (planes x D x H x W x 4).
+# The reference's is 32 MB (fib_tf_tpu/engine/volume.py:78).  On the card
+# the tiled volume kernel takes 2.0x, 1.3x, 1.7x and 1.15x the time of five
+# substep launches at 8x128x512, 8x512x512, 32x128x512 and 8x1024x1024
+# (NVIDIA H100 80GB HBM3, 700 W; tools/torch_tile_bench.py --volume,
+# PERF.md section 6): no size past which it wins was found, so
+# 'auto' takes the substep kernel at any size.  Lower the cutover to run
+# the tiled kernel.
+VOLUME_KERNEL_STATE_MB_MAX = math.inf
 
 
 def volume_state(model: IonicModel, depth: int,
@@ -107,9 +114,7 @@ def volume_route(model: IonicModel, depth: int, device_type: str,
                  kernel: str) -> str:
     """The outer step run_volume takes: 'substep' (csrc/br_volume.cu, one
     launch per substep), 'tiled' (csrc/br_volume_tiled.cu, one launch per
-    outer step) or 'plain' (PyTorch).  A volume past the cutover that is
-    too deep for the tiled kernel's tile takes 'substep', with a warning;
-    it never takes the plain path."""
+    outer step, any depth) or 'plain' (PyTorch)."""
     if kernel not in ("auto", "pallas", "xla"):
         raise ValueError(f"kernel must be auto|pallas|xla, got {kernel!r}")
     if kernel == "pallas" and device_type != "cuda":
@@ -120,13 +125,6 @@ def volume_route(model: IonicModel, depth: int, device_type: str,
         return "plain"
     if (kernel == "pallas"
             or volume_state_mb(model, depth) <= VOLUME_KERNEL_STATE_MB_MAX):
-        return "substep"
-    if cuda_volume_tiled.tile_rows(depth, model.dt_per_step) is None:
-        warnings.warn(
-            f"depth {depth} is deeper than the tiled volume kernel takes "
-            f"({cuda_volume_tiled.max_depth(model.dt_per_step)}); "
-            f"run_volume takes the volume substep kernel instead",
-            stacklevel=3)
         return "substep"
     return "tiled"
 

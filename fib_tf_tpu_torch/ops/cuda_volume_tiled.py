@@ -3,17 +3,14 @@ version.
 
 Counterpart of fib_tf_tpu/ops/pallas_volume.py::make_tiled_volume_step,
 the kernel run_volume runs past the 32 MB whole-volume envelope: one launch
-per outer step, all five substeps fused over in-plane tiles that hold the
-full depth, with a halo of one ring per substep in the tiled directions.
-The kernel is csrc/br_volume_tiled.cu (CUDA C++, built with nvcc and bound
-with ctypes); its source note says what bounds it and why the whole
-extended tile, all eight planes, lives in shared memory.
-
-The tile is TILE_W = 32 columns wide and `tile_rows(depth, n_sub)` rows
-tall per slice: the most that fits a block's shared memory at that depth.
-A depth too deep to leave an interior after the halo has no tile
-(`tile_rows` is None); engine/volume.py::volume_route sends such a volume
-to the substep kernel.
+per outer step, all five substeps fused over in-plane tiles with a halo of
+one ring per substep.  The kernel is csrc/br_volume_tiled.cu (CUDA C++,
+built with nvcc and bound with ctypes).  It never holds a tile's full
+depth: each block streams the slices of its in-plane tiles through a
+wavefront of the substep levels (level s updates stream position t - s at
+pipeline step t, across tile boundaries), so it takes any depth >= 3.
+`tile_plan` mirrors the kernel's tiles, walk, levels, ring slots and
+copies; its source note says what lives where and what bounds it.
 
 Routing is by the device of the state's tensors, as in ops/cuda_step.py:
 CPU tensors take the plain version, CUDA tensors launch the kernel, and a
@@ -29,7 +26,9 @@ the new planes are views of one [8, D, H, W] allocation.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,43 +37,196 @@ from fib_tf_tpu_torch.kernels import build
 from fib_tf_tpu_torch.models.beeler_reuter import BeelerReuter
 from fib_tf_tpu_torch.ops import cuda_step, cuda_volume
 from fib_tf_tpu_torch.ops.cuda_step import CELL_PLANES, PARAM_FLOATS, State
-from fib_tf_tpu_torch.ops.cuda_tiled import slow_mask
+from fib_tf_tpu_torch.ops.cuda_tiled import slow_mask, tile_spans, tile_walk
 
 SOURCE = build.CSRC_DIR / "br_volume_tiled.cu"
-HEADERS = (build.CSRC_DIR / "br_cell.cuh",)
-# The tile layout br_volume_tiled.cu is built for (checked against the
-# library): columns per tile (one thread each), threads per block in y,
-# the most rows per slice, and the dynamic shared memory one block may use
-# on sm_90 (227 KB).
-TILE_W = 32
-THREADS_Y = 32
-TILE_H_MAX = 64
+HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh")
+# The layout br_volume_tiled.cu is built for (checked against the library):
+# the extended in-plane tile (rows, columns), its threads (one per cell),
+# the most substeps per launch, the ring slots of the loaded V, of each
+# later level's input V and of the per-cell planes, and the dynamic shared
+# memory one block may use on sm_90 (227 KB).
+TILE = (30, 32)
+THREADS = 960
+MAX_SUB = 5
+V_IN_SLOTS, V_SLOTS, PLANE_SLOTS = 4, 3, MAX_SUB + 1
 SMEM_BYTES_MAX = 232448
-# floats of shared memory per tile cell: V double-buffered + 7 planes
-FLOATS_PER_CELL = 2 + len(CELL_PLANES)
+# the persistent grid tile_plan assumes unless told: one block on each of
+# an H100 SXM's 132 SMs (the kernel asks the card)
+GRID = 132
 
 # The plain version of one outer step is the volume substep kernel's: the
 # tiled kernel computes the same function in one launch.
 plain_tiled_volume_step = cuda_volume.plain_volume_step
 
 
-def tile_rows(depth: int, n_sub: int) -> Optional[int]:
-    """Rows per slice of the extended tile at `depth` (the most that fit
-    the shared memory, capped at TILE_H_MAX), or None when no interior row
-    is left after an `n_sub`-ring halo."""
-    rows = min(TILE_H_MAX,
-               SMEM_BYTES_MAX // (4 * FLOATS_PER_CELL * depth * TILE_W))
-    if rows - 2 * n_sub < 1 or TILE_W - 2 * n_sub < 1:
-        return None
-    return rows
+def smem_bytes(tile: Tuple[int, int] = TILE) -> int:
+    """Shared memory of one block: the loaded V's ring, levels 1..4's V
+    rings and the ring of the seven per-cell planes."""
+    cells = tile[0] * tile[1]
+    slots = (V_IN_SLOTS + (MAX_SUB - 1) * V_SLOTS
+             + PLANE_SLOTS * len(CELL_PLANES))
+    return 4 * cells * slots
 
 
-def max_depth(n_sub: int) -> int:
-    """The deepest volume the kernel takes for `n_sub` substeps."""
-    depth = 3
-    while tile_rows(depth + 1, n_sub) is not None:
-        depth += 1
-    return depth
+def balanced_rows(height: int, n_sub: int, n_cols: int, blocks: int,
+                  tile_rows: int = TILE[0]):
+    """The kernel's row split (csrc/br_volume_tiled.cu balanced_rows), as
+    tile_spans: among n = ceil(height / (tile_rows - 2 n_sub)) .. 4 n row
+    tiles, the one with the least waves x (rows + n_sub - 1) on a grid of
+    `blocks`, the fewest tiles on a tie.  A warp is a row of the tile, so
+    a tile costs its rows, not its columns."""
+    least = -(-height // (tile_rows - 2 * n_sub))
+    best, best_cost = least, None
+    for n in range(least, min(height, 4 * least) + 1):
+        cost = -(-n * n_cols // blocks) * (-(-height // n) + n_sub - 1)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = n, cost
+    base, rem = divmod(height, best)
+    return [(i * base + min(i, rem), base + (i < rem)) for i in range(best)]
+
+
+def clamp(k: int, n: int) -> int:
+    """The boundary index map of every axis: min(max(k, 1), n - 2)."""
+    return min(max(k, 1), n - 2)
+
+
+class Level(NamedTuple):
+    """One level's work at a pipeline step: level `s` on slice `z` of tile
+    `tile`, the block's stream position `p`; a barrier precedes it when it
+    reads what another thread wrote in the same step."""
+
+    s: int
+    tile: int
+    z: int
+    p: int
+    barrier: bool
+
+
+class Copy(NamedTuple):
+    """A copy a step starts: `what` ("planes" or "V") of slice `z` of
+    tile `tile`, stream position `p`."""
+
+    what: str
+    tile: int
+    z: int
+    p: int
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """What br_volume_tiled.cu does for one launch, in its own terms.
+
+    `tiles[i] = (r0, c0, eh, ew)`: tile i's local cell (0, 0) in global
+    indices and its used extent (interior + 2 n_sub per axis), row-major.
+    Block b of the grid of `n_blocks` walks `walk[b]`; its tiles' slices
+    form one stream, position p = D i + z for slice z of its i-th tile.
+    At pipeline step t level s updates position t - s (`steps(b)`), so the
+    levels run on consecutive positions, across tile boundaries.  Level s
+    reads its input V at slices `z_reads(z)` (clamp(z-1), clamp(z),
+    clamp(z+1)) of the same tile and updates the ring [s+1, U-2-s] of the
+    used extent.  Position p keeps its loaded V in slot `v_in_slot(p)`,
+    its per-cell planes in `plane_slot(p)`, and level s's output in level
+    s+1's slot `v_slot(p)`."""
+
+    depth: int
+    height: int
+    width: int
+    n_sub: int
+    tile: Tuple[int, int]
+    n_blocks: int
+    row_spans: Tuple[Tuple[int, int], ...]
+    col_spans: Tuple[Tuple[int, int], ...]
+
+    @functools.cached_property
+    def tiles(self) -> List[Tuple[int, int, int, int]]:
+        k = self.n_sub
+        return [(r - k, c - k, h + 2 * k, w + 2 * k)
+                for r, h in self.row_spans for c, w in self.col_spans]
+
+    @property
+    def smem_bytes(self) -> int:
+        return smem_bytes(self.tile)
+
+    @functools.cached_property
+    def walk(self) -> List[List[int]]:
+        """The tiles of each block, in the order it runs them."""
+        return tile_walk(len(self.tiles), self.n_blocks)
+
+    def z_reads(self, z: int) -> Tuple[int, int, int]:
+        d = self.depth
+        return clamp(z - 1, d), clamp(z, d), clamp(z + 1, d)
+
+    @staticmethod
+    def v_in_slot(p: int) -> int:
+        return p % V_IN_SLOTS
+
+    @staticmethod
+    def v_slot(p: int) -> int:
+        return p % V_SLOTS
+
+    @staticmethod
+    def plane_slot(p: int) -> int:
+        return p % PLANE_SLOTS
+
+    def clamp_free(self, tile: Tuple[int, int, int, int]) -> bool:
+        """Whether a tile takes the clamp-free body: every cell a level
+        updates lies one cell inside every in-plane domain edge."""
+        r0, c0, eh, ew = tile
+        return (r0 >= 1 and r0 + eh <= self.height - 1 and c0 >= 1
+                and c0 + ew <= self.width - 1)
+
+    def first_copies(self, block: int) -> List[Copy]:
+        """What block b copies before its first step."""
+        first = self.walk[block][0]
+        return [Copy("planes", first, 0, 0), Copy("V", first, 1, 1)]
+
+    def steps(self, block: int):
+        """Block b's pipeline steps: (t, levels, copies) with the levels in
+        the order they run and the copies the step starts (at its start:
+        the planes of position t + 1 and the V of position t + 2, where
+        that is a slice 1..D-2 that level 0 reads)."""
+        stream = self.walk[block]
+        d, k = self.depth, self.n_sub
+        n_pos = len(stream) * d
+        for t in range(n_pos + k - 1):
+            levels, copies = [], []
+            for s in range(k):
+                p = t - s
+                if 0 <= p < n_pos:
+                    tile, z = stream[p // d], p % d
+                    edge = not self.clamp_free(self.tiles[tile])
+                    levels.append(Level(s, tile, z, p,
+                                        s > 0 and (z == 0 or edge)))
+            if t + 1 < n_pos:
+                p = t + 1
+                copies.append(Copy("planes", stream[p // d], p % d, p))
+            if t + 2 < n_pos and 1 <= (t + 2) % d <= d - 2:
+                p = t + 2
+                copies.append(Copy("V", stream[p // d], p % d, p))
+            yield t, levels, copies
+
+
+def tile_plan(depth: int, height: int, width: int, n_sub: int,
+              tile: Tuple[int, int] = TILE,
+              n_blocks: int = GRID) -> TilePlan:
+    """The kernel's plan for a `[depth, height, width]` volume and `n_sub`
+    substeps on a grid of `n_blocks` (`tile`: the extended tile, TILE
+    unless a test forces a smaller one)."""
+    if depth < 3 or height < 3 or width < 3:
+        raise ValueError(f"a volume needs D, H, W >= 3, got "
+                         f"{depth}x{height}x{width}")
+    if not 1 <= n_sub <= MAX_SUB:
+        raise ValueError(f"the tiled volume kernel runs 1..{MAX_SUB} "
+                         f"substeps per launch, not {n_sub}")
+    th, tw = tile[0] - 2 * n_sub, tile[1] - 2 * n_sub
+    if min(th, tw) < 1:
+        raise ValueError(f"tile {tile} has no interior left after a "
+                         f"{n_sub}-ring halo")
+    cols = tile_spans(width, tw)
+    rows = balanced_rows(height, n_sub, len(cols), n_blocks, tile[0])
+    return TilePlan(depth, height, width, n_sub, tuple(tile), n_blocks,
+                    tuple(rows), tuple(cols))
 
 
 class VolumeTiledKernel:
@@ -100,16 +252,18 @@ class VolumeTiledKernel:
                 getattr(lib, fn).argtypes = []
                 getattr(lib, fn).restype = ctypes.c_int
             lib.br_volume_tiled_layout.argtypes = [
-                ctypes.POINTER(ctypes.c_int)] * 4
+                ctypes.POINTER(ctypes.c_int)] * 8
             lib.br_volume_tiled_layout.restype = None
+            lib.br_volume_tiled_rows.argtypes = [ctypes.c_int] * 4 + [
+                ctypes.POINTER(ctypes.c_int)] * 3
+            lib.br_volume_tiled_rows.restype = None
             lib.br_volume_tiled.argtypes = (
                 [ctypes.c_void_p, ctypes.c_int,      # params, n_params
                  ctypes.c_float,                     # dz_ratio
                  ctypes.c_void_p, ctypes.c_void_p,   # v_in, v_out
                  ctypes.c_void_p, ctypes.c_void_p,   # planes in / out
                  ctypes.c_int]                       # n_planes
-                + [ctypes.c_int] * 4                 # depth, height, width,
-                                                     # tile_h
+                + [ctypes.c_int] * 3                 # depth, height, width
                 + [ctypes.c_int, ctypes.c_uint,      # n_sub, slow_mask
                    ctypes.c_void_p,                  # probe (may be null)
                    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # probe z, r, c
@@ -123,8 +277,8 @@ class VolumeTiledKernel:
         return self._lib
 
     def launch(self, params: np.ndarray, state: State, schedule,
-               dz_ratio: float, rows: int, probe: Optional[torch.Tensor],
-               pixel, probe_index: int, stream: int):
+               dz_ratio: float, probe: Optional[torch.Tensor], pixel,
+               probe_index: int, stream: int):
         """One outer step on CUDA tensors already validated by the caller;
         the state's planes are replaced by the new ones."""
         lib = self.library()
@@ -139,32 +293,43 @@ class VolumeTiledKernel:
             v_in.data_ptr(), out["V"].data_ptr(),
             ptrs(*[state[k].data_ptr() for k in CELL_PLANES]),
             ptrs(*[out[k].data_ptr() for k in CELL_PLANES]),
-            len(CELL_PLANES), d, h, w, rows, len(schedule),
-            slow_mask(schedule),
+            len(CELL_PLANES), d, h, w, len(schedule), slow_mask(schedule),
             probe.data_ptr() if probe is not None else None,
             *pixel, probe_index, v_in.device.index, stream,
         )
         if err != 0:
             raise RuntimeError(
                 f"br_volume_tiled launch failed with CUDA error {err} "
-                f"({d}x{h}x{w}, tile rows {rows}, {len(schedule)} substeps)")
+                f"({d}x{h}x{w}, {len(schedule)} substeps)")
         self.launches += 1
         state.update(out)
 
 
 def _check_layout(lib):
-    """The library's parameter block, planes and tile layout must be the
-    ones this module packs and sizes."""
-    layout = [ctypes.c_int() for _ in range(4)]
+    """The library's parameter block, planes, layout and row split must be
+    the ones this module packs and mirrors (tile_plan)."""
+    layout = [ctypes.c_int() for _ in range(8)]
     lib.br_volume_tiled_layout(*map(ctypes.byref, layout))
     got = (lib.br_volume_tiled_param_floats(), lib.br_volume_tiled_planes(),
            tuple(v.value for v in layout))
     want = (PARAM_FLOATS, len(CELL_PLANES),
-            (TILE_W, THREADS_Y, TILE_H_MAX, SMEM_BYTES_MAX))
+            (TILE[1], TILE[0], THREADS, MAX_SUB, V_IN_SLOTS, V_SLOTS,
+             PLANE_SLOTS, smem_bytes()))
     if got != want:
         raise RuntimeError(
             f"br_volume_tiled.cu takes (param floats, planes, layout) = "
             f"{got}, this module packs {want}")
+    for height, n_cols, blocks in ((512, 24, 132), (128, 24, 132),
+                                   (67, 6, 7), (9, 1, 132)):
+        n, base, rem = (ctypes.c_int() for _ in range(3))
+        lib.br_volume_tiled_rows(height, 5, n_cols, blocks,
+                                 *map(ctypes.byref, (n, base, rem)))
+        spans = [(i * base.value + min(i, rem.value),
+                  base.value + (i < rem.value)) for i in range(n.value)]
+        if spans != balanced_rows(height, 5, n_cols, blocks):
+            raise RuntimeError(
+                f"br_volume_tiled.cu cuts {height} rows into tiles {spans}, "
+                f"tile_plan into {balanced_rows(height, 5, n_cols, blocks)}")
 
 
 # the process-wide binding: the built library is process-wide too
@@ -174,19 +339,15 @@ KERNEL = VolumeTiledKernel()
 def make_tiled_volume_step(model: BeelerReuter, depth: int,
                            dz_ratio: float = 1.0):
     """Build `step(state, probe=None, probe_index=0) -> state`, one outer
-    step of a `[depth, H, W]` volume in one launch of the tiled volume
-    kernel.  The kernel writes the probe after the last substep.  CPU
-    states take `plain_tiled_volume_step`."""
+    step of a `[depth, H, W]` volume (any depth >= 3) in one launch of the
+    tiled volume kernel.  The kernel writes the probe after the last
+    substep.  CPU states take `plain_tiled_volume_step`."""
     if not isinstance(model, BeelerReuter):
         raise NotImplementedError(
             f"no CUDA kernel for model {model.name!r} yet (ROADMAP Queue 1)")
     schedule = cuda_step.slow_schedule(model)
-    rows = tile_rows(depth, len(schedule))
-    if rows is None:
-        raise ValueError(
-            f"depth {depth} leaves the tiled volume kernel no interior "
-            f"after a {len(schedule)}-ring halo (deepest: "
-            f"{max_depth(len(schedule))}); use the substep kernel")
+    h, w = model.state_shape()
+    tile_plan(depth, h, w, len(schedule))   # raises on what it cannot run
     params = cuda_step.pack_params(model)
     pixel = cuda_volume.volume_probe_pixel(model, depth)
 
@@ -197,7 +358,7 @@ def make_tiled_volume_step(model: BeelerReuter, depth: int,
         if dev.type == "cpu":
             return plain_tiled_volume_step(model, state, probe, probe_index,
                                            dz_ratio)
-        KERNEL.launch(params, state, schedule, dz_ratio, rows, probe, pixel,
+        KERNEL.launch(params, state, schedule, dz_ratio, probe, pixel,
                       probe_index, torch.cuda.current_stream(dev).cuda_stream)
         return state
 

@@ -215,6 +215,31 @@ def test_volume_kernels_match_plain_version(device, dhw, skip, kind):
             {"slow": 3, "frozen": 12} if skip else {"slow": 15, "frozen": 0})
 
 
+@pytest.mark.parametrize("skip", [True, False])
+@pytest.mark.parametrize("dhw", [(3, 40, 48), (8, 64, 96), (19, 40, 70),
+                                 (32, 40, 48), (37, 67, 131)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tiled_volume_kernel_at_any_depth(device, dhw, skip):
+    """The z-streaming kernel takes any depth: the shallowest, the main
+    one, past the old kernel's 18 slices, and ragged in every axis; two
+    outer steps against the plain version, all planes and the probe."""
+    d, h, w = dhw
+    model = BeelerReuter(CFG.replace(height=h, width=w, skip=skip))
+    base = _volume_state(model, d, device)
+    got = {k: v.clone() for k, v in base.items()}
+    want = {k: v.clone() for k, v in base.items()}
+    pk, pp = torch.zeros(2, device=device), torch.zeros(2, device=device)
+    step = cuda_volume_tiled.make_tiled_volume_step(model, d)
+    cuda_volume_tiled.KERNEL.reset_launches()
+    for i in range(2):
+        got = step(got, pk, i)
+        want = cuda_volume.plain_volume_step(model, want, pp, i)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=1e-5)
+    torch.testing.assert_close(pk, pp, rtol=1e-3, atol=1e-5)
+    assert cuda_volume_tiled.KERNEL.launches == 2
+
+
 def test_volume_kernel_rejects_bad_planes(device):
     model = BeelerReuter(CFG)
     st = _volume_state(model, 4, device)

@@ -5,6 +5,7 @@ them), run_volume against the JAX run_volume(kernel='xla'), and the
 routing against the JAX engine's `_use_volume_kernel`."""
 
 import dataclasses
+import math
 import warnings
 
 import jax
@@ -280,28 +281,45 @@ def reference_volume_route(c, depth, kernel, monkeypatch):
     return {None: "plain", "whole": "substep", "tiled": "tiled"}[mode]
 
 
-MAIN = [(8, 128, 512), (8, 512, 512)]
+MAIN = [(8, 128, 512), (8, 512, 512), (32, 128, 512)]
 
 
 @pytest.mark.parametrize("kernel", ["auto", "pallas", "xla"])
 @pytest.mark.parametrize("skip", [True, False])
 @pytest.mark.parametrize("dhw", MAIN, ids=lambda s: "x".join(map(str, s)))
 def test_volume_route_matches_reference(dhw, skip, kernel, monkeypatch):
+    """At the reference's 32 MB cutover the port routes as the reference
+    does: past it every depth takes the tiled kernel, 32x128x512 too,
+    without a warning.  (The port's own cutover is the card's: see
+    test_volume_route_main_configurations.)"""
+    monkeypatch.setattr(volume, "VOLUME_KERNEL_STATE_MB_MAX",
+                        jvol.VOLUME_KERNEL_STATE_MB_MAX)
     d, h, w = dhw
     c = cfg(height=h, width=w, skip=skip)
     want = reference_volume_route(c, d, kernel, monkeypatch)
-    assert volume.volume_route(tbr.BeelerReuter(c), d, "cuda", kernel) == want
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = volume.volume_route(tbr.BeelerReuter(c), d, "cuda", kernel)
+    assert got == want
 
 
 def test_volume_route_main_configurations(monkeypatch):
-    """8x128x512 (16 MB) routes 'substep', 8x512x512 (64 MB) 'tiled'; the
-    reference's own tiled reckoning there is halo K=8, tile 64."""
+    """8x128x512 (16 MB), 8x512x512 and 32x128x512 (64 MB) all route
+    'substep' at the card's cutover, where the tiled kernel lost to the
+    substep route; at the reference's 32 MB the 64 MB volumes route
+    'tiled'.  The reference's own tiled reckoning at 8x512x512 is halo
+    K=8, tile 64."""
     small = tbr.BeelerReuter(cfg(height=128, width=512))
     large = tbr.BeelerReuter(cfg(height=512, width=512))
     assert volume.volume_state_mb(small, 8) == 16.0
     assert volume.volume_state_mb(large, 8) == 64.0
+    assert volume.volume_state_mb(small, 32) == 64.0
+    for model, depth in ((small, 8), (large, 8), (small, 32)):
+        assert volume.volume_route(model, depth, "cuda", "auto") == "substep"
+    monkeypatch.setattr(volume, "VOLUME_KERNEL_STATE_MB_MAX", 32.0)
     assert volume.volume_route(small, 8, "cuda", "auto") == "substep"
     assert volume.volume_route(large, 8, "cuda", "auto") == "tiled"
+    assert volume.volume_route(small, 32, "cuda", "auto") == "tiled"
     assert jvol.pick_volume_tile_rows(
         jbr.BeelerReuter(jax_cfg(cfg(height=512, width=512))), 8) == 64
 
@@ -311,25 +329,18 @@ def test_volume_route_main_configurations(monkeypatch):
     # sends it to its tiled kernel; the port keeps it on the substep kernel
     ((8, 256, 512), "tiled", "substep"),
     # unaligned past the cutover: no Mosaic tile rows, so the reference
-    # stays on XLA; the CUDA tiled kernel takes any shape
-    ((8, 516, 500), "plain", "tiled"),
-], ids=["8x256x512", "8x516x500"])
+    # stays on XLA; the CUDA kernels take any shape
+    ((8, 516, 500), "plain", "substep"),
+    # past the reference's cutover: the card's keeps the substep kernel,
+    # which beat the tiled kernel there (PERF.md section 6)
+    ((8, 512, 512), "tiled", "substep"),
+    ((32, 128, 512), "tiled", "substep"),
+], ids=["8x256x512", "8x516x500", "8x512x512", "32x128x512"])
 def test_volume_route_deliberate_differences(dhw, want, ours, monkeypatch):
     d, h, w = dhw
     c = cfg(height=h, width=w)
     assert reference_volume_route(c, d, "auto", monkeypatch) == want
     assert volume.volume_route(tbr.BeelerReuter(c), d, "cuda", "auto") == ours
-
-
-def test_too_deep_for_the_tiled_kernel_routes_substep():
-    deep = cuda_volume_tiled.max_depth(5) + 1
-    tm = tbr.BeelerReuter(cfg(height=256, width=512))
-    assert volume.volume_state_mb(tm, deep) > 32
-    with pytest.warns(UserWarning, match="substep"):
-        assert volume.volume_route(tm, deep, "cuda", "auto") == "substep"
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        assert volume.volume_route(tm, deep - 1, "cuda", "auto") == "tiled"
 
 
 def test_volume_route_on_the_cpu():
@@ -346,24 +357,11 @@ def test_volume_route_on_the_cpu():
 
 
 def test_volume_cutover_equals_reference():
-    assert (volume.VOLUME_KERNEL_STATE_MB_MAX
-            == jvol.VOLUME_KERNEL_STATE_MB_MAX == 32.0)
-
-
-def test_tile_rows_table():
-    """At BR's five substeps: 25 x 32 extended (15 x 22 interior) at the
-    main depth 8, shared memory within a block's 227 KB at every depth
-    the kernel takes, and no tile past depth 18."""
-    assert cuda_volume_tiled.tile_rows(8, 5) == 25
-    assert cuda_volume_tiled.tile_rows(3, 5) == 64
-    assert cuda_volume_tiled.max_depth(5) == 18
-    assert cuda_volume_tiled.tile_rows(19, 5) is None
-    for d in range(3, 19):
-        rows = cuda_volume_tiled.tile_rows(d, 5)
-        smem = 9 * d * rows * cuda_volume_tiled.TILE_W * 4
-        assert rows - 10 >= 1 and smem <= cuda_volume_tiled.SMEM_BYTES_MAX
-    with pytest.raises(ValueError, match="interior"):
-        cuda_volume_tiled.make_tiled_volume_step(tbr.BeelerReuter(cfg()), 19)
+    """The reference's cutover is 32 MB; the port's is the card's: the
+    tiled kernel won at no size measured, so none (see engine/volume.py
+    VOLUME_KERNEL_STATE_MB_MAX)."""
+    assert jvol.VOLUME_KERNEL_STATE_MB_MAX == 32.0
+    assert volume.VOLUME_KERNEL_STATE_MB_MAX == math.inf
 
 
 # -- run_volume's guards -----------------------------------------------------------------

@@ -1,10 +1,19 @@
 #!/usr/bin/env python
-"""Time the 2D tile skeleton of fib_tf_tpu_torch (csrc/br_tile.cuh) on one
-CUDA card, and show what the compiler made of it.
+"""Time the 2D tile skeleton of fib_tf_tpu_torch (csrc/br_tile.cuh) or, with
+--volume, the tiled volume kernel (csrc/br_volume_tiled.cu) on one CUDA
+card, and show what the compiler made of it.
 
   python tools/torch_tile_bench.py                     # this checkout
   python tools/torch_tile_bench.py --root DIR --tag parent
                                                        # DIR's package
+  python tools/torch_tile_bench.py --volume [--root DIR --tag T]
+
+With --volume it prints the `-Xptxas -v` lines and SASS instruction
+counts of kernels 5 and 4, and device times per outer step at 8x512x512,
+32x128x512, 8x128x512 and 8x1024x1024: kernel 5 (through
+make_tiled_volume_step, so a parent package of another design times too)
+and the substep route (five launches of csrc/br_volume.cu, before and
+after kernel 5), with their ratio.
 
 The skeleton runs two kernels: kernel 2 (csrc/br_tiled.cu, one outer step
 of a whole grid) and kernel 3 (csrc/br_block.cu, one outer step of a
@@ -82,10 +91,10 @@ def sass_functions(text: str):
     return funcs
 
 
-def sass_report(lib: Path, out: Path):
-    """Instruction counts of each tile_kernel in `lib`: the total, and the
-    gaps between consecutive shared stores (STS), one per cell-substep of
-    a substep body."""
+def sass_report(lib: Path, out: Path, match: str = "tile_kernel"):
+    """Instruction counts of each kernel of `lib` whose name holds `match`:
+    the total, and the gaps between consecutive shared stores (STS), one
+    per cell-substep of a 2D substep body."""
     cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
     proc = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=300)
@@ -94,7 +103,7 @@ def sass_report(lib: Path, out: Path):
     out.write_text(proc.stdout)
     report = {}
     for name, ops in sass_functions(proc.stdout).items():
-        if "tile_kernel" not in name:
+        if match not in name:
             continue
         sts = [i for i, op in enumerate(ops) if op.startswith("STS")]
         gaps = [b - a for a, b in zip(sts, sts[1:])]
@@ -147,6 +156,73 @@ def sample_clocks(torch, launch, seconds: float = 2.0):
             "power_w": [w for _, w in samples]}
 
 
+# (depth, height, width) timed with --volume: the main volume past the
+# reference's cutover, the sharded path's whole volume, the main substep
+# volume, and one four times the first (does the tiled kernel win past
+# 64 MB?)
+VOLUME_SHAPES = ((8, 512, 512), (32, 128, 512), (8, 128, 512),
+                 (8, 1024, 1024))
+
+
+def volume_bench(args, smoke, card, out_dir):
+    """--volume: kernel 5 and the substep route."""
+    import numpy as np
+    import torch
+    from fib_tf_tpu_torch import SimConfig, interop
+    from fib_tf_tpu_torch.engine import volume
+    from fib_tf_tpu_torch.models import BeelerReuter
+    from fib_tf_tpu_torch.ops import cuda_volume
+    from fib_tf_tpu_torch.ops import cuda_volume_tiled as cvt
+
+    result = {"tag": args.tag, "card": card}
+    libs = {"br_volume_tiled": cvt.KERNEL.build(),
+            "br_volume": cuda_volume.KERNEL.build()}
+    for name, lib in libs.items():
+        lines = ptxas_lines(lib)
+        result[f"{name} ptxas"] = lines
+        for ln in lines:
+            print(f"  {name} ptxas: {ln}", flush=True)
+        rep = sass_report(lib, out_dir / f"{args.tag}_{name}.sass", "volume")
+        for fn, r in rep.items():
+            top = dict(list(r["opcodes"].items())[:24])
+            print(f"  {name} SASS {fn[:60]}: {r['instructions']} "
+                  f"instructions; opcodes {top}", flush=True)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(smoke.SEED)
+    us = smoke.device_us
+    for d, h, w in VOLUME_SHAPES:
+        model = BeelerReuter(SimConfig(**dict(smoke.VOL_CFG, height=h,
+                                              width=w)))
+        base = smoke.seeded_volume(torch, interop, volume, cuda_volume,
+                                   model, d, dev, rng)
+        st = smoke.clone(base)
+        size = f"{d}x{h}x{w}"
+        t = {}
+        substep = cuda_volume.make_volume_step(model, d)
+        t["substep_route_us"] = us(torch, lambda: substep(st), reps=100)
+        try:
+            tiled = cvt.make_tiled_volume_step(model, d)
+        except ValueError as e:   # a package whose kernel 5 refuses d
+            print(f"[{args.tag}] {size}: kernel 5 refuses it ({e})",
+                  flush=True)
+        else:
+            t["kernel5_us"] = us(torch, lambda: tiled(st), reps=100)
+        t["substep_route_again_us"] = us(torch, lambda: substep(st),
+                                         reps=100)
+        route = (t["substep_route_us"] + t["substep_route_again_us"]) / 2
+        result[size] = t
+        parts = ", ".join(
+            f"{k[:-3]} {v:.3f} us (ratio {v / route:.4f})"
+            for k, v in t.items() if not k.startswith("substep"))
+        print(f"[{args.tag}] {size}: substep route "
+              f"{t['substep_route_us']:.3f} / {t['substep_route_again_us']:.3f}"
+              f" us; {parts} [{card}]", flush=True)
+    (out_dir / f"{args.tag}_volume_bench.json").write_text(
+        json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--root", default=str(HERE),
@@ -154,6 +230,8 @@ def main():
     p.add_argument("--tag", default="this", help="name of the run")
     p.add_argument("--out", default=str(HERE / "build" / "tile_bench"),
                    help="directory for the SASS and the JSON")
+    p.add_argument("--volume", action="store_true",
+                   help="time the tiled volume kernel (kernel 5)")
     args = p.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -178,6 +256,9 @@ def main():
     print(f"[{args.tag}] package {root / 'fib_tf_tpu_torch'}", flush=True)
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
+    if args.volume:
+        volume_bench(args, smoke, card, out_dir)
+        return
     result = {"tag": args.tag, "card": card}
 
     libs = {"br_tiled": cuda_tiled.KERNEL.build(),

@@ -9,9 +9,11 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      substep kernel br_substep.cu, the tiled outer-step kernel br_tiled.cu,
      the volume substep kernel br_volume.cu, the tiled volume kernel
      br_volume_tiled.cu, and the per-shard block kernels br_block.cu and
-     br_volume_block.cu of the sharded paths; the -Xptxas -v lines of
-     every kernel, and neither the tile skeleton's two instantiations
-     (br_tiled, br_block) nor the tiled volume kernel may spill;
+     br_volume_block.cu of the sharded paths (the first four libraries and
+     br_block.cu host three cell bodies, one entry each: Beeler-Reuter,
+     Fenton, Mitchell-Schaeffer); the -Xptxas -v lines of every kernel,
+     and neither the tile skeleton's libraries (br_tiled, br_block) nor
+     the tiled volume kernel may spill;
   2. substep kernel vs plain PyTorch on the card at 512x512, on a seeded
      state that holds a wavefront: one slow (n=5) launch, one frozen (n=0)
      launch and two outer steps, all 8 planes at rtol 1e-3 / atol 1e-5;
@@ -113,7 +115,37 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      of both block kernels and of their plain versions, the halo copies of
      one shard, the block kernel's memory-vs-compute split on the 522x2048
      block, the host-paced time per outer step, and wall seconds per
-     simulated second of both sharded runs beside the unsharded ones.
+     simulated second of both sharded runs beside the unsharded ones;
+ 18. Fenton and Mitchell-Schaeffer on kernels 1-4 vs plain PyTorch, from
+     states drawn per cell (the border differs from its neighbours, so a
+     body that took the boundary-enforced centre for its rates fails),
+     2 outer steps, every plane and the probe at rtol 1e-3 / atol 1e-5,
+     with exact launches (ten per outer step on kernels 1 and 4, one on
+     kernels 2 and 3): kernel 1 at 512x512 and 67x131, kernel 2 at
+     2048x2048 and 67x131, kernel 3 on the 4x1 top, interior and bottom
+     and the 2x2 corner blocks of 2048x2048 (K = 10 ghost rows), kernel 4
+     at 16x512x512 and 5x67x131 with dz_ratio 1 and 0.5;
+ 19. Fenton, Table 1's row (512x512, dt 0.1, diff 1.5) for 400 ms:
+     route 'substep', ten launches per outer step and no other kernel,
+     the JAX engine's crossing (76) +- 2, final u within 1e-3 of
+     kernel='xla'; timings of the launch, the outer step (device and
+     host-paced), the tiled kernel at 512x512 and a 1000 ms run on either
+     route;
+ 20. Fenton at 2048x2048 for 400 ms: route 'tiled', one launch per outer
+     step, crossing (306) +- 2, within 1e-3 of kernel='xla'; the tiled
+     kernel beside ten launches of kernel 1;
+ 21. Fenton at 2048x2048 on four row shards of cuda:0 (wide_halo, K =
+     10): four block launches per outer step, bit-equal to phase 20's run;
+ 22. the Fenton scroll wave of examples/scroll_wave.py at --size 512
+     --depth 16 (dt 0.05, S2 at 250 ms over z < 8, 600 ms): ten volume
+     launches per outer step, crossing (144) +- 2, within 1e-3 of
+     kernel='xla' and crossing with it;
+ 23. Mitchell-Schaeffer: 512x512 for 400 ms on kernel 1 (crossing 139
+     +- 2, within 1e-3 of kernel='xla'), and 100 outer steps each on
+     kernel 2 (2048x4096, 64 MB, against kernel='xla'), kernel 3 (4x1
+     shards, bit-equal to kernel 2's run) and kernel 4 (16x512x512,
+     against kernel='xla'), with exact launches; timings of all four
+     (kernels 2 and 3 at 2048x2048, as Fenton's).
 
 Prints the nvidia-smi line and one JSON line describing the kernels before
 its last line, which is {"ok": true, "device": {...}}.  Needs a CUDA GPU and
@@ -128,6 +160,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 import numpy as np
@@ -188,6 +221,43 @@ SHORT_VOL_STEPS = 100   # the sharded volume run held against kernel='xla'
 # rate outside the tensor cores (NVIDIA's data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# Fenton and Mitchell-Schaeffer (phases 18-23).  Fenton's 2D configuration
+# is Table 1's fifth row (fib_tf_tpu/cli.py:682-691): 512x512, dt 0.1 ms,
+# diff 1.5, cut to 400 ms (4 MB of state); 2048x2048 (64 MB) takes the
+# tiled kernel past the 32 MB cutover, and four row shards of it the block
+# kernel; the volume is examples/scroll_wave.py's run at --size 512 --depth
+# 16: dt 0.05, diff 1.5, the S2 over z < 8 at 250 ms, 600 ms (64 MB).
+SMALL_CFG = dict(width=512, height=512, dt=0.1, dt_per_plot=10, diff=1.5,
+                 duration=400)
+SMALL_CFG_LARGE = dict(SMALL_CFG, width=2048, height=2048)
+SCROLL_CFG = dict(SMALL_CFG, dt=0.05, duration=600)
+SCROLL_DEPTH, SCROLL_STEPS, SCROLL_S2 = 16, 1200, 500
+# the JAX engine's first crossings, pinned on the CPU at height 32 (the S1
+# wave is planar; in the volume too):
+#   SimConfig(width=W, height=32, dt=DT, dt_per_plot=10, diff=1.5,
+#             duration=D, kernel='xla')
+#   -> Simulation(Model(cfg)).define().simulate().cycle_lengths[0]
+# gives Fenton (76, 76.0) at W=512, D=400, (306, 306.0) at W=2048, D=400,
+# (144, 72.0) at W=512, DT=0.05, D=600; Mitchell-Schaeffer (139, 139.0) at
+# W=512, D=400 (DT 0.1 where not given)
+SMALL_CROSSINGS = {"fenton": 76, "fenton_2048": 306, "fenton_scroll": 144,
+                   "ms": 139}
+# Mitchell-Schaeffer's runs on kernels 2-4 are cut to 100 outer steps; its
+# two planes pass the 32 MB cutover at 2048x4096 (64 MB, as Fenton's
+# 2048x2048), not at 2048x2048 (32 MB)
+MS_SHORT_STEPS = 100
+MS_LARGE_WIDTH = 4096
+# the planes of a seeded small-model state, each drawn per cell in
+# [0, hi): the border differs from its neighbours, so a cell body fed the
+# boundary-enforced centre for its raw one fails there
+SMALL_PLANES = {"fenton": dict(u=1.0, v=1.0, w=1.0, s=0.6),
+                "ms": dict(u=1.0, h=1.0)}
+# whole runs: 1e-3 of the models' [0, 1] range (tests/test_golden.py)
+SMALL_ATOL = 1e-3
+# float32 operations per cell-substep in the plane (fenton_cell.cuh,
+# ms_cell.cuh, counted by hand, a tanhf as one: Fenton has two), with the
+# 9-point stencil's 10; a volume adds the z term's 4
+SMALL_FLOPS = {"fenton": 67, "ms": 27}
 
 
 def fail(msg: str):
@@ -258,7 +328,8 @@ def main():
         from fib_tf_tpu_torch.engine import (CycleLengthDetector,
                                              Simulation, VolumeEvent,
                                              run_volume, volume)
-        from fib_tf_tpu_torch.models import BeelerReuter
+        from fib_tf_tpu_torch.models import (BeelerReuter, Fenton4v,
+                                             MitchellSchaeffer)
         from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
                                           cuda_volume, cuda_volume_block,
                                           cuda_volume_tiled)
@@ -285,23 +356,32 @@ def main():
           f"python {sys.version.split()[0]}, "
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}", flush=True)
-    bindings = {name: (mod.KERNEL, mod.SOURCE) for name, mod in (
-        ("br_substep", cuda_step), ("br_tiled", cuda_tiled),
-        ("br_volume", cuda_volume), ("br_volume_tiled", cuda_volume_tiled),
-        ("br_block", cuda_block), ("br_volume_block", cuda_volume_block))}
+    modules = (cuda_step, cuda_tiled, cuda_volume, cuda_volume_tiled,
+               cuda_block, cuda_volume_block)
+    # one library per source, named after it; one binding per entry point
+    # (a cell body's: br_substep, fenton_substep, ...; the BR-only
+    # libraries' binding is named after the library)
+    libraries = {mod.SOURCE.stem: mod for mod in modules}
+    bindings = {}
+    for mod in modules:
+        for kernel in getattr(mod, "KERNELS", {"br": mod.KERNEL}).values():
+            bindings[getattr(kernel, "entry", mod.SOURCE.stem)] = (
+                kernel, mod.SOURCE)
     t0 = time.perf_counter()
     # one nvcc per source, all started together
-    with concurrent.futures.ThreadPoolExecutor(len(bindings)) as pool:
-        futures = {name: pool.submit(kernel.build)
-                   for name, (kernel, _) in bindings.items()}
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        futures = {name: pool.submit(mod.KERNEL.build)
+                   for name, mod in libraries.items()}
         lib_paths = {name: f.result() for name, f in futures.items()}
     for kernel, _ in bindings.values():
         kernel.library()
     build_s = time.perf_counter() - t0
-    for name, (_, source) in bindings.items():
+    for name, mod in libraries.items():
         path = lib_paths[name]
-        print(f"phase 1: built {path.name} from {source.name} ({build_s:.2f} "
-              f"s for all {len(bindings)})", flush=True)
+        print(f"phase 1: built {path.name} from {mod.SOURCE.name} "
+              f"({build_s:.2f} s for all {len(libraries)}; entries "
+              f"{[e for e, (_, src) in bindings.items() if src == mod.SOURCE]})",
+              flush=True)
         for line in path.with_name(path.name + ".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
@@ -322,12 +402,6 @@ def main():
                        if isinstance(kernel.launches, dict)
                        else kernel.launches)
                 for name, (kernel, _) in bindings.items()}
-
-    def check_only(counts, name, run):
-        """No kernel but `name` launched in `run`."""
-        others = {k: c for k, c in counts.items()
-                  if k != name and total_launches(c)}
-        check(not others, f"{run} launched other kernels: {others}")
 
     # -- phase 2 ----------------------------------------------------------------
     cfg = SimConfig(**CFG)
@@ -881,6 +955,15 @@ def main():
           f"on the tiled volume kernel {uns_tiled['wall_s'] / sim_s:.6f} "
           f"wall-s/sim-s [{card}]", flush=True)
 
+    small_entries = small_model_phases(torch, types.SimpleNamespace(
+        SimConfig=SimConfig, interop=interop, Simulation=Simulation,
+        VolumeEvent=VolumeEvent, run_volume=run_volume, volume=volume,
+        CycleLengthDetector=CycleLengthDetector, Fenton4v=Fenton4v,
+        MitchellSchaeffer=MitchellSchaeffer, cuda_step=cuda_step,
+        cuda_tiled=cuda_tiled, cuda_block=cuda_block,
+        cuda_volume=cuda_volume, make_mesh=make_mesh,
+        reset_counts=reset_counts, read_counts=read_counts), card, rng)
+
     cells = int(np.prod(shape))
     cells_large = int(np.prod(large.state_shape()))
     vcells = int(np.prod(vshape))
@@ -929,6 +1012,7 @@ def main():
             vblock_errs[body], vbt[f"{body}_us"], vbt[f"plain_{body}_us"],
             launch_bound(int(vbt[f"{body}_slices"] * vcfg.height
                              * vcfg.width), slow, volume=True)))
+    kernels.extend(small_entries)
     for k in kernels:
         print(f"  {k['name']}: {k['ms'] * 1e3:.3f} us against a bound of "
               f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}) [{card}]",
@@ -970,17 +1054,17 @@ def check_run(res, shape, crossing):
           f"{crossing} +- {CROSSING_SLACK}")
 
 
-def check_against_plain_run(res, ref):
-    """A kernel run ends within WHOLE_RUN_ATOL_MV of the kernel='xla' run
-    and crosses at the same step."""
-    dv = np.abs(res.state["V"] - ref.state["V"])
-    print(f"  final V vs kernel='xla' run: max abs {dv.max():.4g} mV "
-          f"(bound {WHOLE_RUN_ATOL_MV} mV); crossings "
-          f"{ref.cycle_lengths}; probe max abs "
+def check_against_plain_run(res, ref, key="V", atol=WHOLE_RUN_ATOL_MV):
+    """A kernel run ends within `atol` (1e-3 of the model's range) of the
+    kernel='xla' run in the potential `key`, and crosses at the same
+    step."""
+    dv = np.abs(res.state[key] - ref.state[key])
+    print(f"  final {key} vs kernel='xla' run: max abs {dv.max():.4g} "
+          f"(bound {atol}); crossings {ref.cycle_lengths}; probe max abs "
           f"{np.abs(res.probes['v'] - ref.probes['v']).max():.3g}",
           flush=True)
-    check(float(dv.max()) <= WHOLE_RUN_ATOL_MV,
-          f"final V differs from the kernel-free run by {dv.max()} mV")
+    check(float(dv.max()) <= atol,
+          f"final {key} differs from the kernel-free run by {dv.max()}")
     check(ref.cycle_lengths[:1] == res.cycle_lengths[:1],
           "kernel and kernel-free runs cross at different steps")
 
@@ -1010,7 +1094,7 @@ def check_outer_steps(torch, step, reference, base, n_steps, name,
     """`n_steps` outer steps `step(state, probe, i)` vs `reference(state,
     probe, i)` from `base`: all planes and, with `has_probe`, the probe.
     Returns the max abs error over the planes."""
-    dev = base["V"].device
+    dev = next(iter(base.values())).device
     pk = torch.zeros(n_steps, device=dev) if has_probe else None
     pp = torch.zeros(n_steps, device=dev) if has_probe else None
     got, want = clone(base), clone(base)
@@ -1154,12 +1238,13 @@ def check_block(torch, cuda_block, cuda_tiled, model, full, h_own, w_own,
     whole = cuda_tiled.make_tiled_cuda_step(model)
     full = clone(full)
     worst = 0.0
+    pot = model.pot_key
     for i in range(n_steps):
         ext = wrapped_window(full, (rstart, cstart), sizes)
         got = {kk: torch.zeros_like(v) for kk, v in ext.items()}
         want = {kk: torch.zeros_like(v) for kk, v in ext.items()}
-        pk = torch.zeros(1, device=ext["V"].device) if owns else None
-        pp = torch.zeros(1, device=ext["V"].device) if owns else None
+        pk = torch.zeros(1, device=ext[pot].device) if owns else None
+        pp = torch.zeros(1, device=ext[pot].device) if owns else None
         step(ext, got, rstart, cstart, pk, 0)
         cuda_block.plain_block_step(model, ext, want, rstart, cstart, two_d,
                                     pp, 0)
@@ -1170,8 +1255,8 @@ def check_block(torch, cuda_block, cuda_tiled, model, full, h_own, w_own,
             f"of {n_steps}", got, want))
         if owns:
             compare_probes(name, pk, pp)
-        centre = cuda_block.centre(got["V"], k, two_d)
-        own = full["V"][origin[0]:origin[0] + h_own]
+        centre = cuda_block.centre(got[pot], k, two_d)
+        own = full[pot][origin[0]:origin[0] + h_own]
         own = own[:, origin[1]:origin[1] + w_own] if two_d else own
         check(torch.equal(centre, own) or bool(
             ((centre - own).abs() <= ATOL + RTOL * own.abs()).all()),
@@ -1228,17 +1313,19 @@ def check_volume_block(torch, cuda_volume, cuda_volume_block, model, full,
     return worst
 
 
-def check_sharded_against_unsharded(res, uns, name):
-    """A sharded run ends within WHOLE_RUN_ATOL_MV of the unsharded tiled
-    run, bit-equal to it (the per-cell code is the same), with the same
-    crossings."""
-    dv = float(np.abs(res.state["V"] - uns.state["V"]).max())
+def check_sharded_against_unsharded(res, uns, name, key="V",
+                                    atol=WHOLE_RUN_ATOL_MV):
+    """A sharded run ends within `atol` of the unsharded tiled run in the
+    potential `key`, bit-equal to it (the per-cell code is the same), with
+    the same crossings."""
+    dv = float(np.abs(res.state[key] - uns.state[key]).max())
     same = all(np.array_equal(res.state[k], uns.state[k]) for k in uns.state)
-    print(f"  mesh {name}: final V vs the unsharded tiled run: max abs "
-          f"{dv:.4g} mV; all 8 planes bit-equal: {same}; probes bit-equal: "
-          f"{np.array_equal(res.probes['v'], uns.probes['v'])}", flush=True)
-    check(dv <= WHOLE_RUN_ATOL_MV,
-          f"the {name} sharded run ends {dv} mV from the unsharded one")
+    print(f"  mesh {name}: final {key} vs the unsharded tiled run: max abs "
+          f"{dv:.4g}; all {len(uns.state)} planes bit-equal: {same}; probes "
+          f"bit-equal: {np.array_equal(res.probes['v'], uns.probes['v'])}",
+          flush=True)
+    check(dv <= atol,
+          f"the {name} sharded run ends {dv} from the unsharded one")
     # kernels 2 and 3 share the tile skeleton and the cell body, so the
     # tiling does not change a cell's value
     check(same, f"the {name} sharded run is not bit-equal to the unsharded "
@@ -1463,22 +1550,29 @@ def device_us(torch, fn, reps: int) -> float:
 
 
 def time_kernels(torch, model, base, cuda_step):
-    """Per-launch device times of both bodies and of the plain substeps,
-    and the host-paced time of an outer step."""
+    """Per-launch device times of the model's substep bodies (BR's slow
+    and frozen; the other models' one, under "slow") and of the plain
+    substeps, and the device and host-paced time of an outer step."""
     state = clone(base)
     params = cuda_step.pack_params(model)
+    kernel = cuda_step.KERNELS[cuda_step.cell_body(model).name]
+    schedule = cuda_step.slow_schedule(model)
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
     for body, slow in (("slow", True), ("frozen", False)):
+        if slow not in schedule:
+            continue
         out[body] = {
-            "kernel_us": device_us(torch, lambda: cuda_step.KERNEL.launch(
+            "kernel_us": device_us(torch, lambda: kernel.launch(
                 params, state, slow, None, model.probe_pixel, 0, stream),
                 reps=200),
             "plain_us": device_us(torch, lambda: cuda_step.plain_substep(
                 model, state, slow), reps=2),
         }
     step = cuda_step.make_cuda_step(model)
-    out["step_device_us"] = device_us(torch, lambda: step(state), reps=100)
+    # 500 launches queued behind the spin kernel
+    out["step_device_us"] = device_us(torch, lambda: step(state),
+                                      reps=500 // len(schedule))
     n = 2000
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1495,29 +1589,29 @@ def time_kernels(torch, model, base, cuda_step):
 
 
 def time_tiled(torch, cuda_step, cuda_tiled, large, base_large, model, base):
-    """Device time per outer step at 2048x2048 and 512x512: the tiled
-    kernel, the substep route and the plain step.
-    The plain outer step is timed substep by substep and summed over the
-    schedule: its five substeps queue more launches than the stream holds
-    behind the spin kernel."""
+    """Device time per outer step of `large` (2048x2048) and `model`
+    (512x512), keyed by their grids: the tiled kernel, the substep route
+    and the plain step.  The plain outer step is timed substep by substep
+    and summed over the schedule: its substeps queue more launches than
+    the stream holds behind the spin kernel."""
     out = {}
-    for size, m, b in (("2048x2048", large, base_large),
-                       ("512x512", model, base)):
+    for i, (m, b) in enumerate(((large, base_large), (model, base))):
         state = clone(b)
+        schedule = cuda_step.slow_schedule(m)
 
         def run(step):
             return lambda: step(state)
 
-        reps = 50 if size == "2048x2048" else 200
+        reps = 50 if i == 0 else 200
         plain = {slow: device_us(torch, lambda: cuda_step.plain_substep(
-            m, state, slow), reps=1) for slow in (True, False)}
-        out[size] = {
+            m, state, slow), reps=1) for slow in set(schedule)}
+        out["x".join(map(str, m.state_shape()))] = {
             "tiled_us": device_us(torch, run(
                 cuda_tiled.make_tiled_cuda_step(m)), reps=reps),
+            # as many launches as five-substep BR's
             "substep_us": device_us(torch, run(cuda_step.make_cuda_step(m)),
-                                    reps=reps),
-            "plain_us": sum(plain[slow]
-                            for slow in cuda_step.slow_schedule(m)),
+                                    reps=reps * 5 // len(schedule)),
+            "plain_us": sum(plain[slow] for slow in schedule),
         }
     return out
 
@@ -1627,6 +1721,446 @@ def time_volume(torch, cuda_step, cuda_volume, cuda_volume_tiled, sizes):
         t["shape"] = tuple(state["V"].shape)
         out[size] = t
     return out
+
+
+# -- Fenton and Mitchell-Schaeffer (phases 18-23) ---------------------------------
+
+
+def small_state(interop, name, shape, dev, rng):
+    """A seeded Fenton or Mitchell-Schaeffer state on the card: every
+    plane drawn per cell (SMALL_PLANES)."""
+    return interop.state_from_numpy(
+        {k: rng.uniform(0.0, hi, shape).astype(np.float32)
+         for k, hi in SMALL_PLANES[name].items()}, dev)
+
+
+def small_bound(name, cells, n_sub=1, volume=False, read_cells=None):
+    """(bound_ms, bound_by) of `n_sub` fused substeps of a small model on
+    `cells` cells: every plane read once (of `read_cells`, an extended
+    block's, where given) and written once, and the cells' operations."""
+    planes = len(SMALL_PLANES[name])
+    read = cells if read_cells is None else read_cells
+    return bound(4 * planes * (read + cells),
+                 cells * n_sub * (SMALL_FLOPS[name] + (4 if volume else 0)))
+
+
+def check_only(counts, name, run):
+    """No kernel but `name` launched in `run`."""
+    others = {k: c for k, c in counts.items()
+              if k != name and total_launches(c)}
+    check(not others, f"{run} launched other kernels: {others}")
+
+
+def check_launched(counts, entry, want, run):
+    """Exactly `want` launches of `entry`, and of no other kernel, in
+    `run`."""
+    check(counts[entry] == want,
+          f"{run}: {entry} launched {counts[entry]}, expected {want}")
+    check_only(counts, entry, run)
+
+
+def small_model_phases(torch, m, card, rng):
+    """Phases 18-23: Fenton and Mitchell-Schaeffer on kernels 1-4.  `m`
+    carries the port's modules and main()'s launch counters; returns the
+    eight kernels' entries of the JSON line."""
+    dev = torch.device("cuda")
+    k1, k2, k3, k4 = (m.cuda_step, m.cuda_tiled, m.cuda_block,
+                      m.cuda_volume)
+    classes = {"fenton": m.Fenton4v, "ms": m.MitchellSchaeffer}
+    cfg = m.SimConfig(**SMALL_CFG)
+    cfg_large = m.SimConfig(**SMALL_CFG_LARGE)
+    scroll = m.SimConfig(**SCROLL_CFG)
+    errs, launches, times = {}, {}, {}
+    grid = f"{cfg.height}x{cfg.width}"
+    grid_large = f"{cfg_large.height}x{cfg_large.width}"
+    vgrid = f"{SCROLL_DEPTH}x{grid}"
+
+    # -- phase 18 ---------------------------------------------------------------
+    print("phase 18: Fenton and Mitchell-Schaeffer on kernels 1-4 vs plain "
+          "PyTorch, 2 outer steps from seeded states, exact launches",
+          flush=True)
+    bases = {}
+    for name, cls in classes.items():
+        model, large = cls(cfg), cls(cfg_large)
+        vmodel = cls(scroll)
+        bases[name] = {
+            "grid": small_state(m.interop, name, model.state_shape(), dev,
+                                rng),
+            "large": small_state(m.interop, name, large.state_shape(), dev,
+                                 rng),
+            "volume": small_state(m.interop, name, (SCROLL_DEPTH,)
+                                  + vmodel.state_shape(), dev, rng)}
+        plain = lambda mod: (lambda st, p, i: k1.plain_step(mod, st, p, i))
+        err = 0.0
+        for mod, base, label in ((model, bases[name]["grid"], grid),
+                                 (cls(cfg.replace(height=67, width=131)),
+                                  small_state(m.interop, name, (67, 131),
+                                              dev, rng), "67x131")):
+            m.reset_counts()
+            err = max(err, check_outer_steps(
+                torch, k1.make_cuda_step(mod), plain(mod), base, 2,
+                f"{name}_substep {label}"))
+            check_launched(m.read_counts(), f"{name}_substep",
+                           {"slow": 20, "frozen": 0}, f"{name} {label}")
+        errs[(name, "substep")] = err
+        err = 0.0
+        for mod, base, label in ((large, bases[name]["large"], grid_large),
+                                 (cls(cfg.replace(height=67, width=131)),
+                                  small_state(m.interop, name, (67, 131),
+                                              dev, rng), "67x131")):
+            m.reset_counts()
+            err = max(err, check_outer_steps(
+                torch, k2.make_tiled_cuda_step(mod), plain(mod), base, 2,
+                f"{name}_tiled {label}"))
+            check_launched(m.read_counts(), f"{name}_tiled", 2,
+                           f"{name} {label}")
+        errs[(name, "tiled")] = err
+        err = 0.0
+        h, w = large.state_shape()
+        row = h // N_SHARDS
+        for label, h_own, w_own, origin in (
+                ("4x1 top", row, None, (0, 0)),
+                ("4x1 interior", row, None, (row, 0)),
+                ("4x1 bottom", row, None, (h - row, 0)),
+                ("2x2 corner", h // 2, w // 2, (h // 2, w // 2))):
+            m.reset_counts()
+            err = max(err, check_block(
+                torch, k3, k2, large, bases[name]["large"], h_own, w_own,
+                origin, 2, f"{name}_block {grid_large} {label}"))
+            counts = m.read_counts()
+            check(counts[f"{name}_block"] == 2
+                  and counts[f"{name}_tiled"] == 2,
+                  f"{name} {label}: launches {counts}")
+        errs[(name, "block")] = err
+        err = 0.0
+        for depth, mod, base, label in (
+                (SCROLL_DEPTH, vmodel, bases[name]["volume"], vgrid),
+                (5, cls(scroll.replace(height=67, width=131)),
+                 small_state(m.interop, name, (5, 67, 131), dev, rng),
+                 "5x67x131")):
+            for dz in (1.0, 0.5):
+                m.reset_counts()
+                err = max(err, check_outer_steps(
+                    torch, k4.make_volume_step(mod, depth, dz),
+                    plain_volume(k4, mod, dz), base, 2,
+                    f"{name}_volume {label} dz_ratio={dz}"))
+                check_launched(m.read_counts(), f"{name}_volume",
+                               {"slow": 20, "frozen": 0},
+                               f"{name} {label}")
+        errs[(name, "volume")] = err
+
+    # -- phase 19 ---------------------------------------------------------------
+    fenton = m.Fenton4v(cfg)
+    print(f"phase 19: Fenton, Table 1's row: Simulation(Fenton4v(cfg))"
+          f".define().simulate() at {grid}, dt 0.1, diff 1.5, "
+          f"{cfg.duration} ms", flush=True)
+    sim = m.Simulation(fenton, device="cuda").define()
+    check(sim.route == "substep", f"Fenton {grid} routes {sim.route!r}")
+    m.reset_counts()
+    res = sim.simulate()
+    counts = m.read_counts()
+    print(f"  route {sim.route}, steps {res.steps}, launches "
+          f"{counts['fenton_substep']}, cycle_lengths {res.cycle_lengths}",
+          flush=True)
+    check_launched(counts, "fenton_substep",
+                   {"slow": 10 * res.steps, "frozen": 0}, f"Fenton {grid}")
+    launches[("fenton", "substep")] = 10 * res.steps
+    check_run(res, fenton.state_shape(), SMALL_CROSSINGS["fenton"])
+    before = m.read_counts()
+    t0 = time.perf_counter()
+    ref = m.Simulation(m.Fenton4v(cfg.replace(kernel="xla")),
+                       device="cuda").define().simulate()
+    print(f"  kernel='xla' run: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(m.read_counts() == before, "the kernel='xla' run launched a kernel")
+    check_against_plain_run(res, ref, "u", SMALL_ATOL)
+    t = times[("fenton", "grid")] = time_kernels(
+        torch, fenton, bases["fenton"]["grid"], k1)
+    tt = times[("fenton", "tiled")] = time_tiled(
+        torch, k1, k2, m.Fenton4v(cfg_large), bases["fenton"]["large"],
+        fenton, bases["fenton"]["grid"])
+    long = m.Simulation(m.Fenton4v(cfg.replace(duration=1000)),
+                        device="cuda").define().simulate()
+    # the cutover question (ROADMAP Queue 1 item 4): the same run on the
+    # tiled route, one launch per outer step instead of ten
+    cutover = m.Simulation.WHOLE_GRID_STATE_MB_MAX
+    m.Simulation.WHOLE_GRID_STATE_MB_MAX = 0
+    try:
+        sim = m.Simulation(m.Fenton4v(cfg.replace(duration=1000)),
+                           device="cuda").define()
+    finally:
+        m.Simulation.WHOLE_GRID_STATE_MB_MAX = cutover
+    check(sim.route == "tiled", f"lowered cutover routes {sim.route!r}")
+    long_tiled = sim.simulate()
+    du = float(np.abs(long_tiled.state["u"] - long.state["u"]).max())
+    check(du <= SMALL_ATOL, f"Fenton {grid} tiled and substep routes end "
+                            f"{du} apart")
+    print(f"  fenton_substep: {t['slow']['kernel_us']:.3f} us/launch "
+          f"(device), plain substep {t['slow']['plain_us']:.1f} us; outer "
+          f"step (10 launches): device {t['step_device_us']:.2f} us, "
+          f"host-paced {t['step_wall_us']:.2f} us, host enqueue "
+          f"{t['step_host_us']:.2f} us; tiled kernel at {grid} "
+          f"{tt[grid]['tiled_us']:.2f} us/outer step "
+          f"(device); simulate() {1.0 / long.sim_seconds_per_wall_second:.6f}"
+          f" wall-s/sim-s over 1000 ms, on the tiled route (cutover "
+          f"lowered) {1.0 / long_tiled.sim_seconds_per_wall_second:.6f} "
+          f"(final u {du:.3g} apart), kernel='xla' "
+          f"{1.0 / ref.sim_seconds_per_wall_second:.6f} over 400 ms "
+          f"[{card}]", flush=True)
+
+    # -- phase 20 ---------------------------------------------------------------
+    print(f"phase 20: Fenton past the 32 MB cutover at {grid_large}, "
+          f"{cfg_large.duration} ms", flush=True)
+    large = m.Fenton4v(cfg_large)
+    sim = m.Simulation(large, device="cuda").define()
+    check(sim.route == "tiled", f"Fenton {grid_large} routes {sim.route!r}")
+    m.reset_counts()
+    res_large = sim.simulate()
+    counts = m.read_counts()
+    print(f"  route {sim.route}, steps {res_large.steps}, cycle_lengths "
+          f"{res_large.cycle_lengths}", flush=True)
+    check_launched(counts, "fenton_tiled", res_large.steps,
+                   f"Fenton {grid_large}")
+    launches[("fenton", "tiled")] = res_large.steps
+    check_run(res_large, large.state_shape(), SMALL_CROSSINGS["fenton_2048"])
+    before = m.read_counts()
+    t0 = time.perf_counter()
+    ref_large = m.Simulation(m.Fenton4v(cfg_large.replace(kernel="xla")),
+                             device="cuda").define().simulate()
+    print(f"  kernel='xla' run: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(m.read_counts() == before, "the kernel='xla' run launched a kernel")
+    check_against_plain_run(res_large, ref_large, "u", SMALL_ATOL)
+    t = tt[grid_large]
+    print(f"  {grid_large}: fenton_tiled {t['tiled_us']:.2f} us/outer step, "
+          f"substep route (10 launches) {t['substep_us']:.2f}, ratio "
+          f"{t['tiled_us'] / t['substep_us']:.4f}, plain "
+          f"{t['plain_us']:.1f} (device); simulate() on the tiled route "
+          f"{1.0 / res_large.sim_seconds_per_wall_second:.6f} wall-s/sim-s, "
+          f"kernel='xla' {1.0 / ref_large.sim_seconds_per_wall_second:.6f} "
+          f"[{card}]", flush=True)
+
+    # -- phase 21 ---------------------------------------------------------------
+    print(f"phase 21: Fenton at {grid_large} on four row shards of cuda:0, "
+          f"wide_halo=True (K = 10)", flush=True)
+    mesh = m.make_mesh(devices=["cuda:0"] * N_SHARDS)
+    sim = m.Simulation(m.Fenton4v(cfg_large), mesh=mesh,
+                       wide_halo=True).define()
+    check(sim.route == "block", f"the sharded run routes {sim.route!r}")
+    m.reset_counts()
+    res_rows = sim.simulate()
+    counts = m.read_counts()
+    check_launched(counts, "fenton_block", N_SHARDS * res_rows.steps,
+                   "the sharded Fenton run")
+    launches[("fenton", "block")] = N_SHARDS * res_rows.steps
+    check_run(res_rows, large.state_shape(), SMALL_CROSSINGS["fenton_2048"])
+    check_sharded_against_unsharded(res_rows, res_large, "4x1", "u",
+                                    SMALL_ATOL)
+    t = times[("fenton", "block")] = time_small_block(
+        torch, m, large, bases["fenton"]["large"])
+    print(f"  fenton_block on the {t['ext_rows']}x{t['width']} block (interior "
+          f"shard): {t['kernel_us']:.2f} us/outer step, plain "
+          f"{t['plain_us']:.1f} (device); sharded simulate() "
+          f"{1.0 / res_rows.sim_seconds_per_wall_second:.6f} wall-s/sim-s, "
+          f"host-paced {res_rows.elapsed / res_rows.steps * 1e6:.2f} "
+          f"us/outer step [{card}]", flush=True)
+
+    # -- phase 22 ---------------------------------------------------------------
+    print(f"phase 22: the Fenton scroll wave, run_volume(Fenton4v(cfg), "
+          f"{SCROLL_DEPTH}, {SCROLL_STEPS}) at {vgrid}, dt "
+          f"0.05, S2 at step {SCROLL_S2} over z < {SCROLL_DEPTH // 2}",
+          flush=True)
+    vmodel = m.Fenton4v(scroll)
+    events = [m.VolumeEvent(step=SCROLL_S2, loc="luq", z1=SCROLL_DEPTH // 2)]
+    route = m.volume.volume_route(vmodel, SCROLL_DEPTH, "cuda", "auto")
+    check(route == "substep", f"the scroll wave routes {route!r}")
+    m.run_volume(vmodel, SCROLL_DEPTH, 2, device="cuda")
+    m.reset_counts()
+    vrun = run_volume_timed(m.run_volume, vmodel, SCROLL_DEPTH, events,
+                            n_outer=SCROLL_STEPS)
+    counts = m.read_counts()
+    check_launched(counts, "fenton_volume",
+                   {"slow": 10 * SCROLL_STEPS, "frozen": 0},
+                   "the scroll wave")
+    launches[("fenton", "volume")] = 10 * SCROLL_STEPS
+    vref = run_volume_timed(m.run_volume, vmodel, SCROLL_DEPTH, events,
+                            kernel="xla", n_outer=SCROLL_STEPS)
+    check_small_volume(m, vmodel, vrun, vref, SMALL_CROSSINGS["fenton_scroll"])
+    t = times[("fenton", "volume")] = time_small_volume(
+        torch, m, vmodel, bases["fenton"]["volume"])
+    sim_s = SCROLL_STEPS * vmodel.dt_per_step * scroll.dt / 1000.0
+    print(f"  fenton_volume at {vgrid}: {t['kernel_us']:.3f} "
+          f"us/launch, outer step (10 launches) {t['step_us']:.2f} us, plain "
+          f"substep {t['plain_us']:.1f} us (device); run_volume "
+          f"{vrun['wall_s'] / sim_s:.6f} wall-s/sim-s, kernel='xla' "
+          f"{vref['wall_s'] / sim_s:.6f} [{card}]", flush=True)
+
+    # -- phase 23 ---------------------------------------------------------------
+    print(f"phase 23: Mitchell-Schaeffer at {grid}, {cfg.duration} ms "
+          f"(kernel 1), and {MS_SHORT_STEPS} outer steps on kernels 2-4 "
+          f"({cfg_large.height}x{MS_LARGE_WIDTH})", flush=True)
+    ms = m.MitchellSchaeffer(cfg)
+    sim = m.Simulation(ms, device="cuda").define()
+    check(sim.route == "substep", f"MS {grid} routes {sim.route!r}")
+    m.reset_counts()
+    res = sim.simulate()
+    check_launched(m.read_counts(), "ms_substep",
+                   {"slow": 10 * res.steps, "frozen": 0}, f"MS {grid}")
+    launches[("ms", "substep")] = 10 * res.steps
+    print(f"  steps {res.steps}, cycle_lengths {res.cycle_lengths}",
+          flush=True)
+    check_run(res, ms.state_shape(), SMALL_CROSSINGS["ms"])
+    ref = m.Simulation(m.MitchellSchaeffer(cfg.replace(kernel="xla")),
+                       device="cuda").define().simulate()
+    check_against_plain_run(res, ref, "u", SMALL_ATOL)
+    short = cfg_large.replace(duration=MS_SHORT_STEPS,
+                              width=MS_LARGE_WIDTH)
+    grid_ms = f"{short.height}x{short.width}"
+    sim = m.Simulation(m.MitchellSchaeffer(short), device="cuda").define()
+    check(sim.route == "tiled", f"MS {grid_ms} routes {sim.route!r}")
+    m.reset_counts()
+    res_large = sim.simulate()
+    check_launched(m.read_counts(), "ms_tiled", res_large.steps,
+                   f"MS {grid_ms}")
+    launches[("ms", "tiled")] = res_large.steps
+    ref_large = m.Simulation(m.MitchellSchaeffer(short.replace(
+        kernel="xla")), device="cuda").define().simulate()
+    check_against_plain_run(res_large, ref_large, "u", SMALL_ATOL)
+    sim = m.Simulation(m.MitchellSchaeffer(short), mesh=mesh,
+                       wide_halo=True).define()
+    m.reset_counts()
+    res_rows = sim.simulate()
+    check_launched(m.read_counts(), "ms_block", N_SHARDS * res_rows.steps,
+                   "the sharded MS run")
+    launches[("ms", "block")] = N_SHARDS * res_rows.steps
+    check_sharded_against_unsharded(res_rows, res_large, "4x1", "u",
+                                    SMALL_ATOL)
+    vms = m.MitchellSchaeffer(scroll)
+    m.reset_counts()
+    vrun = run_volume_timed(m.run_volume, vms, SCROLL_DEPTH, events,
+                            n_outer=MS_SHORT_STEPS)
+    check_launched(m.read_counts(), "ms_volume",
+                   {"slow": 10 * MS_SHORT_STEPS, "frozen": 0}, "MS volume")
+    launches[("ms", "volume")] = 10 * MS_SHORT_STEPS
+    vref = run_volume_timed(m.run_volume, vms, SCROLL_DEPTH, events,
+                            kernel="xla", n_outer=MS_SHORT_STEPS)
+    check_small_volume(m, vms, vrun, vref, None)
+    times[("ms", "grid")] = time_kernels(torch, ms, bases["ms"]["grid"], k1)
+    times[("ms", "tiled")] = time_tiled(
+        torch, k1, k2, m.MitchellSchaeffer(cfg_large), bases["ms"]["large"],
+        ms, bases["ms"]["grid"])
+    times[("ms", "block")] = time_small_block(
+        torch, m, m.MitchellSchaeffer(cfg_large), bases["ms"]["large"])
+    times[("ms", "volume")] = time_small_volume(torch, m, vms,
+                                                bases["ms"]["volume"])
+    t1, t2 = times[("ms", "grid")], times[("ms", "tiled")][grid_large]
+    t3, t4 = times[("ms", "block")], times[("ms", "volume")]
+    print(f"  ms_substep {t1['slow']['kernel_us']:.3f} us/launch at {grid} "
+          f"(plain {t1['slow']['plain_us']:.1f}; outer step device "
+          f"{t1['step_device_us']:.2f}"
+          f", host-paced {t1['step_wall_us']:.2f}); ms_tiled "
+          f"{t2['tiled_us']:.2f} us/outer step at {grid_large} against 10 "
+          f"launches of ms_substep {t2['substep_us']:.2f}; ms_block "
+          f"{t3['kernel_us']:.2f} us on the {t3['ext_rows']}x{t3['width']} "
+          f"block; ms_volume {t4['kernel_us']:.3f} us/launch at {vgrid} "
+          f"(device); simulate() at {grid} over {cfg.duration} ms "
+          f"{1.0 / res.sim_seconds_per_wall_second:.6f} wall-s/sim-s "
+          f"[{card}]", flush=True)
+
+    entries = []
+    cells = int(np.prod(fenton.state_shape()))
+    cells_large = int(np.prod(large.state_shape()))
+    for name in classes:
+        blk = times[(name, "block")]
+        sub = times[(name, "grid")]["slow"]
+        til = times[(name, "tiled")][grid_large]
+        kind_rows = (
+            ("substep", "br_substep.cu", "fib_tf_tpu/ops/pallas_step.py:205",
+             sub["kernel_us"], sub["plain_us"], small_bound(name, cells)),
+            ("tiled", "br_tiled.cu", "fib_tf_tpu/ops/pallas_tiled.py:342",
+             til["tiled_us"], til["plain_us"],
+             small_bound(name, cells_large, n_sub=10)),
+            ("block", "br_block.cu", "fib_tf_tpu/ops/pallas_tiled.py:202",
+             blk["kernel_us"], blk["plain_us"],
+             small_bound(name, blk["own_cells"], n_sub=10,
+                         read_cells=blk["ext_rows"] * blk["width"])),
+            ("volume", "br_volume.cu",
+             "fib_tf_tpu/ops/pallas_volume.py:499",
+             times[(name, "volume")]["kernel_us"],
+             times[(name, "volume")]["plain_us"],
+             small_bound(name, SCROLL_DEPTH * cells, volume=True)))
+        for kind, source, replaces, us, plain_us, pair in kind_rows:
+            entries.append(kernel_entry(
+                f"{name}_{kind}", f"fib_tf_tpu_torch/csrc/{source}",
+                replaces, launches[(name, kind)], errs[(name, kind)], us,
+                plain_us, pair))
+    return entries
+
+
+def check_small_volume(m, model, run, ref, crossing):
+    """A small-model volume run is finite, within SMALL_ATOL of the
+    kernel='xla' run, and crosses with it; with `crossing`, first at that
+    pinned outer step +- CROSSING_SLACK."""
+    u = run["final"]["u"]
+    du = float(np.abs(u - ref["final"]["u"]).max())
+    mine = volume_crossings(m.CycleLengthDetector, model, run["probes"])
+    theirs = volume_crossings(m.CycleLengthDetector, model, ref["probes"])
+    print(f"  crossings {mine}, kernel='xla' {theirs}; final u vs "
+          f"kernel='xla': max abs {du:.4g} (bound {SMALL_ATOL}); wall "
+          f"{run['wall_s']:.3f} s, kernel='xla' {ref['wall_s']:.3f} s",
+          flush=True)
+    check(all(np.isfinite(v).all() for v in run["final"].values()),
+          "the volume run is not finite")
+    check(du <= SMALL_ATOL, f"final u differs from kernel='xla' by {du}")
+    check(mine[:1] == theirs[:1],
+          "kernel and kernel-free volume runs cross at different steps")
+    if crossing is not None:
+        check(len(mine) >= 1 and abs(mine[0][0] - crossing) <= CROSSING_SLACK,
+              f"first crossing {mine[:1]}, expected step {crossing} +- "
+              f"{CROSSING_SLACK}")
+
+
+def time_small_block(torch, m, model, full):
+    """The block kernel on the interior row shard of a 4x1 mesh (a quarter
+    of the rows, e.g. 512 of 2048, and K = 10 ghost rows each side):
+    device time per outer step, and of the plain block step (one substep
+    under `block_geometry`, timed alone, times ten: a whole plain step
+    queues more launches than the stream holds behind the spin kernel)."""
+    k = model.dt_per_step
+    h, w = model.state_shape()
+    row = h // N_SHARDS
+    rstart = row - k
+    ext = wrapped_window(full, (rstart, 0), (row + 2 * k, w))
+    out = {kk: torch.zeros_like(v) for kk, v in ext.items()}
+    step = m.cuda_block.make_block_step(model, False)
+    geom = m.cuda_block.block_geometry(m.cuda_block.global_rows(
+        rstart, row + 2 * k, ext[model.pot_key].device), h)
+    return {
+        "kernel_us": device_us(torch, lambda: step(ext, out, rstart, 0),
+                               reps=50),
+        "plain_us": model.dt_per_step * device_us(
+            torch, lambda: model.solve(ext, geom), reps=1),
+        "ext_rows": row + 2 * k, "width": w, "own_cells": row * w,
+    }
+
+
+def time_small_volume(torch, m, model, base):
+    """Kernel 4 on the volume: device time per launch and per outer step
+    (ten launches), and of the plain substep."""
+    state = clone(base)
+    depth = state["u"].shape[0]
+    kernel = m.cuda_volume.KERNELS[model.name]
+    params = m.cuda_step.pack_params(model)
+    pixel = m.cuda_volume.volume_probe_pixel(model, depth)
+    stream = torch.cuda.current_stream().cuda_stream
+    step = m.cuda_volume.make_volume_step(model, depth)
+    return {
+        "kernel_us": device_us(torch, lambda: kernel.launch(
+            params, state, True, 1.0, None, pixel, 0, stream), reps=100),
+        "step_us": device_us(torch, lambda: step(state), reps=20),
+        "plain_us": device_us(torch, lambda: m.cuda_volume.plain_volume_substep(
+            model, state, True), reps=1),
+    }
 
 
 if __name__ == "__main__":

@@ -1,6 +1,10 @@
-// One whole Beeler-Reuter outer step (all five substeps) of ONE shard's
-// halo-extended block per launch on Hopper (sm_90a): the per-shard compute
-// of the wide-halo sharded path (fib_tf_tpu_torch/parallel/spmd.py).
+// One whole outer step (all its substeps) of ONE shard's halo-extended
+// block per launch on Hopper (sm_90a): the per-shard compute of the
+// wide-halo sharded path (fib_tf_tpu_torch/parallel/spmd.py).  The file
+// keeps its first model's name; it hosts the three cell bodies, one
+// extern "C" entry each: br_block (Beeler-Reuter, K = 5 ghost rows),
+// fenton_block and ms_block (Fenton and Mitchell-Schaeffer, K = 10: a
+// 512-row shard of 2048^2 is a 532-row block).
 //
 // Replaces the TPU kernel fib_tf_tpu/ops/pallas_tiled.py::make_block_kernel,
 // which holds a shard's whole extended block in VMEM for the fused substep
@@ -27,11 +31,13 @@
 // ghosts for the next step.
 //
 // What bounds it: the bytes of the extended block read once and of the
-// centre written once (8 planes each), 20.2 us for a 522x2048 block at
-// 3.35 TB/s, but as for br_tiled.cu (whose note says what was measured)
-// the cell body's instructions in the rings bind.  A 512-row shard of
-// 2048^2 is cut into 10 x 38 = 380 equal tiles (52 or 51 rows, 54 or 53
-// columns), 2.88 for each of 132 persistent blocks: the blocks with three
+// centre written once (BR: 8 planes each, 20.2 us for a 522x2048 block at
+// 3.35 TB/s; Fenton 4 planes, MS 2), but as for br_tiled.cu (whose note
+// says what was measured) BR's cell body's instructions in the rings bind.
+// For BR a 512-row shard of 2048^2 is cut into 10 x 38 = 380 equal tiles
+// (52 or 51 rows, 54 or 53 columns), 2.88 for each of 132 persistent
+// blocks (Fenton and MS: 12 x 47 = 564 tiles of 43-44, 4.27 a block): the
+// blocks with three
 // tiles set the time, three tiles of compute plus the first tile's load,
 // which nothing overlaps.  Measured on an NVIDIA H100 80GB HBM3 at a
 // 700 W limit: 79.7-80.4 us, against 98.9-100.0 us for the previous
@@ -45,46 +51,28 @@
 
 #include "br_cell.cuh"
 #include "br_tile.cuh"
+#include "fenton_cell.cuh"
+#include "ms_cell.cuh"
 
 namespace {
 
-using fibtorch::BeelerReuterCell;
-using fibtorch::BrParams;
 using fibtorch::kBx;
 using fibtorch::kBy;
-using fibtorch::kParamFloats;
 using fibtorch::kRy;
 
-}  // namespace
-
-extern "C" {
-
-// Number of floats the host passes as `params` (the BrParams layout).
-int br_block_param_floats() { return kParamFloats; }
-
-// Number of per-cell planes besides V (BeelerReuterCell::kPlanes).
-int br_block_planes() { return BeelerReuterCell::kPlanes; }
-
-// Launch one outer step of `n_sub` substeps on the ext_h x ext_w extended
-// block whose element (0, 0) is global cell (rstart, cstart) of a
-// height x width domain, on `stream` of device `device`; return
-// cudaGetLastError().  The block carries `halo` ghost rows on each side and,
-// when `two_d`, `halo` ghost columns; otherwise ext_w == width and cstart
-// == 0.  `planes_in` / `planes_out` are host arrays of `n_planes` device
-// pointers in cuda_step.CELL_PLANES order, all of the extended layout; only
-// the centre of the outputs is written.  No output may alias an input.
-// `probe` may be null; otherwise the shard must own the global pixel
-// (probe_row, probe_col).
-int br_block(const float* params, int n_params, const float* v_in,
-             float* v_out, void* const* planes_in, void* const* planes_out,
-             int n_planes, int ext_h, int ext_w, int rstart, int cstart,
-             int halo, int two_d, int height, int width, int n_sub,
-             unsigned slow_mask, float* probe, int probe_row, int probe_col,
-             long long probe_index, int device, void* stream) {
-  using Body = BeelerReuterCell;
-  if (n_params != kParamFloats || n_planes != Body::kPlanes ||
-      height < 3 || width < 3 || n_sub < 1 || n_sub > 32 || halo < n_sub ||
-      ext_h <= 2 * halo) {
+// Launch one outer step of body `Body` on one block (see the entries
+// below).
+template <class Body>
+int launch_block(const float* params, int n_params, const float* v_in,
+                 float* v_out, void* const* planes_in,
+                 void* const* planes_out, int n_planes, int ext_h, int ext_w,
+                 int rstart, int cstart, int halo, int two_d, int height,
+                 int width, int n_sub, unsigned slow_mask, float* probe,
+                 int probe_row, int probe_col, long long probe_index,
+                 int device, void* stream) {
+  if (n_params != fibtorch::param_floats<Body>() ||
+      n_planes != Body::kPlanes || height < 3 || width < 3 || n_sub < 1 ||
+      n_sub > 32 || halo < n_sub || ext_h <= 2 * halo) {
     return (int)cudaErrorInvalidValue;
   }
   fibtorch::Window win;
@@ -114,8 +102,8 @@ int br_block(const float* params, int n_params, const float* v_in,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  BrParams p;
-  memcpy(&p, params, sizeof(BrParams));
+  typename Body::Params p;
+  memcpy(&p, params, sizeof(p));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // launch_tiles refuses a window that leaves the domain
   return (int)fibtorch::launch_tiles<Body, kBx, kBy, kRy>(
@@ -123,4 +111,40 @@ int br_block(const float* params, int n_params, const float* v_in,
       probe_row, probe_col, probe_index, device, s);
 }
 
+}  // namespace
+
+// Per body <m> (br, fenton, ms):
+//   <m>_block_param_floats()  floats the host passes as `params`;
+//   <m>_block_planes()        per-cell planes besides the potential;
+//   <m>_block(...)            launch one outer step of `n_sub` substeps on
+//     the ext_h x ext_w extended block whose element (0, 0) is global cell
+//     (rstart, cstart) of a height x width domain, on `stream` of device
+//     `device`; return cudaGetLastError().  The block carries `halo` ghost
+//     rows on each side and, when `two_d`, `halo` ghost columns; otherwise
+//     ext_w == width and cstart == 0.  `planes_in` / `planes_out` are host
+//     arrays of `n_planes` device pointers in the body's Plane order, all
+//     of the extended layout; only the centre of the outputs is written.
+//     No output may alias an input.  `probe` may be null; otherwise the
+//     shard must own the global pixel (probe_row, probe_col).
+#define BLOCK_ENTRIES(m, Body)                                              \
+  int m##_block_param_floats() { return fibtorch::param_floats<Body>(); }   \
+  int m##_block_planes() { return Body::kPlanes; }                          \
+  int m##_block(const float* params, int n_params, const float* v_in,       \
+                float* v_out, void* const* planes_in,                       \
+                void* const* planes_out, int n_planes, int ext_h,           \
+                int ext_w, int rstart, int cstart, int halo, int two_d,     \
+                int height, int width, int n_sub, unsigned slow_mask,       \
+                float* probe, int probe_row, int probe_col,                 \
+                long long probe_index, int device, void* stream) {          \
+    return launch_block<Body>(params, n_params, v_in, v_out, planes_in,     \
+                              planes_out, n_planes, ext_h, ext_w, rstart,   \
+                              cstart, halo, two_d, height, width, n_sub,    \
+                              slow_mask, probe, probe_row, probe_col,       \
+                              probe_index, device, stream);                 \
+  }
+
+extern "C" {
+BLOCK_ENTRIES(br, fibtorch::BeelerReuterCell)
+BLOCK_ENTRIES(fenton, fibtorch::FentonCell)
+BLOCK_ENTRIES(ms, fibtorch::MsCell)
 }  // extern "C"

@@ -1,15 +1,24 @@
-// The per-cell Beeler-Reuter update shared by the port's two kernels:
-// br_substep.cu (one substep per launch) and br_tiled.cu (one outer step
-// per launch).  Both kernels own the stencil and the memory traffic; this
-// header owns what happens at one cell once v0 and its Laplacian are known.
+// The per-cell Beeler-Reuter update, and what every cell body shares: the
+// clamped stencil and the 9-point Laplacian.  The kernels own the stencil
+// and the memory traffic; a cell body owns what happens at one cell once
+// its centre values and its Laplacian are known.  The same kernels run
+// three bodies: BeelerReuterCell here, FentonCell (fenton_cell.cuh) and
+// MsCell (ms_cell.cuh).
 //
 // A model's cell body is a struct with:
 //   Params        the kernel's by-value parameter block (plain floats);
-//   kPlanes       the number of per-cell planes besides V;
-//   update<SLOW>  (params, v0, lap, q[kPlanes]) -> new V, updating q in place;
+//   kPlanes       the number of per-cell planes besides the potential;
+//   update<SLOW>  (params, v0, raw, lap, q[kPlanes]) -> new potential,
+//                 updating q in place.  v0 is the boundary-enforced centre
+//                 (the cell's clamped stencil point), raw the cell's own
+//                 value: they differ on the domain's outer ring only.
+//                 Fenton's and Mitchell-Schaeffer's rates take raw, BR
+//                 ignores it;
+//   stores<SLOW>  (k) -> whether the body may have changed plane k (the
+//                 substep kernels skip the other stores);
 //   probe         (params, v) -> the normalised potential the probe records.
-// BeelerReuterCell is the first; a second model adds its own struct and the
-// kernels take it as a template argument.
+// SLOW selects BR's substep that advances the slow gates; the other bodies
+// ignore it.
 //
 // No --use_fast_math: logf feeds e_Ca and the fits want IEEE division.
 
@@ -40,6 +49,12 @@ struct BrParams {
 };
 
 constexpr int kParamFloats = sizeof(BrParams) / sizeof(float);
+
+// The floats of a body's parameter block, as the host packs them.
+template <class Body>
+constexpr int param_floats() {
+  return sizeof(typename Body::Params) / sizeof(float);
+}
 
 __device__ __forceinline__ float clip(float x, float lo, float hi) {
   // NaN-propagating, like jnp.clip / torch.clamp
@@ -79,13 +94,20 @@ struct BeelerReuterCell {
   // the per-cell planes, in the order of cuda_step.CELL_PLANES
   enum Plane { kC, kM, kH, kJ, kD, kF, kX1, kPlanes };
 
+  // The frozen body leaves the slow gates as they are.
+  template <bool SLOW>
+  __host__ __device__ static constexpr bool stores(int k) {
+    return SLOW || k == kC || k == kM || k == kH;
+  }
+
   // One substep of the cell (beeler_reuter.py::solve with cheby +
   // cheby_fold + cheby_currents): SLOW advances the slow gates x1/j/d/f,
   // whose folded fit bakes 5*dt under skip; otherwise they stay frozen.
   // The currents use the PRE-update gates; V is clipped to [-85, 25].
+  // Everything is taken at v0; the raw centre is not read.
   template <bool SLOW>
   __device__ __forceinline__ static float update(const Params& p, float v0,
-                                                 float lap,
+                                                 float /* raw */, float lap,
                                                  float (&q)[kPlanes]) {
     float s[kTerms];
     const float x = (v0 - p.cheb_mid) / p.cheb_half;

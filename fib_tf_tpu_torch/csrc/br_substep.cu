@@ -1,4 +1,8 @@
-// One Beeler-Reuter substep on Hopper (sm_90a), one thread per cell.
+// One substep of a whole grid on Hopper (sm_90a), one thread per cell, for
+// each of the port's three cell bodies: Beeler-Reuter (br_cell.cuh), Fenton
+// (fenton_cell.cuh) and Mitchell-Schaeffer (ms_cell.cuh).  The file keeps
+// its first model's name; it hosts all three bodies, one extern "C" entry
+// each (br_substep, fenton_substep, ms_substep).
 //
 // Replaces the TPU kernel fib_tf_tpu/ops/pallas_step.py::make_pallas_step as
 // the engine launches it for Beeler-Reuter cheby+skip (one substep per
@@ -6,6 +10,9 @@
 // (cheby + cheby_fold + cheby_currents).  The template flag SLOW selects the
 // body: true advances the slow gates x1/j/d/f (the n=5 substep under skip,
 // every substep without skip); false freezes them (the four n=0 substeps).
+// Fenton and Mitchell-Schaeffer run ten launches of their one body per
+// outer step (SLOW means nothing to them); their rates take the cell's raw
+// centre, v_in[row, col], beside the boundary-enforced v0.
 //
 // Per cell (i, j), with clamp(k) = min(max(k, 1), N-2):
 //   * v0 at stencil point (i+di, j+dj) is V[clamp(i+di), clamp(j+dj)]: the
@@ -27,12 +34,14 @@
 //   * the S1 stimulus (column 1 at +10 mV) is part of the initial state,
 //     and the kernel treats it like any other V.
 //
-// Memory: V is double-buffered.  Neighbours are read from v_in and the new
-// V goes to v_out, which must not alias v_in.  The other seven planes are
-// per-cell, so each thread reads and rewrites its own cell IN PLACE.
+// Memory: the potential is double-buffered.  Neighbours are read from v_in
+// and the new value goes to v_out, which must not alias v_in.  The other
+// planes (BR 7, Fenton 3, Mitchell-Schaeffer 1) are per-cell, so each
+// thread reads and rewrites its own cell IN PLACE.
 //
-// What bounds it: bandwidth.  A SLOW substep reads 8 planes and writes 8
-// (16 MB at 512x512 float32), a frozen one reads 8 and writes 4; the card
+// What bounds it: bandwidth.  A BR SLOW substep reads 8 planes and writes 8
+// (16 MB at 512x512 float32), a frozen one reads 8 and writes 4 (Fenton
+// reads and writes 4, Mitchell-Schaeffer 2); the card
 // moves 3.35 TB/s from HBM, and the 8 MB state also fits its 50 MB L2.  The
 // arithmetic (14 degree-8 fits, one logf) is far below the FLOP roof.  This
 // first design is deliberately simple: no shared-memory tile (the 9-point
@@ -41,7 +50,8 @@
 // halo, is br_tiled.cu, which the engine runs past its 32 MB cutover.  CUDA
 // graphs over a chunk, against the host launch overhead, are later work.
 //
-// The per-cell arithmetic lives in br_cell.cuh, shared with br_tiled.cu.
+// The per-cell arithmetic lives in the cell-body headers, shared with the
+// other kernels.
 //
 // Built by fib_tf_tpu_torch/kernels/build.py with nvcc into a shared library
 // with a plain C interface (no --use_fast_math: logf feeds e_Ca).
@@ -50,31 +60,28 @@
 #include <string.h>
 
 #include "br_cell.cuh"
+#include "fenton_cell.cuh"
+#include "ms_cell.cuh"
 
 namespace {
 
-using fibtorch::BeelerReuterCell;
-using fibtorch::BrParams;
 using fibtorch::clamp_index;
-using fibtorch::kParamFloats;
 using fibtorch::laplace9;
 
-template <bool SLOW>
-__global__ void br_substep_kernel(const BrParams p,
-                                  const float* __restrict__ v_in,
-                                  float* __restrict__ v_out,
-                                  float* __restrict__ c_pl,
-                                  float* __restrict__ m_pl,
-                                  float* __restrict__ h_pl,
-                                  float* __restrict__ j_pl,
-                                  float* __restrict__ d_pl,
-                                  float* __restrict__ f_pl,
-                                  float* __restrict__ x1_pl,
-                                  int height, int width,
-                                  float* __restrict__ probe,
-                                  int probe_row, int probe_col,
-                                  long long probe_index) {
-  using Cell = BeelerReuterCell;
+// The per-cell planes besides the potential, in Body::Plane order.
+template <int N>
+struct CellPlanes {
+  float* p[N];
+};
+
+template <class Body, bool SLOW>
+__global__ void substep_kernel(const typename Body::Params p,
+                               const float* __restrict__ v_in,
+                               float* __restrict__ v_out,
+                               const CellPlanes<Body::kPlanes> planes,
+                               int height, int width,
+                               float* __restrict__ probe, int probe_row,
+                               int probe_col, long long probe_index) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (row >= height || col >= width) return;
@@ -91,65 +98,90 @@ __global__ void br_substep_kernel(const BrParams p,
                              v_in[rc + ce], v_in[rn + cw], v_in[rs + cw],
                              v_in[rn + ce], v_in[rs + ce], v0);
 
-  // the per-cell planes, in Cell::Plane order
-  float* const planes[Cell::kPlanes] = {c_pl, m_pl, h_pl, j_pl,
-                                        d_pl, f_pl, x1_pl};
   const long long idx = (long long)row * width + col;
-  float q[Cell::kPlanes];
+  float q[Body::kPlanes];
 #pragma unroll
-  for (int k = 0; k < Cell::kPlanes; ++k) q[k] = planes[k][idx];
-  const float v1 = Cell::update<SLOW>(p, v0, lap, q);
+  for (int k = 0; k < Body::kPlanes; ++k) q[k] = planes.p[k][idx];
+  const float v1 = Body::template update<SLOW>(p, v0, v_in[idx], lap, q);
   v_out[idx] = v1;
 #pragma unroll
-  for (int k = 0; k < Cell::kPlanes; ++k) {
-    // the frozen body leaves the slow gates as they are: skip their stores
-    if (SLOW || k == Cell::kC || k == Cell::kM || k == Cell::kH) {
-      planes[k][idx] = q[k];
-    }
+  for (int k = 0; k < Body::kPlanes; ++k) {
+    if (Body::template stores<SLOW>(k)) planes.p[k][idx] = q[k];
   }
   if (probe != nullptr && row == probe_row && col == probe_col) {
-    probe[probe_index] = Cell::probe(p, v1);
+    probe[probe_index] = Body::probe(p, v1);
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Number of floats the host passes as `params` (the BrParams layout).
-int br_param_floats() { return kParamFloats; }
-
-// Launch one substep on `stream` of device `device` and return
-// cudaGetLastError().  `params` is a host array of br_param_floats() floats,
-// copied into the kernel's by-value argument.  `probe` may be null;
-// otherwise the thread at (probe_row, probe_col) writes the normalized new V
-// to probe[probe_index].
-int br_substep(int slow, const float* params, int n_params,
-               const float* v_in, float* v_out, float* c, float* m, float* h,
-               float* j, float* d, float* f, float* x1, int height,
-               int width, float* probe, int probe_row, int probe_col,
-               long long probe_index, int device, void* stream) {
-  if (n_params != kParamFloats || height < 3 || width < 3 || v_in == v_out) {
+// Launch one substep of body `Body` (see the entries below).
+template <class Body>
+int launch_substep(int slow, const float* params, int n_params,
+                   const float* v_in, float* v_out, void* const* planes,
+                   int n_planes, int height, int width, float* probe,
+                   int probe_row, int probe_col, long long probe_index,
+                   int device, void* stream) {
+  if (n_params != fibtorch::param_floats<Body>() ||
+      n_planes != Body::kPlanes || height < 3 || width < 3 ||
+      v_in == v_out) {
     return (int)cudaErrorInvalidValue;
+  }
+  CellPlanes<Body::kPlanes> pl;
+  for (int k = 0; k < Body::kPlanes; ++k) {
+    pl.p[k] = static_cast<float*>(planes[k]);
+    if (pl.p[k] == v_in || pl.p[k] == v_out) {
+      return (int)cudaErrorInvalidValue;
+    }
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  BrParams p;
-  memcpy(&p, params, sizeof(BrParams));
+  typename Body::Params p;
+  memcpy(&p, params, sizeof(p));
   const dim3 block(32, 8);
   const dim3 grid((width + block.x - 1) / block.x,
                   (height + block.y - 1) / block.y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (slow) {
-    br_substep_kernel<true><<<grid, block, 0, s>>>(
-        p, v_in, v_out, c, m, h, j, d, f, x1, height, width, probe,
-        probe_row, probe_col, probe_index);
+    substep_kernel<Body, true><<<grid, block, 0, s>>>(
+        p, v_in, v_out, pl, height, width, probe, probe_row, probe_col,
+        probe_index);
   } else {
-    br_substep_kernel<false><<<grid, block, 0, s>>>(
-        p, v_in, v_out, c, m, h, j, d, f, x1, height, width, probe,
-        probe_row, probe_col, probe_index);
+    substep_kernel<Body, false><<<grid, block, 0, s>>>(
+        p, v_in, v_out, pl, height, width, probe, probe_row, probe_col,
+        probe_index);
   }
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// Per body <m> (br, fenton, ms):
+//   <m>_substep_param_floats()  floats the host passes as `params`;
+//   <m>_substep_planes()        per-cell planes besides the potential;
+//   <m>_substep(...)            launch one substep on `stream` of device
+//     `device` and return cudaGetLastError().  `params` is a host array of
+//     <m>_substep_param_floats() floats, copied into the kernel's by-value
+//     argument; `planes` a host array of <m>_substep_planes() device
+//     pointers in the body's Plane order (cuda_step's plane tuples),
+//     updated in place.  The new potential goes to `v_out`, which must not
+//     alias `v_in`.  `probe` may be null; otherwise the thread at
+//     (probe_row, probe_col) writes the normalised new potential to
+//     probe[probe_index].
+#define SUBSTEP_ENTRIES(m, Body)                                            \
+  int m##_substep_param_floats() { return fibtorch::param_floats<Body>(); } \
+  int m##_substep_planes() { return Body::kPlanes; }                        \
+  int m##_substep(int slow, const float* params, int n_params,              \
+                  const float* v_in, float* v_out, void* const* planes,     \
+                  int n_planes, int height, int width, float* probe,        \
+                  int probe_row, int probe_col, long long probe_index,      \
+                  int device, void* stream) {                               \
+    return launch_substep<Body>(slow, params, n_params, v_in, v_out,        \
+                                planes, n_planes, height, width, probe,     \
+                                probe_row, probe_col, probe_index, device,  \
+                                stream);                                    \
+  }
+
+extern "C" {
+SUBSTEP_ENTRIES(br, fibtorch::BeelerReuterCell)
+SUBSTEP_ENTRIES(fenton, fibtorch::FentonCell)
+SUBSTEP_ENTRIES(ms, fibtorch::MsCell)
 }  // extern "C"

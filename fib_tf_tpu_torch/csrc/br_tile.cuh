@@ -2,6 +2,13 @@
 // and br_block.cu (one outer step of one shard's halo-extended block): 2D
 // tiles, temporally blocked, with a halo of one ring per substep, walked by
 // persistent blocks that stage the next tile while they compute this one.
+// It is a template over the cell body (br_cell.cuh's contract): both
+// kernels instantiate it for Beeler-Reuter (K = 5 substeps, a 54 x 54
+// interior per 64 x 64 tile), Fenton and Mitchell-Schaeffer (K = 10, a
+// 44 x 44 interior: 64^2 / 44^2 = 2.1x the interior's cells loaded and, in
+// the first substeps, computed).  Shared memory per block is (3 + kPlanes)
+// x 16 KB: BR 160 KB, Fenton 96 KB, Mitchell-Schaeffer 64 KB, each above
+// the 48 KB default, so each instantiation raises its own limit.
 //
 // What it computes.  A launch covers a WINDOW of the domain, rows
 // [row0, row1) x columns [col0, col1) in global indices.  The window is cut
@@ -76,7 +83,10 @@
 // in place: a tile's halo holds its neighbours' interior cells, which
 // other blocks rewrite while it may still be loading them.
 //
-// Schedule: bit s of `slow_mask` selects the SLOW body for substep s.  The
+// Schedule: bit s of `slow_mask` selects the SLOW body for substep s (BR's;
+// the other bodies ignore it).  Each cell body gets the cell's raw centre,
+// cur[cell], beside the boundary-enforced v0 = cur[clamped cell]; they
+// differ only in the edge body, on the domain's outer ring.  The
 // thread that owns the probe pixel (global indices) writes its normalised
 // final V to probe[probe_index].
 
@@ -308,7 +318,9 @@ __device__ __forceinline__ void tile_substep(
     const float v0 = rc[bc];
     const float lap = laplace9(rn[bc], rs[bc], rc[bw], rc[be], rn[bw],
                                rs[bw], rn[be], rs[be], v0);
-    const float v = Body::template update<SLOW>(p, v0, lap, q[r]);
+    // the cell's raw centre: v0 itself off the domain's outer ring
+    const float raw = cur[a * EW + tx];
+    const float v = Body::template update<SLOW>(p, v0, raw, lap, q[r]);
     if (!last) {
       nxt[a * EW + tx] = v;
       continue;

@@ -1,12 +1,16 @@
-// One whole Beeler-Reuter outer step (all five substeps) per launch on
-// Hopper (sm_90a): 2D tiles, temporally blocked, with a halo of one ring per
-// substep.
+// One whole outer step (all its substeps) of a grid per launch on Hopper
+// (sm_90a): 2D tiles, temporally blocked, with a halo of one ring per
+// substep.  The file keeps its first model's name; it hosts the three cell
+// bodies, one extern "C" entry each: br_tiled (Beeler-Reuter, five
+// substeps), fenton_tiled and ms_tiled (Fenton and Mitchell-Schaeffer, ten
+// substeps: a 44 x 44 interior per 64 x 64 tile).
 //
 // Replaces the TPU kernel fib_tf_tpu/ops/pallas_tiled.py::
 // make_tiled_pallas_step, which the JAX engine runs for Beeler-Reuter once
 // the state passes WHOLE_GRID_STATE_MB_MAX = 32 MB (any BR grid over 1024^2).
-// It computes the same function as five launches of br_substep.cu, and the
-// per-cell arithmetic is the same code (br_cell.cuh).
+// It computes the same function as an outer step of launches of
+// br_substep.cu, and the per-cell arithmetic is the same code (the
+// cell-body headers).
 //
 // The tile skeleton (what a block loads, computes and writes, the boundary
 // on global indices, the memory rules and the schedule) is br_tile.cuh,
@@ -14,10 +18,12 @@
 // domain and the planes are the grid's own arrays.  Any H, W >= 3 runs.
 //
 // What bounds it.  Per outer step it reads the state once and writes it
-// once: 8 planes each way, 268 MB at 2048^2 float32 (80 us at 3.35 TB/s),
-// plus the halo overfetch (64^2 loaded per 54^2 written, mostly served by
-// L2).  Five launches of br_substep.cu move four times as much.  The price
-// is redundant compute in the rings, and that is what binds: measured on
+// once: for BR 8 planes each way, 268 MB at 2048^2 float32 (80 us at 3.35
+// TB/s), plus the halo overfetch (64^2 loaded per 54^2 written, mostly
+// served by L2); for Fenton 4 planes (134 MB, 40 us) and Mitchell-Schaeffer
+// 2 (67 MB, 20 us), with 64^2 loaded per 44^2 written.  An outer step of
+// br_substep.cu launches moves 5-10 times as much.  The price is redundant
+// compute in the rings, and for BR that is what binds: measured on
 // an NVIDIA H100 80GB HBM3 at a 700 W limit (tools/torch_tile_bench.py,
 // PERF.md), the skeleton runs at the SM clock's 1980 MHz, 64 registers a
 // thread and no spills, and a variant with no copies and no stores takes
@@ -39,25 +45,49 @@
 
 #include "br_cell.cuh"
 #include "br_tile.cuh"
+#include "fenton_cell.cuh"
+#include "ms_cell.cuh"
 
 namespace {
 
-using fibtorch::BeelerReuterCell;
-using fibtorch::BrParams;
 using fibtorch::kBx;
 using fibtorch::kBy;
-using fibtorch::kParamFloats;
 using fibtorch::kRy;
+
+// Launch one outer step of body `Body` (see the entries below).
+template <class Body>
+int launch_tiled(const float* params, int n_params, const float* v_in,
+                 float* v_out, void* const* planes_in,
+                 void* const* planes_out, int n_planes, int height, int width,
+                 int n_sub, unsigned slow_mask, float* probe, int probe_row,
+                 int probe_col, long long probe_index, int device,
+                 void* stream) {
+  if (n_params != fibtorch::param_floats<Body>() ||
+      n_planes != Body::kPlanes || height < 3 || width < 3 || n_sub < 1 ||
+      n_sub > 32) {
+    return (int)cudaErrorInvalidValue;
+  }
+  fibtorch::Planes<Body::kPlanes> planes;
+  if (!fibtorch::gather_planes(v_in, v_out, planes_in, planes_out,
+                               &planes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  typename Body::Params p;
+  memcpy(&p, params, sizeof(p));
+  // the whole grid: the arrays start at cell (0, 0) and the window is the
+  // domain
+  const fibtorch::Window win = {0, 0, width, 0, height, 0, width};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)fibtorch::launch_tiles<Body, kBx, kBy, kRy>(
+      p, v_in, v_out, planes, win, height, width, n_sub, slow_mask, probe,
+      probe_row, probe_col, probe_index, device, s);
+}
 
 }  // namespace
 
 extern "C" {
-
-// Number of floats the host passes as `params` (the BrParams layout).
-int br_tiled_param_floats() { return kParamFloats; }
-
-// Number of per-cell planes besides V (BeelerReuterCell::kPlanes).
-int br_tiled_planes() { return BeelerReuterCell::kPlanes; }
 
 // The tile shape: threads per block in x and y, and cells per thread
 // along y.
@@ -78,37 +108,33 @@ void br_tiled_split(int len, int max_tile, int* n, int* base, int* rem) {
   *rem = s.rem;
 }
 
-// Launch one outer step of `n_sub` substeps on `stream` of device
-// `device` and return cudaGetLastError().  `params` is a host array of
-// br_tiled_param_floats() floats; `planes_in` / `planes_out` are host
-// arrays of `n_planes` device pointers in cuda_step.CELL_PLANES order.  No
-// output may alias an input.  `probe` may be null.
-int br_tiled(const float* params, int n_params, const float* v_in,
-             float* v_out, void* const* planes_in, void* const* planes_out,
-             int n_planes, int height, int width, int n_sub,
-             unsigned slow_mask, float* probe, int probe_row, int probe_col,
-             long long probe_index, int device, void* stream) {
-  using Body = BeelerReuterCell;
-  if (n_params != kParamFloats || n_planes != Body::kPlanes ||
-      height < 3 || width < 3 || n_sub < 1 || n_sub > 32) {
-    return (int)cudaErrorInvalidValue;
-  }
-  fibtorch::Planes<Body::kPlanes> planes;
-  if (!fibtorch::gather_planes(v_in, v_out, planes_in, planes_out,
-                               &planes)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  BrParams p;
-  memcpy(&p, params, sizeof(BrParams));
-  // the whole grid: the arrays start at cell (0, 0) and the window is the
-  // domain
-  const fibtorch::Window win = {0, 0, width, 0, height, 0, width};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)fibtorch::launch_tiles<Body, kBx, kBy, kRy>(
-      p, v_in, v_out, planes, win, height, width, n_sub, slow_mask, probe,
-      probe_row, probe_col, probe_index, device, s);
-}
+}  // extern "C"
 
+// Per body <m> (br, fenton, ms):
+//   <m>_tiled_param_floats()  floats the host passes as `params`;
+//   <m>_tiled_planes()        per-cell planes besides the potential;
+//   <m>_tiled(...)            launch one outer step of `n_sub` substeps on
+//     `stream` of device `device` and return cudaGetLastError().
+//     `planes_in` / `planes_out` are host arrays of `n_planes` device
+//     pointers in the body's Plane order.  No output may alias an input.
+//     `probe` may be null.
+#define TILED_ENTRIES(m, Body)                                              \
+  int m##_tiled_param_floats() { return fibtorch::param_floats<Body>(); }   \
+  int m##_tiled_planes() { return Body::kPlanes; }                          \
+  int m##_tiled(const float* params, int n_params, const float* v_in,       \
+                float* v_out, void* const* planes_in,                       \
+                void* const* planes_out, int n_planes, int height,          \
+                int width, int n_sub, unsigned slow_mask, float* probe,     \
+                int probe_row, int probe_col, long long probe_index,        \
+                int device, void* stream) {                                 \
+    return launch_tiled<Body>(params, n_params, v_in, v_out, planes_in,     \
+                              planes_out, n_planes, height, width, n_sub,   \
+                              slow_mask, probe, probe_row, probe_col,       \
+                              probe_index, device, stream);                 \
+  }
+
+extern "C" {
+TILED_ENTRIES(br, fibtorch::BeelerReuterCell)
+TILED_ENTRIES(fenton, fibtorch::FentonCell)
+TILED_ENTRIES(ms, fibtorch::MsCell)
 }  // extern "C"

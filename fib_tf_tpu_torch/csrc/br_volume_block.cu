@@ -63,7 +63,7 @@ __global__ void br_volume_block_kernel(
   const int zg = zstart + z;
   if (row >= height || col >= width || zg < 0 || zg >= d_total) return;
 
-  const float v1 = fibtorch::volume_cell<SLOW>(
+  const float v1 = fibtorch::volume_cell<BeelerReuterCell, SLOW>(
       p, dz2, v_in, v_out, planes.p, z, clamp_index(zg, d_total) - zstart,
       clamp_index(zg - 1, d_total) - zstart,
       clamp_index(zg + 1, d_total) - zstart, row, col, height, width);

@@ -1,8 +1,10 @@
-// One Beeler-Reuter substep of one cell of a [D, H, W] volume: the 3D
-// stencil and the cell update shared by br_volume.cu (a whole volume) and
-// br_volume_block.cu (one shard's z-halo-extended block).  The kernels
-// decide which slices of their array hold the cell's z neighbours; this
-// header owns everything in the plane and the arithmetic.
+// One substep of one cell of a [D, H, W] volume, for any cell body
+// (br_cell.cuh's contract): the 3D stencil and the cell update shared by
+// br_volume.cu (a whole volume; Beeler-Reuter, Fenton and
+// Mitchell-Schaeffer) and br_volume_block.cu (one shard's z-halo-extended
+// block; Beeler-Reuter only).  The kernels decide which slices of their
+// array hold the cell's z neighbours; this header owns everything in the
+// plane and the arithmetic.
 //
 // In the plane, with clamp(k) = min(max(k, 1), N-2): every stencil point
 // (i+di, j+dj) reads V[clamp(i+di), clamp(j+dj)], the SYMMETRIC face
@@ -11,11 +13,11 @@
 // slice indices of clamp(z), clamp(z-1) and clamp(z+1), clamped over the
 // volume's own depth.  lap = planar + (2*dz_ratio) * ((up - 2*v0) + down),
 // summed in the reference's order (stencil3d.py:91-93); then the cell
-// update of br_cell.cuh.
+// body's update, with the cell's raw centre v_in[z, row, col] beside v0.
 //
-// Memory: V is read from `v_in` and written to `v_out` (never the same
-// array); the seven per-cell planes are read and rewritten in place, each
-// thread its own cell.
+// Memory: the potential is read from `v_in` and written to `v_out` (never
+// the same array); the per-cell planes are read and rewritten in place,
+// each thread its own cell.
 
 #pragma once
 
@@ -26,13 +28,13 @@
 namespace fibtorch {
 
 // `z` is the array's slice of the cell itself; `zc`, `zu`, `zd` those of
-// clamp(z), clamp(z-1), clamp(z+1).  Returns the new V.
-template <bool SLOW>
+// clamp(z), clamp(z-1), clamp(z+1).  Returns the new potential.
+template <class Body, bool SLOW>
 __device__ __forceinline__ float volume_cell(
-    const BrParams& p, const float dz2, const float* __restrict__ v_in,
-    float* __restrict__ v_out, float* const (&planes)[BeelerReuterCell::kPlanes],
-    int z, int zc, int zu, int zd, int row, int col, int height, int width) {
-  using Cell = BeelerReuterCell;
+    const typename Body::Params& p, const float dz2,
+    const float* __restrict__ v_in, float* __restrict__ v_out,
+    float* const (&planes)[Body::kPlanes], int z, int zc, int zu, int zd,
+    int row, int col, int height, int width) {
   const long long plane = (long long)height * width;
   const float* sc = v_in + zc * plane;
   const float* su = v_in + zu * plane;
@@ -51,17 +53,14 @@ __device__ __forceinline__ float volume_cell(
   const float lap = planar + dz2 * ((su[rc + cc] - 2.0f * v0) + sd[rc + cc]);
 
   const long long idx = z * plane + (long long)row * width + col;
-  float q[Cell::kPlanes];
+  float q[Body::kPlanes];
 #pragma unroll
-  for (int k = 0; k < Cell::kPlanes; ++k) q[k] = planes[k][idx];
-  const float v1 = Cell::update<SLOW>(p, v0, lap, q);
+  for (int k = 0; k < Body::kPlanes; ++k) q[k] = planes[k][idx];
+  const float v1 = Body::template update<SLOW>(p, v0, v_in[idx], lap, q);
   v_out[idx] = v1;
 #pragma unroll
-  for (int k = 0; k < Cell::kPlanes; ++k) {
-    // the frozen body leaves the slow gates as they are: skip their stores
-    if (SLOW || k == Cell::kC || k == Cell::kM || k == Cell::kH) {
-      planes[k][idx] = q[k];
-    }
+  for (int k = 0; k < Body::kPlanes; ++k) {
+    if (Body::template stores<SLOW>(k)) planes[k][idx] = q[k];
   }
   return v1;
 }

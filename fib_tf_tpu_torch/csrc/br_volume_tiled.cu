@@ -342,7 +342,8 @@ __device__ __forceinline__ void level(const BrParams& p, float dz2,
   float q[kP];
 #pragma unroll
   for (int k = 0; k < kP; ++k) q[k] = planes[k * kE + at];
-  const float v = Cell::update<SLOW>(p, v0, lap, q);
+  // BR's body reads v0 alone; kernel 5 hosts no other body yet
+  const float v = Cell::update<SLOW>(p, v0, v0, lap, q);
   if (nxt != nullptr) {
     nxt[at] = v;
 #pragma unroll

@@ -11,10 +11,14 @@ consumes the probes.
 
 Kernel routing (`route`, as the JAX engine's `_use_pallas` / `_step_fn`
 route): 'xla' runs the plain PyTorch path anywhere; 'auto' and 'pallas' run
-a CUDA kernel on a CUDA device, the substep kernel (five launches per outer
-step) while the state fits WHOLE_GRID_STATE_MB_MAX and the tiled kernel
-(one launch per outer step) past it; on the CPU 'auto' runs the plain path
-and 'pallas' raises.
+a CUDA kernel on a CUDA device, the substep kernel (one launch per substep:
+five per outer step for Beeler-Reuter, ten for Fenton and
+Mitchell-Schaeffer) while the state fits WHOLE_GRID_STATE_MB_MAX and the
+tiled kernel (one launch per outer step) past it; on the CPU 'auto' runs
+the plain path and 'pallas' raises.  The three models the port carries
+all have their cell bodies on both kernels and on the block kernel, as the
+reference routes them (fib_tf_tpu/engine/simulation.py:463-492,
+`SPMD_KERNEL_MODELS` :797-798).
 
 Sharded runs (`Simulation(model, mesh=..., wide_halo=...)`, or
 `SimConfig.mesh_shape` with `mesh_mode` 'auto' / 'spmd'): the grid is
@@ -431,7 +435,7 @@ def _check_mesh(model: IonicModel, mesh: mesh_sharding.Mesh,
 def spmd_route(model: IonicModel, device_type: str, kernel: str,
                wide_halo: bool) -> str:
     """The per-shard step of a sharded run: 'block' (csrc/br_block.cu, one
-    launch per shard per outer step) or 'plain'.  As the JAX engine's
+    launch per shard per outer step, any of the three models) or 'plain'.  As the JAX engine's
     `_spmd_use_kernel` (simulation.py:750-785) on a CUDA mesh: 'pallas'
     forces the block kernel, 'auto' takes it with wide halos, 'xla' runs
     the plain step.  kernel='pallas' on a CPU mesh raises."""
@@ -451,9 +455,9 @@ def state_mb(model: IonicModel) -> float:
 
 
 def route(model: IonicModel, device_type: str, kernel: str) -> str:
-    """The outer step a run takes: 'substep' (the CUDA substep kernel,
-    five launches per outer step), 'tiled' (the CUDA tiled kernel, one
-    launch) or 'plain' (PyTorch).  As the JAX engine routes
+    """The outer step a run takes: 'substep' (the CUDA substep kernel, one
+    launch per substep), 'tiled' (the CUDA tiled kernel, one launch) or
+    'plain' (PyTorch).  As the JAX engine routes
     (simulation.py:405-492, :568-617) on a CUDA device, with the state's
     MB taken on the true grid; the reference's (8, 128) alignment and tile
     divisibility conditions are Mosaic's and are not carried, since the

@@ -27,6 +27,12 @@ z over a `parallel.Mesh` and runs parallel/volume_spmd's wide-halo chunk:
 per shard the volume block kernel (csrc/br_volume_block.cu) under
 `_use_shard_kernel`, or the plain step.
 
+The volume substep kernel hosts Beeler-Reuter, Fenton and
+Mitchell-Schaeffer; the tiled and block volume kernels host BR alone, so
+Fenton and Mitchell-Schaeffer raise NotImplementedError where 'auto' or
+'pallas' would take them (the cutover lowered, or a CUDA mesh with
+`wide_halo`; ROADMAP Queue 2 item D).
+
 Not ported yet, and raising NotImplementedError when asked for: phase
 fields, fiber twist / ratio / elevation (ROADMAP Queue 1 items 9 and 18),
 a mesh without `wide_halo` (the reference's GSPMD volume path, item 19),
@@ -46,7 +52,8 @@ import torch
 from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.engine.simulation import resolve_device
 from fib_tf_tpu_torch.models.base import IonicModel
-from fib_tf_tpu_torch.ops import cuda_volume, cuda_volume_tiled, stencil3d
+from fib_tf_tpu_torch.ops import (cuda_step, cuda_volume, cuda_volume_tiled,
+                                  stencil3d)
 from fib_tf_tpu_torch.parallel import volume_spmd
 
 _GEOMETRY = "ROADMAP Queue 1 items 9 and 18"
@@ -113,8 +120,10 @@ def volume_state_mb(model: IonicModel, depth: int) -> float:
 def volume_route(model: IonicModel, depth: int, device_type: str,
                  kernel: str) -> str:
     """The outer step run_volume takes: 'substep' (csrc/br_volume.cu, one
-    launch per substep), 'tiled' (csrc/br_volume_tiled.cu, one launch per
-    outer step, any depth) or 'plain' (PyTorch)."""
+    launch per substep; Beeler-Reuter, Fenton and Mitchell-Schaeffer),
+    'tiled' (csrc/br_volume_tiled.cu, one launch per outer step, any depth;
+    Beeler-Reuter only: the other models raise NotImplementedError there)
+    or 'plain' (PyTorch)."""
     if kernel not in ("auto", "pallas", "xla"):
         raise ValueError(f"kernel must be auto|pallas|xla, got {kernel!r}")
     if kernel == "pallas" and device_type != "cuda":
@@ -126,6 +135,7 @@ def volume_route(model: IonicModel, depth: int, device_type: str,
     if (kernel == "pallas"
             or volume_state_mb(model, depth) <= VOLUME_KERNEL_STATE_MB_MAX):
         return "substep"
+    cuda_step.br_only(model, "tiled volume")
     return "tiled"
 
 

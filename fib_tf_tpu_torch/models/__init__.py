@@ -1,4 +1,4 @@
-"""The port's model zoo (Beeler-Reuter first)."""
+"""The port's model zoo: Beeler-Reuter, Fenton and Mitchell-Schaeffer."""
 
 from fib_tf_tpu_torch.models.base import (
     Geometry,
@@ -8,11 +8,26 @@ from fib_tf_tpu_torch.models.base import (
     volume_geometry,
 )
 from fib_tf_tpu_torch.models.beeler_reuter import BeelerReuter
+from fib_tf_tpu_torch.models.fenton import Fenton4v
+from fib_tf_tpu_torch.models.mitchell_schaeffer import MitchellSchaeffer
+
+# the reference's registry names (fib_tf_tpu/models/__init__.py) of the
+# families ported so far
+MODEL_REGISTRY = {
+    "fenton": Fenton4v,
+    "br": BeelerReuter,
+    "beeler_reuter": BeelerReuter,
+    "ms": MitchellSchaeffer,
+    "mitchell_schaeffer": MitchellSchaeffer,
+}
 
 __all__ = [
     "BeelerReuter",
+    "Fenton4v",
     "Geometry",
     "IonicModel",
+    "MODEL_REGISTRY",
+    "MitchellSchaeffer",
     "cell_geometry",
     "grid_geometry",
     "volume_geometry",

@@ -83,6 +83,17 @@ def cell_geometry() -> Geometry:
     return Geometry(laplace=torch.zeros_like, enforce_boundary=lambda x: x)
 
 
+def check_unported(cfg: SimConfig, model: str, ab2: bool):
+    """Reject the variants a small model's port does not carry yet:
+    adaptive_dv, and ab2 where the reference model has it."""
+    if cfg.adaptive_dv is not None:
+        raise NotImplementedError(
+            "adaptive_dv is not ported yet (ROADMAP Queue 1 item 15)")
+    if ab2 and cfg.ab2:
+        raise NotImplementedError(
+            f"{model} with ab2 is not ported yet (ROADMAP Queue 1 item 6)")
+
+
 class IonicModel:
     """Base class of the port's model zoo.
 

@@ -1,0 +1,123 @@
+"""The Cherry-Ehrlich-Nattel-Fenton 4-variable left-atrial model (port of
+fib_tf_tpu/models/fenton.py, explicit Euler).
+
+Cherry EM, Ehrlich JR, Nattel S, Fenton FH. "Pulmonary vein reentry —
+properties and size matter: insights from a computational analysis."
+Heart Rhythm. 2007 Dec;4(12):1553-62.
+
+Four planes: u (diffusing) and the local gates v, w, s.  Ten substeps make
+one outer step, so at dt = 0.1 ms an outer step is 1 ms.
+
+Quirks kept from the reference:
+  * step functions via sign(): H(0) = G(0) = 0.5 (ops/integrators.py);
+  * the rates are evaluated on the RAW u, the diffusion on the
+    boundary-enforced u0: u' = u0 + dt*du(u) + diff*dt*lap(u0);
+  * S1 is a one-pixel stripe at column 1.
+
+The Adams-Bashforth-2 variant (`cfg.ab2`) is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from fib_tf_tpu_torch.config import SimConfig
+from fib_tf_tpu_torch.models.base import (Geometry, IonicModel, State,
+                                          check_unported)
+from fib_tf_tpu_torch.ops.integrators import heaviside, heaviside_neg
+
+# Cherry et al. 2007, left-atrial parameter set: a copy of the JAX model's
+# constants (pinned equal by tests/test_torch_fenton.py)
+TAU_V_PLUS = 3.33
+TAU_V_MINUS = 19.2
+TAU_W_PLUS = 160.0
+TAU_W_MINUS_1 = 75.0
+TAU_W_MINUS_2 = 75.0
+TAU_D = 0.065
+TAU_SI = 31.8364
+TAU_SO = TAU_SI
+TAU_A = 0.009
+U_C = 0.23
+U_W = 0.146
+U_0 = 0.0
+U_M = 1.0
+U_CSI = 0.8
+U_SO = 0.3
+R_S_PLUS = 0.02
+R_S_MINUS = 1.2
+K_S = 3.0
+A_SO = 0.115
+B_SO = 0.84
+C_SO = 0.02
+
+
+class Fenton4v(IonicModel):
+    name = "fenton"
+    # the three phenomenological currents: g_fi the fast inward (Na
+    # analog), g_si the slow inward (Ca analog), g_so the slow outward
+    # (K analog)
+    SCALE_PARAMS = ("g_fi", "g_si", "g_so")
+    min_v = 0.0
+    max_v = 1.0
+    depol = 0.0
+    dt_per_step = 10
+    pot_key = "u"
+
+    def __init__(self, cfg: SimConfig):
+        check_unported(cfg, "Fenton", ab2=True)
+        super().__init__(cfg)
+
+    def state_keys(self):
+        return ("s", "u", "v", "w")
+
+    def initial_state(self, s1: bool = True) -> Dict[str, np.ndarray]:
+        """(u, v, w, s) = (0, 1, 1, 0) with an S1 stripe u[:, 1] = 1."""
+        u = self._full(0.0)
+        if s1:
+            u[:, 1] = 1.0
+        return {
+            "u": u,
+            "v": self._full(1.0),
+            "w": self._full(1.0),
+            "s": self._full(0.0),
+        }
+
+    def differentiate(self, u, v, w, s):
+        """Pointwise currents and gate right-hand sides."""
+        i_fi = self.gscale(
+            "g_fi", -v * heaviside(u - U_C) * (u - U_C) * (U_M - u) / TAU_D)
+        i_si = self.gscale("g_si", -w * s / TAU_SI)
+        i_so = self.gscale("g_so", (
+            0.5 * (A_SO - TAU_A) * (1.0 + torch.tanh((u - B_SO) / C_SO))
+            + (u - U_0) * heaviside_neg(u - U_SO) / TAU_SO
+            + heaviside(u - U_SO) * TAU_A
+        ))
+
+        du = -(i_fi + i_si + i_so)
+        dv = torch.where(u > U_C, -v / TAU_V_PLUS, (1.0 - v) / TAU_V_MINUS)
+        dw = torch.where(
+            u > U_C,
+            -w / TAU_W_PLUS,
+            torch.where(u > U_W, (1.0 - w) / TAU_W_MINUS_2,
+                        (1.0 - w) / TAU_W_MINUS_1),
+        )
+        r_s = (R_S_PLUS - R_S_MINUS) * heaviside(u - U_C) + R_S_MINUS
+        ds = r_s * (0.5 * (1.0 + torch.tanh((u - U_CSI) * K_S)) - s)
+        return du, dv, dw, ds
+
+    def solve(self, state: State, geom: Geometry) -> State:
+        """One explicit-Euler substep: rates from the raw u, diffusion
+        from u0 = enforce_boundary(u)."""
+        u, v, w, s = state["u"], state["v"], state["w"], state["s"]
+        dt = self.cfg.dt
+        u0 = geom.enforce_boundary(u)
+        du, dv, dw, ds = self.differentiate(u, v, w, s)
+        return {
+            "u": u0 + dt * du + self.cfg.diff * dt * geom.laplace(u0),
+            "v": v + dt * dv,
+            "w": w + dt * dw,
+            "s": s + dt * ds,
+        }

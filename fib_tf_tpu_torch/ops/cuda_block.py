@@ -8,8 +8,10 @@ The ghosts came from the neighbouring shards; the block's global origin
 (`rstart`, `cstart`) and the domain's size decide where the REFLECT /
 SYMMETRIC edge rules apply, so only a shard that owns a domain edge reflects
 there.  The kernel is csrc/br_block.cu (CUDA C++, built with nvcc and bound
-with ctypes), the tile skeleton of the tiled outer-step kernel
-(csrc/br_tile.cuh) reading from the extended block.
+with ctypes; one entry per cell body of ops/cuda_step.BODIES: K = 5 for
+Beeler-Reuter, 10 for Fenton and Mitchell-Schaeffer), the tile skeleton of
+the tiled outer-step kernel (csrc/br_tile.cuh) reading from the extended
+block.
 
 `block_geometry` is the plain geometry of an extended block (the isotropic
 branch of the reference's `block_geometry`, pallas_tiled.py:61-181): the
@@ -36,13 +38,14 @@ import numpy as np
 import torch
 
 from fib_tf_tpu_torch.kernels import build
-from fib_tf_tpu_torch.models.base import Geometry
-from fib_tf_tpu_torch.models.beeler_reuter import BeelerReuter
+from fib_tf_tpu_torch.models.base import Geometry, IonicModel
 from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled
-from fib_tf_tpu_torch.ops.cuda_step import CELL_PLANES, PARAM_FLOATS, State
+from fib_tf_tpu_torch.ops.cuda_step import BODIES, State
 
 SOURCE = build.CSRC_DIR / "br_block.cu"
-HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh")
+HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh",
+           build.CSRC_DIR / "fenton_cell.cuh",
+           build.CSRC_DIR / "ms_cell.cuh")
 
 
 # -- the plain geometry of an extended block -----------------------------------------
@@ -143,10 +146,13 @@ def block_geometry(
 
 
 class BlockKernel:
-    """ctypes binding of csrc/br_block.cu.  The library is built and loaded
-    on the first launch; `launches` counts successful launches."""
+    """ctypes binding of one cell body's entry `<body>_block` of
+    csrc/br_block.cu.  The library is built and loaded on the first launch;
+    `launches` counts successful launches."""
 
-    def __init__(self):
+    def __init__(self, body: str):
+        self.body = BODIES[body]
+        self.entry = f"{body}_block"
         self._lib = None
         self.reset_launches()
 
@@ -160,10 +166,8 @@ class BlockKernel:
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
             lib = build.load("br_block", [SOURCE], HEADERS)
-            for fn in ("br_block_param_floats", "br_block_planes"):
-                getattr(lib, fn).argtypes = []
-                getattr(lib, fn).restype = ctypes.c_int
-            lib.br_block.argtypes = (
+            fn = getattr(lib, self.entry)
+            fn.argtypes = (
                 [ctypes.c_void_p, ctypes.c_int,      # params, n_params
                  ctypes.c_void_p, ctypes.c_void_p,   # v_in, v_out
                  ctypes.c_void_p, ctypes.c_void_p,   # planes in / out
@@ -179,12 +183,8 @@ class BlockKernel:
                  ctypes.c_int,                       # device ordinal
                  ctypes.c_void_p]                    # cudaStream_t
             )
-            lib.br_block.restype = ctypes.c_int
-            got = (lib.br_block_param_floats(), lib.br_block_planes())
-            if got != (PARAM_FLOATS, len(CELL_PLANES)):
-                raise RuntimeError(
-                    f"br_block.cu takes (param floats, planes) = {got}, this "
-                    f"module packs {(PARAM_FLOATS, len(CELL_PLANES))}")
+            fn.restype = ctypes.c_int
+            cuda_step.check_layout(lib, self.entry, self.body)
             self._lib = lib
         return self._lib
 
@@ -195,16 +195,16 @@ class BlockKernel:
                stream: int):
         """One outer step on CUDA tensors already validated by the
         caller: reads `ext_in`, writes the centre of `ext_out`."""
-        lib = self.library()
-        v_in = ext_in["V"]
+        fn = getattr(self.library(), self.entry)
+        pot, planes = self.body.model.pot_key, self.body.planes
+        v_in = ext_in[pot]
         ext_h, ext_w = v_in.shape
-        ptrs = ctypes.c_void_p * len(CELL_PLANES)
-        err = lib.br_block(
+        err = fn(
             params.ctypes.data, params.size,
-            v_in.data_ptr(), ext_out["V"].data_ptr(),
-            ptrs(*[ext_in[k].data_ptr() for k in CELL_PLANES]),
-            ptrs(*[ext_out[k].data_ptr() for k in CELL_PLANES]),
-            len(CELL_PLANES), ext_h, ext_w, rstart, cstart, halo, int(two_d),
+            v_in.data_ptr(), ext_out[pot].data_ptr(),
+            cuda_step.plane_pointers(ext_in, planes),
+            cuda_step.plane_pointers(ext_out, planes),
+            len(planes), ext_h, ext_w, rstart, cstart, halo, int(two_d),
             h_total, w_total, len(schedule), cuda_tiled.slow_mask(schedule),
             probe.data_ptr() if probe is not None else None,
             probe_pixel[0], probe_pixel[1], probe_index,
@@ -212,14 +212,16 @@ class BlockKernel:
         )
         if err != 0:
             raise RuntimeError(
-                f"br_block launch failed with CUDA error {err} "
+                f"{self.entry} launch failed with CUDA error {err} "
                 f"({ext_h}x{ext_w} block at ({rstart}, {cstart}) of "
                 f"{h_total}x{w_total}, {len(schedule)} substeps)")
         self.launches += 1
 
 
-# the process-wide binding: the built library is process-wide too
-KERNEL = BlockKernel()
+# the process-wide bindings, one per cell body: the built library is
+# process-wide too.  KERNEL is Beeler-Reuter's.
+KERNELS = {name: BlockKernel(name) for name in BODIES}
+KERNEL = KERNELS["br"]
 
 
 # -- the step -------------------------------------------------------------------------------
@@ -236,19 +238,19 @@ def centre(x: torch.Tensor, halo: int, two_d: bool) -> torch.Tensor:
     return x[halo:-halo, halo:-halo] if two_d else x[halo:-halo]
 
 
-def plain_block_step(model: BeelerReuter, ext_in: State, ext_out: State,
+def plain_block_step(model: IonicModel, ext_in: State, ext_out: State,
                      rstart: int, cstart: int, two_d: bool,
                      probe: Optional[torch.Tensor] = None,
                      probe_index: int = 0) -> State:
     """Plain PyTorch version of one launch: `model.step` on the extended
     block under `block_geometry`, its centre copied into `ext_out`
     (spmd.py:406-414).  With `probe` (the owning shard only), the
-    normalised new V at the model's probe pixel goes to
+    normalised new potential at the model's probe pixel goes to
     `probe[probe_index]`."""
     cfg = model.cfg
     halo = model.dt_per_step
-    ext_h, ext_w = ext_in["V"].shape
-    dev = ext_in["V"].device
+    ext_h, ext_w = ext_in[model.pot_key].shape
+    dev = ext_in[model.pot_key].device
     geom = block_geometry(
         global_rows(rstart, ext_h, dev), cfg.height,
         global_cols(cstart, ext_w, dev) if two_d else None,
@@ -263,7 +265,7 @@ def plain_block_step(model: BeelerReuter, ext_in: State, ext_out: State,
     return ext_out
 
 
-def make_block_step(model: BeelerReuter, two_d: bool):
+def make_block_step(model: IonicModel, two_d: bool):
     """Build `step(ext_in, ext_out, rstart, cstart, probe=None,
     probe_index=0, stream=None) -> ext_out`: one outer step of one shard's
     extended block in one launch of the block kernel.  `rstart` / `cstart`
@@ -276,9 +278,7 @@ def make_block_step(model: BeelerReuter, two_d: bool):
     `SimConfig.substeps_per_launch`, which the reference's block kernel
     takes to bound its compile time, has no effect here: the launch always
     fuses the whole outer step."""
-    if not isinstance(model, BeelerReuter):
-        raise NotImplementedError(
-            f"no CUDA kernel for model {model.name!r} yet (ROADMAP Queue 1)")
+    kernel = KERNELS[cuda_step.cell_body(model).name]
     schedule = cuda_step.slow_schedule(model)
     halo = model.dt_per_step
     if min(cuda_tiled.tile_interior(len(schedule))) < 1:
@@ -290,7 +290,7 @@ def make_block_step(model: BeelerReuter, two_d: bool):
     def step(ext_in: State, ext_out: State, rstart: int, cstart: int = 0,
              probe: Optional[torch.Tensor] = None, probe_index: int = 0,
              stream: Optional[torch.cuda.Stream] = None) -> State:
-        shape = tuple(ext_in["V"].shape)
+        shape = tuple(ext_in[model.pot_key].shape)
         dev = cuda_step.check_state(model, ext_in, shape)
         if cuda_step.check_state(model, ext_out, shape) != dev:
             raise ValueError("ext_in and ext_out are on different devices")
@@ -306,7 +306,7 @@ def make_block_step(model: BeelerReuter, two_d: bool):
             return plain_block_step(model, ext_in, ext_out, rstart, cstart,
                                     two_d, probe, probe_index)
         s = stream if stream is not None else torch.cuda.current_stream(dev)
-        KERNEL.launch(params, ext_in, ext_out, rstart, cstart, halo, two_d,
+        kernel.launch(params, ext_in, ext_out, rstart, cstart, halo, two_d,
                       h_total, w_total, schedule, probe, model.probe_pixel,
                       probe_index, s.cuda_stream)
         return ext_out

@@ -1,43 +1,57 @@
-"""The Beeler-Reuter substep kernel's wrapper and its plain version.
+"""The substep kernel's wrappers, the cell bodies' host side, and the plain
+version.
 
 Counterpart of fib_tf_tpu/ops/pallas_step.py::make_pallas_step as the JAX
-engine runs it for Beeler-Reuter cheby+skip: one launch per substep, two
+engine runs it: one launch per substep.  The kernel is csrc/br_substep.cu
+(CUDA C++, built with nvcc and bound with ctypes), which hosts one cell
+body per ported model (`BODIES`): Beeler-Reuter cheby+skip, with two
 bodies (the n=5 substep that advances the slow gates, and the n=0 substep
-that freezes them).  The kernel is csrc/br_substep.cu (CUDA C++, built with
-nvcc and bound with ctypes); its source note says what bounds it and what
+that freezes them), and Fenton and Mitchell-Schaeffer, with one body each,
+ten launches per outer step.  Its source note says what bounds it and what
 the simple design leaves for later.
 
+`CellBody` is what every kernel wrapper needs of a model: the prefix of its
+C entry points, its per-cell planes in the CUDA struct's order and its
+packed parameter block.  A model without a body raises NotImplementedError.
+
 Routing is by the device of the state's tensors: CPU tensors take the plain
-PyTorch version (built from the ported stencil, Chebyshev fits and
-`BeelerReuter.solve`); CUDA tensors launch the kernel, and a launch that
-fails raises.  Nothing falls back from the card to the plain version.
+PyTorch version (the model's own `solve` on the ported stencil); CUDA
+tensors launch the kernel, and a launch that fails raises.  Nothing falls
+back from the card to the plain version.
 
 State update contract (both versions): the state dict is updated IN PLACE
-and returned.  "V" is replaced by a new tensor (the kernel double-buffers
-V); the other seven planes keep their tensors and are overwritten.
+and returned.  The potential (`model.pot_key`: "V" for BR, "u" for Fenton
+and Mitchell-Schaeffer) is replaced by a new tensor (the kernel
+double-buffers it); the other planes keep their tensors and are
+overwritten.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import dataclasses
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from fib_tf_tpu_torch.kernels import build
-from fib_tf_tpu_torch.models.base import grid_geometry
+from fib_tf_tpu_torch.models.base import IonicModel, grid_geometry
 from fib_tf_tpu_torch.models.beeler_reuter import (
     G_NA,
     G_NAC,
     G_S,
     BeelerReuter,
 )
+from fib_tf_tpu_torch.models.fenton import Fenton4v
+from fib_tf_tpu_torch.models.mitchell_schaeffer import MitchellSchaeffer
 
 State = Dict[str, torch.Tensor]
 
 SOURCE = build.CSRC_DIR / "br_substep.cu"
-HEADERS = (build.CSRC_DIR / "br_cell.cuh",)
+HEADERS = (build.CSRC_DIR / "br_cell.cuh",
+           build.CSRC_DIR / "fenton_cell.cuh",
+           build.CSRC_DIR / "ms_cell.cuh")
 # BrParams::coef order in br_cell.cuh
 FIT_ORDER = (
     "x1_inf", "x1_rl", "m_inf", "m_rl", "h_inf", "h_rl", "j_inf", "j_rl",
@@ -47,13 +61,16 @@ FIT_ORDER = (
 CELL_PLANES = ("C", "m", "h", "j", "d", "f", "x1")
 # 14 fits of 9 coefficients, then 11 scalars (pack_params)
 PARAM_FLOATS = len(FIT_ORDER) * 9 + 11
+# FentonCell::Plane and MsCell::Plane
+FENTON_PLANES = ("v", "w", "s")
+MS_PLANES = ("h",)
 
 
-def pack_params(model: BeelerReuter) -> np.ndarray:
-    """The kernel's BrParams as a float32 array: the 14 fits, then the
-    conductances with their g_scale factors folded in (in double, as the
-    plain path's Python constants are), dt, diff*dt, the Chebyshev domain
-    and the probe normalisation."""
+def _pack_br(model: BeelerReuter) -> np.ndarray:
+    """BrParams as a float32 array: the 14 fits, then the conductances
+    with their g_scale factors folded in (in double, as the plain path's
+    Python constants are), dt, diff*dt, the Chebyshev domain and the probe
+    normalisation."""
     cfg = model.cfg
     coef = np.stack([np.asarray(model.cheby_coef[k], np.float32)
                      for k in FIT_ORDER])
@@ -70,15 +87,90 @@ def pack_params(model: BeelerReuter) -> np.ndarray:
         model.min_v,
         model.max_v - model.min_v,
     ], np.float32)
-    return np.ascontiguousarray(np.concatenate([coef.ravel(), scalars]))
+    return np.concatenate([coef.ravel(), scalars])
 
 
-class BrSubstepKernel:
-    """ctypes binding of csrc/br_substep.cu.  The library is built and
-    loaded on the first launch; `launches` counts successful launches per
-    body ("slow" = SLOW=true, "frozen" = SLOW=false)."""
+def _pack_fenton(model: Fenton4v) -> np.ndarray:
+    """FentonParams: dt, diff*dt, the three currents' g_scale factors and
+    the probe normalisation."""
+    cfg, f = model.cfg, model.scales.get
+    return np.array([cfg.dt, cfg.diff * cfg.dt, f("g_fi", 1.0),
+                     f("g_si", 1.0), f("g_so", 1.0), model.min_v,
+                     model.max_v - model.min_v], np.float32)
 
-    def __init__(self):
+
+def _pack_ms(model: MitchellSchaeffer) -> np.ndarray:
+    """MsParams: dt, diff*dt, the two currents' g_scale factors, the gate's
+    float32 decay factors (the plain path's own) and the probe
+    normalisation."""
+    cfg, f = model.cfg, model.scales.get
+    return np.array([cfg.dt, cfg.diff * cfg.dt, f("g_in", 1.0),
+                     f("g_out", 1.0), model.decay_open, model.decay_close,
+                     model.min_v, model.max_v - model.min_v], np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class CellBody:
+    """A model's CUDA cell body (csrc/br_cell.cuh, fenton_cell.cuh,
+    ms_cell.cuh) as the wrappers see it: `name` prefixes its C entry
+    points (`<name>_substep`, `<name>_tiled`, ...), `planes` are its
+    per-cell planes in the struct's Plane order (the potential apart), and
+    `pack` returns its parameter block of `param_floats` float32s."""
+
+    name: str
+    model: type
+    planes: tuple
+    param_floats: int
+    pack: Callable[[IonicModel], np.ndarray]
+
+
+BODIES = {b.name: b for b in (
+    CellBody("br", BeelerReuter, CELL_PLANES, PARAM_FLOATS, _pack_br),
+    CellBody("fenton", Fenton4v, FENTON_PLANES, 7, _pack_fenton),
+    CellBody("ms", MitchellSchaeffer, MS_PLANES, 8, _pack_ms),
+)}
+
+
+def cell_body(model: IonicModel) -> CellBody:
+    """The model's cell body; raises NotImplementedError for a model that
+    has none yet."""
+    for body in BODIES.values():
+        if type(model) is body.model:
+            return body
+    raise NotImplementedError(
+        f"no CUDA kernel for model {model.name!r} yet (ROADMAP Queue 1)")
+
+
+def pack_params(model: IonicModel) -> np.ndarray:
+    """The model's kernel parameter block as a contiguous float32 array."""
+    return np.ascontiguousarray(cell_body(model).pack(model))
+
+
+def br_only(model: IonicModel, kernel: str):
+    """Refuse any model but Beeler-Reuter on a kernel that hosts BR's body
+    alone (kernels 5 and 6)."""
+    if not isinstance(model, BeelerReuter):
+        raise NotImplementedError(
+            f"the {kernel} kernel runs Beeler-Reuter only; its "
+            f"{model.name!r} body is not ported yet (ROADMAP Queue 2 item D)")
+
+
+def plane_pointers(state: State, planes):
+    """A ctypes array of the device pointers of `state`'s `planes`."""
+    return (ctypes.c_void_p * len(planes))(
+        *[state[k].data_ptr() for k in planes])
+
+
+class SubstepKernel:
+    """ctypes binding of one cell body's entry `<body>_substep` of
+    csrc/br_substep.cu.  The library is built and loaded on the first
+    launch; `launches` counts successful launches per template flag
+    ("slow" = SLOW=true, "frozen" = SLOW=false; Fenton and
+    Mitchell-Schaeffer launch SLOW=true alone)."""
+
+    def __init__(self, body: str):
+        self.body = BODIES[body]
+        self.entry = f"{body}_substep"
         self._lib = None
         self.reset_launches()
 
@@ -92,23 +184,19 @@ class BrSubstepKernel:
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
             lib = build.load("br_substep", [SOURCE], HEADERS)
-            lib.br_param_floats.argtypes = []
-            lib.br_param_floats.restype = ctypes.c_int
-            lib.br_substep.argtypes = (
+            fn = getattr(lib, self.entry)
+            fn.argtypes = (
                 [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-                + [ctypes.c_void_p] * 9              # v_in, v_out, 7 planes
-                + [ctypes.c_int, ctypes.c_int,       # height, width
-                   ctypes.c_void_p,                  # probe (may be null)
+                + [ctypes.c_void_p] * 3              # v_in, v_out, planes
+                + [ctypes.c_int] * 3                 # n_planes, height, width
+                + [ctypes.c_void_p,                  # probe (may be null)
                    ctypes.c_int, ctypes.c_int,       # probe row, col
                    ctypes.c_longlong,                # probe index
                    ctypes.c_int,                     # device ordinal
                    ctypes.c_void_p]                  # cudaStream_t
             )
-            lib.br_substep.restype = ctypes.c_int
-            if lib.br_param_floats() != PARAM_FLOATS:
-                raise RuntimeError(
-                    f"br_substep.cu takes {lib.br_param_floats()} parameter "
-                    f"floats, pack_params packs {PARAM_FLOATS}")
+            fn.restype = ctypes.c_int
+            check_layout(lib, self.entry, self.body)
             self._lib = lib
         return self._lib
 
@@ -116,14 +204,15 @@ class BrSubstepKernel:
                probe: Optional[torch.Tensor], probe_pixel, probe_index: int,
                stream: int):
         """One substep on CUDA tensors already validated by the caller."""
-        lib = self.library()
-        v_in = state["V"]
+        fn = getattr(self.library(), self.entry)
+        pot = self.body.model.pot_key
+        v_in = state[pot]
         v_out = torch.empty_like(v_in)
         h, w = v_in.shape
-        err = lib.br_substep(
+        err = fn(
             int(slow), params.ctypes.data, params.size,
             v_in.data_ptr(), v_out.data_ptr(),
-            *[state[k].data_ptr() for k in CELL_PLANES],
+            plane_pointers(state, self.body.planes), len(self.body.planes),
             h, w,
             probe.data_ptr() if probe is not None else None,
             probe_pixel[0], probe_pixel[1], probe_index,
@@ -131,18 +220,36 @@ class BrSubstepKernel:
         )
         if err != 0:
             raise RuntimeError(
-                f"br_substep launch failed with CUDA error {err} "
+                f"{self.entry} launch failed with CUDA error {err} "
                 f"({h}x{w}, slow={slow})"
             )
         self.launches["slow" if slow else "frozen"] += 1
-        state["V"] = v_out
+        state[pot] = v_out
 
 
-# the process-wide binding: the built library is process-wide too
-KERNEL = BrSubstepKernel()
+def check_layout(lib: ctypes.CDLL, entry: str, body: CellBody):
+    """The library's parameter block and planes for `entry` must be the
+    ones `body` packs."""
+    sizes = []
+    for what in ("param_floats", "planes"):
+        fn = getattr(lib, f"{entry}_{what}")
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+        sizes.append(fn())
+    want = [body.param_floats, len(body.planes)]
+    if sizes != want:
+        raise RuntimeError(
+            f"{entry} takes (param floats, planes) = {tuple(sizes)}, this "
+            f"module packs {tuple(want)}")
 
 
-def check_state(model: BeelerReuter, state: State,
+# the process-wide bindings, one per cell body: the built library is
+# process-wide too.  KERNEL is Beeler-Reuter's.
+KERNELS = {name: SubstepKernel(name) for name in BODIES}
+KERNEL = KERNELS["br"]
+
+
+def check_state(model: IonicModel, state: State,
                 shape=None) -> torch.device:
     """Validate the planes a substep reads and writes; return their
     device.  Raises on a missing plane or on any other device, dtype,
@@ -153,13 +260,14 @@ def check_state(model: BeelerReuter, state: State,
     missing = [k for k in keys if k not in state]
     if missing:
         raise ValueError(f"state is missing planes {missing}")
-    dev = state["V"].device
+    pot = model.pot_key
+    dev = state[pot].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     for k in keys:
         t = state[k]
         if t.device != dev:
-            raise ValueError(f"plane {k!r} is on {t.device}, V on {dev}")
+            raise ValueError(f"plane {k!r} is on {t.device}, {pot} on {dev}")
         if t.dtype != torch.float32:
             raise TypeError(f"plane {k!r} is {t.dtype}, not float32")
         if tuple(t.shape) != shape:
@@ -192,64 +300,78 @@ def check_probe(probe: Optional[torch.Tensor], probe_index: int,
                          f"{'x'.join(map(str, shape))} grid")
 
 
-def _check_probe(model: BeelerReuter, probe: Optional[torch.Tensor],
+def _check_probe(model: IonicModel, probe: Optional[torch.Tensor],
                  probe_index: int, dev: torch.device):
     check_probe(probe, probe_index, dev, model.probe_pixel,
                 model.state_shape())
 
 
-def write_back(state: State, new: State) -> State:
-    """Write `model.solve`'s result into `state` under the kernels'
-    contract: V is replaced, the other planes are overwritten in place."""
+def write_back(state: State, new: State, pot_key: str) -> State:
+    """Write a model's `solve` result into `state` under the kernels'
+    contract: the potential is replaced, the other planes are
+    overwritten in place."""
     for k, t in new.items():
-        if k == "V":
-            state["V"] = t
+        if k == pot_key:
+            state[k] = t
         elif t is not state[k]:
             state[k].copy_(t)
     return state
 
 
-def plain_substep(model: BeelerReuter, state: State, slow: bool,
+def solve_substep(model: IonicModel, state: State, geom, slow: bool) -> State:
+    """The model's substep that a launch with `slow` computes: BR's
+    n = slow_n (slow) or n = 0 (frozen) body; the other models' one body,
+    which only `slow` selects."""
+    if isinstance(model, BeelerReuter):
+        return model.solve(state, geom, n=model.slow_n if slow else 0)
+    if not slow:
+        raise ValueError(f"{model.name} has one substep body: slow=True")
+    return model.solve(state, geom)
+
+
+def plain_substep(model: IonicModel, state: State, slow: bool,
                   probe: Optional[torch.Tensor] = None,
                   probe_index: int = 0) -> State:
-    """Plain PyTorch version of one kernel launch: `model.solve` with
-    n = model.slow_n when `slow`, else n = 0, written back into `state`
-    under the kernel's contract."""
-    write_back(state, model.solve(state, grid_geometry(),
-                                  n=model.slow_n if slow else 0))
+    """Plain PyTorch version of one kernel launch: `solve_substep`,
+    written back into `state` under the kernel's contract."""
+    write_back(state, solve_substep(model, state, grid_geometry(), slow),
+               model.pot_key)
     if probe is not None:
         probe[probe_index] = model.probe(state)
     return state
 
 
-def substep(model: BeelerReuter, state: State, slow: bool,
+def substep(model: IonicModel, state: State, slow: bool,
             probe: Optional[torch.Tensor] = None,
             probe_index: int = 0) -> State:
-    """One Beeler-Reuter substep: the kernel on CUDA tensors, the plain
-    version on CPU tensors.  `slow` advances the slow gates (the n=5
-    substep under skip).  With `probe`, writes the normalized new V at
+    """One substep: the kernel on CUDA tensors, the plain version on CPU
+    tensors.  For BR, `slow` advances the slow gates (the n=5 substep
+    under skip).  With `probe`, writes the normalized new potential at
     `model.probe_pixel` to `probe[probe_index]`."""
+    body = cell_body(model)
     dev = check_state(model, state)
     _check_probe(model, probe, probe_index, dev)
     if dev.type == "cpu":
         return plain_substep(model, state, slow, probe, probe_index)
-    KERNEL.launch(pack_params(model), state, slow, probe, model.probe_pixel,
-                  probe_index, torch.cuda.current_stream(dev).cuda_stream)
+    KERNELS[body.name].launch(
+        pack_params(model), state, slow, probe, model.probe_pixel,
+        probe_index, torch.cuda.current_stream(dev).cuda_stream)
     return state
 
 
-def slow_schedule(model: BeelerReuter):
-    """`slow` flag of each substep of an outer step: one slow substep and
-    four frozen ones under skip, five slow ones without."""
+def slow_schedule(model: IonicModel):
+    """`slow` flag of each substep of an outer step: for BR one slow
+    substep and four frozen ones under skip, five slow ones without; for
+    the other models `dt_per_step` slow ones (their one body)."""
     _, labels = model.substep_fns(grid_geometry())
     return tuple(label != "n0" for label in labels)
 
 
-def plain_step(model: BeelerReuter, state: State,
+def plain_step(model: IonicModel, state: State,
                probe: Optional[torch.Tensor] = None,
                probe_index: int = 0) -> State:
-    """Plain version of one outer step (five `plain_substep`s; the probe
-    is taken after the last)."""
+    """Plain version of one outer step (`dt_per_step` `plain_substep`s;
+    the probe is taken after the last)."""
     for slow in slow_schedule(model):
         plain_substep(model, state, slow)
     if probe is not None:
@@ -257,14 +379,13 @@ def plain_step(model: BeelerReuter, state: State,
     return state
 
 
-def make_cuda_step(model: BeelerReuter):
+def make_cuda_step(model: IonicModel):
     """Build `step(state, probe=None, probe_index=0) -> state`, one outer
-    step: one slow launch and four frozen ones under skip, five slow
-    launches without.  The last launch writes the probe.  CPU states take
+    step: one launch per substep (BR: one slow launch and four frozen ones
+    under skip, five slow launches without; Fenton and Mitchell-Schaeffer:
+    ten).  The last launch writes the probe.  CPU states take
     `plain_step`."""
-    if not isinstance(model, BeelerReuter):
-        raise NotImplementedError(
-            f"no CUDA kernel for model {model.name!r} yet (ROADMAP Queue 1)")
+    kernel = KERNELS[cell_body(model).name]
     params = pack_params(model)
     schedule = slow_schedule(model)
     last = len(schedule) - 1
@@ -277,7 +398,7 @@ def make_cuda_step(model: BeelerReuter):
             return plain_step(model, state, probe, probe_index)
         stream = torch.cuda.current_stream(dev).cuda_stream
         for i, slow in enumerate(schedule):
-            KERNEL.launch(params, state, slow,
+            kernel.launch(params, state, slow,
                           probe if i == last else None, model.probe_pixel,
                           probe_index, stream)
         return state

@@ -1,12 +1,13 @@
-"""The tiled Beeler-Reuter outer-step kernel's wrapper and its plain version.
+"""The tiled outer-step kernel's wrappers and its plain version.
 
 Counterpart of fib_tf_tpu/ops/pallas_tiled.py::make_tiled_pallas_step, the
-kernel the JAX engine runs for Beeler-Reuter past its 32 MB whole-grid
-cutover: one launch per outer step, all five substeps fused over 2D tiles
-with a halo of one ring per substep.  The kernel is csrc/br_tiled.cu (CUDA
-C++, built with nvcc and bound with ctypes) over the tile skeleton of
-csrc/br_tile.cuh, which the per-shard block kernel shares; its source note
-says what bounds it and why the tiles are 2D.
+kernel the JAX engine runs past its 32 MB whole-grid cutover: one launch
+per outer step, all its substeps fused over 2D tiles with a halo of one
+ring per substep (Beeler-Reuter five, Fenton and Mitchell-Schaeffer ten).
+The kernel is csrc/br_tiled.cu (CUDA C++, built with nvcc and bound with
+ctypes; one entry per cell body of ops/cuda_step.BODIES) over the tile
+skeleton of csrc/br_tile.cuh, which the per-shard block kernel shares; its
+source note says what bounds it and why the tiles are 2D.
 
 Routing is by the device of the state's tensors, as in ops/cuda_step.py:
 CPU tensors take the plain version, CUDA tensors launch the kernel, and a
@@ -15,8 +16,8 @@ version.
 
 State update contract: the state dict is updated IN PLACE and returned.
 On the card every plane is replaced by a new tensor (the kernel reads all
-eight planes of its neighbours' halos, so none can be rewritten in place);
-the new planes are views of one [8, H, W] allocation.
+planes of its neighbours' halos, so none can be rewritten in place); the
+new planes are views of one [planes, H, W] allocation.
 """
 
 from __future__ import annotations
@@ -28,17 +29,20 @@ import numpy as np
 import torch
 
 from fib_tf_tpu_torch.kernels import build
-from fib_tf_tpu_torch.models.beeler_reuter import BeelerReuter
+from fib_tf_tpu_torch.models.base import IonicModel
 from fib_tf_tpu_torch.ops import cuda_step
-from fib_tf_tpu_torch.ops.cuda_step import CELL_PLANES, PARAM_FLOATS, State
+from fib_tf_tpu_torch.ops.cuda_step import BODIES, State
 
 SOURCE = build.CSRC_DIR / "br_tiled.cu"
-HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh")
+HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh",
+           build.CSRC_DIR / "fenton_cell.cuh",
+           build.CSRC_DIR / "ms_cell.cuh")
 # The tile shape br_tiled.cu is built for: (threads in x, threads in y,
 # cells per thread along y).  The extended tile is x-threads wide and
 # y-threads x cells tall, 64 x 64; its interior loses one ring per
-# substep on each side (54 x 54 for five).  The fastest of five shapes
-# timed at 2048x2048 on the card (PERF.md, Findings).
+# substep on each side (54 x 54 for five, 44 x 44 for ten).  The fastest
+# of five shapes timed at 2048x2048 on the card for BR (PERF.md,
+# Findings).
 TILE = (64, 16, 4)
 
 # The plain version of one outer step is the substep kernel's: the tiled
@@ -77,10 +81,13 @@ def slow_mask(schedule) -> int:
 
 
 class TiledKernel:
-    """ctypes binding of csrc/br_tiled.cu.  The library is built and
-    loaded on the first launch; `launches` counts successful launches."""
+    """ctypes binding of one cell body's entry `<body>_tiled` of
+    csrc/br_tiled.cu.  The library is built and loaded on the first
+    launch; `launches` counts successful launches."""
 
-    def __init__(self):
+    def __init__(self, body: str):
+        self.body = BODIES[body]
+        self.entry = f"{body}_tiled"
         self._lib = None
         self.reset_launches()
 
@@ -94,16 +101,14 @@ class TiledKernel:
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
             lib = build.load("br_tiled", [SOURCE], HEADERS)
-            for fn in ("br_tiled_param_floats", "br_tiled_planes"):
-                getattr(lib, fn).argtypes = []
-                getattr(lib, fn).restype = ctypes.c_int
             lib.br_tiled_tile_shape.argtypes = [
                 ctypes.POINTER(ctypes.c_int)] * 3
             lib.br_tiled_tile_shape.restype = None
             lib.br_tiled_split.argtypes = [ctypes.c_int, ctypes.c_int] + [
                 ctypes.POINTER(ctypes.c_int)] * 3
             lib.br_tiled_split.restype = None
-            lib.br_tiled.argtypes = (
+            fn = getattr(lib, self.entry)
+            fn.argtypes = (
                 [ctypes.c_void_p, ctypes.c_int,      # params, n_params
                  ctypes.c_void_p, ctypes.c_void_p,   # v_in, v_out
                  ctypes.c_void_p, ctypes.c_void_p,   # planes in / out
@@ -116,7 +121,8 @@ class TiledKernel:
                  ctypes.c_int,                       # device ordinal
                  ctypes.c_void_p]                    # cudaStream_t
             )
-            lib.br_tiled.restype = ctypes.c_int
+            fn.restype = ctypes.c_int
+            cuda_step.check_layout(lib, self.entry, self.body)
             _check_layout(lib)
             self._lib = lib
         return self._lib
@@ -126,45 +132,42 @@ class TiledKernel:
                stream: int):
         """One outer step on CUDA tensors already validated by the caller;
         the state's planes are replaced by the new ones."""
-        lib = self.library()
-        v_in = state["V"]
+        fn = getattr(self.library(), self.entry)
+        pot, planes = self.body.model.pot_key, self.body.planes
+        v_in = state[pot]
         h, w = v_in.shape
-        out = dict(zip(("V",) + CELL_PLANES, torch.empty(
-            (1 + len(CELL_PLANES), h, w), dtype=v_in.dtype,
+        out = dict(zip((pot,) + planes, torch.empty(
+            (1 + len(planes), h, w), dtype=v_in.dtype,
             device=v_in.device).unbind(0)))
-        ptrs = ctypes.c_void_p * len(CELL_PLANES)
-        err = lib.br_tiled(
+        err = fn(
             params.ctypes.data, params.size,
-            v_in.data_ptr(), out["V"].data_ptr(),
-            ptrs(*[state[k].data_ptr() for k in CELL_PLANES]),
-            ptrs(*[out[k].data_ptr() for k in CELL_PLANES]),
-            len(CELL_PLANES), h, w, len(schedule), slow_mask(schedule),
+            v_in.data_ptr(), out[pot].data_ptr(),
+            cuda_step.plane_pointers(state, planes),
+            cuda_step.plane_pointers(out, planes),
+            len(planes), h, w, len(schedule), slow_mask(schedule),
             probe.data_ptr() if probe is not None else None,
             probe_pixel[0], probe_pixel[1], probe_index,
             v_in.device.index, stream,
         )
         if err != 0:
             raise RuntimeError(
-                f"br_tiled launch failed with CUDA error {err} "
+                f"{self.entry} launch failed with CUDA error {err} "
                 f"({h}x{w}, {len(schedule)} substeps)")
         self.launches += 1
         state.update(out)
 
 
 def _check_layout(lib):
-    """The library's parameter block, planes and tile shape must be the
-    ones this module packs and sizes."""
+    """The library's tile shape and split must be the ones this module
+    sizes and mirrors."""
     shape = [ctypes.c_int() for _ in TILE]
     lib.br_tiled_tile_shape(*map(ctypes.byref, shape))
-    got = (lib.br_tiled_param_floats(), lib.br_tiled_planes(),
-           tuple(s.value for s in shape))
-    want = (PARAM_FLOATS, len(CELL_PLANES), TILE)
-    if got != want:
+    if tuple(s.value for s in shape) != TILE:
         raise RuntimeError(
-            f"br_tiled.cu takes (param floats, planes, tile) = {got}, this "
-            f"module packs {want}")
+            f"br_tiled.cu's tile is {tuple(s.value for s in shape)}, this "
+            f"module sizes {TILE}")
     for length, max_tile in ((2048, 54), (512, 54), (1024, 54), (131, 62),
-                             (9, 54), (2047, 60)):
+                             (9, 54), (2047, 60), (2048, 44), (532, 44)):
         n, base, rem = (ctypes.c_int() for _ in range(3))
         lib.br_tiled_split(length, max_tile, *map(ctypes.byref,
                                                   (n, base, rem)))
@@ -176,17 +179,17 @@ def _check_layout(lib):
                 f"tile_spans into {tile_spans(length, max_tile)}")
 
 
-# the process-wide binding: the built library is process-wide too
-KERNEL = TiledKernel()
+# the process-wide bindings, one per cell body: the built library is
+# process-wide too.  KERNEL is Beeler-Reuter's.
+KERNELS = {name: TiledKernel(name) for name in BODIES}
+KERNEL = KERNELS["br"]
 
 
-def make_tiled_cuda_step(model: BeelerReuter):
+def make_tiled_cuda_step(model: IonicModel):
     """Build `step(state, probe=None, probe_index=0) -> state`, one outer
     step in one launch of the tiled kernel.  The kernel writes the probe
     after the last substep.  CPU states take `plain_tiled_step`."""
-    if not isinstance(model, BeelerReuter):
-        raise NotImplementedError(
-            f"no CUDA kernel for model {model.name!r} yet (ROADMAP Queue 1)")
+    kernel = KERNELS[cuda_step.cell_body(model).name]
     if model.cfg.substeps_per_launch is not None:
         # fib_tf_tpu/engine/simulation.py:590-597
         raise ValueError(
@@ -206,7 +209,7 @@ def make_tiled_cuda_step(model: BeelerReuter):
         cuda_step._check_probe(model, probe, probe_index, dev)
         if dev.type == "cpu":
             return plain_tiled_step(model, state, probe, probe_index)
-        KERNEL.launch(params, state, schedule, probe, model.probe_pixel,
+        kernel.launch(params, state, schedule, probe, model.probe_pixel,
                       probe_index, torch.cuda.current_stream(dev).cuda_stream)
         return state
 

@@ -11,7 +11,10 @@ volume's depth decide where the z faces reflect, so only a shard that owns
 a z face reflects there; in the plane each shard owns the whole sheet.  The
 kernel is csrc/br_volume_block.cu (CUDA C++, built with nvcc and bound with
 ctypes): one launch per substep of the group, as the volume substep kernel,
-each on the slices that are still exact.
+each on the slices that are still exact.  It hosts Beeler-Reuter's cell
+body alone: for Fenton and Mitchell-Schaeffer `make_volume_block_step`
+raises NotImplementedError (ROADMAP Queue 2 item D), and the plain version
+runs them.
 
 `zblock_geometry` is the plain geometry of an extended block (the
 reference's `zblock_geometry`, pallas_volume.py:310-394, without phase
@@ -42,8 +45,7 @@ import numpy as np
 import torch
 
 from fib_tf_tpu_torch.kernels import build
-from fib_tf_tpu_torch.models.base import Geometry
-from fib_tf_tpu_torch.models.beeler_reuter import BeelerReuter
+from fib_tf_tpu_torch.models.base import Geometry, IonicModel
 from fib_tf_tpu_torch.ops import cuda_step, stencil
 from fib_tf_tpu_torch.ops.cuda_step import CELL_PLANES, PARAM_FLOATS, State
 
@@ -189,7 +191,7 @@ KERNEL = VolumeBlockKernel()
 # -- the step -------------------------------------------------------------------------------
 
 
-def group_schedule(model: BeelerReuter, substeps: Optional[int]):
+def group_schedule(model: IonicModel, substeps: Optional[int]):
     """`slow` flag of each substep of one group: the whole outer step's
     schedule (`substeps=None`), or `substeps` uniform substeps, which only a
     model with uniform substeps has (no-skip BR: all SLOW)."""
@@ -203,7 +205,7 @@ def group_schedule(model: BeelerReuter, substeps: Optional[int]):
     return schedule[:substeps]
 
 
-def plain_volume_block_step(model: BeelerReuter, state: State, zstart: int,
+def plain_volume_block_step(model: IonicModel, state: State, zstart: int,
                             d_total: int, dz_ratio: float = 1.0,
                             substeps: Optional[int] = None,
                             probe: Optional[torch.Tensor] = None,
@@ -226,7 +228,7 @@ def plain_volume_block_step(model: BeelerReuter, state: State, zstart: int,
     return state
 
 
-def block_probe(model: BeelerReuter, state: State,
+def block_probe(model: IonicModel, state: State,
                 local_slice: int) -> torch.Tensor:
     """The normalised potential at the volume's probe pixel on the block's
     slice `local_slice` (0-d)."""
@@ -236,7 +238,7 @@ def block_probe(model: BeelerReuter, state: State,
     return (v - model.min_v) / (model.max_v - model.min_v)
 
 
-def make_volume_block_step(model: BeelerReuter, ext_d: int, d_total: int,
+def make_volume_block_step(model: IonicModel, ext_d: int, d_total: int,
                            dz_ratio: float = 1.0,
                            substeps: Optional[int] = None):
     """Build `step(state, spare, zstart, probe=None, probe_index=0,
@@ -248,9 +250,7 @@ def make_volume_block_step(model: BeelerReuter, ext_d: int, d_total: int,
     owns the probe pixel, with its LOCAL slice; the group's last launch
     writes it.  `stream` is the CUDA stream to launch on (default: the
     device's current one).  CPU blocks take `plain_volume_block_step`."""
-    if not isinstance(model, BeelerReuter):
-        raise NotImplementedError(
-            f"no CUDA kernel for model {model.name!r} yet (ROADMAP Queue 1)")
+    cuda_step.br_only(model, "volume block")
     schedule = group_schedule(model, substeps)
     n = len(schedule)
     if ext_d <= 2 * n:

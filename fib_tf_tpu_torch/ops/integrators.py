@@ -1,10 +1,16 @@
-"""Time integrators: explicit Euler and Rush-Larsen exponential gates
-(port of fib_tf_tpu/ops/integrators.py).
+"""Time integrators: explicit Euler and Rush-Larsen exponential gates,
+and the sign()-based step functions (port of
+fib_tf_tpu/ops/integrators.py).
 
 `rush_larsen` keeps the reference's implemented form
 `clip(g + (g - g_inf) * expm1(-dt/tau), 1e-5, 0.99999)`, with the true
 `torch.expm1` (the JAX package's Taylor substitute exists only because
 Mosaic has no expm1).
+
+`heaviside` / `heaviside_neg` keep the reference's sign() form, so
+H(0) = G(0) = 0.5.  `torch.sign` returns 0 for NaN where `jnp.sign`
+returns NaN, so the port's sign passes NaN through: a blow-up stays
+visible to the engine's finiteness check.
 """
 
 from __future__ import annotations
@@ -26,3 +32,18 @@ def rush_larsen(g: torch.Tensor, g_inf: torch.Tensor, g_tau: torch.Tensor,
     return torch.clamp(
         g + (g - g_inf) * torch.expm1(-dt / g_tau), GATE_MIN, GATE_MAX
     )
+
+
+def _sign(x: torch.Tensor) -> torch.Tensor:
+    """sign(x) that returns NaN for NaN, as jnp.sign does."""
+    return torch.where(torch.isnan(x), x, torch.sign(x))
+
+
+def heaviside(x: torch.Tensor) -> torch.Tensor:
+    """H(x) = (1 + sign(x)) / 2; H(0) = 0.5 (reference integrators.py:74-76)."""
+    return (1.0 + _sign(x)) * 0.5
+
+
+def heaviside_neg(x: torch.Tensor) -> torch.Tensor:
+    """G(x) = (1 - sign(x)) / 2; G(0) = 0.5 (reference integrators.py:79-81)."""
+    return (1.0 - _sign(x)) * 0.5

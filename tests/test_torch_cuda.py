@@ -1,6 +1,7 @@
 """The CUDA kernels (2D substep and tiled, volume substep and tiled, and the
 per-shard block kernels of the sharded paths) against their plain PyTorch
-version, on the card.
+version, on the card: Beeler-Reuter on all six, Fenton and
+Mitchell-Schaeffer on the four that host their cell bodies.
 
 Marked `cuda`: without a CUDA device (and nvcc) every test here skips.  On
 the card:  python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q"""
@@ -12,7 +13,8 @@ import torch
 from fib_tf_tpu_torch import SimConfig, interop
 from fib_tf_tpu_torch.engine import (Simulation, VolumeEvent, run_volume,
                                      volume, volume_state)
-from fib_tf_tpu_torch.models import BeelerReuter
+from fib_tf_tpu_torch.models import (BeelerReuter, Fenton4v,
+                                     MitchellSchaeffer)
 from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
                                   cuda_volume, cuda_volume_block,
                                   cuda_volume_tiled)
@@ -433,3 +435,148 @@ def test_sharded_run_volume_launches_block_kernel(device, skip, halo_k):
     assert cuda_volume.KERNEL.launches == {"slow": 0, "frozen": 0}
     np.testing.assert_allclose(got[0]["V"], ref[0]["V"], atol=0.12, rtol=0)
     np.testing.assert_allclose(got[1], ref[1], atol=1e-3, rtol=0)
+
+
+# -- Fenton and Mitchell-Schaeffer on kernels 1-4 -------------------------------------
+
+SMALL = {"fenton": (Fenton4v, dict(u=1.0, v=1.0, w=1.0, s=0.6)),
+         "ms": (MitchellSchaeffer, dict(u=1.0, h=1.0))}
+
+
+def _small(name, **kw):
+    return SMALL[name][0](CFG.replace(diff=1.5, **kw))
+
+
+def _small_state(name, shape, seed):
+    """Every plane drawn per cell (host numpy): the border differs from
+    its neighbours, so a body that took v0 for the raw centre fails."""
+    rng = np.random.RandomState(seed)
+    return {k: rng.uniform(0.0, hi, shape).astype(np.float32)
+            for k, hi in SMALL[name][1].items()}
+
+
+def _two_steps(step, plain, base):
+    """Two outer steps of `step` and of `plain` from `base`: every plane
+    and the probe within rtol 1e-3 / atol 1e-5."""
+    dev = next(iter(base.values())).device
+    got = {k: v.clone() for k, v in base.items()}
+    want = {k: v.clone() for k, v in base.items()}
+    pk, pp = torch.zeros(2, device=dev), torch.zeros(2, device=dev)
+    for i in range(2):
+        got = step(got, pk, i)
+        want = plain(want, pp, i)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=1e-5)
+    torch.testing.assert_close(pk, pp, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(SMALL))
+@pytest.mark.parametrize("hw", [(67, 131), (160, 160)],
+                         ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_small_model_substep_and_tiled_kernels(device, name, hw):
+    """Kernel 1 (ten launches per outer step) and kernel 2 (one launch,
+    ten substeps: 44 x 44 tile interiors) against the plain step."""
+    model = _small(name, height=hw[0], width=hw[1])
+    base = interop.state_from_numpy(_small_state(name, hw, 3), device)
+    plain = lambda st, p, i: cuda_step.plain_step(model, st, p, i)
+    sub, til = cuda_step.KERNELS[name], cuda_tiled.KERNELS[name]
+    sub.reset_launches()
+    til.reset_launches()
+    _two_steps(cuda_step.make_cuda_step(model), plain, base)
+    _two_steps(cuda_tiled.make_tiled_cuda_step(model), plain, base)
+    assert sub.launches == {"slow": 20, "frozen": 0}
+    assert til.launches == 2
+
+
+@pytest.mark.parametrize("name", sorted(SMALL))
+@pytest.mark.parametrize("origin", [(0, None), (60, None), (120, None),
+                                    (0, 0), (60, 70)],
+                         ids=lambda o: f"r{o[0]}c{o[1]}")
+def test_small_model_block_kernel(device, name, origin):
+    """A 40-row (x 50-column) shard of a 160x160 domain extended by K = 10
+    ghost rows (and columns): kernel 3 against the plain block step."""
+    model = _small(name, height=160, width=160)
+    k = model.dt_per_step
+    st = _small_state(name, (160, 160), 4)
+    two_d = origin[1] is not None
+    r0, c0 = origin[0] - k, (origin[1] - k if two_d else 0)
+    r1, c1 = origin[0] + 40 + k, (origin[1] + 50 + k if two_d else 160)
+    cur = _extended(st, r0, r1, c0, c1, device)
+    got_out = {kk: torch.zeros_like(v) for kk, v in cur.items()}
+    want_out = {kk: torch.zeros_like(v) for kk, v in cur.items()}
+    owns = origin[0] <= 20 < origin[0] + 40 and (
+        not two_d or origin[1] <= 80 < origin[1] + 50)
+    pk = torch.zeros(1, device=device) if owns else None
+    pp = torch.zeros(1, device=device) if owns else None
+    kernel = cuda_block.KERNELS[name]
+    before = kernel.launches
+    cuda_block.make_block_step(model, two_d)(cur, got_out, r0, c0, pk, 0)
+    cuda_block.plain_block_step(model, cur, want_out, r0, c0, two_d, pp, 0)
+    assert kernel.launches - before == 1
+    for kk in want_out:
+        torch.testing.assert_close(got_out[kk], want_out[kk], rtol=1e-3,
+                                   atol=1e-5)
+        assert float(got_out[kk][:k].abs().max()) == 0.0
+    if owns:
+        torch.testing.assert_close(pk, pp, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(SMALL))
+@pytest.mark.parametrize("dhw", [(5, 67, 131), (3, 24, 40)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_small_model_volume_kernel(device, name, dhw):
+    """Kernel 4, ten launches per outer step, against the plain volume
+    step (dt 0.05: the 3D limit at diff 1.5 is 0.083)."""
+    model = _small(name, height=dhw[1], width=dhw[2], dt=0.05)
+    base = interop.state_from_numpy(_small_state(name, dhw, 5), device)
+    kernel = cuda_volume.KERNELS[name]
+    kernel.reset_launches()
+    _two_steps(cuda_volume.make_volume_step(model, dhw[0], 0.5),
+               lambda st, p, i: cuda_volume.plain_volume_step(
+                   model, st, p, i, dz_ratio=0.5), base)
+    assert kernel.launches == {"slow": 20, "frozen": 0}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_small_model_simulate_routes(device, name, monkeypatch):
+    """simulate() on the card: the substep kernel ten launches per outer
+    step, the tiled kernel (cutover lowered) once, the block kernel once
+    per shard, each within 1e-3 of kernel='xla'; kernels 5 and 6 raise."""
+    cfg = CFG.replace(diff=1.5, height=64, width=96, duration=20)
+    ref = Simulation(_small(name, height=64, width=96, duration=20,
+                            kernel="xla"), device=device).define().simulate()
+    sub, til, blk = (cuda_step.KERNELS[name], cuda_tiled.KERNELS[name],
+                     cuda_block.KERNELS[name])
+    runs = {}
+    for how in ("substep", "tiled", "block"):
+        for kern in (sub, til, blk):
+            kern.reset_launches()
+        if how == "block":
+            sim = Simulation(SMALL[name][0](cfg), mesh=make_mesh(
+                devices=[device] * 4), wide_halo=True).define()
+        else:
+            if how == "tiled":
+                monkeypatch.setattr(Simulation, "WHOLE_GRID_STATE_MB_MAX", 0)
+            sim = Simulation(SMALL[name][0](cfg), device=device).define()
+        assert sim.route == how
+        for kern in (sub, til, blk):
+            kern.reset_launches()
+        res = runs[how] = sim.simulate()
+        assert sub.launches == {"slow": 10 * res.steps if how == "substep"
+                                else 0, "frozen": 0}
+        assert til.launches == (res.steps if how == "tiled" else 0)
+        assert blk.launches == (4 * res.steps if how == "block" else 0)
+        np.testing.assert_allclose(res.state["u"], ref.state["u"],
+                                   atol=1e-3, rtol=0)
+        assert res.cycle_lengths == ref.cycle_lengths
+    # kernels 2 and 3 share the tile skeleton and the cell body
+    for k in runs["tiled"].state:
+        np.testing.assert_array_equal(runs["block"].state[k],
+                                      runs["tiled"].state[k])
+    model = SMALL[name][0](cfg.replace(dt=0.05))
+    with pytest.raises(NotImplementedError, match="Queue 2 item D"):
+        run_volume(model, 24, 2, mesh=make_mesh(devices=[device] * 2),
+                   wide_halo=True)
+    monkeypatch.setattr(volume, "VOLUME_KERNEL_STATE_MB_MAX", 0.0)
+    with pytest.raises(NotImplementedError, match="Queue 2 item D"):
+        run_volume(model, 24, 2, device=device)

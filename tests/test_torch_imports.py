@@ -134,10 +134,17 @@ def test_bindings_hash_every_header_their_sources_include():
 
 
 def test_block_kernels_share_the_earlier_kernels_headers():
+    """Kernel 3 hosts the same cell bodies as kernel 2; kernel 6 shares
+    kernel 4's headers but hosts Beeler-Reuter's body alone (ROADMAP
+    Queue 2 item D), so it does without the Fenton and
+    Mitchell-Schaeffer bodies."""
     from fib_tf_tpu_torch.ops import (cuda_block, cuda_tiled, cuda_volume,
                                       cuda_volume_block)
     assert set(cuda_block.HEADERS) == set(cuda_tiled.HEADERS)
-    assert set(cuda_volume_block.HEADERS) == set(cuda_volume.HEADERS)
+    bodies = {build.CSRC_DIR / "fenton_cell.cuh",
+              build.CSRC_DIR / "ms_cell.cuh"}
+    assert bodies <= set(cuda_volume.HEADERS)
+    assert set(cuda_volume_block.HEADERS) == set(cuda_volume.HEADERS) - bodies
 
 
 def test_failed_build_raises_with_log(monkeypatch, tmp_path):
@@ -156,6 +163,7 @@ def test_kernel_sources_ship_with_the_package():
     assert '"fib_tf_tpu_torch.csrc"' in text
     for name in ("br_substep.cu", "br_tiled.cu", "br_volume.cu",
                  "br_volume_tiled.cu", "br_cell.cuh", "br_block.cu",
-                 "br_volume_block.cu", "br_tile.cuh", "br_volume_cell.cuh"):
+                 "br_volume_block.cu", "br_tile.cuh", "br_volume_cell.cuh",
+                 "fenton_cell.cuh", "ms_cell.cuh"):
         assert (build.CSRC_DIR / name).is_file()
     assert os.path.commonpath([build.BUILD_DIR, ROOT]) == str(ROOT)

@@ -16,7 +16,11 @@ import torch
 
 import fib_tf_tpu.engine.volume as jvol
 import fib_tf_tpu.models.beeler_reuter as jbr
+import fib_tf_tpu.models.fenton as jfen
+import fib_tf_tpu.models.mitchell_schaeffer as jms
 import fib_tf_tpu_torch.models.beeler_reuter as tbr
+import fib_tf_tpu_torch.models.fenton as tfen
+import fib_tf_tpu_torch.models.mitchell_schaeffer as tms
 from fib_tf_tpu.config import SimConfig as JaxSimConfig
 from fib_tf_tpu.ops import stencil3d as jst3
 from fib_tf_tpu.ops.pallas_volume import (make_pallas_volume_step,
@@ -24,8 +28,8 @@ from fib_tf_tpu.ops.pallas_volume import (make_pallas_volume_step,
 from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import VolumeEvent, run_volume, volume
-from fib_tf_tpu_torch.ops import (cuda_step, cuda_volume, cuda_volume_tiled,
-                                  stencil3d)
+from fib_tf_tpu_torch.ops import (cuda_step, cuda_volume, cuda_volume_block,
+                                  cuda_volume_tiled, stencil3d)
 from fib_tf_tpu_torch.parallel import make_mesh
 
 
@@ -490,3 +494,100 @@ def test_wrappers_reject_bad_probe(kind):
         step(st, torch.zeros(2, dtype=torch.float64))
     with pytest.raises(ValueError, match="depth"):
         cuda_volume.check_volume(tm, st, 2, None, 0)
+
+
+# -- Fenton and Mitchell-Schaeffer volumes --------------------------------------------
+
+# (JAX model, port model, the state's planes and their upper bounds); the
+# kernel-vs-XLA bound of tests/test_pallas.py:90-97
+SMALL_MODELS = {
+    "fenton": (jfen.Fenton4v, tfen.Fenton4v,
+               dict(u=1.0, v=1.0, w=1.0, s=0.6)),
+    "ms": (jms.MitchellSchaeffer, tms.MitchellSchaeffer, dict(u=1.0, h=1.0)),
+}
+SMALL_TOL = dict(rtol=1e-3, atol=1e-5)
+
+
+def small_models(name, **kw):
+    jcls, tcls, _ = SMALL_MODELS[name]
+    c = cfg(diff=1.5, **kw)
+    return jcls(jax_cfg(c)), tcls(c)
+
+
+def seeded_small_volume(name, model, depth, seed):
+    """Every plane drawn per cell from a seed: no two slices are equal and
+    every face differs from its neighbours."""
+    rng = np.random.RandomState(seed)
+    shape = (depth,) + tuple(model.state_shape())
+    return {k: rng.uniform(0.0, hi, shape).astype(np.float32)
+            for k, hi in SMALL_MODELS[name][2].items()}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_MODELS))
+def test_small_model_volume_step_matches_jax_volume_kernel(name):
+    """4x16x128, dz_ratio=0.5, 2 outer steps of ten substeps: the plain
+    version of the volume substep kernel against the JAX whole-volume
+    kernel (flat layout, interpret mode)."""
+    jm, tm = small_models(name, height=16, width=128)
+    st = seeded_small_volume(name, tm, 4, seed=6)
+    jstep = make_pallas_volume_step(jm, 4, dz_ratio=0.5, interpret=True)
+    step = cuda_volume.make_volume_step(tm, 4, dz_ratio=0.5)
+    want = {k: jnp.asarray(v) for k, v in st.items()}
+    got = interop.state_from_numpy(st, "cpu")
+    probe = torch.zeros(2)
+    pixel = cuda_volume.volume_probe_pixel(tm, 4)
+    for i in range(2):
+        want = jstep(want)
+        got = step(got, probe, i)
+        assert abs(float(probe[i]) - float(want["u"][pixel])) <= 1e-5
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   err_msg=k, **SMALL_TOL)
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_MODELS))
+def test_small_model_run_volume_matches_jax_run_volume(name):
+    """5x24x32 at examples/scroll_wave.py's dt 0.05 (the 3D limit at diff
+    1.5 is 0.083), 25 outer steps with a half-depth S2 at step 12:
+    run_volume on the CPU against the JAX run_volume(kernel='xla')."""
+    jm, tm = small_models(name, height=24, width=32, dt=0.05)
+    kw = dict(depth=5, n_outer=25)
+    event = dict(step=12, loc="luq", z1=2)
+    want = jvol.run_volume(jm, kernel="xla",
+                           events=[jvol.VolumeEvent(**event)], **kw)
+    got = run_volume(tm, device="cpu", events=[VolumeEvent(**event)], **kw)
+    for k in want[0]:
+        np.testing.assert_allclose(got[0][k], want[0][k], err_msg=k,
+                                   atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_MODELS))
+def test_small_model_volume_routes(name, monkeypatch):
+    """run_volume takes the volume substep kernel for Fenton and
+    Mitchell-Schaeffer at any size (the reference's whole-volume kernel,
+    engine/volume.py:182); the tiled and block volume kernels host BR
+    alone, so where they would run these models raise (ROADMAP Queue 2
+    item D), and the plain sharded step still runs them."""
+    _, tm = small_models(name, height=512, width=512)
+    assert volume.volume_state_mb(tm, 32) >= 64.0
+    assert volume.volume_route(tm, 32, "cuda", "auto") == "substep"
+    assert volume.volume_route(tm, 32, "cuda", "pallas") == "substep"
+    assert volume.volume_route(tm, 32, "cpu", "auto") == "plain"
+    monkeypatch.setattr(volume, "VOLUME_KERNEL_STATE_MB_MAX", 32.0)
+    with pytest.raises(NotImplementedError, match="Queue 2 item D"):
+        volume.volume_route(tm, 32, "cuda", "auto")
+    with pytest.raises(NotImplementedError, match="Queue 2 item D"):
+        cuda_volume_tiled.make_tiled_volume_step(tm, 32)
+    with pytest.raises(NotImplementedError, match="Queue 2 item D"):
+        cuda_volume_block.make_volume_block_step(tm, 28, 32)
+
+    _, small = small_models(name, height=8, width=12, dt=0.05)
+    st = seeded_small_volume(name, small, 20, seed=7)
+    mesh = make_mesh(devices=["cpu"] * 2)
+    sharded = run_volume(small, 20, 2, state=st, mesh=mesh, wide_halo=True,
+                         device="cpu")
+    whole = run_volume(small, 20, 2, state=st, device="cpu")
+    for k in whole[0]:
+        np.testing.assert_allclose(sharded[0][k], whole[0][k], err_msg=k,
+                                   rtol=1e-6, atol=1e-6)

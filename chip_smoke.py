@@ -9,11 +9,12 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      substep kernel br_substep.cu, the tiled outer-step kernel br_tiled.cu,
      the volume substep kernel br_volume.cu, the tiled volume kernel
      br_volume_tiled.cu, and the per-shard block kernels br_block.cu and
-     br_volume_block.cu of the sharded paths (the first four libraries and
-     br_block.cu host three cell bodies, one entry each: Beeler-Reuter,
-     Fenton, Mitchell-Schaeffer); the -Xptxas -v lines of every kernel,
-     and neither the tile skeleton's libraries (br_tiled, br_block) nor
-     the tiled volume kernel may spill;
+     br_volume_block.cu of the sharded paths (all but br_volume_tiled.cu
+     host six cell bodies, one entry each: Beeler-Reuter's main path, its
+     other variants without and with ab2, Fenton without and with ab2,
+     Mitchell-Schaeffer); the -Xptxas -v lines of every kernel, and
+     neither the tile skeleton's libraries (br_tiled, br_block) nor the
+     tiled volume kernel may spill;
   2. substep kernel vs plain PyTorch on the card at 512x512, on a seeded
      state that holds a wavefront: one slow (n=5) launch, one frozen (n=0)
      launch and two outer steps, all 8 planes at rtol 1e-3 / atol 1e-5;
@@ -146,6 +147,45 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      shards, bit-equal to kernel 2's run) and kernel 4 (16x512x512,
      against kernel='xla'), with exact launches; timings of all four
      (kernels 2 and 3 at 2048x2048, as Fenton's).
+ 24. the new (kernel, body) pairs vs plain PyTorch, 2 outer steps (2
+     groups on kernel 6), every plane and the probe at rtol 1e-3 / atol
+     1e-5 (the AB2 derivative planes at DERIVATIVE_ATOL; a cell outside
+     them is arbitrated by a float64 plain run, see compare, and counted
+     in the entry's "arbitrated_cells"), with exact launches: BrVariantCell<false/true> for VARIANT_CHECKS and
+     FentonAb2Cell from seeded wavefront states (per-cell noise; the
+     unfolded fits' too, whose cells at rest sit where the reference's
+     tau_h fit is negative), on
+     kernel 1 (512x512, 67x131), kernel 2 (2048x2048, 67x131), kernel 3
+     (4x1 top and interior, 2x2 corner blocks of 2048x2048), kernel 4
+     (8x128x512 or 16x512x512, and 5x67x131, dz_ratio 1 and 0.5) and
+     kernel 6 (the top, interior and bottom shards of 32x128x512), and
+     kernel 6 for BR's main body, Fenton and Mitchell-Schaeffer;
+ 25. Table 1 on the card: `python -m fib_tf_tpu bench`'s five rows at
+     512x512 for 1000 ms, 3 runs each, printed in its JSON shape with the
+     card's name; exact launches per run (2000 SLOW + 8000 frozen under
+     skip, 10000 SLOW without, 10000 for Fenton), each run's first
+     crossing within +- 2 steps of the JAX engine's, and each row within
+     WHOLE_RUN_ATOL_MV (Fenton 1e-3) of kernel='xla' over 400 ms;
+ 26. Table 1's direct rows at 2048x2048 for 700 ms (kernel 2, once per
+     outer step) and on four row shards of cuda:0 (kernel 3, bit-equal);
+ 27. BR cheby+skip+ab2 and Fenton ab2 (dt 0.025), with an S2 (pacing
+     refreshes the derivative planes; Fenton's 512x512 run without):
+     512x512 for 400 ms on kernel 1 against kernel='xla' and the JAX
+     crossing; 2048x2048 on kernel 2 and four row shards on kernel 3,
+     bit-equal;
+ 28. run_volume on kernel 4 with phase 9's S2 at 8x128x512, against
+     kernel='xla': BR cheby+skip+ab2 (dt 0.05) for 1000 outer steps; BR
+     direct (skip) to the S2's step, then kernel and plain substep by
+     substep to 1000, where alpha_m's 0/0 at V = -47.0 mV exactly may turn
+     a cell non-finite (direct_volume_after_s2);
+     Fenton ab2 (dt 0.025) at 16x512x512 for 100 outer steps;
+ 29. 32x128x512 on four z shards of cuda:0 (kernel 6) for BR direct, BR
+     ab2, Fenton, Fenton ab2 and Mitchell-Schaeffer (halo_k 5: groups of
+     five of their ten substeps), 100 outer steps with an S2, bit-equal
+     to the unsharded runs (kernel 4), or, where both end non-finite,
+     bit-equal up to the outer step in which both turn
+     (replay_to_non_finite);
+ 30. the device time, plain time and bound of every new pair.
 
 Prints the nvidia-smi line and one JSON line describing the kernels before
 its last line, which is {"ok": true, "device": {...}}.  Needs a CUDA GPU and
@@ -154,6 +194,7 @@ nvcc; exits 1 without them.  Imports no JAX.
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import functools
 import json
 import re
@@ -175,6 +216,10 @@ CFG_LARGE = dict(CFG, width=2048, height=2048, duration=700)
 # kernel vs plain over single launches and 2 outer steps: the JAX
 # package's own kernel-vs-XLA tolerance (tests/test_pallas.py)
 RTOL, ATOL = 1e-3, 1e-5
+# the AB2 derivative planes (mV/ms for _dV_) enter the next substep's
+# potential as 0.5 dt f_prev: the atol that moves it by at most ATOL at dt
+# 0.1 (tests/test_torch_br_variants.py)
+DERIVATIVE_ATOL = ATOL / (0.5 * 0.1)
 # final V of a whole kernel run vs the kernel-free run: 1e-3 of the
 # model's 120 mV range, the goldens' bound (tests/test_golden.py)
 WHOLE_RUN_ATOL_MV = 0.12
@@ -256,8 +301,90 @@ SMALL_PLANES = {"fenton": dict(u=1.0, v=1.0, w=1.0, s=0.6),
 SMALL_ATOL = 1e-3
 # float32 operations per cell-substep in the plane (fenton_cell.cuh,
 # ms_cell.cuh, counted by hand, a tanhf as one: Fenton has two), with the
-# 9-point stencil's 10; a volume adds the z term's 4
-SMALL_FLOPS = {"fenton": 67, "ms": 27}
+# 9-point stencil's 10; a volume adds the z term's 4.  Fenton's ab2 body
+# spends 3 more on each of its four planes
+SMALL_FLOPS = {"fenton": 67, "fenton_ab2": 79, "ms": 27}
+
+# The rest of Beeler-Reuter and the ab2 bodies (phases 24-30).  Table 1 is
+# `python -m fib_tf_tpu bench` (fib_tf_tpu/cli.py:665-691) at its
+# defaults: 512x512, 1000 ms, 3 runs, rows BR cheby x skip (the other flags
+# at their defaults: the direct rows run the shared-exponential currents)
+# and Fenton at diff 1.5
+TABLE1_SIZE, TABLE1_MS, TABLE1_RUNS = 512, 1000, 3
+TABLE1_ROWS = (("br", dict(cheby=False, skip=False)),
+               ("br", dict(cheby=False, skip=True)),
+               ("br", dict(cheby=True, skip=False)),
+               ("br", dict(cheby=True, skip=True)),
+               ("fenton", {}))
+# the JAX engine's first crossings, pinned on the CPU at height 32 (the S1
+# wave is planar):
+#   SimConfig(width=W, height=32, dt=DT, diff=D, duration=T, kernel='xla',
+#             **flags) -> Simulation(Model(cfg)).define().simulate()
+#   .cycle_lengths[0]
+# gives, at W=512, T=400, DT 0.1: BR cheby=False (338, 169.0) with and
+# without skip, cheby=True (332, 166.0) with and without, Fenton (76, 76.0);
+# BR cheby=False at W=2048, T=700: (1354, 677.0) with and without skip; BR
+# cheby + skip + ab2: (318, 159.0) at W=512, (1272, 636.0) at W=2048, T=700;
+# Fenton ab2 at DT 0.025: (269, 67.25) at W=512, (1076, 269.0) at W=2048; BR
+# cheby + skip + ab2 at DT 0.05, W=512: (594, 148.5) (the planar S1 wave
+# of a volume crosses there too)
+TABLE1_CROSSINGS = {("br", ("cheby", False), ("skip", False)): 338,
+                    ("br", ("cheby", False), ("skip", True)): 338,
+                    ("br", ("cheby", True), ("skip", False)): 332,
+                    ("br", ("cheby", True), ("skip", True)): 332,
+                    ("fenton",): 76}
+DIRECT_CROSSING_2048 = 1354
+AB2_CROSSINGS = {"br": 318, "br_2048": 1272, "fenton": 269,
+                 "fenton_2048": 1076, "br_volume": 594}
+# the ab2 runs: BR's bench configuration with ab2, and Fenton's Table 1
+# row with ab2 at dt 0.025.  AB2's stability interval is (-1, 0), half of
+# Euler's: Fenton's highest diffusion mode (dt * diff * 12) and its
+# upstroke at u = 1, v = 1 (dt * 11.8) sum to 1.49 at dt 0.05, so an S2's
+# sharp front amplifies the kernel's and the plain path's rounding (0.0038
+# apart in u 50 ms after an S2 at dt 0.05, on an H100 80GB HBM3 at 700 W);
+# 0.75 at dt 0.025.
+# An S2 on the upper left quadrant after the first crossing, whose pacing
+# refreshes the derivative planes; 2048x2048 for 700 ms (BR) or 400 ms.
+# Fenton's 512x512 run against kernel='xla' goes without: its S2 at 200 ms
+# breaks into reentry, and there the kernel's and the plain path's
+# rounding part by 2.0e-3 in u within 200 ms (the same card)
+AB2_S2_MS = {"br": (200.0, 680.0), "fenton": (None, 350.0)}
+AB2_LARGE_MS = {"br": 700, "fenton": 400}
+BR_AB2 = dict(CFG, ab2=True)
+FENTON_AB2 = dict(SMALL_CFG, dt=0.025, ab2=True)
+# the ab2 volumes: the 3D Laplacian's largest eigenvalue is 20 (dz_ratio
+# 1), and AB2 needs dt * diff * 20 < 1 (BR at dt 0.1: 1.6; Fenton at dt
+# 0.05: 1.5), so BR's run at dt 0.05 and Fenton's at dt 0.025
+BR_AB2_VOL = dict(VOL_CFG, skip=True, ab2=True, dt=0.05)
+FENTON_AB2_VOL = dict(SCROLL_CFG, ab2=True, dt=0.025)
+# the BR variants held to their plain version on every kernel (phase 24):
+# Table 1's direct rows, the unfolded fits with the literal currents, the
+# fold with the shared-exponential currents, and ab2 with folded and with
+# direct gates
+VARIANT_CHECKS = {
+    "direct": dict(cheby=False, skip=False),
+    "direct-skip": dict(cheby=False, skip=True),
+    "cheby-plain-skip": dict(cheby_fold=False, cheby_currents=False,
+                             fast_currents=False, skip=True),
+    "fold-fast-skip": dict(cheby_currents=False, skip=True),
+    "ab2-skip": dict(skip=True, ab2=True),
+    "direct-ab2": dict(cheby=False, skip=False, ab2=True),
+}
+# compare() lets a kernel's cell past rtol/atol pass when the kernel is no
+# further than the plain path from a float64 plain run at that cell, or
+# when the cell's float64 V passed within ILL_MARGIN_MV of a window where
+# the body is ill-conditioned in float32 (the model's `ill_conditioned`:
+# Beeler-Reuter's removable singularities and its unfolded tau_h fit,
+# negative around rest); at most ARBITRATED_CAP of a plane's cells, and
+# each pair's count goes into the kernels line ("arbitrated_cells")
+ILL_MARGIN_MV = 0.5
+ARBITRATED_CAP = 0.02
+ARBITRATED = {}
+# a seeded BR state holds a wavefront when some cell is above -40 mV, the
+# arrival threshold of the conduction-velocity pins: the unfolded fits'
+# plateau sits lower than the main path's, and 10 ms after the S1 a
+# 67x131 state of theirs peaked under 0 mV on the card
+WAVEFRONT_MV = -40.0
 
 
 def fail(msg: str):
@@ -270,16 +397,55 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
-def compare(name, got, want):
+def compare(name, got, want, exact=None, windows=()):
     """Max abs error over the planes (in float64 on the device); fails
-    outside rtol/atol."""
+    outside rtol/atol (the AB2 derivative planes: DERIVATIVE_ATOL).  With
+    `exact`, a callable that returns the plain path's run in float64 from
+    the same state and that state, a cell outside rtol/atol is arbitrated:
+    it passes when the kernel is no further from float64 than the float32
+    plain path is at that cell, or when its float64 V passed within
+    ILL_MARGIN_MV of one of `windows` (`model.ill_conditioned`); at most
+    ARBITRATED_CAP
+    of the plane's cells, counted in ARBITRATED under the entry's name (the
+    first word of `name`)."""
     worst = 0.0
+    arbiter = None
     for k in want:
         a = got[k].double()
         b = want[k].double()
         err = (a - b).abs()
-        bad = err > ATOL + RTOL * b.abs()
+        atol = DERIVATIVE_ATOL if k.startswith("_d") else ATOL
+        bad = err > atol + RTOL * b.abs()
         check(bool(a.isfinite().all()), f"{name}: plane {k} not finite")
+        if exact is not None and bool(bad.any()):
+            if arbiter is None:
+                arbiter = exact()
+            ex, start = arbiter
+            e = ex[k]
+            ke, pe = (a - e).abs(), (b - e).abs()
+            nearer = bad & (ke <= pe)
+            ill = bad.new_zeros(bad.shape)
+            if windows:
+                v0, v1 = start["V"].double(), ex["V"]
+                lo, hi = v0.minimum(v1), v0.maximum(v1)
+                for w_lo, w_hi in windows:
+                    ill |= ((hi >= w_lo - ILL_MARGIN_MV)
+                            & (lo <= w_hi + ILL_MARGIN_MV))
+            ill = bad & ill & ~nearer
+            n_bad, n_near, n_ill = (int(bad.sum()), int(nearer.sum()),
+                                    int(ill.sum()))
+            print(f"  {name}: plane {k}: {n_bad} cells outside rtol/atol, "
+                  f"by up to {float(err[bad].max()):.3g}; the kernel nearer "
+                  f"float64 at {n_near} (up to {float(ke[bad].max()):.3g} "
+                  f"from it, the plain path up to {float(pe[bad].max()):.3g})"
+                  f", {n_ill} more within {ILL_MARGIN_MV} mV of "
+                  f"{list(windows)}", flush=True)
+            entry = name.split()[0].rstrip(",")
+            ARBITRATED[entry] = ARBITRATED.get(entry, 0) + n_near + n_ill
+            check(n_near + n_ill <= ARBITRATED_CAP * bad.numel(),
+                  f"{name}: plane {k}: {n_near + n_ill} arbitrated cells, "
+                  f"past {ARBITRATED_CAP:.0%} of {bad.numel()}")
+            bad = bad & ~nearer & ~ill
         check(not bool(bad.any()),
               f"{name}: plane {k} differs at {int(bad.sum())} cells, "
               f"max abs err {float(err.max()):.3g}")
@@ -309,11 +475,14 @@ def seeded_state(torch, interop, model, dev, plain_step, rng):
         init[g] = np.clip(init[g] * rng.uniform(0.98, 1.02, shape),
                           1e-5, 0.99999).astype(np.float32)
     init["C"] = (init["C"] * rng.uniform(0.9, 1.1, shape)).astype(np.float32)
+    if model.cfg.ab2:
+        init = model.bootstrap_ab2(init)
     base = interop.state_from_numpy(init, dev)
     for _ in range(20):
         plain_step(model, base)
     torch.cuda.synchronize()
-    check(bool(base["V"].isfinite().all()) and float(base["V"].max()) > 0.0,
+    check(bool(base["V"].isfinite().all())
+          and float(base["V"].max()) > WAVEFRONT_MV,
           f"{shape} seeded state holds no wavefront")
     return base
 
@@ -333,6 +502,7 @@ def main():
         from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
                                           cuda_volume, cuda_volume_block,
                                           cuda_volume_tiled)
+        from fib_tf_tpu_torch.ops.stencil3d import enforce_boundary3d
         from fib_tf_tpu_torch.parallel import make_mesh
     except ImportError as e:
         fail(f"cannot import the port ({e}); run from the repository root")
@@ -963,6 +1133,15 @@ def main():
         cuda_tiled=cuda_tiled, cuda_block=cuda_block,
         cuda_volume=cuda_volume, make_mesh=make_mesh,
         reset_counts=reset_counts, read_counts=read_counts), card, rng)
+    variant_entries = variant_phases(torch, types.SimpleNamespace(
+        SimConfig=SimConfig, interop=interop, Simulation=Simulation,
+        VolumeEvent=VolumeEvent, run_volume=run_volume, volume=volume,
+        CycleLengthDetector=CycleLengthDetector, BeelerReuter=BeelerReuter,
+        Fenton4v=Fenton4v, MitchellSchaeffer=MitchellSchaeffer,
+        cuda_step=cuda_step, cuda_tiled=cuda_tiled, cuda_block=cuda_block,
+        cuda_volume=cuda_volume, cuda_volume_block=cuda_volume_block,
+        enforce_boundary3d=enforce_boundary3d, make_mesh=make_mesh,
+        reset_counts=reset_counts, read_counts=read_counts), card, rng)
 
     cells = int(np.prod(shape))
     cells_large = int(np.prod(large.state_shape()))
@@ -1013,6 +1192,7 @@ def main():
             launch_bound(int(vbt[f"{body}_slices"] * vcfg.height
                              * vcfg.width), slow, volume=True)))
     kernels.extend(small_entries)
+    kernels.extend(variant_entries)
     for k in kernels:
         print(f"  {k['name']}: {k['ms'] * 1e3:.3f} us against a bound of "
               f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}) [{card}]",
@@ -1090,10 +1270,13 @@ def run_outer_steps(torch, step, base, n_steps):
 
 
 def check_outer_steps(torch, step, reference, base, n_steps, name,
-                      against="plain", has_probe=True):
+                      against="plain", has_probe=True, windows=None):
     """`n_steps` outer steps `step(state, probe, i)` vs `reference(state,
-    probe, i)` from `base`: all planes and, with `has_probe`, the probe.
-    Returns the max abs error over the planes."""
+    probe, i)` from `base`: all planes and, with `has_probe`, the probe;
+    with `windows` (`model.ill_conditioned`), cells past rtol/atol are
+    arbitrated by
+    `reference` run in float64 (compare).  Returns the max abs error over
+    the planes."""
     dev = next(iter(base.values())).device
     pk = torch.zeros(n_steps, device=dev) if has_probe else None
     pp = torch.zeros(n_steps, device=dev) if has_probe else None
@@ -1102,7 +1285,15 @@ def check_outer_steps(torch, step, reference, base, n_steps, name,
         got = step(got, pk, i)
         want = reference(want, pp, i)
     torch.cuda.synchronize()
-    err = compare(f"{name}, {n_steps} outer step(s) vs {against}", got, want)
+
+    def exact():
+        ex = {k: v.double() for k, v in base.items()}
+        for i in range(n_steps):
+            ex = reference(ex, None, i)
+        return ex, base
+
+    err = compare(f"{name}, {n_steps} outer step(s) vs {against}", got, want,
+                  None if windows is None else exact, windows or ())
     if has_probe:
         compare_probes(name, pk, pp)
     return err
@@ -1129,11 +1320,14 @@ def seeded_volume(torch, interop, volume, cuda_volume, model, depth, dev,
         init[g] = np.clip(init[g] * rng.uniform(0.98, 1.02, shape),
                           1e-5, 0.99999).astype(np.float32)
     init["C"] = (init["C"] * rng.uniform(0.9, 1.1, shape)).astype(np.float32)
+    if model.cfg.ab2:
+        init = model.bootstrap_ab2(init)
     base = interop.state_from_numpy(init, dev)
     for _ in range(20):
         cuda_volume.plain_volume_step(model, base)
     torch.cuda.synchronize()
-    check(bool(base["V"].isfinite().all()) and float(base["V"].max()) > 0.0,
+    check(bool(base["V"].isfinite().all())
+          and float(base["V"].max()) > WAVEFRONT_MV,
           f"{shape} seeded volume holds no wavefront")
     return base
 
@@ -1160,14 +1354,16 @@ def volume_crossings(detector_cls, model, probes):
     return det.cycle_lengths
 
 
-def check_volume_run(detector_cls, model, run, shape):
+def check_volume_run(detector_cls, model, run, shape,
+                     crossing=CROSSING_STEP, n_outer=VOL_STEPS):
     """A volume run's final state is finite and of `shape`, its probe
-    stream has VOL_STEPS entries, and its first crossing is the 2D
-    engine's at W=512, (CROSSING_STEP, 166.0), within CROSSING_SLACK."""
+    stream has `n_outer` entries, and its first crossing is the 2D
+    engine's at W=512 (for the bench configuration (CROSSING_STEP,
+    166.0)), within CROSSING_SLACK."""
     for k, v in run["final"].items():
         check(v.shape == shape and np.isfinite(v).all(),
               f"final plane {k} not finite or of shape {v.shape}")
-    check(run["probes"].shape == (VOL_STEPS,)
+    check(run["probes"].shape == (n_outer,)
           and np.isfinite(run["probes"]).all(),
           f"probe stream of shape {run['probes'].shape} or not finite")
     check(run["frames"] is None, "frames recorded without frames_every")
@@ -1176,11 +1372,11 @@ def check_volume_run(detector_cls, model, run, shape):
     check(len(crossings) >= 1, "the probe saw no wavefront")
     step, cl = crossings[0]
     step_ms = model.dt_per_step * model.cfg.dt
-    check(abs(step - CROSSING_STEP) <= CROSSING_SLACK
-          and abs(cl - CROSSING_STEP * step_ms)
+    check(abs(step - crossing) <= CROSSING_SLACK
+          and abs(cl - crossing * step_ms)
           <= CROSSING_SLACK * step_ms + 1e-9,
-          f"first crossing {(step, cl)}, expected ({CROSSING_STEP}, "
-          f"{CROSSING_STEP * step_ms}) +- {CROSSING_SLACK} steps")
+          f"first crossing {(step, cl)}, expected ({crossing}, "
+          f"{crossing * step_ms}) +- {CROSSING_SLACK} steps")
     return crossings
 
 
@@ -1220,12 +1416,13 @@ def wrapped_window(state, starts, sizes):
 
 
 def check_block(torch, cuda_block, cuda_tiled, model, full, h_own, w_own,
-                origin, n_steps, name):
+                origin, n_steps, name, windows=None):
     """`n_steps` outer steps of one shard's block, `h_own` rows (x `w_own`
     columns; None: the full width, a 1D mesh) at `origin` of `full`: each
     step the block is cut from the whole grid with its ghosts, the block
     kernel and its plain version advance it, and the whole grid advances
-    through the tiled kernel (phase 5).  Returns the max abs error."""
+    through the tiled kernel (phase 5); `windows` as in
+    check_outer_steps.  Returns the max abs error."""
     k = model.dt_per_step
     two_d = w_own is not None
     h, w = model.state_shape()
@@ -1248,11 +1445,21 @@ def check_block(torch, cuda_block, cuda_tiled, model, full, h_own, w_own,
         step(ext, got, rstart, cstart, pk, 0)
         cuda_block.plain_block_step(model, ext, want, rstart, cstart, two_d,
                                     pp, 0)
+
+        def exact(ext=ext):
+            ex = {kk: torch.zeros_like(v, dtype=torch.float64)
+                  for kk, v in ext.items()}
+            cuda_block.plain_block_step(
+                model, {kk: v.double() for kk, v in ext.items()}, ex, rstart,
+                cstart, two_d)
+            return ex, ext
+
         full = whole(full)
         torch.cuda.synchronize()
         worst = max(worst, compare(
             f"{name}, {'x'.join(map(str, sizes))} block, outer step {i + 1} "
-            f"of {n_steps}", got, want))
+            f"of {n_steps}", got, want, None if windows is None else exact,
+            windows or ()))
         if owns:
             compare_probes(name, pk, pp)
         centre = cuda_block.centre(got[pot], k, two_d)
@@ -1265,14 +1472,17 @@ def check_block(torch, cuda_block, cuda_tiled, model, full, h_own, w_own,
 
 
 def check_volume_block(torch, cuda_volume, cuda_volume_block, model, full,
-                       d_own, z0, n_groups, dz_ratio, substeps, name):
+                       d_own, z0, n_groups, dz_ratio, substeps, name,
+                       windows=None):
     """`n_groups` groups of one shard's z-block, `d_own` slices at `z0` of
     `full`: each group the block is cut from the whole volume with its
     ghosts, the volume block kernel and its plain version advance it, and
     the whole volume advances through the volume substep kernel (phase
-    8).  Returns the max abs error over the block's centre."""
+    8); `windows` as in check_outer_steps.  Returns the max abs error over
+    the block's centre."""
     k = model.dt_per_step if substeps is None else substeps
-    depth = full["V"].shape[0]
+    pot = model.pot_key
+    depth = full[pot].shape[0]
     ext_d = d_own + 2 * k
     zstart = z0 - k
     zmid = depth // 2
@@ -1284,14 +1494,22 @@ def check_volume_block(torch, cuda_volume, cuda_volume_block, model, full,
     for i in range(n_groups):
         ext = wrapped_window(full, (zstart,), (ext_d,))
         want = clone(ext)
-        dev = ext["V"].device
+        dev = ext[pot].device
         pk = torch.zeros(1, device=dev) if owns else None
         pp = torch.zeros(1, device=dev) if owns else None
-        got, _ = step(ext, torch.empty_like(ext["V"]), zstart, pk, 0,
+        got, _ = step(ext, torch.empty_like(ext[pot]), zstart, pk, 0,
                       zmid - zstart)
         cuda_volume_block.plain_volume_block_step(
             model, want, zstart, depth, dz_ratio, substeps, pp, 0,
             zmid - zstart)
+
+        def exact(ext=ext):
+            ex = {kk: v.double() for kk, v in ext.items()}
+            cuda_volume_block.plain_volume_block_step(
+                model, ex, zstart, depth, dz_ratio, substeps)
+            return ({kk: v[k:-k] for kk, v in ex.items()},
+                    {kk: v[k:-k] for kk, v in ext.items()})
+
         if substeps is None:
             full = cuda_volume.make_volume_step(model, depth, dz_ratio)(full)
         else:
@@ -1302,11 +1520,12 @@ def check_volume_block(torch, cuda_volume, cuda_volume_block, model, full,
         worst = max(worst, compare(
             f"{name}, group {i + 1} of {n_groups}",
             {kk: v[k:-k] for kk, v in got.items()},
-            {kk: v[k:-k] for kk, v in want.items()}))
+            {kk: v[k:-k] for kk, v in want.items()},
+            None if windows is None else exact, windows or ()))
         if owns:
             compare_probes(name, pk, pp)
-        own = full["V"][z0:z0 + d_own]
-        check(bool(((got["V"][k:-k] - own).abs()
+        own = full[pot][z0:z0 + d_own]
+        check(bool(((got[pot][k:-k] - own).abs()
                     <= ATOL + RTOL * own.abs()).all()),
               f"{name}: the block's centre differs from the volume substep "
               f"kernel's")
@@ -1511,7 +1730,9 @@ def kernel_entry(name, source, replaces, launches, err, us, plain_us,
             "ms": us / 1e3, "plain_ms": plain_us / 1e3,
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes a BR substep
-            "library_ms": None}
+            "library_ms": None,
+            # cells past rtol/atol that passed by float64 arbitration
+            "arbitrated_cells": ARBITRATED.get(name.split("<")[0], 0)}
 
 
 def device_us(torch, fn, reps: int) -> float:
@@ -2161,6 +2382,724 @@ def time_small_volume(torch, m, model, base):
         "plain_us": device_us(torch, lambda: m.cuda_volume.plain_volume_substep(
             model, state, True), reps=1),
     }
+
+
+# -- the rest of Beeler-Reuter, the ab2 bodies, kernel 6's bodies (24-30) ----
+
+
+def variant_flops(model, slow: bool, volume: bool) -> int:
+    """Float32 operations per cell of one BrVariantCell substep
+    (br_variant_cell.cuh, counted by hand, a transcendental as one): the
+    stencil 10 (a volume's z term 4 more), the Chebyshev terms 10 when the
+    gates are fitted; per gate advanced (m and h; SLOW also x1, j, d, f)
+    the fold's two fits and 4 (36), the unfolded fits' two fits and 7
+    (39), or the direct rates' two rates and 11 (27; alpha_m's linear term
+    3 more); the V-only currents (their fits 35, the shared exponential
+    25, the literal forms 31); the rest of the currents 20; Euler's C and
+    V 11, AB2's 22."""
+    gm, cm = model.gate_mode, model.current_mode
+    n = 10 + (4 if volume else 0) + (10 if gm != "direct" else 0)
+    n += (6 if slow else 2) * {"fold": 36, "cheby": 39, "direct": 27}[gm]
+    n += 3 if gm == "direct" else 0
+    n += {"cheby": 35, "fast": 25, "plain": 31}[cm] + 20
+    return n + (22 if model.cfg.ab2 else 11)
+
+
+def body_flops(cuda_step, model, slow: bool, volume: bool) -> int:
+    """Float32 operations per cell-substep of the model's cell body."""
+    name = cuda_step.cell_body(model).name
+    if name == "br":
+        return substep_flops(slow, volume)
+    if name.startswith("br_variant"):
+        return variant_flops(model, slow, volume)
+    return SMALL_FLOPS[name] + (4 if volume else 0)
+
+
+def body_bytes(cuda_step, model, slow: bool) -> int:
+    """Bytes per cell of one launch of the model's cell body: every plane
+    read, the planes that the substep stores written (BR's frozen substep
+    leaves the slow gates)."""
+    body = cuda_step.cell_body(model)
+    planes = 1 + len(body.planes)
+    writes = planes
+    if body.name.startswith("br") and not slow:
+        writes = 4 + (2 if model.cfg.ab2 else 0)
+    return 4 * (planes + writes)
+
+
+def body_launch_bound(cuda_step, model, cells: int, slow: bool,
+                      volume: bool):
+    """(bound_ms, bound_by) of one launch of the model's body on `cells`
+    cells."""
+    return bound(cells * body_bytes(cuda_step, model, slow),
+                 cells * body_flops(cuda_step, model, slow, volume))
+
+
+def body_step_bound(cuda_step, model, cells: int, read_cells=None):
+    """(bound_ms, bound_by) of one fused outer step (kernels 2 and 3):
+    every plane of `read_cells` (default `cells`) read once, of `cells`
+    written once, and the cells' operations over the schedule."""
+    planes = 1 + len(cuda_step.cell_body(model).planes)
+    read = cells if read_cells is None else read_cells
+    return bound(4 * planes * (read + cells),
+                 cells * sum(body_flops(cuda_step, model, s, False)
+                             for s in cuda_step.slow_schedule(model)))
+
+
+def expected_launches(cuda_step, model, n_steps: int, shards: int = 1):
+    """{"slow": ..., "frozen": ...} of `n_steps` outer steps on `shards`
+    shards of the substep-launch kernels (1, 4 and 6)."""
+    schedule = cuda_step.slow_schedule(model)
+    slow = sum(schedule)
+    return {"slow": shards * n_steps * slow,
+            "frozen": shards * n_steps * (len(schedule) - slow)}
+
+
+def fenton_seeded(torch, m, model, shape, dev, rng):
+    """Fenton's initial state (its S1 stripe, over a volume's depth too)
+    with u raised by U(0, 0.02) and v, w scaled by U(0.98, 1) per cell,
+    its derivative planes bootstrapped, then 20 plain outer steps on
+    the card, so that a wavefront has left the stripe.  Not a state drawn
+    over [0, 1]: there some cells sit within the kernel's and the plain
+    path's rounding of the thresholds (u = 0.23 switches v's rate), and
+    with AB2's larger rounding a 2048x2048 state flips one of them."""
+    init = model.initial_state()
+    init = {k: np.ascontiguousarray(np.broadcast_to(v, shape), np.float32)
+            for k, v in init.items() if not k.startswith("_")}
+    init["u"] = init["u"] + rng.uniform(0.0, 0.02, shape).astype(np.float32)
+    for k in ("v", "w"):
+        init[k] = init[k] * rng.uniform(0.98, 1.0, shape).astype(np.float32)
+    base = m.interop.state_from_numpy(model.bootstrap_ab2(init), dev)
+    for _ in range(20):
+        if len(shape) == 2:
+            m.cuda_step.plain_step(model, base)
+        else:
+            m.cuda_volume.plain_volume_step(model, base)
+    torch.cuda.synchronize()
+    check(bool(base["u"].isfinite().all()) and float(base["u"].max()) > 0.5,
+          f"{shape} seeded Fenton state holds no wavefront")
+    return base
+
+
+def time_body_block(torch, m, model, full):
+    """Kernel 3 on the interior row shard of a 4x1 mesh of `full`
+    (ghosts K = dt_per_step each side): device time per outer step, and of
+    the plain block step, its substeps timed one by one and summed."""
+    k = model.dt_per_step
+    h, w = model.state_shape()
+    row = h // N_SHARDS
+    rstart = row - k
+    ext = wrapped_window(full, (rstart, 0), (row + 2 * k, w))
+    out = {kk: torch.zeros_like(v) for kk, v in ext.items()}
+    step = m.cuda_block.make_block_step(model, False)
+    geom = m.cuda_block.block_geometry(m.cuda_block.global_rows(
+        rstart, row + 2 * k, ext[model.pot_key].device), h)
+    schedule = m.cuda_step.slow_schedule(model)
+    plain = {slow: device_us(torch, lambda: m.cuda_step.solve_substep(
+        model, ext, geom, slow), reps=1) for slow in set(schedule)}
+    return {
+        "kernel_us": device_us(torch, lambda: step(ext, out, rstart, 0),
+                               reps=50),
+        "plain_us": sum(plain[slow] for slow in schedule),
+        "ext_cells": (row + 2 * k) * w, "own_cells": row * w,
+    }
+
+
+def time_body_volume(torch, m, model, base):
+    """Kernel 4: device time per launch of each of the body's forms on the
+    volume, and of the plain substeps."""
+    state = clone(base)
+    depth = state[model.pot_key].shape[0]
+    kernel = m.cuda_volume.KERNELS[m.cuda_step.cell_body(model).name]
+    params = m.cuda_step.pack_params(model)
+    pixel = m.cuda_volume.volume_probe_pixel(model, depth)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for slow in set(m.cuda_step.slow_schedule(model)):
+        out[slow] = {
+            "kernel_us": device_us(torch, lambda: kernel.launch(
+                params, state, slow, 1.0, None, pixel, 0, stream), reps=100),
+            "plain_us": device_us(
+                torch, lambda: m.cuda_volume.plain_volume_substep(
+                    model, state, slow), reps=1)}
+    return out
+
+
+def time_body_volume_block(torch, m, model, full, d_own, z0):
+    """Kernel 6 on one shard's z-block of `full` (d_own slices at z0 and
+    dt_per_step ghosts each side): device time of each of the body's forms
+    launched on all the block's inner slices, and of the plain substeps on
+    the block; `slices` is the launch's slice count."""
+    k = model.dt_per_step
+    pot = model.pot_key
+    depth = full[pot].shape[0]
+    ext_d = d_own + 2 * k
+    zstart = z0 - k
+    ext = wrapped_window(full, (zstart,), (ext_d,))
+    spare = torch.empty_like(ext[pot])
+    kernel = m.cuda_volume_block.KERNELS[m.cuda_step.cell_body(model).name]
+    params = m.cuda_step.pack_params(model)
+    stream = torch.cuda.current_stream().cuda_stream
+    geom = m.cuda_volume_block.zblock_geometry(
+        m.cuda_volume_block.global_slices(zstart, ext_d, ext[pot].device),
+        depth)
+    out = {"slices": ext_d - 2}
+    for slow in set(m.cuda_step.slow_schedule(model)):
+        out[slow] = {
+            "kernel_us": device_us(torch, lambda: kernel.launch(
+                params, ext, spare, slow, 1.0, zstart, depth, 1, ext_d - 1,
+                None, (0, 0, 0), 0, stream), reps=100),
+            "plain_us": device_us(torch, lambda: m.cuda_step.solve_substep(
+                model, ext, geom, slow), reps=1)}
+    return out
+
+
+def direct_volume_after_s2(torch, m, model, kernel_final, plain_final,
+                           done):
+    """Phase 28's direct-rates volume after its S2 (outer step `done` on):
+    the kernel (kernel 4, one launch per substep) and the plain path
+    advance the two runs' states substep by substep to VOL_STEPS.  alpha_m
+    is literal, so a cell whose boundary-enforced V lands on -47.0 mV
+    exactly turns m into 0/0 = NaN, in whichever run it lands; where it
+    lands depends on float32 rounding, so the two runs may turn at
+    different steps and cells.  Holds: both runs finite and
+    within WHOLE_RUN_ATOL_MV of each other at every outer step before the
+    first non-finite one of either, each run's first non-finite cells
+    exactly those whose V entered that substep at -47.0, and the kernel
+    launched once per substep; prints where each run turned."""
+    runs = {"kernel": m.interop.state_from_numpy(kernel_final, "cuda"),
+            "plain": m.interop.state_from_numpy(plain_final, "cuda")}
+    advance = {"kernel": m.cuda_volume.volume_substep,
+               "plain": m.cuda_volume.plain_volume_substep}
+    turned = {}
+    m.reset_counts()
+    launched = {"slow": 0, "frozen": 0}
+    for step in range(done, VOL_STEPS):
+        for slow in m.cuda_step.slow_schedule(model):
+            for name, st in runs.items():
+                if name in turned:
+                    continue
+                v0 = m.enforce_boundary3d(st["V"])
+                advance[name](model, st, slow)
+                if name == "kernel":
+                    launched["slow" if slow else "frozen"] += 1
+                bad = None
+                for k, v in st.items():
+                    bad = ~v.isfinite() if bad is None else bad | ~v.isfinite()
+                if bool(bad.any()):
+                    cells = bad.nonzero().tolist()
+                    at = v0 == -47.0
+                    check(torch.equal(bad, at),
+                          f"the {name} direct volume turned non-finite at "
+                          f"{cells[:4]} (outer step {step + 1}), not where "
+                          f"V was -47.0 mV: {at.nonzero().tolist()[:4]}")
+                    turned[name] = (step + 1, cells)
+        if turned:
+            break
+        dv = float((runs["kernel"]["V"] - runs["plain"]["V"]).abs().max())
+        check(dv <= WHOLE_RUN_ATOL_MV,
+              f"direct volume: kernel and plain V part by {dv} mV at outer "
+              f"step {step + 1}")
+    entry = f"{m.cuda_step.cell_body(model).name}_volume"
+    check_launched(m.read_counts(), entry, launched,
+                   "direct volume after the S2")
+    print(f"  direct volume after the S2: first non-finite (outer step, "
+          f"cells) {turned or 'none'} by outer step {VOL_STEPS}, each at "
+          f"V = -47.0 mV exactly (alpha_m's 0/0); the same in both runs: "
+          f"{len(turned) == 2 and turned['kernel'] == turned['plain']}",
+          flush=True)
+
+
+def run_or_none(fn, *args, **kw):
+    """fn(...), or None where run_volume raised FloatingPointError (its
+    result held a non-finite potential)."""
+    try:
+        return fn(*args, **kw)
+    except FloatingPointError:
+        return None
+
+
+def replay_to_non_finite(m, model, events, sharded):
+    """Phase 29's direct-rates volume when both the sharded and the
+    unsharded run ended non-finite: both replayed one outer step per
+    run_volume call; fails unless they stay bit-equal until both turn
+    non-finite in the same outer step, which it returns."""
+    states = {"sharded": None, "unsharded": None}
+    for step in range(SHORT_VOL_STEPS):
+        ev = [dataclasses.replace(e, step=0) for e in events
+              if e.step == step]
+        out = {name: run_or_none(
+            lambda **kw: m.run_volume(model, SHARDED_DEPTH, 1,
+                                      state=states[name], events=ev, **kw)[0],
+            **(sharded if name == "sharded" else {"device": "cuda"}))
+            for name in states}
+        if out["sharded"] is None or out["unsharded"] is None:
+            check(out["sharded"] is None and out["unsharded"] is None,
+                  f"outer step {step + 1}: one of the replayed runs turned "
+                  f"non-finite, the other did not")
+            return step + 1
+        check(all(np.array_equal(out["sharded"][k], out["unsharded"][k])
+                  for k in out["unsharded"]),
+              f"the replayed sharded and unsharded volumes part at outer "
+              f"step {step + 1}")
+        states = out
+    fail("the replayed runs stayed finite where the whole ones did not")
+
+
+def variant_phases(torch, m, card, rng):
+    """Phases 24-30: the rest of Beeler-Reuter (BrVariantCell<false>), the
+    ab2 bodies (BrVariantCell<true>, FentonAb2Cell) on kernels 1-4 and 6,
+    and kernel 6 for Fenton and Mitchell-Schaeffer.  `m` carries the
+    port's modules and main()'s launch counters; returns the new pairs'
+    entries of the JSON line."""
+    dev = torch.device("cuda")
+    k1, k2, k3, k4, k6 = (m.cuda_step, m.cuda_tiled, m.cuda_block,
+                          m.cuda_volume, m.cuda_volume_block)
+    BR, FEN, MS = m.BeelerReuter, m.Fenton4v, m.MitchellSchaeffer
+    body_of = lambda model: k1.cell_body(model).name
+    errs, launches = {}, {}
+
+    def seeded(model):
+        return seeded_state(torch, m.interop, model, dev, k1.plain_step, rng)
+
+    def seeded_vol(model, depth):
+        return seeded_volume(torch, m.interop, m.volume, k4, model, depth,
+                             dev, rng)
+
+    def note(body, kind, err):
+        errs[(body, kind)] = max(errs.get((body, kind), 0.0), err)
+
+    # -- phase 24 ---------------------------------------------------------------
+    print("phase 24: the new (kernel, body) pairs vs plain PyTorch, 2 outer "
+          "steps (2 groups on kernel 6) from seeded states, exact launches",
+          flush=True)
+    cases = [(name, BR, dict(CFG, **flags),
+              dict(VOL_CFG, **flags, **({"dt": BR_AB2_VOL["dt"]}
+                                        if flags.get("ab2") else {})))
+             for name, flags in VARIANT_CHECKS.items()]
+    cases.append(("fenton-ab2", FEN, FENTON_AB2, FENTON_AB2_VOL))
+    for name, cls, flat, vol in cases:
+        model = cls(m.SimConfig(**flat))
+        body = body_of(model)
+        windows = model.ill_conditioned
+        if cls is BR:
+            state, vstate = seeded, seeded_vol
+        else:
+            state = lambda mod: fenton_seeded(torch, m, mod,
+                                              mod.state_shape(), dev, rng)
+            vstate = lambda mod, d: fenton_seeded(
+                torch, m, mod, (d,) + mod.state_shape(), dev, rng)
+        ragged = model.cfg.replace(height=67, width=131)
+        for mod, label in ((model, "512x512"), (cls(ragged), "67x131")):
+            m.reset_counts()
+            note(body, "substep", check_outer_steps(
+                torch, k1.make_cuda_step(mod),
+                lambda st, p, i, mod=mod: k1.plain_step(mod, st, p, i),
+                state(mod), 2, f"{body}_substep {name} {label}",
+                has_probe=mod.probe_pixel[0] < mod.state_shape()[0],
+                windows=windows))
+            check_launched(m.read_counts(), f"{body}_substep",
+                           expected_launches(k1, mod, 2), f"{name} {label}")
+        large = cls(model.cfg.replace(width=2048, height=2048))
+        base_large = state(large)
+        for mod, base, label in ((large, base_large, "2048x2048"),
+                                 (cls(ragged), None, "67x131")):
+            m.reset_counts()
+            note(body, "tiled", check_outer_steps(
+                torch, k2.make_tiled_cuda_step(mod),
+                lambda st, p, i, mod=mod: k1.plain_step(mod, st, p, i),
+                base if base is not None else state(mod), 2,
+                f"{body}_tiled {name} {label}",
+                has_probe=mod.probe_pixel[0] < mod.state_shape()[0],
+                windows=windows))
+            check_launched(m.read_counts(), f"{body}_tiled", 2,
+                           f"{name} {label}")
+        h, w = large.state_shape()
+        row = h // N_SHARDS
+        for label, h_own, w_own, origin in (
+                ("4x1 top", row, None, (0, 0)),
+                ("4x1 interior", row, None, (row, 0)),
+                ("2x2 corner", h // 2, w // 2, (h // 2, w // 2))):
+            m.reset_counts()
+            note(body, "block", check_block(
+                torch, k3, k2, large, base_large, h_own, w_own, origin, 2,
+                f"{body}_block {name} {label}", windows))
+            counts = m.read_counts()
+            check(counts[f"{body}_block"] == 2
+                  and counts[f"{body}_tiled"] == 2,
+                  f"{name} {label}: launches {counts}")
+        vmodel = cls(m.SimConfig(**vol))
+        vdepth = SCROLL_DEPTH if cls is FEN else DEPTH
+        for depth, mod, label in (
+                (vdepth, vmodel, f"{vdepth}x{vmodel.cfg.height}x"
+                                 f"{vmodel.cfg.width}"),
+                (5, cls(vmodel.cfg.replace(height=67, width=131)),
+                 "5x67x131")):
+            base = vstate(mod, depth)
+            for dz in (1.0, 0.5):
+                m.reset_counts()
+                note(body, "volume", check_outer_steps(
+                    torch, k4.make_volume_step(mod, depth, dz),
+                    plain_volume(k4, mod, dz), base, 2,
+                    f"{body}_volume {name} {label} dz_ratio={dz}",
+                    has_probe=False, windows=windows))
+                check_launched(m.read_counts(), f"{body}_volume",
+                               expected_launches(k1, mod, 2),
+                               f"{name} {label}")
+        deep_model = cls(vmodel.cfg.replace(height=128))
+        deep = vstate(deep_model, SHARDED_DEPTH)
+        d_own = SHARDED_DEPTH // N_SHARDS
+        for z0, label in ((0, "top"), (d_own, "interior"),
+                          (SHARDED_DEPTH - d_own, "bottom")):
+            m.reset_counts()
+            note(body, "volume_block", check_volume_block(
+                torch, k4, k6, deep_model, deep, d_own, z0, 2, 1.0, None,
+                f"{body}_volume_block {name} {label}", windows))
+            counts = m.read_counts()
+            check(counts[f"{body}_volume_block"] == expected_launches(
+                k1, deep_model, 2), f"{name} {label}: launches {counts}")
+    for name, cls, vol in (("br", BR, VOL_CFG), ("fenton", FEN, SCROLL_CFG),
+                           ("ms", MS, SCROLL_CFG)):
+        deep_model = cls(m.SimConfig(**dict(vol, height=128)))
+        deep = (seeded_vol(deep_model, SHARDED_DEPTH) if cls is BR else
+                small_state(m.interop, name, (SHARDED_DEPTH,)
+                            + deep_model.state_shape(), dev, rng))
+        d_own = SHARDED_DEPTH // N_SHARDS
+        for z0, label in ((0, "top"), (d_own, "interior"),
+                          (SHARDED_DEPTH - d_own, "bottom")):
+            m.reset_counts()
+            note(name, "volume_block", check_volume_block(
+                torch, k4, k6, deep_model, deep, d_own, z0, 2, 1.0, None,
+                f"{name}_volume_block {label}", deep_model.ill_conditioned))
+            counts = m.read_counts()
+            check(counts[f"{name}_volume_block"] == expected_launches(
+                k1, deep_model, 2), f"{name} {label}: launches {counts}")
+
+    # -- phase 25 ---------------------------------------------------------------
+    print(f"phase 25: Table 1 (python -m fib_tf_tpu bench) on the card: five "
+          f"rows at {TABLE1_SIZE}x{TABLE1_SIZE}, {TABLE1_MS} ms, "
+          f"{TABLE1_RUNS} runs each", flush=True)
+    for family, flags in TABLE1_ROWS:
+        cls = BR if family == "br" else FEN
+        cfg = m.SimConfig(width=TABLE1_SIZE, height=TABLE1_SIZE, dt=0.1,
+                          diff=0.809 if family == "br" else 1.5,
+                          duration=TABLE1_MS, **flags)
+        label = (f"BR cheby={flags['cheby']} skip={flags['skip']}"
+                 if family == "br" else "Fenton 4v")
+        sim = m.Simulation(cls(cfg), device="cuda").define()
+        model = sim.model
+        check(sim.route == "substep", f"{label} routes {sim.route!r}")
+        entry = f"{body_of(model)}_substep"
+        samples = []
+        for _ in range(TABLE1_RUNS):
+            m.reset_counts()
+            res = sim.simulate(check_finite=False)
+            counts = m.read_counts()
+            check_launched(counts, entry, expected_launches(
+                k1, model, res.steps), f"Table 1 {label}")
+            check_run(res, model.state_shape(),
+                      TABLE1_CROSSINGS[(family,) + tuple(sorted(
+                          flags.items()))])
+            samples.append(res.elapsed / (TABLE1_MS / 1000.0))
+        launches[(body_of(model), "substep")] = counts[entry]
+        row = {"model": family, **flags,
+               "value": float(np.median(samples)),
+               "spread": [min(samples), max(samples)],
+               "samples": len(samples), "unit": "wall-s/sim-s",
+               "cell_updates_per_sec": round(res.cell_updates_per_sec),
+               "card": card}
+        print(json.dumps(row), flush=True)
+        short = cfg.replace(duration=400)
+        res = m.Simulation(cls(short), device="cuda").define().simulate()
+        before = m.read_counts()
+        ref = m.Simulation(cls(short.replace(kernel="xla")),
+                           device="cuda").define().simulate()
+        check(m.read_counts() == before,
+              "the kernel='xla' run launched a kernel")
+        check_against_plain_run(
+            res, ref, model.pot_key,
+            WHOLE_RUN_ATOL_MV if family == "br" else SMALL_ATOL)
+
+    # -- phase 26 ---------------------------------------------------------------
+    print("phase 26: Table 1's direct rows at 2048x2048 (kernel 2), and on "
+          "four row shards of cuda:0 (kernel 3)", flush=True)
+    mesh = m.make_mesh(devices=["cuda:0"] * N_SHARDS)
+    for flags in (dict(cheby=False, skip=False), dict(cheby=False, skip=True)):
+        cfg = m.SimConfig(**dict(CFG_LARGE, **flags))
+        model = BR(cfg)
+        body = body_of(model)
+        sim = m.Simulation(model, device="cuda").define()
+        check(sim.route == "tiled", f"{flags} 2048x2048 routes {sim.route!r}")
+        m.reset_counts()
+        res = sim.simulate()
+        check_launched(m.read_counts(), f"{body}_tiled", res.steps,
+                       f"direct {flags} 2048x2048")
+        launches[(body, "tiled")] = res.steps
+        check_run(res, model.state_shape(), DIRECT_CROSSING_2048)
+        sim = m.Simulation(BR(cfg), mesh=mesh, wide_halo=True).define()
+        check(sim.route == "block", f"the sharded run routes {sim.route!r}")
+        m.reset_counts()
+        rows = sim.simulate()
+        check_launched(m.read_counts(), f"{body}_block",
+                       N_SHARDS * rows.steps, f"sharded direct {flags}")
+        launches[(body, "block")] = N_SHARDS * rows.steps
+        check_run(rows, model.state_shape(), DIRECT_CROSSING_2048)
+        check_sharded_against_unsharded(rows, res, f"4x1 direct {flags}")
+        print(f"  simulate() at 2048x2048, {flags}: tiled route "
+              f"{1.0 / res.sim_seconds_per_wall_second:.6f} wall-s/sim-s, "
+              f"4x1 shards {1.0 / rows.sim_seconds_per_wall_second:.6f} "
+              f"[{card}]", flush=True)
+
+    # -- phase 27 ---------------------------------------------------------------
+    print("phase 27: the ab2 paths on kernels 1-3: BR cheby+skip+ab2 and "
+          "Fenton ab2 (dt 0.025) at 512x512 for 400 ms with an S2, against "
+          "kernel='xla'; at 2048x2048 (kernel 2) and on four row shards "
+          "(kernel 3), bit-equal", flush=True)
+    for family, cls, flat in (("br", BR, BR_AB2),
+                              ("fenton", FEN, FENTON_AB2)):
+        cfg = m.SimConfig(**flat)
+        s2_ms, s2_large_ms = AB2_S2_MS[family]
+
+        def run(cfg_, s2, **kw):
+            sim = m.Simulation(cls(cfg_), **kw).define()
+            sim.add_pace_op("s2", "luq", sim.model.max_v)
+            m.reset_counts()
+            return sim, sim.simulate(
+                schedule=[(s2, "s2")] if s2 is not None else [])
+
+        sim, res = run(cfg, s2_ms, device="cuda")
+        model = sim.model
+        body = body_of(model)
+        atol = WHOLE_RUN_ATOL_MV if family == "br" else SMALL_ATOL
+        check(sim.route == "substep", f"{body} 512x512 routes {sim.route!r}")
+        want = expected_launches(k1, model, res.steps)
+        check_launched(m.read_counts(), f"{body}_substep", want,
+                       f"{family} ab2 512x512")
+        launches[(body, "substep")] = want
+        check_run(res, model.state_shape(), AB2_CROSSINGS[family])
+        _, ref = run(cfg.replace(kernel="xla"), s2_ms, device="cuda")
+        check(not any(total_launches(c) for c in m.read_counts().values()),
+              "the kernel='xla' run launched a kernel")
+        check_against_plain_run(res, ref, model.pot_key, atol)
+        large_cfg = cfg.replace(width=2048, height=2048,
+                                duration=AB2_LARGE_MS[family])
+        sim, res_large = run(large_cfg, s2_large_ms, device="cuda")
+        check(sim.route == "tiled", f"{body} 2048x2048 routes {sim.route!r}")
+        check_launched(m.read_counts(), f"{body}_tiled", res_large.steps,
+                       f"{family} ab2 2048x2048")
+        launches[(body, "tiled")] = res_large.steps
+        check_run(res_large, sim.model.state_shape(),
+                  AB2_CROSSINGS[f"{family}_2048"])
+        sim, rows = run(large_cfg, s2_large_ms, mesh=mesh, wide_halo=True)
+        check(sim.route == "block", f"the sharded run routes {sim.route!r}")
+        check_launched(m.read_counts(), f"{body}_block",
+                       N_SHARDS * rows.steps, f"sharded {family} ab2")
+        launches[(body, "block")] = N_SHARDS * rows.steps
+        check_sharded_against_unsharded(rows, res_large, f"4x1 {family} ab2",
+                                        model.pot_key, atol)
+        print(f"  {family} ab2: 512x512 "
+              f"{1.0 / res.sim_seconds_per_wall_second:.6f} wall-s/sim-s "
+              f"(kernel='xla' {1.0 / ref.sim_seconds_per_wall_second:.6f}),"
+              f" 2048x2048 tiled "
+              f"{1.0 / res_large.sim_seconds_per_wall_second:.6f}, 4x1 "
+              f"shards {1.0 / rows.sim_seconds_per_wall_second:.6f} "
+              f"[{card}]", flush=True)
+
+    # -- phase 28 ---------------------------------------------------------------
+    print(f"phase 28: run_volume on kernel 4: BR direct (Table 1's skip row) "
+          f"and BR cheby+skip+ab2 (dt 0.05) at {DEPTH}x{VOL_CFG['height']}x"
+          f"{VOL_CFG['width']} with phase 9's S2, against kernel='xla'; "
+          f"Fenton ab2 at {SCROLL_DEPTH}x512x512 for {MS_SHORT_STEPS} outer "
+          f"steps", flush=True)
+    vshape = (DEPTH, VOL_CFG["height"], VOL_CFG["width"])
+    s2 = [m.VolumeEvent(step=S2_STEP, loc="luq", z1=DEPTH // 2)]
+    for vol, crossing in (
+            (dict(VOL_CFG, cheby=False, skip=True),
+             TABLE1_CROSSINGS[("br", ("cheby", False), ("skip", True))]),
+            (BR_AB2_VOL, AB2_CROSSINGS["br_volume"])):
+        vmodel = BR(m.SimConfig(**vol))
+        body = body_of(vmodel)
+        direct = vmodel.gate_mode == "direct"
+        # the direct rates: up to the S2's step with run_volume, then
+        # substep by substep (direct_volume_after_s2)
+        n_outer = S2_STEP + 1 if direct else VOL_STEPS
+        m.run_volume(vmodel, DEPTH, 2, device="cuda")
+        m.reset_counts()
+        vrun = run_volume_timed(m.run_volume, vmodel, DEPTH, s2,
+                                n_outer=n_outer)
+        want = expected_launches(k1, vmodel, n_outer)
+        check_launched(m.read_counts(), f"{body}_volume", want,
+                       f"{body} volume")
+        launches[(body, "volume")] = want
+        crossings = check_volume_run(m.CycleLengthDetector, vmodel, vrun,
+                                     vshape, crossing, n_outer)
+        vref = run_volume_timed(m.run_volume, vmodel, DEPTH, s2,
+                                kernel="xla", n_outer=n_outer)
+        check_against_plain_volume(m.CycleLengthDetector, vmodel, vrun, vref,
+                                   crossings)
+        if direct:
+            direct_volume_after_s2(torch, m, vmodel, vrun["final"],
+                                   vref["final"], n_outer)
+    fvol = FEN(m.SimConfig(**FENTON_AB2_VOL))
+    fevents = [m.VolumeEvent(step=SCROLL_S2, loc="luq", z1=SCROLL_DEPTH // 2)]
+    m.reset_counts()
+    vrun = run_volume_timed(m.run_volume, fvol, SCROLL_DEPTH, fevents,
+                            n_outer=MS_SHORT_STEPS)
+    check_launched(m.read_counts(), "fenton_ab2_volume",
+                   expected_launches(k1, fvol, MS_SHORT_STEPS),
+                   "Fenton ab2 volume")
+    launches[("fenton_ab2", "volume")] = expected_launches(
+        k1, fvol, MS_SHORT_STEPS)
+    vref = run_volume_timed(m.run_volume, fvol, SCROLL_DEPTH, fevents,
+                            kernel="xla", n_outer=MS_SHORT_STEPS)
+    check_small_volume(m, fvol, vrun, vref, None)
+
+    # -- phase 29 ---------------------------------------------------------------
+    print(f"phase 29: {SHARDED_DEPTH}x128x512 on four z shards of cuda:0 "
+          f"(kernel 6) for BR direct, BR ab2, Fenton, Fenton ab2 and "
+          f"Mitchell-Schaeffer, bit-equal to their unsharded runs (kernel 4)",
+          flush=True)
+    for cls, vol in ((BR, dict(VOL_CFG, cheby=False, skip=True)),
+                     (BR, BR_AB2_VOL),
+                     (FEN, SCROLL_CFG), (FEN, FENTON_AB2_VOL),
+                     (MS, SCROLL_CFG)):
+        vmodel = cls(m.SimConfig(**dict(vol, height=128)))
+        body = body_of(vmodel)
+        ev = [m.VolumeEvent(step=SHORT_VOL_STEPS // 2, loc="luq",
+                            z1=SHARDED_DEPTH // 2)]
+        # eight slices a shard: the ten-substep models exchange five ghost
+        # slices per group of five substeps
+        sharded = dict(wide_halo=True, halo_k=None if cls is BR else 5,
+                       mesh=m.make_mesh(devices=["cuda:0"] * N_SHARDS))
+        m.reset_counts()
+        srun = run_or_none(run_volume_timed, m.run_volume, vmodel,
+                           SHARDED_DEPTH, ev, n_outer=SHORT_VOL_STEPS,
+                           **sharded)
+        want = expected_launches(k1, vmodel, SHORT_VOL_STEPS, N_SHARDS)
+        check_launched(m.read_counts(), f"{body}_volume_block", want,
+                       f"sharded {body} volume")
+        launches[(body, "volume_block")] = want
+        uns = run_or_none(run_volume_timed, m.run_volume, vmodel,
+                          SHARDED_DEPTH, ev, n_outer=SHORT_VOL_STEPS)
+        if srun is None or uns is None:
+            check(vmodel.name == "br" and vmodel.gate_mode == "direct"
+                  and srun is None and uns is None,
+                  f"{body}: one of the sharded and unsharded volumes turned "
+                  f"non-finite, the other did not")
+            step = replay_to_non_finite(m, vmodel, ev, sharded)
+            print(f"  {body}: sharded and unsharded both turned non-finite "
+                  f"in outer step {step} (alpha_m's 0/0, see phase 28), "
+                  f"bit-equal at every step before", flush=True)
+            continue
+        same = all(np.array_equal(srun["final"][k], uns["final"][k])
+                   for k in uns["final"])
+        print(f"  {body}: sharded vs unsharded, all {len(uns['final'])} "
+              f"planes bit-equal: {same}; probes bit-equal: "
+              f"{np.array_equal(srun['probes'], uns['probes'])}; wall "
+              f"{srun['wall_s']:.3f} / {uns['wall_s']:.3f} s", flush=True)
+        check(same and np.array_equal(srun["probes"], uns["probes"])
+              and all(np.isfinite(v).all() for v in uns["final"].values()),
+              f"the sharded {body} volume is not bit-equal to the unsharded "
+              f"one")
+
+    # -- phase 30 ---------------------------------------------------------------
+    print(f"phase 30: device times and bounds of the new pairs [{card}]",
+          flush=True)
+    entries = []
+    timed = (
+        ("br_variant", BR, dict(CFG, cheby=False, skip=True),
+         dict(VOL_CFG, cheby=False, skip=True)),
+        ("br_variant_ab2", BR, BR_AB2, BR_AB2_VOL),
+        ("fenton_ab2", FEN, FENTON_AB2, FENTON_AB2_VOL))
+    for body, cls, flat, vol in timed:
+        model = cls(m.SimConfig(**flat))
+        large = cls(model.cfg.replace(width=2048, height=2048))
+        if cls is BR:
+            base, base_large = seeded(model), seeded(large)
+        else:
+            base = fenton_seeded(torch, m, model, model.state_shape(), dev,
+                                 rng)
+            base_large = fenton_seeded(torch, m, large, large.state_shape(),
+                                       dev, rng)
+        vmodel = cls(m.SimConfig(**vol))
+        vdepth = SCROLL_DEPTH if cls is FEN else DEPTH
+        vbase = (seeded_vol(vmodel, vdepth) if cls is BR else
+                 fenton_seeded(torch, m, vmodel,
+                               (vdepth,) + vmodel.state_shape(), dev, rng))
+        deep_model = cls(vmodel.cfg.replace(height=128))
+        deep = (seeded_vol(deep_model, SHARDED_DEPTH) if cls is BR else
+                fenton_seeded(torch, m, deep_model, (SHARDED_DEPTH,)
+                              + deep_model.state_shape(), dev, rng))
+        t1 = time_kernels(torch, model, base, k1)
+        t2 = time_tiled(torch, k1, k2, large, base_large, model,
+                        base)["2048x2048"]
+        t3 = time_body_block(torch, m, large, base_large)
+        t4 = time_body_volume(torch, m, vmodel, vbase)
+        d_own = SHARDED_DEPTH // N_SHARDS
+        t6 = time_body_volume_block(torch, m, deep_model, deep, d_own, d_own)
+        cells = int(np.prod(model.state_shape()))
+        vcells = vdepth * int(np.prod(vmodel.state_shape()))
+        bcells = t6["slices"] * int(np.prod(deep_model.state_shape()))
+        for slow in sorted(set(k1.slow_schedule(model)), reverse=True):
+            form = "slow" if slow else "frozen"
+            suffix = (f"<SLOW={str(slow).lower()}>" if cls is BR else "")
+            entries.append(kernel_entry(
+                f"{body}_substep{suffix}",
+                "fib_tf_tpu_torch/csrc/br_substep.cu",
+                "fib_tf_tpu/ops/pallas_step.py:205",
+                launches[(body, "substep")][form], errs[(body, "substep")],
+                t1[form]["kernel_us"], t1[form]["plain_us"],
+                body_launch_bound(k1, model, cells, slow, False)))
+            entries.append(kernel_entry(
+                f"{body}_volume{suffix}", "fib_tf_tpu_torch/csrc/br_volume.cu",
+                "fib_tf_tpu/ops/pallas_volume.py:499",
+                launches[(body, "volume")][form], errs[(body, "volume")],
+                t4[slow]["kernel_us"], t4[slow]["plain_us"],
+                body_launch_bound(k1, vmodel, vcells, slow, True)))
+            entries.append(kernel_entry(
+                f"{body}_volume_block{suffix}",
+                "fib_tf_tpu_torch/csrc/br_volume_block.cu",
+                "fib_tf_tpu/ops/pallas_volume.py:397",
+                launches[(body, "volume_block")][form],
+                errs[(body, "volume_block")], t6[slow]["kernel_us"],
+                t6[slow]["plain_us"],
+                body_launch_bound(k1, deep_model, bcells, slow, True)))
+        entries.append(kernel_entry(
+            f"{body}_tiled", "fib_tf_tpu_torch/csrc/br_tiled.cu",
+            "fib_tf_tpu/ops/pallas_tiled.py:342", launches[(body, "tiled")],
+            errs[(body, "tiled")], t2["tiled_us"], t2["plain_us"],
+            body_step_bound(k1, large, int(np.prod(large.state_shape())))))
+        entries.append(kernel_entry(
+            f"{body}_block", "fib_tf_tpu_torch/csrc/br_block.cu",
+            "fib_tf_tpu/ops/pallas_tiled.py:202", launches[(body, "block")],
+            errs[(body, "block")], t3["kernel_us"], t3["plain_us"],
+            body_step_bound(k1, large, t3["own_cells"], t3["ext_cells"])))
+        print(f"  {body}: substep {t1['slow']['kernel_us']:.3f} us/SLOW "
+              f"launch at 512x512 (plain {t1['slow']['plain_us']:.1f}), outer "
+              f"step device {t1['step_device_us']:.2f} us, host-paced "
+              f"{t1['step_wall_us']:.2f} us; tiled {t2['tiled_us']:.2f} "
+              f"us/outer step at 2048x2048 against {t2['substep_us']:.2f} "
+              f"on the substep route; block {t3['kernel_us']:.2f} us on the "
+              f"{t3['ext_cells'] // 2048}x2048 block; volume "
+              f"{t4[True]['kernel_us']:.3f} us/SLOW launch; volume block "
+              f"{t6[True]['kernel_us']:.3f} us/SLOW launch on "
+              f"{t6['slices']} slices [{card}]", flush=True)
+    for name, cls, vol in (("fenton", FEN, SCROLL_CFG),
+                           ("ms", MS, SCROLL_CFG)):
+        deep_model = cls(m.SimConfig(**dict(vol, height=128)))
+        deep = small_state(m.interop, name, (SHARDED_DEPTH,)
+                           + deep_model.state_shape(), dev, rng)
+        d_own = SHARDED_DEPTH // N_SHARDS
+        t6 = time_body_volume_block(torch, m, deep_model, deep, d_own, d_own)
+        bcells = t6["slices"] * int(np.prod(deep_model.state_shape()))
+        entries.append(kernel_entry(
+            f"{name}_volume_block", "fib_tf_tpu_torch/csrc/br_volume_block.cu",
+            "fib_tf_tpu/ops/pallas_volume.py:397",
+            launches[(name, "volume_block")]["slow"],
+            errs[(name, "volume_block")], t6[True]["kernel_us"],
+            t6[True]["plain_us"],
+            body_launch_bound(k1, deep_model, bcells, True, True)))
+    return entries
 
 
 if __name__ == "__main__":

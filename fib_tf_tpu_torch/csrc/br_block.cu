@@ -1,10 +1,12 @@
 // One whole outer step (all its substeps) of ONE shard's halo-extended
 // block per launch on Hopper (sm_90a): the per-shard compute of the
 // wide-halo sharded path (fib_tf_tpu_torch/parallel/spmd.py).  The file
-// keeps its first model's name; it hosts the three cell bodies, one
-// extern "C" entry each: br_block (Beeler-Reuter, K = 5 ghost rows),
-// fenton_block and ms_block (Fenton and Mitchell-Schaeffer, K = 10: a
-// 512-row shard of 2048^2 is a 532-row block).
+// keeps its first model's name; it hosts every cell body, one extern "C"
+// entry each: br_block (Beeler-Reuter's main path, K = 5 ghost rows),
+// br_variant_block and br_variant_ab2_block (BR's other variants),
+// fenton_block, fenton_ab2_block and ms_block (Fenton and
+// Mitchell-Schaeffer, K = 10: a 512-row shard of 2048^2 is a 532-row
+// block), each on its body's tile shape (br_tiled.cu).
 //
 // Replaces the TPU kernel fib_tf_tpu/ops/pallas_tiled.py::make_block_kernel,
 // which holds a shard's whole extended block in VMEM for the fused substep
@@ -51,18 +53,15 @@
 
 #include "br_cell.cuh"
 #include "br_tile.cuh"
+#include "br_variant_cell.cuh"
 #include "fenton_cell.cuh"
 #include "ms_cell.cuh"
 
 namespace {
 
-using fibtorch::kBx;
-using fibtorch::kBy;
-using fibtorch::kRy;
-
-// Launch one outer step of body `Body` on one block (see the entries
-// below).
-template <class Body>
+// Launch one outer step of body `Body` on one block, on BX x BY-thread
+// tiles of BY * RY rows (see the entries below).
+template <class Body, int BX, int BY, int RY>
 int launch_block(const float* params, int n_params, const float* v_in,
                  float* v_out, void* const* planes_in,
                  void* const* planes_out, int n_planes, int ext_h, int ext_w,
@@ -106,16 +105,18 @@ int launch_block(const float* params, int n_params, const float* v_in,
   memcpy(&p, params, sizeof(p));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // launch_tiles refuses a window that leaves the domain
-  return (int)fibtorch::launch_tiles<Body, kBx, kBy, kRy>(
+  return (int)fibtorch::launch_tiles<Body, BX, BY, RY>(
       p, v_in, v_out, planes, win, height, width, n_sub, slow_mask, probe,
       probe_row, probe_col, probe_index, device, s);
 }
 
 }  // namespace
 
-// Per body <m> (br, fenton, ms):
+// Per body <m> (br, br_variant, br_variant_ab2, fenton, fenton_ab2, ms),
+// on the tile shape of its br_tiled.cu entry:
 //   <m>_block_param_floats()  floats the host passes as `params`;
 //   <m>_block_planes()        per-cell planes besides the potential;
+//   <m>_block_tile_shape(...) the tile shape (BX, BY, RY);
 //   <m>_block(...)            launch one outer step of `n_sub` substeps on
 //     the ext_h x ext_w extended block whose element (0, 0) is global cell
 //     (rstart, cstart) of a height x width domain, on `stream` of device
@@ -126,9 +127,15 @@ int launch_block(const float* params, int n_params, const float* v_in,
 //     of the extended layout; only the centre of the outputs is written.
 //     No output may alias an input.  `probe` may be null; otherwise the
 //     shard must own the global pixel (probe_row, probe_col).
-#define BLOCK_ENTRIES(m, Body)                                              \
+#define BLOCK_ENTRIES(m, Body, BX, BY, RY)                                  \
   int m##_block_param_floats() { return fibtorch::param_floats<Body>(); }   \
   int m##_block_planes() { return Body::kPlanes; }                          \
+  void m##_block_tile_shape(int* threads_x, int* threads_y,                 \
+                            int* rows_per_thread) {                         \
+    *threads_x = BX;                                                        \
+    *threads_y = BY;                                                        \
+    *rows_per_thread = RY;                                                  \
+  }                                                                         \
   int m##_block(const float* params, int n_params, const float* v_in,       \
                 float* v_out, void* const* planes_in,                       \
                 void* const* planes_out, int n_planes, int ext_h,           \
@@ -136,15 +143,18 @@ int launch_block(const float* params, int n_params, const float* v_in,
                 int height, int width, int n_sub, unsigned slow_mask,       \
                 float* probe, int probe_row, int probe_col,                 \
                 long long probe_index, int device, void* stream) {          \
-    return launch_block<Body>(params, n_params, v_in, v_out, planes_in,     \
-                              planes_out, n_planes, ext_h, ext_w, rstart,   \
-                              cstart, halo, two_d, height, width, n_sub,    \
-                              slow_mask, probe, probe_row, probe_col,       \
-                              probe_index, device, stream);                 \
+    return launch_block<Body, BX, BY, RY>(                                  \
+        params, n_params, v_in, v_out, planes_in, planes_out, n_planes,     \
+        ext_h, ext_w, rstart, cstart, halo, two_d, height, width, n_sub,    \
+        slow_mask, probe, probe_row, probe_col, probe_index, device,        \
+        stream);                                                            \
   }
 
 extern "C" {
-BLOCK_ENTRIES(br, fibtorch::BeelerReuterCell)
-BLOCK_ENTRIES(fenton, fibtorch::FentonCell)
-BLOCK_ENTRIES(ms, fibtorch::MsCell)
+BLOCK_ENTRIES(br, fibtorch::BeelerReuterCell, 64, 16, 4)
+BLOCK_ENTRIES(br_variant, fibtorch::BrVariantCell<false>, 64, 8, 8)
+BLOCK_ENTRIES(br_variant_ab2, fibtorch::BrVariantCell<true>, 64, 8, 8)
+BLOCK_ENTRIES(fenton, fibtorch::FentonCell, 64, 16, 4)
+BLOCK_ENTRIES(fenton_ab2, fibtorch::FentonAb2Cell, 64, 16, 4)
+BLOCK_ENTRIES(ms, fibtorch::MsCell, 64, 16, 4)
 }  // extern "C"

@@ -1,8 +1,10 @@
 // One substep of a whole grid on Hopper (sm_90a), one thread per cell, for
-// each of the port's three cell bodies: Beeler-Reuter (br_cell.cuh), Fenton
-// (fenton_cell.cuh) and Mitchell-Schaeffer (ms_cell.cuh).  The file keeps
-// its first model's name; it hosts all three bodies, one extern "C" entry
-// each (br_substep, fenton_substep, ms_substep).
+// each of the port's cell bodies: Beeler-Reuter's main path (br_cell.cuh),
+// its other variants without and with ab2 (br_variant_cell.cuh), Fenton
+// without and with ab2 (fenton_cell.cuh) and Mitchell-Schaeffer
+// (ms_cell.cuh).  The file keeps its first model's name; it hosts every
+// body, one extern "C" entry each (br_substep, br_variant_substep,
+// br_variant_ab2_substep, fenton_substep, fenton_ab2_substep, ms_substep).
 //
 // Replaces the TPU kernel fib_tf_tpu/ops/pallas_step.py::make_pallas_step as
 // the engine launches it for Beeler-Reuter cheby+skip (one substep per
@@ -60,6 +62,7 @@
 #include <string.h>
 
 #include "br_cell.cuh"
+#include "br_variant_cell.cuh"
 #include "fenton_cell.cuh"
 #include "ms_cell.cuh"
 
@@ -154,7 +157,7 @@ int launch_substep(int slow, const float* params, int n_params,
 
 }  // namespace
 
-// Per body <m> (br, fenton, ms):
+// Per body <m> (br, br_variant, br_variant_ab2, fenton, fenton_ab2, ms):
 //   <m>_substep_param_floats()  floats the host passes as `params`;
 //   <m>_substep_planes()        per-cell planes besides the potential;
 //   <m>_substep(...)            launch one substep on `stream` of device
@@ -182,6 +185,9 @@ int launch_substep(int slow, const float* params, int n_params,
 
 extern "C" {
 SUBSTEP_ENTRIES(br, fibtorch::BeelerReuterCell)
+SUBSTEP_ENTRIES(br_variant, fibtorch::BrVariantCell<false>)
+SUBSTEP_ENTRIES(br_variant_ab2, fibtorch::BrVariantCell<true>)
 SUBSTEP_ENTRIES(fenton, fibtorch::FentonCell)
+SUBSTEP_ENTRIES(fenton_ab2, fibtorch::FentonAb2Cell)
 SUBSTEP_ENTRIES(ms, fibtorch::MsCell)
 }  // extern "C"

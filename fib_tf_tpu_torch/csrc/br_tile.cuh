@@ -2,13 +2,15 @@
 // and br_block.cu (one outer step of one shard's halo-extended block): 2D
 // tiles, temporally blocked, with a halo of one ring per substep, walked by
 // persistent blocks that stage the next tile while they compute this one.
-// It is a template over the cell body (br_cell.cuh's contract): both
-// kernels instantiate it for Beeler-Reuter (K = 5 substeps, a 54 x 54
-// interior per 64 x 64 tile), Fenton and Mitchell-Schaeffer (K = 10, a
-// 44 x 44 interior: 64^2 / 44^2 = 2.1x the interior's cells loaded and, in
-// the first substeps, computed).  Shared memory per block is (3 + kPlanes)
-// x 16 KB: BR 160 KB, Fenton 96 KB, Mitchell-Schaeffer 64 KB, each above
-// the 48 KB default, so each instantiation raises its own limit.
+// It is a template over the cell body (br_cell.cuh's contract) and the
+// tile shape: both kernels instantiate it for every body, Beeler-Reuter's
+// (K = 5 substeps, a 54 x 54 interior per 64 x 64 tile), Fenton's and
+// Mitchell-Schaeffer's (K = 10, a 44 x 44 interior: 64^2 / 44^2 = 2.1x the
+// interior's cells loaded and, in the first substeps, computed), each
+// entry on its own thread shape (br_tiled.cu).  Shared memory per block is
+// (3 + kPlanes) x 16 KB: BR 160 KB (192 KB with ab2's nine planes), Fenton
+// 96 KB (160 KB with ab2), Mitchell-Schaeffer 64 KB, each above the 48 KB
+// default, so each instantiation raises its own limit.
 //
 // What it computes.  A launch covers a WINDOW of the domain, rows
 // [row0, row1) x columns [col0, col1) in global indices.  The window is cut

@@ -1,9 +1,17 @@
 // One whole outer step (all its substeps) of a grid per launch on Hopper
 // (sm_90a): 2D tiles, temporally blocked, with a halo of one ring per
-// substep.  The file keeps its first model's name; it hosts the three cell
-// bodies, one extern "C" entry each: br_tiled (Beeler-Reuter, five
-// substeps), fenton_tiled and ms_tiled (Fenton and Mitchell-Schaeffer, ten
-// substeps: a 44 x 44 interior per 64 x 64 tile).
+// substep.  The file keeps its first model's name; it hosts every cell body,
+// one extern "C" entry each: br_tiled (Beeler-Reuter's main path, five
+// substeps), br_variant_tiled and br_variant_ab2_tiled (BR's other
+// variants), fenton_tiled, fenton_ab2_tiled and ms_tiled (Fenton and
+// Mitchell-Schaeffer, ten substeps: a 44 x 44 interior per 64 x 64 tile).
+// Each entry fixes its tile shape: BR's main body and Fenton's and
+// Mitchell-Schaeffer's (ab2 too) run 1024 threads, 64 registers a thread
+// (64 x 16 x 4); BrVariantCell, whose runtime modes keep every form's
+// registers live, spills there (12 bytes at 64 registers, measured with
+// -Xptxas -v), so its entries run 512 threads, which may take 128
+// registers each (64 x 8 x 8; nine planes with ab2 use all 128, no
+// spills).
 //
 // Replaces the TPU kernel fib_tf_tpu/ops/pallas_tiled.py::
 // make_tiled_pallas_step, which the JAX engine runs for Beeler-Reuter once
@@ -45,17 +53,15 @@
 
 #include "br_cell.cuh"
 #include "br_tile.cuh"
+#include "br_variant_cell.cuh"
 #include "fenton_cell.cuh"
 #include "ms_cell.cuh"
 
 namespace {
 
-using fibtorch::kBx;
-using fibtorch::kBy;
-using fibtorch::kRy;
-
-// Launch one outer step of body `Body` (see the entries below).
-template <class Body>
+// Launch one outer step of body `Body` on BX x BY-thread tiles of BY * RY
+// rows (see the entries below).
+template <class Body, int BX, int BY, int RY>
 int launch_tiled(const float* params, int n_params, const float* v_in,
                  float* v_out, void* const* planes_in,
                  void* const* planes_out, int n_planes, int height, int width,
@@ -80,7 +86,7 @@ int launch_tiled(const float* params, int n_params, const float* v_in,
   // domain
   const fibtorch::Window win = {0, 0, width, 0, height, 0, width};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)fibtorch::launch_tiles<Body, kBx, kBy, kRy>(
+  return (int)fibtorch::launch_tiles<Body, BX, BY, RY>(
       p, v_in, v_out, planes, win, height, width, n_sub, slow_mask, probe,
       probe_row, probe_col, probe_index, device, s);
 }
@@ -88,15 +94,6 @@ int launch_tiled(const float* params, int n_params, const float* v_in,
 }  // namespace
 
 extern "C" {
-
-// The tile shape: threads per block in x and y, and cells per thread
-// along y.
-void br_tiled_tile_shape(int* threads_x, int* threads_y,
-                         int* rows_per_thread) {
-  *threads_x = kBx;
-  *threads_y = kBy;
-  *rows_per_thread = kRy;
-}
 
 // How a window axis of `len` cells is cut into tiles of at most `max_tile`
 // (fibtorch::split_axis): `n` tiles, the first `rem` of `base + 1` cells,
@@ -110,31 +107,42 @@ void br_tiled_split(int len, int max_tile, int* n, int* base, int* rem) {
 
 }  // extern "C"
 
-// Per body <m> (br, fenton, ms):
+// Per body <m> (br, br_variant, br_variant_ab2, fenton, fenton_ab2, ms),
+// with its tile of BX x BY threads, each owning RY rows of one column:
 //   <m>_tiled_param_floats()  floats the host passes as `params`;
 //   <m>_tiled_planes()        per-cell planes besides the potential;
+//   <m>_tiled_tile_shape(...) the tile shape (BX, BY, RY);
 //   <m>_tiled(...)            launch one outer step of `n_sub` substeps on
 //     `stream` of device `device` and return cudaGetLastError().
 //     `planes_in` / `planes_out` are host arrays of `n_planes` device
 //     pointers in the body's Plane order.  No output may alias an input.
 //     `probe` may be null.
-#define TILED_ENTRIES(m, Body)                                              \
+#define TILED_ENTRIES(m, Body, BX, BY, RY)                                  \
   int m##_tiled_param_floats() { return fibtorch::param_floats<Body>(); }   \
   int m##_tiled_planes() { return Body::kPlanes; }                          \
+  void m##_tiled_tile_shape(int* threads_x, int* threads_y,                 \
+                            int* rows_per_thread) {                         \
+    *threads_x = BX;                                                        \
+    *threads_y = BY;                                                        \
+    *rows_per_thread = RY;                                                  \
+  }                                                                         \
   int m##_tiled(const float* params, int n_params, const float* v_in,       \
                 float* v_out, void* const* planes_in,                       \
                 void* const* planes_out, int n_planes, int height,          \
                 int width, int n_sub, unsigned slow_mask, float* probe,     \
                 int probe_row, int probe_col, long long probe_index,        \
                 int device, void* stream) {                                 \
-    return launch_tiled<Body>(params, n_params, v_in, v_out, planes_in,     \
-                              planes_out, n_planes, height, width, n_sub,   \
-                              slow_mask, probe, probe_row, probe_col,       \
-                              probe_index, device, stream);                 \
+    return launch_tiled<Body, BX, BY, RY>(                                  \
+        params, n_params, v_in, v_out, planes_in, planes_out, n_planes,     \
+        height, width, n_sub, slow_mask, probe, probe_row, probe_col,       \
+        probe_index, device, stream);                                       \
   }
 
 extern "C" {
-TILED_ENTRIES(br, fibtorch::BeelerReuterCell)
-TILED_ENTRIES(fenton, fibtorch::FentonCell)
-TILED_ENTRIES(ms, fibtorch::MsCell)
+TILED_ENTRIES(br, fibtorch::BeelerReuterCell, 64, 16, 4)
+TILED_ENTRIES(br_variant, fibtorch::BrVariantCell<false>, 64, 8, 8)
+TILED_ENTRIES(br_variant_ab2, fibtorch::BrVariantCell<true>, 64, 8, 8)
+TILED_ENTRIES(fenton, fibtorch::FentonCell, 64, 16, 4)
+TILED_ENTRIES(fenton_ab2, fibtorch::FentonAb2Cell, 64, 16, 4)
+TILED_ENTRIES(ms, fibtorch::MsCell, 64, 16, 4)
 }  // extern "C"

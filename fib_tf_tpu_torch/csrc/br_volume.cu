@@ -1,8 +1,10 @@
 // One substep of a [D, H, W] volume on Hopper (sm_90a), one thread per
-// cell.  The file keeps its first model's name; it hosts the three cell
-// bodies, one extern "C" entry each: br_volume (Beeler-Reuter),
-// fenton_volume and ms_volume (Fenton and Mitchell-Schaeffer, ten launches
-// per outer step; e.g. examples/scroll_wave.py's Fenton scroll wave).
+// cell.  The file keeps its first model's name; it hosts every cell body,
+// one extern "C" entry each: br_volume (Beeler-Reuter's main path),
+// br_variant_volume and br_variant_ab2_volume (BR's other variants),
+// fenton_volume, fenton_ab2_volume and ms_volume (Fenton and
+// Mitchell-Schaeffer, ten launches per outer step; e.g.
+// examples/scroll_wave.py's Fenton scroll wave).
 //
 // Replaces the TPU kernel fib_tf_tpu/ops/pallas_volume.py::
 // make_pallas_volume_step, which run_volume (engine/volume.py) runs for a
@@ -39,6 +41,7 @@
 #include <string.h>
 
 #include "br_cell.cuh"
+#include "br_variant_cell.cuh"
 #include "br_volume_cell.cuh"
 #include "fenton_cell.cuh"
 #include "ms_cell.cuh"
@@ -121,7 +124,7 @@ int launch_volume(int slow, const float* params, int n_params,
 
 }  // namespace
 
-// Per body <m> (br, fenton, ms):
+// Per body <m> (br, br_variant, br_variant_ab2, fenton, fenton_ab2, ms):
 //   <m>_volume_param_floats()  floats the host passes as `params`;
 //   <m>_volume_planes()        per-cell planes besides the potential;
 //   <m>_volume(...)            launch one substep of a depth x height x
@@ -148,6 +151,9 @@ int launch_volume(int slow, const float* params, int n_params,
 
 extern "C" {
 VOLUME_ENTRIES(br, fibtorch::BeelerReuterCell)
+VOLUME_ENTRIES(br_variant, fibtorch::BrVariantCell<false>)
+VOLUME_ENTRIES(br_variant_ab2, fibtorch::BrVariantCell<true>)
 VOLUME_ENTRIES(fenton, fibtorch::FentonCell)
+VOLUME_ENTRIES(fenton_ab2, fibtorch::FentonAb2Cell)
 VOLUME_ENTRIES(ms, fibtorch::MsCell)
 }  // extern "C"

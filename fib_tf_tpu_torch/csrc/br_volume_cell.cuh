@@ -1,8 +1,7 @@
 // One substep of one cell of a [D, H, W] volume, for any cell body
 // (br_cell.cuh's contract): the 3D stencil and the cell update shared by
-// br_volume.cu (a whole volume; Beeler-Reuter, Fenton and
-// Mitchell-Schaeffer) and br_volume_block.cu (one shard's z-halo-extended
-// block; Beeler-Reuter only).  The kernels decide which slices of their
+// br_volume.cu (a whole volume) and br_volume_block.cu (one shard's
+// z-halo-extended block), each for every cell body.  The kernels decide which slices of their
 // array hold the cell's z neighbours; this header owns everything in the
 // plane and the arithmetic.
 //

@@ -160,11 +160,14 @@ class Simulation:
     def define(self, s1: bool = True,
                state: Optional[Dict[str, np.ndarray]] = None):
         """Materialize the initial state (or `state`, to resume) and the
-        outer-step function.  On a CUDA device this builds the kernel and
-        runs one outer step and one chunk read-back on a scratch copy, so
-        that `simulate()` times the steady state."""
+        outer-step function.  A resumed state is reconciled across the
+        ab2 flag (`reconcile_state`).  On a CUDA device this builds the
+        kernel and runs one outer step and one chunk read-back on a
+        scratch copy, so that `simulate()` times the steady state."""
         init = state if state is not None else self.model.initial_state(s1=s1)
         init = {k: np.asarray(v, dtype=np.float32) for k, v in init.items()}
+        if state is not None:
+            init = reconcile_state(self.model, init)
         if set(init) != set(self.model.state_keys()):
             raise ValueError(
                 f"state planes {sorted(init)} != model planes "
@@ -202,15 +205,20 @@ class Simulation:
     def fire_on(self, state, name: str):
         """Apply a registered pacing op to a device state in place:
         pot <- max(pot, mask), shard by shard on a mesh (the mask is
-        sharded with the state).  Returns the state."""
-        key = self.model.pot_key
+        sharded with the state).  With ab2 the derivative planes are
+        refreshed at the paced pixels (`pace`).  Returns the state."""
         mask = self._pace_masks[name]
         if self._mesh is None:
-            state[key] = stencil.apply_pace(state[key], mask)
-        else:
-            pots = state[key] = state[key].copy()
-            for i in range(pots.size):
-                pots.flat[i] = stencil.apply_pace(pots.flat[i], mask.flat[i])
+            state.update(pace(self.model, state, mask))
+            return state
+        keys = list(state)
+        planes = {k: state[k].copy() for k in keys}
+        for i in range(mask.size):
+            new = pace(self.model, {k: planes[k].flat[i] for k in keys},
+                       mask.flat[i])
+            for k, t in new.items():
+                planes[k].flat[i] = t
+        state.update(planes)
         return state
 
     def millisecond_to_step(self, t_ms: float) -> int:
@@ -343,6 +351,46 @@ class Simulation:
             sim_seconds_per_wall_second=sim_s / max(elapsed, 1e-9),
             cycle_lengths=detector.cycle_lengths,
         )
+
+
+def pace(model: IonicModel, state, mask: torch.Tensor):
+    """The planes a pacing op replaces: pot <- max(pot, mask) and, with
+    ab2, the derivative planes re-bootstrapped from the paced state at the
+    paced pixels (mask > min_v) and kept elsewhere, where they carry the
+    diffusion term (the reference's `_pace_fn`)."""
+    key = model.pot_key
+    out = {key: stencil.apply_pace(state[key], mask)}
+    if model.cfg.ab2:
+        paced = mask > model.min_v
+        fresh = model._ab2_rates({**state, **out})
+        out.update({k: torch.where(paced, v, state[k])
+                    for k, v in fresh.items()})
+    return out
+
+
+def reconcile_state(model: IonicModel,
+                    state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A resumed state fitted to the model's planes across the ab2 flag
+    (fib_tf_tpu/engine/simulation.py:242-279): stale derivative planes
+    (`_d*`, an ab2 run resumed into a non-ab2 model) are dropped, missing
+    ones (an Euler state resumed into an ab2 model) rebuilt with
+    `bootstrap_ab2`; any other unknown or missing plane raises."""
+    expected = set(model.state_keys())
+    stale = {k for k in state if k not in expected}
+    if stale:
+        if not all(k.startswith("_d") for k in stale):
+            raise ValueError(f"resume state has unknown planes "
+                             f"{sorted(stale)} for model {model.name!r}")
+        state = {k: v for k, v in state.items() if k in expected}
+    missing = expected - set(state)
+    if missing:
+        if not (model.cfg.ab2 and hasattr(model, "bootstrap_ab2")
+                and all(k.startswith("_d") for k in missing)):
+            raise ValueError(
+                f"resume state is missing planes {sorted(missing)}")
+        state = {k: np.asarray(v, np.float32)
+                 for k, v in model.bootstrap_ab2(state).items()}
+    return state
 
 
 def resolve_device(device) -> torch.device:

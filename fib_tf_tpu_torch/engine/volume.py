@@ -120,10 +120,11 @@ def volume_state_mb(model: IonicModel, depth: int) -> float:
 def volume_route(model: IonicModel, depth: int, device_type: str,
                  kernel: str) -> str:
     """The outer step run_volume takes: 'substep' (csrc/br_volume.cu, one
-    launch per substep; Beeler-Reuter, Fenton and Mitchell-Schaeffer),
-    'tiled' (csrc/br_volume_tiled.cu, one launch per outer step, any depth;
-    Beeler-Reuter only: the other models raise NotImplementedError there)
-    or 'plain' (PyTorch)."""
+    launch per substep; every cell body), 'tiled' (csrc/br_volume_tiled.cu,
+    one launch per outer step, any depth; Beeler-Reuter's main body only:
+    the other bodies raise NotImplementedError there) or 'plain'
+    (PyTorch).  Under the card's cutover (no limit) 'auto' never takes
+    'tiled'."""
     if kernel not in ("auto", "pallas", "xla"):
         raise ValueError(f"kernel must be auto|pallas|xla, got {kernel!r}")
     if kernel == "pallas" and device_type != "cuda":
@@ -135,7 +136,7 @@ def volume_route(model: IonicModel, depth: int, device_type: str,
     if (kernel == "pallas"
             or volume_state_mb(model, depth) <= VOLUME_KERNEL_STATE_MB_MAX):
         return "substep"
-    cuda_step.br_only(model, "tiled volume")
+    cuda_step.main_body_only(model, "tiled volume")
     return "tiled"
 
 

@@ -3,11 +3,12 @@ package) and the port's torch tensors."""
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
+from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.models.beeler_reuter import CHEBY_DEG, GATES
 from fib_tf_tpu_torch.parallel import sharding
 
@@ -40,16 +41,32 @@ def gather_state(state: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return sharding.gather_state(state)
 
 
-def cheby_coef_from_numpy(coef: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+def cheby_coef_from_numpy(coef: Mapping[str, np.ndarray],
+                          cfg: Optional[SimConfig] = None
+                          ) -> Dict[str, np.ndarray]:
     """Validate Beeler-Reuter Chebyshev coefficients (e.g. the JAX
-    model's `_cheby_coef`) and return float64 copies, ready to assign to
-    a port model's `cheby_coef`, so both packages compute with the same
-    constants."""
-    need = [f"{g}_{kind}" for g in GATES for kind in ("inf", "rl")]
-    need += ["i_k1", "i_x1f"]
+    model's `_cheby_coef`) against the fits of the configuration `cfg`
+    (default: the main path's, cheby + cheby_fold + cheby_currents), and
+    return float64 copies, ready to assign to a port model's `cheby_coef`,
+    so both packages compute with the same constants.  The set is
+    `*_inf` and `*_tau` of every gate, `*_rl` with the fold and `i_k1`,
+    `i_x1f` with `cheby_currents`, no more and no less; direct rates
+    (`cheby=False`) take none."""
+    if cfg is not None and not cfg.cheby:
+        raise ValueError("direct rates (cheby=False) take no Chebyshev "
+                         "coefficients")
+    kinds = ("inf", "tau") + (("rl",) if cfg is None or cfg.cheby_fold
+                              else ())
+    need = [f"{g}_{kind}" for g in GATES for kind in kinds]
+    if cfg is None or cfg.cheby_currents:
+        need += ["i_k1", "i_x1f"]
     missing = [k for k in need if k not in coef]
     if missing:
         raise ValueError(f"coefficients missing {missing}")
+    extra = sorted(set(coef) - set(need))
+    if extra:
+        raise ValueError(f"unexpected coefficients {extra} for this "
+                         f"configuration")
     out = {}
     for k, v in coef.items():
         a = np.array(v, dtype=np.float64)

@@ -1,5 +1,5 @@
 """The Cherry-Ehrlich-Nattel-Fenton 4-variable left-atrial model (port of
-fib_tf_tpu/models/fenton.py, explicit Euler).
+fib_tf_tpu/models/fenton.py).
 
 Cherry EM, Ehrlich JR, Nattel S, Fenton FH. "Pulmonary vein reentry —
 properties and size matter: insights from a computational analysis."
@@ -14,7 +14,9 @@ Quirks kept from the reference:
     boundary-enforced u0: u' = u0 + dt*du(u) + diff*dt*lap(u0);
   * S1 is a one-pixel stripe at column 1.
 
-The Adams-Bashforth-2 variant (`cfg.ab2`) is not ported yet and raises.
+With `cfg.ab2`, all four planes take Adams-Bashforth-2 steps and the
+state carries their previous derivatives `_du_`, `_dv_`, `_dw_` and
+`_ds_` (u's with its diffusion term).
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ import torch
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.models.base import (Geometry, IonicModel, State,
                                           check_unported)
-from fib_tf_tpu_torch.ops.integrators import heaviside, heaviside_neg
+from fib_tf_tpu_torch.ops.integrators import (adams_bashforth2, heaviside,
+                                               heaviside_neg)
 
 # Cherry et al. 2007, left-atrial parameter set: a copy of the JAX model's
 # constants (pinned equal by tests/test_torch_fenton.py)
@@ -67,23 +70,49 @@ class Fenton4v(IonicModel):
     pot_key = "u"
 
     def __init__(self, cfg: SimConfig):
-        check_unported(cfg, "Fenton", ab2=True)
+        check_unported(cfg)
         super().__init__(cfg)
 
     def state_keys(self):
-        return ("s", "u", "v", "w")
+        base = ("s", "u", "v", "w")
+        if self.cfg.ab2:
+            return tuple(sorted(base + ("_du_", "_dv_", "_dw_", "_ds_")))
+        return base
 
     def initial_state(self, s1: bool = True) -> Dict[str, np.ndarray]:
-        """(u, v, w, s) = (0, 1, 1, 0) with an S1 stripe u[:, 1] = 1."""
+        """(u, v, w, s) = (0, 1, 1, 0) with an S1 stripe u[:, 1] = 1; with
+        ab2, the derivative planes bootstrapped from it."""
         u = self._full(0.0)
         if s1:
             u[:, 1] = 1.0
-        return {
+        st = {
             "u": u,
             "v": self._full(1.0),
             "w": self._full(1.0),
             "s": self._full(0.0),
         }
+        if self.cfg.ab2:
+            st = self.bootstrap_ab2(st)
+        return st
+
+    def _ab2_rates(self, state: State) -> State:
+        """The AB2 derivative planes of `state` from the reaction alone:
+        the pacing refresh and `bootstrap_ab2` use it."""
+        du, dv, dw, ds = self.differentiate(
+            state["u"], state["v"], state["w"], state["s"])
+        return {"_du_": du, "_dv_": dv, "_dw_": dw, "_ds_": ds}
+
+    def bootstrap_ab2(self, state: Dict[str, np.ndarray]
+                      ) -> Dict[str, np.ndarray]:
+        """(Re)build the AB2 derivative planes of a numpy state: f_{-1} :=
+        the reaction derivative of `state`.  Call after mutating a state
+        by hand or when resuming an Euler state into an ab2 model."""
+        st = dict(state)
+        rates = self._ab2_rates({
+            k: torch.tensor(np.asarray(st[k], np.float32))
+            for k in ("u", "v", "w", "s")})
+        st.update({k: v.numpy() for k, v in rates.items()})
+        return st
 
     def differentiate(self, u, v, w, s):
         """Pointwise currents and gate right-hand sides."""
@@ -109,15 +138,27 @@ class Fenton4v(IonicModel):
         return du, dv, dw, ds
 
     def solve(self, state: State, geom: Geometry) -> State:
-        """One explicit-Euler substep: rates from the raw u, diffusion
-        from u0 = enforce_boundary(u)."""
+        """One substep, explicit Euler or (`cfg.ab2`) Adams-Bashforth-2:
+        rates from the raw u, diffusion from u0 = enforce_boundary(u)."""
         u, v, w, s = state["u"], state["v"], state["w"], state["s"]
         dt = self.cfg.dt
         u0 = geom.enforce_boundary(u)
         du, dv, dw, ds = self.differentiate(u, v, w, s)
+        if not self.cfg.ab2:
+            return {
+                "u": u0 + dt * du + self.cfg.diff * dt * geom.laplace(u0),
+                "v": v + dt * dv,
+                "w": w + dt * dw,
+                "s": s + dt * ds,
+            }
+        gu = du + self.cfg.diff * geom.laplace(u0)
         return {
-            "u": u0 + dt * du + self.cfg.diff * dt * geom.laplace(u0),
-            "v": v + dt * dv,
-            "w": w + dt * dw,
-            "s": s + dt * ds,
+            "u": adams_bashforth2(u0, gu, state["_du_"], dt),
+            "v": adams_bashforth2(v, dv, state["_dv_"], dt),
+            "w": adams_bashforth2(w, dw, state["_dw_"], dt),
+            "s": adams_bashforth2(s, ds, state["_ds_"], dt),
+            "_du_": gu,
+            "_dv_": dv,
+            "_dw_": dw,
+            "_ds_": ds,
         }

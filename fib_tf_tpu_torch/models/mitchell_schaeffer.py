@@ -64,7 +64,7 @@ class MitchellSchaeffer(IonicModel):
 
     def __init__(self, cfg: SimConfig):
         # the reference's model has no ab2 variant and ignores the flag
-        check_unported(cfg, "Mitchell-Schaeffer", ab2=False)
+        check_unported(cfg)
         super().__init__(cfg)
         # the gate's exact one-substep factors, open and closing
         self.decay_open = decay(cfg.dt, TAU_OPEN)

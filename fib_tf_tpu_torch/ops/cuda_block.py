@@ -10,8 +10,8 @@ SYMMETRIC edge rules apply, so only a shard that owns a domain edge reflects
 there.  The kernel is csrc/br_block.cu (CUDA C++, built with nvcc and bound
 with ctypes; one entry per cell body of ops/cuda_step.BODIES: K = 5 for
 Beeler-Reuter, 10 for Fenton and Mitchell-Schaeffer), the tile skeleton of
-the tiled outer-step kernel (csrc/br_tile.cuh) reading from the extended
-block.
+the tiled outer-step kernel (csrc/br_tile.cuh, on each body's tile shape,
+cuda_tiled.tile_of) reading from the extended block.
 
 `block_geometry` is the plain geometry of an extended block (the isotropic
 branch of the reference's `block_geometry`, pallas_tiled.py:61-181): the
@@ -44,6 +44,7 @@ from fib_tf_tpu_torch.ops.cuda_step import BODIES, State
 
 SOURCE = build.CSRC_DIR / "br_block.cu"
 HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh",
+           build.CSRC_DIR / "br_variant_cell.cuh",
            build.CSRC_DIR / "fenton_cell.cuh",
            build.CSRC_DIR / "ms_cell.cuh")
 
@@ -185,6 +186,7 @@ class BlockKernel:
             )
             fn.restype = ctypes.c_int
             cuda_step.check_layout(lib, self.entry, self.body)
+            cuda_tiled.check_tile_shape(lib, self.entry, self.body.name)
             self._lib = lib
         return self._lib
 
@@ -278,12 +280,13 @@ def make_block_step(model: IonicModel, two_d: bool):
     `SimConfig.substeps_per_launch`, which the reference's block kernel
     takes to bound its compile time, has no effect here: the launch always
     fuses the whole outer step."""
-    kernel = KERNELS[cuda_step.cell_body(model).name]
+    body = cuda_step.cell_body(model).name
+    kernel = KERNELS[body]
     schedule = cuda_step.slow_schedule(model)
     halo = model.dt_per_step
-    if min(cuda_tiled.tile_interior(len(schedule))) < 1:
-        raise ValueError(f"tile {cuda_tiled.TILE} has no interior left "
-                         f"after a {len(schedule)}-ring halo")
+    if min(cuda_tiled.tile_interior(len(schedule), body)) < 1:
+        raise ValueError(f"tile {cuda_tiled.tile_of(body)} has no interior "
+                         f"left after a {len(schedule)}-ring halo")
     params = cuda_step.pack_params(model)
     h_total, w_total = model.state_shape()
 

@@ -3,16 +3,20 @@ version.
 
 Counterpart of fib_tf_tpu/ops/pallas_step.py::make_pallas_step as the JAX
 engine runs it: one launch per substep.  The kernel is csrc/br_substep.cu
-(CUDA C++, built with nvcc and bound with ctypes), which hosts one cell
-body per ported model (`BODIES`): Beeler-Reuter cheby+skip, with two
-bodies (the n=5 substep that advances the slow gates, and the n=0 substep
-that freezes them), and Fenton and Mitchell-Schaeffer, with one body each,
-ten launches per outer step.  Its source note says what bounds it and what
-the simple design leaves for later.
+(CUDA C++, built with nvcc and bound with ctypes), which hosts every cell
+body of the port (`BODIES`), one entry each: Beeler-Reuter's main path
+(cheby + cheby_fold + cheby_currents), its other variants with and
+without ab2, Fenton with and without ab2, and Mitchell-Schaeffer.  A BR
+body has two forms (the substep that advances the slow gates, n=5 under
+skip, and the n=0 substep that freezes them); Fenton's and
+Mitchell-Schaeffer's one form runs ten launches per outer step.  Its
+source note says what bounds it and what the simple design leaves for
+later.
 
 `CellBody` is what every kernel wrapper needs of a model: the prefix of its
-C entry points, its per-cell planes in the CUDA struct's order and its
-packed parameter block.  A model without a body raises NotImplementedError.
+C entry points, the configurations it carries, its per-cell planes in the
+CUDA struct's order and its packed parameter block.  A model without a
+body raises NotImplementedError.
 
 Routing is by the device of the state's tensors: CPU tensors take the plain
 PyTorch version (the model's own `solve` on the ported stencil); CUDA
@@ -38,9 +42,12 @@ import torch
 from fib_tf_tpu_torch.kernels import build
 from fib_tf_tpu_torch.models.base import IonicModel, grid_geometry
 from fib_tf_tpu_torch.models.beeler_reuter import (
+    FAST_CURRENTS,
     G_NA,
     G_NAC,
     G_S,
+    GATES,
+    RATE_PARAMS,
     BeelerReuter,
 )
 from fib_tf_tpu_torch.models.fenton import Fenton4v
@@ -50,6 +57,7 @@ State = Dict[str, torch.Tensor]
 
 SOURCE = build.CSRC_DIR / "br_substep.cu"
 HEADERS = (build.CSRC_DIR / "br_cell.cuh",
+           build.CSRC_DIR / "br_variant_cell.cuh",
            build.CSRC_DIR / "fenton_cell.cuh",
            build.CSRC_DIR / "ms_cell.cuh")
 # BrParams::coef order in br_cell.cuh
@@ -61,8 +69,17 @@ FIT_ORDER = (
 CELL_PLANES = ("C", "m", "h", "j", "d", "f", "x1")
 # 14 fits of 9 coefficients, then 11 scalars (pack_params)
 PARAM_FLOATS = len(FIT_ORDER) * 9 + 11
-# FentonCell::Plane and MsCell::Plane
+# BrVariantCell<AB2>::Plane: BR's planes, then with ab2 the derivatives
+BR_VARIANT_AB2_PLANES = CELL_PLANES + ("_dC_", "_dV_")
+# BrVariantParams: 14 fit slots of 9 coefficients, the 12 x 7 rate table,
+# then 21 scalars (_pack_br_variant)
+VARIANT_PARAM_FLOATS = 14 * 9 + 12 * 7 + 21
+# BrGateMode and BrCurrentMode in br_variant_cell.cuh
+GATE_MODES = {"fold": 0, "cheby": 1, "direct": 2}
+CURRENT_MODES = {"cheby": 0, "fast": 1, "plain": 2}
+# FentonCell::Plane, FentonAb2Cell::Plane and MsCell::Plane
 FENTON_PLANES = ("v", "w", "s")
+FENTON_AB2_PLANES = FENTON_PLANES + ("_du_", "_dv_", "_dw_", "_ds_")
 MS_PLANES = ("h",)
 
 
@@ -90,12 +107,60 @@ def _pack_br(model: BeelerReuter) -> np.ndarray:
     return np.concatenate([coef.ravel(), scalars])
 
 
+def _pack_br_variant(model: BeelerReuter) -> np.ndarray:
+    """BrVariantParams as a float32 array: the fit slots (gate g's inf fit
+    at 2g and its multiplier or tau fit at 2g + 1, then iK1's and ix1f's;
+    zeros where the variant fits nothing), RATE_PARAMS, the fast currents'
+    constants, the conductances as in `_pack_br`, dt and dt * slow_n,
+    diff and diff * dt, the Chebyshev domain, the probe normalisation and
+    the two modes."""
+    cfg, coef = model.cfg, model.cheby_coef
+    second = "rl" if model.gate_mode == "fold" else "tau"
+    fits = np.zeros((14, 9), np.float32)
+    if model.gate_mode != "direct":
+        for i, g in enumerate(GATES):
+            fits[2 * i] = coef[f"{g}_inf"]
+            fits[2 * i + 1] = coef[f"{g}_{second}"]
+    if model.current_mode == "cheby":
+        fits[12], fits[13] = coef["i_k1"], coef["i_x1f"]
+    rates = np.array([RATE_PARAMS[(g, ab)] for g in GATES for ab in "ab"],
+                     np.float32)
+    scalars = np.array([
+        *(FAST_CURRENTS[k] for k in ("a85", "a53b", "a53", "a23", "a77",
+                                     "a35")),
+        model.gscale("g_Na", G_NA),
+        model.gscale("g_NaC", G_NAC),
+        model.gscale("g_s", G_S),
+        model.scales.get("g_K1", 1.0),
+        model.scales.get("g_x1", 1.0),
+        cfg.dt,
+        cfg.dt * model.slow_n,
+        cfg.diff,
+        cfg.diff * cfg.dt,
+        0.5 * (model.max_v + model.min_v),
+        0.5 * (model.max_v - model.min_v),
+        model.min_v,
+        model.max_v - model.min_v,
+        GATE_MODES[model.gate_mode],
+        CURRENT_MODES[model.current_mode],
+    ], np.float32)
+    return np.concatenate([fits.ravel(), rates.ravel(), scalars])
+
+
 def _pack_fenton(model: Fenton4v) -> np.ndarray:
     """FentonParams: dt, diff*dt, the three currents' g_scale factors and
     the probe normalisation."""
     cfg, f = model.cfg, model.scales.get
     return np.array([cfg.dt, cfg.diff * cfg.dt, f("g_fi", 1.0),
                      f("g_si", 1.0), f("g_so", 1.0), model.min_v,
+                     model.max_v - model.min_v], np.float32)
+
+
+def _pack_fenton_ab2(model: Fenton4v) -> np.ndarray:
+    """FentonAb2Params: as FentonParams, with diff in place of diff*dt."""
+    cfg, f = model.cfg, model.scales.get
+    return np.array([cfg.dt, cfg.diff, f("g_fi", 1.0), f("g_si", 1.0),
+                     f("g_so", 1.0), model.min_v,
                      model.max_v - model.min_v], np.float32)
 
 
@@ -111,31 +176,49 @@ def _pack_ms(model: MitchellSchaeffer) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class CellBody:
-    """A model's CUDA cell body (csrc/br_cell.cuh, fenton_cell.cuh,
-    ms_cell.cuh) as the wrappers see it: `name` prefixes its C entry
-    points (`<name>_substep`, `<name>_tiled`, ...), `planes` are its
-    per-cell planes in the struct's Plane order (the potential apart), and
-    `pack` returns its parameter block of `param_floats` float32s."""
+    """A model's CUDA cell body (csrc/br_cell.cuh, br_variant_cell.cuh,
+    fenton_cell.cuh, ms_cell.cuh) as the wrappers see it: `name` prefixes
+    its C entry points (`<name>_substep`, `<name>_tiled`, ...), `model`
+    and `accepts` say which models' configurations it runs, `planes` are
+    its per-cell planes in the struct's Plane order (the potential apart),
+    and `pack` returns its parameter block of `param_floats` float32s."""
 
     name: str
     model: type
+    accepts: Callable[[IonicModel], bool]
     planes: tuple
     param_floats: int
     pack: Callable[[IonicModel], np.ndarray]
 
 
+def _br_main(model: BeelerReuter) -> bool:
+    """The configuration BeelerReuterCell carries: the main path's."""
+    return (model.gate_mode == "fold" and model.current_mode == "cheby"
+            and not model.cfg.ab2)
+
+
 BODIES = {b.name: b for b in (
-    CellBody("br", BeelerReuter, CELL_PLANES, PARAM_FLOATS, _pack_br),
-    CellBody("fenton", Fenton4v, FENTON_PLANES, 7, _pack_fenton),
-    CellBody("ms", MitchellSchaeffer, MS_PLANES, 8, _pack_ms),
+    CellBody("br", BeelerReuter, _br_main, CELL_PLANES, PARAM_FLOATS,
+             _pack_br),
+    CellBody("br_variant", BeelerReuter,
+             lambda m: not (_br_main(m) or m.cfg.ab2), CELL_PLANES,
+             VARIANT_PARAM_FLOATS, _pack_br_variant),
+    CellBody("br_variant_ab2", BeelerReuter, lambda m: m.cfg.ab2,
+             BR_VARIANT_AB2_PLANES, VARIANT_PARAM_FLOATS, _pack_br_variant),
+    CellBody("fenton", Fenton4v, lambda m: not m.cfg.ab2, FENTON_PLANES, 7,
+             _pack_fenton),
+    CellBody("fenton_ab2", Fenton4v, lambda m: m.cfg.ab2, FENTON_AB2_PLANES,
+             7, _pack_fenton_ab2),
+    CellBody("ms", MitchellSchaeffer, lambda m: True, MS_PLANES, 8,
+             _pack_ms),
 )}
 
 
 def cell_body(model: IonicModel) -> CellBody:
-    """The model's cell body; raises NotImplementedError for a model that
-    has none yet."""
+    """The cell body that carries the model's configuration; raises
+    NotImplementedError for a model that has none yet."""
     for body in BODIES.values():
-        if type(model) is body.model:
+        if type(model) is body.model and body.accepts(model):
             return body
     raise NotImplementedError(
         f"no CUDA kernel for model {model.name!r} yet (ROADMAP Queue 1)")
@@ -146,13 +229,15 @@ def pack_params(model: IonicModel) -> np.ndarray:
     return np.ascontiguousarray(cell_body(model).pack(model))
 
 
-def br_only(model: IonicModel, kernel: str):
-    """Refuse any model but Beeler-Reuter on a kernel that hosts BR's body
-    alone (kernels 5 and 6)."""
-    if not isinstance(model, BeelerReuter):
+def main_body_only(model: IonicModel, kernel: str):
+    """Refuse any body but Beeler-Reuter's main one on a kernel that hosts
+    it alone (kernel 5)."""
+    name = cell_body(model).name
+    if name != "br":
         raise NotImplementedError(
-            f"the {kernel} kernel runs Beeler-Reuter only; its "
-            f"{model.name!r} body is not ported yet (ROADMAP Queue 2 item D)")
+            f"the {kernel} kernel runs Beeler-Reuter's main body only "
+            f"(cheby + cheby_fold + cheby_currents, no ab2); the {name!r} "
+            f"body is not ported to it yet (ROADMAP Queue 2 item D)")
 
 
 def plane_pointers(state: State, planes):

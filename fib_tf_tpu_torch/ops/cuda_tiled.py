@@ -35,25 +35,35 @@ from fib_tf_tpu_torch.ops.cuda_step import BODIES, State
 
 SOURCE = build.CSRC_DIR / "br_tiled.cu"
 HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh",
+           build.CSRC_DIR / "br_variant_cell.cuh",
            build.CSRC_DIR / "fenton_cell.cuh",
            build.CSRC_DIR / "ms_cell.cuh")
-# The tile shape br_tiled.cu is built for: (threads in x, threads in y,
-# cells per thread along y).  The extended tile is x-threads wide and
-# y-threads x cells tall, 64 x 64; its interior loses one ring per
-# substep on each side (54 x 54 for five, 44 x 44 for ten).  The fastest
-# of five shapes timed at 2048x2048 on the card for BR (PERF.md,
-# Findings).
+# The tile shape of a body's entry in br_tiled.cu and br_block.cu: (threads
+# in x, threads in y, cells per thread along y).  The extended tile is
+# x-threads wide and y-threads x cells tall; its interior loses one ring
+# per substep on each side (54 x 54 of 64 x 64 for five, 44 x 44 for
+# ten).  TILE, 1024 threads at 64 registers, was the fastest of five
+# shapes timed at 2048x2048 on the card for BR's main body (PERF.md,
+# Findings); BR's variant body spills at 64 registers, so its entries
+# take 512 threads, which may hold 128 registers each, on the same 64 x 64
+# tile.  Checked against the library on load.
 TILE = (64, 16, 4)
+TILES = {"br_variant": (64, 8, 8), "br_variant_ab2": (64, 8, 8)}
+
+
+def tile_of(body: str):
+    """The tile shape of cell body `body`'s entry."""
+    return TILES.get(body, TILE)
 
 # The plain version of one outer step is the substep kernel's: the tiled
 # kernel computes the same function in one launch.
 plain_tiled_step = cuda_step.plain_step
 
 
-def tile_interior(n_sub: int):
-    """(rows, cols) of the largest interior a tile writes when it runs
-    `n_sub` substeps (its halo is n_sub rings)."""
-    bx, by, ry = TILE
+def tile_interior(n_sub: int, body: str = "br"):
+    """(rows, cols) of the largest interior a tile of body `body` writes
+    when it runs `n_sub` substeps (its halo is n_sub rings)."""
+    bx, by, ry = tile_of(body)
     return by * ry - 2 * n_sub, bx - 2 * n_sub
 
 
@@ -101,9 +111,6 @@ class TiledKernel:
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
             lib = build.load("br_tiled", [SOURCE], HEADERS)
-            lib.br_tiled_tile_shape.argtypes = [
-                ctypes.POINTER(ctypes.c_int)] * 3
-            lib.br_tiled_tile_shape.restype = None
             lib.br_tiled_split.argtypes = [ctypes.c_int, ctypes.c_int] + [
                 ctypes.POINTER(ctypes.c_int)] * 3
             lib.br_tiled_split.restype = None
@@ -123,7 +130,8 @@ class TiledKernel:
             )
             fn.restype = ctypes.c_int
             cuda_step.check_layout(lib, self.entry, self.body)
-            _check_layout(lib)
+            check_tile_shape(lib, self.entry, self.body.name)
+            _check_split(lib)
             self._lib = lib
         return self._lib
 
@@ -157,15 +165,22 @@ class TiledKernel:
         state.update(out)
 
 
-def _check_layout(lib):
-    """The library's tile shape and split must be the ones this module
-    sizes and mirrors."""
-    shape = [ctypes.c_int() for _ in TILE]
-    lib.br_tiled_tile_shape(*map(ctypes.byref, shape))
-    if tuple(s.value for s in shape) != TILE:
+def check_tile_shape(lib, entry: str, body: str):
+    """The tile shape of the library's `entry` must be the one this module
+    sizes for `body` (`tile_of`)."""
+    fn = getattr(lib, f"{entry}_tile_shape")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = None
+    shape = [ctypes.c_int() for _ in range(3)]
+    fn(*map(ctypes.byref, shape))
+    got = tuple(s.value for s in shape)
+    if got != tile_of(body):
         raise RuntimeError(
-            f"br_tiled.cu's tile is {tuple(s.value for s in shape)}, this "
-            f"module sizes {TILE}")
+            f"{entry}'s tile is {got}, this module sizes {tile_of(body)}")
+
+
+def _check_split(lib):
+    """The library's split must be the one `tile_spans` mirrors."""
     for length, max_tile in ((2048, 54), (512, 54), (1024, 54), (131, 62),
                              (9, 54), (2047, 60), (2048, 44), (532, 44)):
         n, base, rem = (ctypes.c_int() for _ in range(3))
@@ -189,7 +204,8 @@ def make_tiled_cuda_step(model: IonicModel):
     """Build `step(state, probe=None, probe_index=0) -> state`, one outer
     step in one launch of the tiled kernel.  The kernel writes the probe
     after the last substep.  CPU states take `plain_tiled_step`."""
-    kernel = KERNELS[cuda_step.cell_body(model).name]
+    body = cuda_step.cell_body(model).name
+    kernel = KERNELS[body]
     if model.cfg.substeps_per_launch is not None:
         # fib_tf_tpu/engine/simulation.py:590-597
         raise ValueError(
@@ -198,9 +214,9 @@ def make_tiled_cuda_step(model: IonicModel):
             "the full substep group and cannot split — drop the knob or "
             "stay under the whole-grid state budget")
     schedule = cuda_step.slow_schedule(model)
-    if min(tile_interior(len(schedule))) < 1:
-        raise ValueError(f"tile {TILE} has no interior left after a "
-                         f"{len(schedule)}-ring halo")
+    if min(tile_interior(len(schedule), body)) < 1:
+        raise ValueError(f"tile {tile_of(body)} has no interior left after "
+                         f"a {len(schedule)}-ring halo")
     params = cuda_step.pack_params(model)
 
     def step(state: State, probe: Optional[torch.Tensor] = None,

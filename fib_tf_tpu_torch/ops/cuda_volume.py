@@ -3,9 +3,10 @@
 Counterpart of fib_tf_tpu/ops/pallas_volume.py::make_pallas_volume_step,
 the kernel run_volume runs for a volume whose state fits the 32 MB
 whole-volume envelope: one outer step of a `[D, H, W]` volume, here as one
-launch per substep, with the two Beeler-Reuter bodies (the n=5 substep that
-advances the slow gates, the n=0 substep that freezes them) and the one
-body of Fenton and of Mitchell-Schaeffer (ten launches per outer step).
+launch per substep, with the two forms of each Beeler-Reuter body (the n=5
+substep that advances the slow gates, the n=0 substep that freezes them)
+and the one form of the Fenton and Mitchell-Schaeffer bodies (ten launches
+per outer step).
 The kernel is csrc/br_volume.cu (CUDA C++, built with nvcc and bound with
 ctypes; one entry per cell body of ops/cuda_step.BODIES); its source note
 says what bounds it.
@@ -39,6 +40,7 @@ from fib_tf_tpu_torch.ops.cuda_step import BODIES, State
 
 SOURCE = build.CSRC_DIR / "br_volume.cu"
 HEADERS = (build.CSRC_DIR / "br_cell.cuh",
+           build.CSRC_DIR / "br_variant_cell.cuh",
            build.CSRC_DIR / "br_volume_cell.cuh",
            build.CSRC_DIR / "fenton_cell.cuh",
            build.CSRC_DIR / "ms_cell.cuh")

@@ -10,11 +10,9 @@ neighbouring shards; the block's global start slice `zstart` and the
 volume's depth decide where the z faces reflect, so only a shard that owns
 a z face reflects there; in the plane each shard owns the whole sheet.  The
 kernel is csrc/br_volume_block.cu (CUDA C++, built with nvcc and bound with
-ctypes): one launch per substep of the group, as the volume substep kernel,
-each on the slices that are still exact.  It hosts Beeler-Reuter's cell
-body alone: for Fenton and Mitchell-Schaeffer `make_volume_block_step`
-raises NotImplementedError (ROADMAP Queue 2 item D), and the plain version
-runs them.
+ctypes; a template over the cell body, one entry per body of
+ops/cuda_step.BODIES): one launch per substep of the group, as the volume
+substep kernel, each on the slices that are still exact.
 
 `zblock_geometry` is the plain geometry of an extended block (the
 reference's `zblock_geometry`, pallas_volume.py:310-394, without phase
@@ -30,10 +28,10 @@ Update contract: the block's state dict is updated IN PLACE and returned.
 After a group of n substeps the centre `[n, ext_d - n)` of every plane is
 exact and the slices outside it are garbage, for the halo exchange to
 refill.  The planes keep their memory (a caller may hold them as views of
-one allocation): on the card "V" alternates between the block's two V
-buffers (the dict's "V" and `spare`, which the step returns swapped) and
-the other seven planes are overwritten; the plain version overwrites all
-eight.
+one allocation): on the card the potential alternates between the block's
+two buffers (the dict's `model.pot_key` and `spare`, which the step
+returns swapped) and the other planes are overwritten; the plain version
+overwrites all of them.
 """
 
 from __future__ import annotations
@@ -47,11 +45,14 @@ import torch
 from fib_tf_tpu_torch.kernels import build
 from fib_tf_tpu_torch.models.base import Geometry, IonicModel
 from fib_tf_tpu_torch.ops import cuda_step, stencil
-from fib_tf_tpu_torch.ops.cuda_step import CELL_PLANES, PARAM_FLOATS, State
+from fib_tf_tpu_torch.ops.cuda_step import BODIES, State
 
 SOURCE = build.CSRC_DIR / "br_volume_block.cu"
 HEADERS = (build.CSRC_DIR / "br_cell.cuh",
-           build.CSRC_DIR / "br_volume_cell.cuh")
+           build.CSRC_DIR / "br_variant_cell.cuh",
+           build.CSRC_DIR / "br_volume_cell.cuh",
+           build.CSRC_DIR / "fenton_cell.cuh",
+           build.CSRC_DIR / "ms_cell.cuh")
 
 
 # -- the plain geometry of a z-extended block -----------------------------------------
@@ -111,11 +112,15 @@ def zblock_geometry(zg: torch.Tensor, d_total: int,
 
 
 class VolumeBlockKernel:
-    """ctypes binding of csrc/br_volume_block.cu.  The library is built and
-    loaded on the first launch; `launches` counts successful launches per
-    body ("slow" = SLOW=true, "frozen" = SLOW=false)."""
+    """ctypes binding of one cell body's entry `<body>_volume_block` of
+    csrc/br_volume_block.cu.  The library is built and loaded on the first
+    launch; `launches` counts successful launches per template flag
+    ("slow" = SLOW=true, "frozen" = SLOW=false; Fenton and
+    Mitchell-Schaeffer launch SLOW=true alone)."""
 
-    def __init__(self):
+    def __init__(self, body: str):
+        self.body = BODIES[body]
+        self.entry = f"{body}_volume_block"
         self._lib = None
         self.reset_launches()
 
@@ -129,11 +134,8 @@ class VolumeBlockKernel:
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
             lib = build.load("br_volume_block", [SOURCE], HEADERS)
-            for fn in ("br_volume_block_param_floats",
-                       "br_volume_block_planes"):
-                getattr(lib, fn).argtypes = []
-                getattr(lib, fn).restype = ctypes.c_int
-            lib.br_volume_block.argtypes = (
+            fn = getattr(lib, self.entry)
+            fn.argtypes = (
                 [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,  # slow, params
                  ctypes.c_float,                               # dz_ratio
                  ctypes.c_void_p, ctypes.c_void_p,   # v_in, v_out
@@ -146,14 +148,8 @@ class VolumeBlockKernel:
                    ctypes.c_int,                     # device ordinal
                    ctypes.c_void_p]                  # cudaStream_t
             )
-            lib.br_volume_block.restype = ctypes.c_int
-            got = (lib.br_volume_block_param_floats(),
-                   lib.br_volume_block_planes())
-            if got != (PARAM_FLOATS, len(CELL_PLANES)):
-                raise RuntimeError(
-                    f"br_volume_block.cu takes (param floats, planes) = "
-                    f"{got}, this module packs "
-                    f"{(PARAM_FLOATS, len(CELL_PLANES))}")
+            fn.restype = ctypes.c_int
+            cuda_step.check_layout(lib, self.entry, self.body)
             self._lib = lib
         return self._lib
 
@@ -162,30 +158,32 @@ class VolumeBlockKernel:
                z_lo: int, z_hi: int, probe: Optional[torch.Tensor], pixel,
                probe_index: int, stream: int):
         """One substep on the slices [z_lo, z_hi) of CUDA tensors already
-        validated by the caller: V goes from state["V"] to `v_out`, the
-        other planes are updated in place."""
-        lib = self.library()
-        v_in = state["V"]
+        validated by the caller: the potential goes from the state's to
+        `v_out`, the other planes are updated in place."""
+        fn = getattr(self.library(), self.entry)
+        v_in = state[self.body.model.pot_key]
         ext_d, h, w = v_in.shape
-        ptrs = ctypes.c_void_p * len(CELL_PLANES)
-        err = lib.br_volume_block(
+        planes = self.body.planes
+        err = fn(
             int(slow), params.ctypes.data, params.size, dz_ratio,
             v_in.data_ptr(), v_out.data_ptr(),
-            ptrs(*[state[k].data_ptr() for k in CELL_PLANES]),
-            len(CELL_PLANES), ext_d, h, w, zstart, d_total, z_lo, z_hi,
+            cuda_step.plane_pointers(state, planes), len(planes),
+            ext_d, h, w, zstart, d_total, z_lo, z_hi,
             probe.data_ptr() if probe is not None else None,
             *pixel, probe_index, v_in.device.index, stream,
         )
         if err != 0:
             raise RuntimeError(
-                f"br_volume_block launch failed with CUDA error {err} "
+                f"{self.entry} launch failed with CUDA error {err} "
                 f"({ext_d}x{h}x{w} block at slice {zstart} of {d_total}, "
                 f"slices [{z_lo}, {z_hi}), slow={slow})")
         self.launches["slow" if slow else "frozen"] += 1
 
 
-# the process-wide binding: the built library is process-wide too
-KERNEL = VolumeBlockKernel()
+# the process-wide bindings, one per cell body: the built library is
+# process-wide too.  KERNEL is Beeler-Reuter's.
+KERNELS = {name: VolumeBlockKernel(name) for name in BODIES}
+KERNEL = KERNELS["br"]
 
 
 # -- the step -------------------------------------------------------------------------------
@@ -250,13 +248,14 @@ def make_volume_block_step(model: IonicModel, ext_d: int, d_total: int,
     owns the probe pixel, with its LOCAL slice; the group's last launch
     writes it.  `stream` is the CUDA stream to launch on (default: the
     device's current one).  CPU blocks take `plain_volume_block_step`."""
-    cuda_step.br_only(model, "volume block")
+    kernel = KERNELS[cuda_step.cell_body(model).name]
     schedule = group_schedule(model, substeps)
     n = len(schedule)
     if ext_d <= 2 * n:
         raise ValueError(f"a {ext_d}-slice block has no centre left after "
                          f"{n} substeps")
     params = cuda_step.pack_params(model)
+    pot = model.pot_key
     h, w = model.state_shape()
     shape = (ext_d, h, w)
     pixel = (min(model.probe_pixel[0], h - 1), min(model.probe_pixel[1], w - 1))
@@ -289,11 +288,11 @@ def make_volume_block_step(model: IonicModel, ext_d: int, d_total: int,
         s = stream if stream is not None else torch.cuda.current_stream(dev)
         for i, slow in enumerate(schedule):
             # substep i is exact on [i + 1, ext_d - 1 - i)
-            KERNEL.launch(params, state, spare, slow, dz_ratio, zstart,
+            kernel.launch(params, state, spare, slow, dz_ratio, zstart,
                           d_total, i + 1, ext_d - 1 - i,
                           probe if i == n - 1 else None,
                           (probe_slice,) + pixel, probe_index, s.cuda_stream)
-            state["V"], spare = spare, state["V"]
+            state[pot], spare = spare, state[pot]
         return state, spare
 
     return step

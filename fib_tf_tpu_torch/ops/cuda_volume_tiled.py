@@ -11,9 +11,10 @@ wavefront of the substep levels (level s updates stream position t - s at
 pipeline step t, across tile boundaries), so it takes any depth >= 3.
 `tile_plan` mirrors the kernel's tiles, walk, levels, ring slots and
 copies; its source note says what lives where and what bounds it.  It
-hosts Beeler-Reuter's cell body alone: for Fenton and Mitchell-Schaeffer
-`make_tiled_volume_step` raises NotImplementedError (ROADMAP Queue 2 item
-D).
+hosts Beeler-Reuter's main cell body alone (cheby + cheby_fold +
+cheby_currents, no ab2): for Fenton, Mitchell-Schaeffer and BR's other
+variants `make_tiled_volume_step` raises NotImplementedError (ROADMAP
+Queue 2 item D).
 
 Routing is by the device of the state's tensors, as in ops/cuda_step.py:
 CPU tensors take the plain version, CUDA tensors launch the kernel, and a
@@ -345,7 +346,7 @@ def make_tiled_volume_step(model: BeelerReuter, depth: int,
     step of a `[depth, H, W]` volume (any depth >= 3) in one launch of the
     tiled volume kernel.  The kernel writes the probe after the last
     substep.  CPU states take `plain_tiled_volume_step`."""
-    cuda_step.br_only(model, "tiled volume")
+    cuda_step.main_body_only(model, "tiled volume")
     schedule = cuda_step.slow_schedule(model)
     h, w = model.state_shape()
     tile_plan(depth, h, w, len(schedule))   # raises on what it cannot run

@@ -1,5 +1,5 @@
-"""Time integrators: explicit Euler and Rush-Larsen exponential gates,
-and the sign()-based step functions (port of
+"""Time integrators: explicit Euler, Adams-Bashforth-2 and Rush-Larsen
+exponential gates, and the sign()-based step functions (port of
 fib_tf_tpu/ops/integrators.py).
 
 `rush_larsen` keeps the reference's implemented form
@@ -21,16 +21,30 @@ GATE_MIN = 0.00001
 GATE_MAX = 0.99999
 
 
+def rdiv(num: float, t: torch.Tensor) -> torch.Tensor:
+    """`num / t` as one IEEE division per element, as jnp computes it:
+    torch evaluates a Python number over a tensor as `num * (1 / t)`,
+    which rounds twice."""
+    return torch.full_like(t, num) / t
+
+
 def euler(g: torch.Tensor, rate: torch.Tensor, dt: float) -> torch.Tensor:
     """Forward Euler step."""
     return g + rate * dt
+
+
+def adams_bashforth2(g: torch.Tensor, rate: torch.Tensor,
+                     rate_prev: torch.Tensor, dt: float) -> torch.Tensor:
+    """Second-order Adams-Bashforth step g' = g + dt * (3/2 f_n - 1/2
+    f_{n-1}), in the reference's order of operations (SimConfig.ab2)."""
+    return g + dt * (1.5 * rate - 0.5 * rate_prev)
 
 
 def rush_larsen(g: torch.Tensor, g_inf: torch.Tensor, g_tau: torch.Tensor,
                 dt: float) -> torch.Tensor:
     """Rush-Larsen exponential integration of a gating variable."""
     return torch.clamp(
-        g + (g - g_inf) * torch.expm1(-dt / g_tau), GATE_MIN, GATE_MAX
+        g + (g - g_inf) * torch.expm1(rdiv(-dt, g_tau)), GATE_MIN, GATE_MAX
     )
 
 

@@ -541,7 +541,8 @@ def test_small_model_volume_kernel(device, name, dhw):
 def test_small_model_simulate_routes(device, name, monkeypatch):
     """simulate() on the card: the substep kernel ten launches per outer
     step, the tiled kernel (cutover lowered) once, the block kernel once
-    per shard, each within 1e-3 of kernel='xla'; kernels 5 and 6 raise."""
+    per shard, each within 1e-3 of kernel='xla'; kernel 5 raises, kernel
+    6 runs the sharded volume bit-equal to kernel 4's unsharded run."""
     cfg = CFG.replace(diff=1.5, height=64, width=96, duration=20)
     ref = Simulation(_small(name, height=64, width=96, duration=20,
                             kernel="xla"), device=device).define().simulate()
@@ -574,9 +575,11 @@ def test_small_model_simulate_routes(device, name, monkeypatch):
         np.testing.assert_array_equal(runs["block"].state[k],
                                       runs["tiled"].state[k])
     model = SMALL[name][0](cfg.replace(dt=0.05))
-    with pytest.raises(NotImplementedError, match="Queue 2 item D"):
-        run_volume(model, 24, 2, mesh=make_mesh(devices=[device] * 2),
-                   wide_halo=True)
+    sharded = run_volume(model, 24, 2, mesh=make_mesh(devices=[device] * 2),
+                         wide_halo=True)
+    whole = run_volume(model, 24, 2, device=device)
+    for k in whole[0]:
+        np.testing.assert_array_equal(sharded[0][k], whole[0][k])
     monkeypatch.setattr(volume, "VOLUME_KERNEL_STATE_MB_MAX", 0.0)
     with pytest.raises(NotImplementedError, match="Queue 2 item D"):
         run_volume(model, 24, 2, device=device)

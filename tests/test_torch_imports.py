@@ -134,17 +134,16 @@ def test_bindings_hash_every_header_their_sources_include():
 
 
 def test_block_kernels_share_the_earlier_kernels_headers():
-    """Kernel 3 hosts the same cell bodies as kernel 2; kernel 6 shares
-    kernel 4's headers but hosts Beeler-Reuter's body alone (ROADMAP
-    Queue 2 item D), so it does without the Fenton and
-    Mitchell-Schaeffer bodies."""
+    """Kernel 3 hosts the same cell bodies as kernel 2, and kernel 6 the
+    same as kernel 4: every body of the port."""
     from fib_tf_tpu_torch.ops import (cuda_block, cuda_tiled, cuda_volume,
                                       cuda_volume_block)
     assert set(cuda_block.HEADERS) == set(cuda_tiled.HEADERS)
-    bodies = {build.CSRC_DIR / "fenton_cell.cuh",
-              build.CSRC_DIR / "ms_cell.cuh"}
+    bodies = {build.CSRC_DIR / name for name in (
+        "br_cell.cuh", "br_variant_cell.cuh", "fenton_cell.cuh",
+        "ms_cell.cuh")}
     assert bodies <= set(cuda_volume.HEADERS)
-    assert set(cuda_volume_block.HEADERS) == set(cuda_volume.HEADERS) - bodies
+    assert set(cuda_volume_block.HEADERS) == set(cuda_volume.HEADERS)
 
 
 def test_failed_build_raises_with_log(monkeypatch, tmp_path):
@@ -164,6 +163,6 @@ def test_kernel_sources_ship_with_the_package():
     for name in ("br_substep.cu", "br_tiled.cu", "br_volume.cu",
                  "br_volume_tiled.cu", "br_cell.cuh", "br_block.cu",
                  "br_volume_block.cu", "br_tile.cuh", "br_volume_cell.cuh",
-                 "fenton_cell.cuh", "ms_cell.cuh"):
+                 "br_variant_cell.cuh", "fenton_cell.cuh", "ms_cell.cuh"):
         assert (build.CSRC_DIR / name).is_file()
     assert os.path.commonpath([build.BUILD_DIR, ROOT]) == str(ROOT)

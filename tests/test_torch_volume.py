@@ -566,9 +566,10 @@ def test_small_model_run_volume_matches_jax_run_volume(name):
 def test_small_model_volume_routes(name, monkeypatch):
     """run_volume takes the volume substep kernel for Fenton and
     Mitchell-Schaeffer at any size (the reference's whole-volume kernel,
-    engine/volume.py:182); the tiled and block volume kernels host BR
-    alone, so where they would run these models raise (ROADMAP Queue 2
-    item D), and the plain sharded step still runs them."""
+    engine/volume.py:182); the tiled volume kernel hosts BR's main body
+    alone, so where it would run these models they raise (ROADMAP Queue 2
+    item D); the volume block kernel hosts every body, and the plain
+    sharded step runs them."""
     _, tm = small_models(name, height=512, width=512)
     assert volume.volume_state_mb(tm, 32) >= 64.0
     assert volume.volume_route(tm, 32, "cuda", "auto") == "substep"
@@ -579,8 +580,7 @@ def test_small_model_volume_routes(name, monkeypatch):
         volume.volume_route(tm, 32, "cuda", "auto")
     with pytest.raises(NotImplementedError, match="Queue 2 item D"):
         cuda_volume_tiled.make_tiled_volume_step(tm, 32)
-    with pytest.raises(NotImplementedError, match="Queue 2 item D"):
-        cuda_volume_block.make_volume_block_step(tm, 28, 32)
+    assert callable(cuda_volume_block.make_volume_block_step(tm, 28, 32))
 
     _, small = small_models(name, height=8, width=12, dt=0.05)
     st = seeded_small_volume(name, small, 20, seed=7)

@@ -27,6 +27,13 @@
 // On a 1D mesh the block spans the full width: cstart = 0, no ghost
 // columns, pitch = the domain's width.
 //
+// Geometry: each entry's GEOM form, <m>_block_geom, replaces
+// make_block_kernel(has_phase=, fiber=, has_dmap=): the operator of
+// geometry.cuh, the shard's phase field and diffusion map extended like
+// its block (parallel/spmd.py builds them once) and read through the
+// read-only path; only the domain's edges reflect them.  On the tile
+// shapes of br_tiled.cu's GEOM entries.
+//
 // Memory: inputs and outputs are two extended buffers of the same layout;
 // the kernel writes only the window (the centre) of the output, which fuses
 // the reference's crop and leaves the halo exchange to fill the output's
@@ -55,20 +62,23 @@
 #include "br_tile.cuh"
 #include "br_variant_cell.cuh"
 #include "fenton_cell.cuh"
+#include "geometry.cuh"
 #include "ms_cell.cuh"
 
 namespace {
 
 // Launch one outer step of body `Body` on one block, on BX x BY-thread
-// tiles of BY * RY rows (see the entries below).
-template <class Body, int BX, int BY, int RY>
+// tiles of BY * RY rows (see the entries below); with GEOM, under the
+// geometry `geo`, whose maps have the block's layout.
+template <class Body, int BX, int BY, int RY, bool GEOM>
 int launch_block(const float* params, int n_params, const float* v_in,
                  float* v_out, void* const* planes_in,
                  void* const* planes_out, int n_planes, int ext_h, int ext_w,
                  int rstart, int cstart, int halo, int two_d, int height,
                  int width, int n_sub, unsigned slow_mask, float* probe,
                  int probe_row, int probe_col, long long probe_index,
-                 int device, void* stream) {
+                 int device, void* stream,
+                 fibtorch::GeometryArg<GEOM> geo) {
   if (n_params != fibtorch::param_floats<Body>() ||
       n_planes != Body::kPlanes || height < 3 || width < 3 || n_sub < 1 ||
       n_sub > 32 || halo < n_sub || ext_h <= 2 * halo) {
@@ -104,10 +114,15 @@ int launch_block(const float* params, int n_params, const float* v_in,
   typename Body::Params p;
   memcpy(&p, params, sizeof(p));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (GEOM) {
+    geo.rstart = rstart;
+    geo.cstart = cstart;
+    geo.pitch = ext_w;
+  }
   // launch_tiles refuses a window that leaves the domain
-  return (int)fibtorch::launch_tiles<Body, BX, BY, RY>(
+  return (int)fibtorch::launch_tiles<Body, BX, BY, RY, GEOM>(
       p, v_in, v_out, planes, win, height, width, n_sub, slow_mask, probe,
-      probe_row, probe_col, probe_index, device, s);
+      probe_row, probe_col, probe_index, device, s, geo);
 }
 
 }  // namespace
@@ -143,13 +158,51 @@ int launch_block(const float* params, int n_params, const float* v_in,
                 int height, int width, int n_sub, unsigned slow_mask,       \
                 float* probe, int probe_row, int probe_col,                 \
                 long long probe_index, int device, void* stream) {          \
-    return launch_block<Body, BX, BY, RY>(                                  \
+    return launch_block<Body, BX, BY, RY, false>(                           \
         params, n_params, v_in, v_out, planes_in, planes_out, n_planes,     \
         ext_h, ext_w, rstart, cstart, halo, two_d, height, width, n_sub,    \
         slow_mask, probe, probe_row, probe_col, probe_index, device,        \
-        stream);                                                            \
+        stream, fibtorch::NoGeometry{});                                    \
   }
 
+// The GEOM entries <m>_block_geom_param_floats, _planes, _tile_shape and
+// <m>_block_geom: the same as <m>_block's under a geometry (geometry.cuh),
+// on the tile shapes of br_tiled.cu's GEOM entries, with six more
+// arguments: `phase` and `dmap`, null or the shard's maps extended like
+// the block (its layout), and with `tensor` the fiber tensor's (dxx, dxy,
+// dyy).
+#define BLOCK_GEOM_ENTRIES(m, Body, BX, BY, RY)                             \
+  int m##_block_geom_param_floats() {                                       \
+    return fibtorch::param_floats<Body>();                                  \
+  }                                                                         \
+  int m##_block_geom_planes() { return Body::kPlanes; }                     \
+  void m##_block_geom_tile_shape(int* threads_x, int* threads_y,            \
+                                 int* rows_per_thread) {                    \
+    *threads_x = BX;                                                        \
+    *threads_y = BY;                                                        \
+    *rows_per_thread = RY;                                                  \
+  }                                                                         \
+  int m##_block_geom(const float* params, int n_params, const float* v_in,  \
+                     float* v_out, void* const* planes_in,                  \
+                     void* const* planes_out, int n_planes, int ext_h,      \
+                     int ext_w, int rstart, int cstart, int halo,           \
+                     int two_d, int height, int width, int n_sub,           \
+                     unsigned slow_mask, float* probe, int probe_row,       \
+                     int probe_col, long long probe_index, int device,      \
+                     void* stream, const float* phase, const float* dmap,   \
+                     int tensor, float dxx, float dxy, float dyy) {         \
+    const fibtorch::Geometry geo = {phase, dmap, 0, 0, 0,                  \
+                                    tensor, dxx, dxy, dyy};                 \
+    return launch_block<Body, BX, BY, RY, true>(                            \
+        params, n_params, v_in, v_out, planes_in, planes_out, n_planes,     \
+        ext_h, ext_w, rstart, cstart, halo, two_d, height, width, n_sub,    \
+        slow_mask, probe, probe_row, probe_col, probe_index, device,        \
+        stream, geo);                                                       \
+  }
+
+// As br_tiled.cu: the isotropic entries, or with FIBTORCH_GEOM_ENTRIES
+// defined the GEOM entries, two libraries built side by side.
+#ifndef FIBTORCH_GEOM_ENTRIES
 extern "C" {
 BLOCK_ENTRIES(br, fibtorch::BeelerReuterCell, 64, 16, 4)
 BLOCK_ENTRIES(br_variant, fibtorch::BrVariantCell<false>, 64, 8, 8)
@@ -158,3 +211,13 @@ BLOCK_ENTRIES(fenton, fibtorch::FentonCell, 64, 16, 4)
 BLOCK_ENTRIES(fenton_ab2, fibtorch::FentonAb2Cell, 64, 16, 4)
 BLOCK_ENTRIES(ms, fibtorch::MsCell, 64, 16, 4)
 }  // extern "C"
+#else
+extern "C" {
+BLOCK_GEOM_ENTRIES(br, fibtorch::BeelerReuterCell, 64, 8, 8)
+BLOCK_GEOM_ENTRIES(br_variant, fibtorch::BrVariantCell<false>, 64, 8, 8)
+BLOCK_GEOM_ENTRIES(br_variant_ab2, fibtorch::BrVariantCell<true>, 64, 8, 8)
+BLOCK_GEOM_ENTRIES(fenton, fibtorch::FentonCell, 64, 16, 4)
+BLOCK_GEOM_ENTRIES(fenton_ab2, fibtorch::FentonAb2Cell, 64, 16, 4)
+BLOCK_GEOM_ENTRIES(ms, fibtorch::MsCell, 64, 16, 4)
+}  // extern "C"
+#endif

@@ -52,6 +52,15 @@
 // halo, is br_tiled.cu, which the engine runs past its 32 MB cutover.  CUDA
 // graphs over a chunk, against the host launch overhead, are later work.
 //
+// Geometry.  Each entry has a second form, <m>_substep_geom, the GEOM =
+// true instantiation: the diffusion operator of geometry.cuh (phase field,
+// diffusion map, fiber tensor) in place of laplace9, which replaces
+// make_pallas_step with `phase`, `fiber` and `dmap` (pallas_step.py:205-304,
+// vmem_laplace and vmem_anisotropic_laplace).  It reads phi and d at the
+// cell and its four neighbours from global memory; they are static and stay
+// in L1/L2, so each adds one plane of bytes per launch.  GEOM = false is
+// the isotropic kernel unchanged.
+//
 // The per-cell arithmetic lives in the cell-body headers, shared with the
 // other kernels.
 //
@@ -64,6 +73,7 @@
 #include "br_cell.cuh"
 #include "br_variant_cell.cuh"
 #include "fenton_cell.cuh"
+#include "geometry.cuh"
 #include "ms_cell.cuh"
 
 namespace {
@@ -77,14 +87,15 @@ struct CellPlanes {
   float* p[N];
 };
 
-template <class Body, bool SLOW>
+template <class Body, bool SLOW, bool GEOM>
 __global__ void substep_kernel(const typename Body::Params p,
                                const float* __restrict__ v_in,
                                float* __restrict__ v_out,
                                const CellPlanes<Body::kPlanes> planes,
                                int height, int width,
                                float* __restrict__ probe, int probe_row,
-                               int probe_col, long long probe_index) {
+                               int probe_col, long long probe_index,
+                               const fibtorch::GeometryArg<GEOM> geo) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (row >= height || col >= width) return;
@@ -97,9 +108,17 @@ __global__ void substep_kernel(const typename Body::Params p,
   const int ce = clamp_index(col + 1, width);
 
   const float v0 = v_in[rc + cc];
-  const float lap = laplace9(v_in[rn + cc], v_in[rs + cc], v_in[rc + cw],
-                             v_in[rc + ce], v_in[rn + cw], v_in[rs + cw],
-                             v_in[rn + ce], v_in[rs + ce], v0);
+  float lap;
+  if constexpr (GEOM) {
+    lap = fibtorch::geometry_laplace(
+        geo, row, col, height, width, v_in[rn + cc], v_in[rs + cc],
+        v_in[rc + cw], v_in[rc + ce], v_in[rn + cw], v_in[rs + cw],
+        v_in[rn + ce], v_in[rs + ce], v0);
+  } else {
+    lap = laplace9(v_in[rn + cc], v_in[rs + cc], v_in[rc + cw],
+                   v_in[rc + ce], v_in[rn + cw], v_in[rs + cw],
+                   v_in[rn + ce], v_in[rs + ce], v0);
+  }
 
   const long long idx = (long long)row * width + col;
   float q[Body::kPlanes];
@@ -116,13 +135,15 @@ __global__ void substep_kernel(const typename Body::Params p,
   }
 }
 
-// Launch one substep of body `Body` (see the entries below).
-template <class Body>
+// Launch one substep of body `Body` (see the entries below); with GEOM,
+// under the geometry `geo`, whose maps no output may alias.
+template <class Body, bool GEOM>
 int launch_substep(int slow, const float* params, int n_params,
                    const float* v_in, float* v_out, void* const* planes,
                    int n_planes, int height, int width, float* probe,
                    int probe_row, int probe_col, long long probe_index,
-                   int device, void* stream) {
+                   int device, void* stream,
+                   const fibtorch::GeometryArg<GEOM>& geo) {
   if (n_params != fibtorch::param_floats<Body>() ||
       n_planes != Body::kPlanes || height < 3 || width < 3 ||
       v_in == v_out) {
@@ -135,6 +156,11 @@ int launch_substep(int slow, const float* params, int n_params,
       return (int)cudaErrorInvalidValue;
     }
   }
+  if constexpr (GEOM) {
+    if (!fibtorch::maps_apart(geo, v_out, planes, Body::kPlanes)) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   typename Body::Params p;
@@ -144,13 +170,13 @@ int launch_substep(int slow, const float* params, int n_params,
                   (height + block.y - 1) / block.y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (slow) {
-    substep_kernel<Body, true><<<grid, block, 0, s>>>(
+    substep_kernel<Body, true, GEOM><<<grid, block, 0, s>>>(
         p, v_in, v_out, pl, height, width, probe, probe_row, probe_col,
-        probe_index);
+        probe_index, geo);
   } else {
-    substep_kernel<Body, false><<<grid, block, 0, s>>>(
+    substep_kernel<Body, false, GEOM><<<grid, block, 0, s>>>(
         p, v_in, v_out, pl, height, width, probe, probe_row, probe_col,
-        probe_index);
+        probe_index, geo);
   }
   return (int)cudaGetLastError();
 }
@@ -168,7 +194,10 @@ int launch_substep(int slow, const float* params, int n_params,
 //     updated in place.  The new potential goes to `v_out`, which must not
 //     alias `v_in`.  `probe` may be null; otherwise the thread at
 //     (probe_row, probe_col) writes the normalised new potential to
-//     probe[probe_index].
+//     probe[probe_index];
+//   <m>_substep_geom(...)       the same under a geometry (geometry.cuh):
+//     `phase` and `dmap` are height x width device arrays or null, and
+//     with `tensor` the operator is the fiber tensor's (dxx, dxy, dyy).
 #define SUBSTEP_ENTRIES(m, Body)                                            \
   int m##_substep_param_floats() { return fibtorch::param_floats<Body>(); } \
   int m##_substep_planes() { return Body::kPlanes; }                        \
@@ -177,10 +206,24 @@ int launch_substep(int slow, const float* params, int n_params,
                   int n_planes, int height, int width, float* probe,        \
                   int probe_row, int probe_col, long long probe_index,      \
                   int device, void* stream) {                               \
-    return launch_substep<Body>(slow, params, n_params, v_in, v_out,        \
-                                planes, n_planes, height, width, probe,     \
-                                probe_row, probe_col, probe_index, device,  \
-                                stream);                                    \
+    return launch_substep<Body, false>(                                     \
+        slow, params, n_params, v_in, v_out, planes, n_planes, height,      \
+        width, probe, probe_row, probe_col, probe_index, device, stream,    \
+        fibtorch::NoGeometry{});                                            \
+  }                                                                         \
+  int m##_substep_geom(int slow, const float* params, int n_params,         \
+                       const float* v_in, float* v_out,                     \
+                       void* const* planes, int n_planes, int height,       \
+                       int width, float* probe, int probe_row,              \
+                       int probe_col, long long probe_index, int device,    \
+                       void* stream, const float* phase, const float* dmap, \
+                       int tensor, float dxx, float dxy, float dyy) {       \
+    const fibtorch::Geometry geo = {phase, dmap, 0, 0, width,              \
+                                    tensor, dxx, dxy, dyy};                 \
+    return launch_substep<Body, true>(                                      \
+        slow, params, n_params, v_in, v_out, planes, n_planes, height,      \
+        width, probe, probe_row, probe_col, probe_index, device, stream,    \
+        geo);                                                               \
   }
 
 extern "C" {

@@ -85,6 +85,13 @@
 // in place: a tile's halo holds its neighbours' interior cells, which
 // other blocks rewrite while it may still be loading them.
 //
+// Geometry (GEOM = true, geometry.cuh): the diffusion operator takes the
+// phase field, the diffusion map and the fiber tensor at the cell's global
+// indices, the maps read through the read-only path from arrays of the
+// planes' layout; every tile runs the edge body (off the domain's edges
+// its clamps are the identity), which halves what nvcc compiles for the
+// GEOM entries.  GEOM = false is the isotropic skeleton unchanged.
+//
 // Schedule: bit s of `slow_mask` selects the SLOW body for substep s (BR's;
 // the other bodies ignore it).  Each cell body gets the cell's raw centre,
 // cur[cell], beside the boundary-enforced v0 = cur[clamped cell]; they
@@ -99,6 +106,7 @@
 #include <atomic>
 
 #include "br_cell.cuh"
+#include "geometry.cuh"
 
 namespace fibtorch {
 
@@ -282,13 +290,16 @@ struct Outputs {
 // planes in `q`.  EDGE: clamp the stencil on global indices and skip cells
 // outside the reach; otherwise every point is the cell's own neighbour.
 // The ring of the last substep (`last`) is the tile's interior: each of its
-// cells is written out as soon as it is computed.
-template <class Body, int BX, int BY, int RY, bool SLOW, bool EDGE>
+// cells is written out as soon as it is computed.  GEOM: the diffusion
+// operator of geometry.cuh at the cell's global indices.
+template <class Body, int BX, int BY, int RY, bool SLOW, bool EDGE,
+          bool GEOM>
 __device__ __forceinline__ void tile_substep(
     const typename Body::Params& p, const float* __restrict__ cur,
     float* __restrict__ nxt, float (&q)[RY][Body::kPlanes], int s,
     bool last, const volatile TileGeom& g, const volatile Reach& reach,
-    int height, int width, const Outputs<Body::kPlanes>& out) {
+    int height, int width, const Outputs<Body::kPlanes>& out,
+    const GeometryArg<GEOM>& geo) {
   constexpr int EW = BX;
   const int tx = threadIdx.x;
   if (tx < s + 1 || tx > g.ew - 2 - s) return;
@@ -318,8 +329,15 @@ __device__ __forceinline__ void tile_substep(
       rs = cur + (clamp_index(gi + 1, height) - r0) * EW;
     }
     const float v0 = rc[bc];
-    const float lap = laplace9(rn[bc], rs[bc], rc[bw], rc[be], rn[bw],
-                               rs[bw], rn[be], rs[be], v0);
+    float lap;
+    if constexpr (GEOM) {
+      lap = geometry_laplace(geo, g.r0 + a, g.c0 + tx, height, width, rn[bc],
+                             rs[bc], rc[bw], rc[be], rn[bw], rs[bw], rn[be],
+                             rs[be], v0);
+    } else {
+      lap = laplace9(rn[bc], rs[bc], rc[bw], rc[be], rn[bw], rs[bw], rn[be],
+                     rs[be], v0);
+    }
     // the cell's raw centre: v0 itself off the domain's outer ring
     const float raw = cur[a * EW + tx];
     const float v = Body::template update<SLOW>(p, v0, raw, lap, q[r]);
@@ -348,12 +366,12 @@ __device__ __forceinline__ void tile_substep(
 // A thread copies exactly the cells whose planes it moves into registers
 // at the next tile's start, so the staging area needs no barrier.  The last
 // substep writes the tile out and leaves the barrier to the next tile.
-template <class Body, int BX, int BY, int RY, bool EDGE>
+template <class Body, int BX, int BY, int RY, bool EDGE, bool GEOM>
 __device__ __forceinline__ void tile_substeps(
     const typename Body::Params& p, const float* __restrict__ v_in,
     float* smem, float (&q)[RY][Body::kPlanes], int n_sub,
     unsigned slow_mask, const volatile Walk& w, int height, int width,
-    const Outputs<Body::kPlanes>& out) {
+    const Outputs<Body::kPlanes>& out, const GeometryArg<GEOM>& geo) {
   constexpr int kTile = BX * BY * RY;
   for (int s = 0; s < n_sub; ++s) {
     const int rot = w.rot;
@@ -363,11 +381,11 @@ __device__ __forceinline__ void tile_substeps(
     float* nxt = (s & 1) ? v0 : v1;
     const bool last = s == n_sub - 1;
     if ((slow_mask >> s) & 1u) {
-      tile_substep<Body, BX, BY, RY, true, EDGE>(
-          p, cur, nxt, q, s, last, w.g, w.reach, height, width, out);
+      tile_substep<Body, BX, BY, RY, true, EDGE, GEOM>(
+          p, cur, nxt, q, s, last, w.g, w.reach, height, width, out, geo);
     } else {
-      tile_substep<Body, BX, BY, RY, false, EDGE>(
-          p, cur, nxt, q, s, last, w.g, w.reach, height, width, out);
+      tile_substep<Body, BX, BY, RY, false, EDGE, GEOM>(
+          p, cur, nxt, q, s, last, w.g, w.reach, height, width, out, geo);
     }
     stage_tile<Body::kPlanes, BX, BY, RY>(
         v_in, out.planes, out.win, load_reach(w.reach), load_geom(w.next),
@@ -384,14 +402,14 @@ constexpr size_t tile_smem_bytes() {
   return (size_t)(3 + Body::kPlanes) * BX * BY * RY * sizeof(float);
 }
 
-template <class Body, int BX, int BY, int RY>
+template <class Body, int BX, int BY, int RY, bool GEOM>
 __global__ void __launch_bounds__(BX * BY, 1)
 tile_kernel(const typename Body::Params p, const float* __restrict__ v_in,
             float* __restrict__ v_out, const Planes<Body::kPlanes> planes,
             const Window win, const Split rows, const Split cols,
             int height, int width, int n_sub, unsigned slow_mask,
             float* __restrict__ probe, int probe_row, int probe_col,
-            long long probe_index) {
+            long long probe_index, const GeometryArg<GEOM> geo) {
   constexpr int EW = BX, EH = BY * RY, kP = Body::kPlanes;
   constexpr int kTile = EH * EW;
   extern __shared__ float smem[];   // V buffers 0-2, then kP staged planes
@@ -466,13 +484,16 @@ tile_kernel(const typename Body::Params p, const float* __restrict__ v_in,
       // read by the leader alone, at the next tile's start
       store_geom(w.after, walk_geom(w, w.tile + 2 * gridDim.x));
     }
-    if (clamp_free(w.g, w.reach, height, width)) {
-      tile_substeps<Body, BX, BY, RY, false>(p, v_in, smem, q, n_sub,
-                                             slow_mask, w, height, width,
-                                             out);
+    if constexpr (GEOM) {
+      // one body: off the domain's edges its clamps are the identity
+      tile_substeps<Body, BX, BY, RY, true, GEOM>(
+          p, v_in, smem, q, n_sub, slow_mask, w, height, width, out, geo);
+    } else if (clamp_free(w.g, w.reach, height, width)) {
+      tile_substeps<Body, BX, BY, RY, false, GEOM>(
+          p, v_in, smem, q, n_sub, slow_mask, w, height, width, out, geo);
     } else {
-      tile_substeps<Body, BX, BY, RY, true>(p, v_in, smem, q, n_sub,
-                                            slow_mask, w, height, width, out);
+      tile_substeps<Body, BX, BY, RY, true, GEOM>(
+          p, v_in, smem, q, n_sub, slow_mask, w, height, width, out, geo);
     }
   }
 }
@@ -484,7 +505,7 @@ namespace {
 // The launch's grid size for a device: SMs x resident blocks per SM, found
 // once per device (with the kernel's shared-memory limit raised) and
 // cached; 0 on an error.
-template <class Body, int BX, int BY, int RY>
+template <class Body, int BX, int BY, int RY, bool GEOM>
 int persistent_blocks(int device) {
   constexpr int kMaxDevices = 64;
   static std::atomic<int> cached[kMaxDevices];
@@ -493,7 +514,7 @@ int persistent_blocks(int device) {
     if (c > 0) return c;
   }
   constexpr size_t smem = tile_smem_bytes<Body, BX, BY, RY>();
-  auto kernel = tile_kernel<Body, BX, BY, RY>;
+  auto kernel = tile_kernel<Body, BX, BY, RY, GEOM>;
   int sms = 0, per_sm = 0;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess ||
@@ -513,14 +534,15 @@ int persistent_blocks(int device) {
 }  // namespace
 
 // Launch the tiles that cover `win` (which must lie inside the domain) on
-// the current device and return cudaGetLastError().
-template <class Body, int BX, int BY, int RY>
+// the current device and return cudaGetLastError().  With GEOM, under the
+// geometry `geo`, whose maps no output may alias.
+template <class Body, int BX, int BY, int RY, bool GEOM>
 cudaError_t launch_tiles(const typename Body::Params& p, const float* v_in,
                          float* v_out, const Planes<Body::kPlanes>& planes,
                          const Window& win, int height, int width, int n_sub,
                          unsigned slow_mask, float* probe, int probe_row,
                          int probe_col, long long probe_index, int device,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, const GeometryArg<GEOM>& geo) {
   constexpr int EW = BX, EH = BY * RY;
   constexpr size_t smem = tile_smem_bytes<Body, BX, BY, RY>();
   static_assert(smem <= 232448, "the tile's buffers exceed 227 KB");
@@ -535,15 +557,20 @@ cudaError_t launch_tiles(const typename Body::Params& p, const float* v_in,
   const Split cols = split_axis(win.col1 - win.col0, EW - 2 * n_sub);
   const long long n_tiles = (long long)rows.n * cols.n;
   if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int blocks = persistent_blocks<Body, BX, BY, RY>(device);
+  if constexpr (GEOM) {
+    if (!maps_apart(geo, v_out, (void* const*)planes.out, Body::kPlanes)) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const int blocks = persistent_blocks<Body, BX, BY, RY, GEOM>(device);
   if (blocks < 1) {
     const cudaError_t err = cudaGetLastError();
     return err != cudaSuccess ? err : cudaErrorLaunchOutOfResources;
   }
   const int grid = (int)(n_tiles < blocks ? n_tiles : blocks);
-  tile_kernel<Body, BX, BY, RY><<<grid, dim3(BX, BY), smem, stream>>>(
+  tile_kernel<Body, BX, BY, RY, GEOM><<<grid, dim3(BX, BY), smem, stream>>>(
       p, v_in, v_out, planes, win, rows, cols, height, width, n_sub,
-      slow_mask, probe, probe_row, probe_col, probe_index);
+      slow_mask, probe, probe_row, probe_col, probe_index, geo);
   return cudaGetLastError();
 }
 

@@ -25,6 +25,15 @@
 // shared with br_block.cu; here the window is the whole height x width
 // domain and the planes are the grid's own arrays.  Any H, W >= 3 runs.
 //
+// Geometry: each entry's GEOM form, <m>_tiled_geom, replaces
+// make_tiled_pallas_step with `phase`, `fiber` and `dmap`
+// (block_geometry, pallas_tiled.py:60-175): the operator of geometry.cuh,
+// the height x width maps read through the read-only path (one more
+// plane of bytes each per launch, and about ten loads and the reflect
+// arithmetic per cell-substep in the instruction-bound tiles).  BR's main
+// body spills 4 bytes at 64 registers with it, so its GEOM entry runs 512
+// threads (64 x 8 x 8).
+//
 // What bounds it.  Per outer step it reads the state once and writes it
 // once: for BR 8 planes each way, 268 MB at 2048^2 float32 (80 us at 3.35
 // TB/s), plus the halo overfetch (64^2 loaded per 54^2 written, mostly
@@ -55,19 +64,20 @@
 #include "br_tile.cuh"
 #include "br_variant_cell.cuh"
 #include "fenton_cell.cuh"
+#include "geometry.cuh"
 #include "ms_cell.cuh"
 
 namespace {
 
 // Launch one outer step of body `Body` on BX x BY-thread tiles of BY * RY
-// rows (see the entries below).
-template <class Body, int BX, int BY, int RY>
+// rows (see the entries below); with GEOM, under the geometry `geo`.
+template <class Body, int BX, int BY, int RY, bool GEOM>
 int launch_tiled(const float* params, int n_params, const float* v_in,
                  float* v_out, void* const* planes_in,
                  void* const* planes_out, int n_planes, int height, int width,
                  int n_sub, unsigned slow_mask, float* probe, int probe_row,
                  int probe_col, long long probe_index, int device,
-                 void* stream) {
+                 void* stream, const fibtorch::GeometryArg<GEOM>& geo) {
   if (n_params != fibtorch::param_floats<Body>() ||
       n_planes != Body::kPlanes || height < 3 || width < 3 || n_sub < 1 ||
       n_sub > 32) {
@@ -86,9 +96,9 @@ int launch_tiled(const float* params, int n_params, const float* v_in,
   // domain
   const fibtorch::Window win = {0, 0, width, 0, height, 0, width};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)fibtorch::launch_tiles<Body, BX, BY, RY>(
+  return (int)fibtorch::launch_tiles<Body, BX, BY, RY, GEOM>(
       p, v_in, v_out, planes, win, height, width, n_sub, slow_mask, probe,
-      probe_row, probe_col, probe_index, device, s);
+      probe_row, probe_col, probe_index, device, s, geo);
 }
 
 }  // namespace
@@ -132,12 +142,47 @@ void br_tiled_split(int len, int max_tile, int* n, int* base, int* rem) {
                 int width, int n_sub, unsigned slow_mask, float* probe,     \
                 int probe_row, int probe_col, long long probe_index,        \
                 int device, void* stream) {                                 \
-    return launch_tiled<Body, BX, BY, RY>(                                  \
+    return launch_tiled<Body, BX, BY, RY, false>(                           \
         params, n_params, v_in, v_out, planes_in, planes_out, n_planes,     \
         height, width, n_sub, slow_mask, probe, probe_row, probe_col,       \
-        probe_index, device, stream);                                       \
+        probe_index, device, stream, fibtorch::NoGeometry{});               \
   }
 
+// The GEOM entries <m>_tiled_geom_param_floats, _planes, _tile_shape and
+// <m>_tiled_geom: the same as <m>_tiled's under a geometry (geometry.cuh),
+// with six more arguments: `phase` and `dmap`, height x width device
+// arrays or null, and with `tensor` the fiber tensor's (dxx, dxy, dyy).
+#define TILED_GEOM_ENTRIES(m, Body, BX, BY, RY)                             \
+  int m##_tiled_geom_param_floats() {                                       \
+    return fibtorch::param_floats<Body>();                                  \
+  }                                                                         \
+  int m##_tiled_geom_planes() { return Body::kPlanes; }                     \
+  void m##_tiled_geom_tile_shape(int* threads_x, int* threads_y,            \
+                                 int* rows_per_thread) {                    \
+    *threads_x = BX;                                                        \
+    *threads_y = BY;                                                        \
+    *rows_per_thread = RY;                                                  \
+  }                                                                         \
+  int m##_tiled_geom(const float* params, int n_params, const float* v_in,  \
+                     float* v_out, void* const* planes_in,                  \
+                     void* const* planes_out, int n_planes, int height,     \
+                     int width, int n_sub, unsigned slow_mask,              \
+                     float* probe, int probe_row, int probe_col,            \
+                     long long probe_index, int device, void* stream,       \
+                     const float* phase, const float* dmap, int tensor,     \
+                     float dxx, float dxy, float dyy) {                     \
+    const fibtorch::Geometry geo = {phase, dmap, 0, 0, width,              \
+                                    tensor, dxx, dxy, dyy};                 \
+    return launch_tiled<Body, BX, BY, RY, true>(                            \
+        params, n_params, v_in, v_out, planes_in, planes_out, n_planes,     \
+        height, width, n_sub, slow_mask, probe, probe_row, probe_col,       \
+        probe_index, device, stream, geo);                                  \
+  }
+
+// The source builds two libraries, the isotropic entries and, with
+// FIBTORCH_GEOM_ENTRIES defined, the GEOM entries: two nvcc runs side by
+// side take less time than one of both (ops/cuda_tiled.py).
+#ifndef FIBTORCH_GEOM_ENTRIES
 extern "C" {
 TILED_ENTRIES(br, fibtorch::BeelerReuterCell, 64, 16, 4)
 TILED_ENTRIES(br_variant, fibtorch::BrVariantCell<false>, 64, 8, 8)
@@ -146,3 +191,15 @@ TILED_ENTRIES(fenton, fibtorch::FentonCell, 64, 16, 4)
 TILED_ENTRIES(fenton_ab2, fibtorch::FentonAb2Cell, 64, 16, 4)
 TILED_ENTRIES(ms, fibtorch::MsCell, 64, 16, 4)
 }  // extern "C"
+#else
+// BR's main body spills 4 bytes at 64 registers under the geometry: its
+// GEOM entry runs 512 threads
+extern "C" {
+TILED_GEOM_ENTRIES(br, fibtorch::BeelerReuterCell, 64, 8, 8)
+TILED_GEOM_ENTRIES(br_variant, fibtorch::BrVariantCell<false>, 64, 8, 8)
+TILED_GEOM_ENTRIES(br_variant_ab2, fibtorch::BrVariantCell<true>, 64, 8, 8)
+TILED_GEOM_ENTRIES(fenton, fibtorch::FentonCell, 64, 16, 4)
+TILED_GEOM_ENTRIES(fenton_ab2, fibtorch::FentonAb2Cell, 64, 16, 4)
+TILED_GEOM_ENTRIES(ms, fibtorch::MsCell, 64, 16, 4)
+}  // extern "C"
+#endif

@@ -100,6 +100,7 @@
 
 #include "br_cell.cuh"
 #include "br_tile.cuh"
+#include "geometry.cuh"
 
 namespace {
 

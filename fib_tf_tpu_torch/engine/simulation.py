@@ -30,6 +30,15 @@ shard per outer step), 'xla' the plain wide-halo step; without `wide_halo`
 the per-substep exchange runs, which has no kernel.  The GSPMD modes
 (`sharding=`, `mesh_mode='gspmd'`, and 'auto' when the configuration
 cannot take the halo-exchange path) are not ported and raise.
+
+Geometry (before `define()`): `add_hole_to_phase_field` builds the phase
+field, `set_diffusion_map` attaches a relative diffusion map, and
+`SimConfig.fiber_angle` / `fiber_ratio` the fiber tensor.  They go to every
+route: the kernels' GEOM entries, the plain step's operators, and on a mesh
+the shards' maps, extended once at `define()`.  They do not move the
+routing: the cutover counts the model's planes only, as the reference's
+`_state_mb` does.  The "v" probe samples the phase-masked image, as the
+reference's does: V's probe is scaled by phase[probe_pixel].
 """
 
 from __future__ import annotations
@@ -45,12 +54,11 @@ import torch
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.engine.observers import CycleLengthDetector
-from fib_tf_tpu_torch.models.base import IonicModel
+from fib_tf_tpu_torch.models.base import IonicModel, grid_geometry
 from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled, stencil
 from fib_tf_tpu_torch.parallel import sharding as mesh_sharding
 from fib_tf_tpu_torch.parallel import spmd
 
-_GEOMETRY = "ROADMAP Queue 1 item 9"
 _ENGINE = "ROADMAP Queue 1 item 14"
 _PARALLEL = "ROADMAP Queue 1 item 19"
 
@@ -98,9 +106,6 @@ class Simulation:
         if mesh is not None:
             device = mesh.devices.flat[0]
         device = resolve_device(device)
-        if cfg.fiber_angle is not None:
-            _not_ported("fiber anisotropy (SimConfig.fiber_angle)",
-                        _GEOMETRY)
         if cfg.rotor_probe:
             _not_ported("the rotor probe (SimConfig.rotor_probe)", _ENGINE)
         if cfg.timeline or cfg.save_graph:
@@ -110,6 +115,9 @@ class Simulation:
         if mesh is not None:
             _check_mesh(model, mesh, wide_halo)
         self.model = model
+        # the geometry (numpy, static), set before define()
+        self.phase: Optional[np.ndarray] = None
+        self.dmap: Optional[np.ndarray] = None
         self.cfg = cfg
         self.device = device
         self._mesh = mesh
@@ -125,6 +133,7 @@ class Simulation:
         self._pace_masks: Dict[str, torch.Tensor] = {}
         self._defined = False
         self._step = None
+        self._shard_maps: Optional[spmd.ShardMaps] = None
 
     # Whole-grid vs tiled cutover in MB of state (planes x H x W x 4): the
     # JAX engine's value (fib_tf_tpu/engine/simulation.py:507), where its
@@ -135,13 +144,49 @@ class Simulation:
     def _state_mb(self) -> float:
         return state_mb(self.model)
 
-    # -- not ported yet --------------------------------------------------------
+    # -- geometry construction (before define) ----------------------------------
 
     def add_hole_to_phase_field(self, x, y, radius, neg: bool = False):
-        _not_ported("phase fields", _GEOMETRY)
+        """Multiply a circular hole (or, with `neg`, everything outside a
+        disk) into the phase field (must precede `define`)."""
+        if self._defined:
+            raise AssertionError(
+                "add_hole_to_phase_field must be called before define()")
+        self.phase = stencil.add_hole_to_phase_field(
+            self.phase, self.cfg.height, self.cfg.width, x, y, radius, neg)
 
     def set_diffusion_map(self, dmap):
-        _not_ported("diffusion maps", _GEOMETRY)
+        """Attach a per-pixel RELATIVE diffusion map (1 = the nominal
+        `cfg.diff`; stencil.fibrosis_map builds patchy fibrosis).  Must
+        precede `define`."""
+        if self._defined:
+            raise AssertionError(
+                "set_diffusion_map must be called before define()")
+        dmap = np.asarray(dmap, np.float32)
+        if dmap.shape != (self.cfg.height, self.cfg.width):
+            raise ValueError(
+                f"diffusion map shape {dmap.shape} != grid "
+                f"{(self.cfg.height, self.cfg.width)}")
+        if not np.isfinite(dmap).all() or (dmap < 0).any():
+            raise ValueError("diffusion map must be finite and >= 0")
+        self.dmap = dmap
+
+    def _fiber(self):
+        """(dxx, dxy, dyy) when anisotropic, else None."""
+        if self.cfg.fiber_angle is not None and self.cfg.fiber_ratio != 1.0:
+            return stencil.fiber_tensor(self.cfg.fiber_angle,
+                                        self.cfg.fiber_ratio)
+        return None
+
+    def _probe_scale(self) -> float:
+        """The phase field at the probe pixel (1 without one): the
+        reference samples the phase-masked image."""
+        if self.phase is None:
+            return 1.0
+        r, c = self.model.probe_pixel
+        return float(self.phase[r, c])
+
+    # -- not ported yet --------------------------------------------------------
 
     def add_electrode(self, x, y, radius: float = 5.0):
         _not_ported("electrogram electrodes", _ENGINE)
@@ -173,17 +218,30 @@ class Simulation:
                 f"state planes {sorted(init)} != model planes "
                 f"{sorted(self.model.state_keys())}")
         self._initial = init
+        fiber = self._fiber()
         if self._mesh is not None:
+            self._shard_maps = spmd.shard_maps(
+                self.model, self._mesh, self.phase, self.dmap,
+                self._wide_halo)
             if self.device.type == "cuda":
                 self._run_chunk(self._to_device(init), 1)
             self._defined = True
             return self
+        # the steps' geometry arguments, given only when set
+        geometry = {k: v for k, v in dict(phase=self.phase, fiber=fiber,
+                                          dmap=self.dmap).items()
+                    if v is not None}
         if self.route == "tiled":
-            self._step = cuda_tiled.make_tiled_cuda_step(self.model)
+            self._step = cuda_tiled.make_tiled_cuda_step(self.model,
+                                                         **geometry)
         elif self.route == "substep":
-            self._step = cuda_step.make_cuda_step(self.model)
+            self._step = cuda_step.make_cuda_step(self.model, **geometry)
         else:
-            self._step = functools.partial(cuda_step.plain_step, self.model)
+            self._step = functools.partial(
+                cuda_step.plain_step, self.model,
+                geom=grid_geometry(self.phase, self.cfg.fiber_angle,
+                                   self.cfg.fiber_ratio, self.dmap,
+                                   self.device))
         if self.device.type == "cuda":
             scratch = interop.state_from_numpy(init, self.device)
             probe = torch.empty(1, device=self.device)
@@ -253,7 +311,8 @@ class Simulation:
         if n not in self._spmd_chunks:
             self._spmd_chunks[n] = spmd.make_spmd_chunk(
                 self.model, self._mesh, n, wide_halo=self._wide_halo,
-                use_kernel=self.route == "block")
+                use_kernel=self.route == "block", fiber=self._fiber(),
+                maps=self._shard_maps)
         state, probes = self._spmd_chunks[n](state)
         return state, self._read_chunk(probes["v"], state)
 
@@ -312,6 +371,7 @@ class Simulation:
             self._synchronize()
 
         probes_acc: List[np.ndarray] = []
+        scale = np.float32(self._probe_scale())
         ev_idx = 0
         step = 0
         then = time.perf_counter()
@@ -324,8 +384,9 @@ class Simulation:
                     raise FloatingPointError(
                         f"non-finite {model.pot_key} detected at outer "
                         f"step {step + n}")
-                probes_acc.append(host[:-1])
-                detector.feed(step, host[:-1])
+                probe = host[:-1] if scale == 1 else host[:-1] * scale
+                probes_acc.append(probe)
+                detector.feed(step, probe)
                 step += n
                 seg -= n
             if ev_idx < len(events) and events[ev_idx][0] == b:
@@ -464,6 +525,11 @@ def _check_mesh(model: IonicModel, mesh: mesh_sharding.Mesh,
     """The construction checks of a sharded run
     (fib_tf_tpu/engine/simulation.py:109-137)."""
     cfg = model.cfg
+    if cfg.fiber_angle is not None and not wide_halo:
+        raise ValueError(
+            "fiber anisotropy on the halo-exchange (mesh=...) path requires "
+            "wide_halo=True (the per-substep halo geometries are "
+            "isotropic)")
     if cfg.kernel == "pallas" and not wide_halo:
         raise ValueError(
             "kernel='pallas' on the halo-exchange (mesh=...) path requires "

@@ -54,11 +54,17 @@ def find_nvcc() -> str:
     )
 
 
+def _flags(defines: Sequence[str]):
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
 def library_path(name: str, sources: Sequence[Path],
-                 headers: Sequence[Path] = ()) -> Path:
+                 headers: Sequence[Path] = (),
+                 defines: Sequence[str] = ()) -> Path:
     """Where `build` puts the library of `sources`: keyed by a hash of
-    their bytes, of the `headers` they include and of the nvcc flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    their bytes, of the `headers` they include and of the nvcc flags
+    (with the preprocessor `defines`)."""
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for src in [*sources, *headers]:
         h.update(Path(src).name.encode())
         h.update(Path(src).read_bytes())
@@ -66,18 +72,19 @@ def library_path(name: str, sources: Sequence[Path],
 
 
 def build(name: str, sources: Sequence[Path],
-          headers: Sequence[Path] = ()) -> Path:
+          headers: Sequence[Path] = (), defines: Sequence[str] = ()) -> Path:
     """Compile `sources` into one shared library unless a library of the
-    same sources and `headers` exists; return its path.  The headers are
-    hashed, not passed to nvcc.  The compiler's output (with the -Xptxas
-    -v resource report) is kept beside it as `<lib>.log`."""
-    out = library_path(name, sources, headers)
+    same sources, `headers` and `defines` (macros set with -D, which
+    select what a source compiles) exists; return its path.  The headers
+    are hashed, not passed to nvcc.  The compiler's output (with the
+    -Xptxas -v resource report) is kept beside it as `<lib>.log`."""
+    out = library_path(name, sources, headers, defines)
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    cmd = [nvcc, *_flags(defines), "-o", str(tmp), *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
     out.with_name(out.name + ".log").write_text(log)
@@ -91,6 +98,7 @@ def build(name: str, sources: Sequence[Path],
 
 
 def load(name: str, sources: Sequence[Path],
-         headers: Sequence[Path] = ()) -> ctypes.CDLL:
+         headers: Sequence[Path] = (),
+         defines: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (if needed) and load the library of `sources`."""
-    return ctypes.CDLL(str(build(name, sources, headers)))
+    return ctypes.CDLL(str(build(name, sources, headers, defines)))

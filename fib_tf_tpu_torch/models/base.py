@@ -38,20 +38,54 @@ def grid_geometry(
     fiber_angle: Optional[float] = None,
     fiber_ratio: float = 1.0,
     dmap: Optional[np.ndarray] = None,
+    device="cpu",
 ) -> Geometry:
-    """Standard isotropic 2D tissue geometry.  Phase fields, fiber
-    anisotropy and diffusion maps are not ported yet."""
-    if phase is not None:
-        raise NotImplementedError(
-            "phase fields are not ported yet (ROADMAP Queue 1 item 9)")
-    if fiber_angle is not None or fiber_ratio != 1.0:
-        raise NotImplementedError(
-            "fiber anisotropy is not ported yet (ROADMAP Queue 1 item 9)")
-    if dmap is not None:
-        raise NotImplementedError(
-            "diffusion maps are not ported yet (ROADMAP Queue 1 item 9)")
-    return Geometry(laplace=stencil.laplace,
-                    enforce_boundary=stencil.enforce_boundary)
+    """Standard 2D tissue geometry (fib_tf_tpu/models/base.py:50-94),
+    optionally with a phase field, anisotropic fiber conduction and a
+    per-pixel relative diffusion map, its maps on `device`.
+
+    The phase field and the diffusion map are REFLECT-padded once (they
+    are static).  With `fiber_angle` set and `fiber_ratio != 1` the
+    operator is the fiber tensor's (stencil.anisotropic_laplace);
+    `fiber_ratio == 1` keeps the isotropic 9-point stencil, as the
+    reference does."""
+    fiber = None
+    if fiber_angle is not None and fiber_ratio != 1.0:
+        fiber = stencil.fiber_tensor(fiber_angle, fiber_ratio)
+    return tissue_geometry(phase, fiber, dmap, device)
+
+
+def _padded_map(a: Optional[np.ndarray], device) -> Optional[torch.Tensor]:
+    """A static `[H, W]` map REFLECT-padded to `[H+2, W+2]` float32 on
+    `device` (None stays None)."""
+    if a is None:
+        return None
+    return torch.tensor(np.pad(np.asarray(a, np.float32), 1, mode="reflect"),
+                        device=device)
+
+
+def tissue_geometry(
+    phase: Optional[np.ndarray] = None,
+    fiber: Optional[tuple] = None,
+    dmap: Optional[np.ndarray] = None,
+    device="cpu",
+) -> Geometry:
+    """`grid_geometry` from the fiber tensor (dxx, dxy, dyy) itself (or
+    None for the isotropic operator), as the kernels take it."""
+    pp, dp = _padded_map(phase, device), _padded_map(dmap, device)
+    if fiber is not None:
+        dxx, dxy, dyy = fiber
+        return Geometry(
+            laplace=lambda x: stencil.anisotropic_laplace(
+                x, dxx, dxy, dyy, phase_padded=pp, dmap_padded=dp),
+            enforce_boundary=stencil.enforce_boundary)
+    if pp is None and dp is None:
+        return Geometry(laplace=stencil.laplace,
+                        enforce_boundary=stencil.enforce_boundary)
+    return Geometry(
+        laplace=lambda x: stencil.laplace(x, phase_padded=pp,
+                                          dmap_padded=dp),
+        enforce_boundary=stencil.enforce_boundary)
 
 
 def volume_geometry(

@@ -13,9 +13,13 @@ Beeler-Reuter, 10 for Fenton and Mitchell-Schaeffer), the tile skeleton of
 the tiled outer-step kernel (csrc/br_tile.cuh, on each body's tile shape,
 cuda_tiled.tile_of) reading from the extended block.
 
-`block_geometry` is the plain geometry of an extended block (the isotropic
-branch of the reference's `block_geometry`, pallas_tiled.py:61-181): the
-wide-halo path's `kernel='xla'` step and the kernel's plain version.
+`block_geometry` is the plain geometry of an extended block (the
+reference's `block_geometry`, pallas_tiled.py:60-175, with its phase field,
+fiber tensor and diffusion map): the wide-halo path's `kernel='xla'` step
+and the kernel's plain version.  Under a geometry the launch is the body's
+GEOM entry, `<body>_block_geom` (`GEOM_KERNELS`), which reads the shard's
+phase field and diffusion map extended like its block (parallel/spmd.py
+builds them once).
 
 Routing is by the device of the block's tensors, as in ops/cuda_step.py:
 CPU tensors take the plain version, CUDA tensors launch the kernel, and a
@@ -46,6 +50,7 @@ SOURCE = build.CSRC_DIR / "br_block.cu"
 HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh",
            build.CSRC_DIR / "br_variant_cell.cuh",
            build.CSRC_DIR / "fenton_cell.cuh",
+           build.CSRC_DIR / "geometry.cuh",
            build.CSRC_DIR / "ms_cell.cuh")
 
 
@@ -83,6 +88,9 @@ def block_geometry(
     h_total: int,
     cg: Optional[torch.Tensor] = None,
     w_total: Optional[int] = None,
+    phase_ext: Optional[torch.Tensor] = None,
+    fiber: Optional[tuple] = None,
+    dmap_ext: Optional[torch.Tensor] = None,
 ) -> Geometry:
     """Geometry over a block extended with halo rows (and, when `cg` is
     given, halo columns).
@@ -92,8 +100,10 @@ def block_geometry(
     away one ring per substep.  Without `cg`, columns span the full width
     and use plain REFLECT semantics; with `cg` (`[1, ext_w]` global column
     indices) the same global-edge masking applies along columns: the 2D
-    wide-halo case.  Phase fields, fiber tensors and diffusion maps are not
-    ported yet (ROADMAP Queue 1 item 9)."""
+    wide-halo case.  `phase_ext` / `dmap_ext` are the phase field and the
+    relative diffusion map on the same extended block, `fiber` the tensor
+    (dxx, dxy, dyy) of the anisotropic operator (the reference's forms,
+    value-identical to ops/stencil.py's on the gathered grid)."""
     top = rg == 0
     bottom = rg == h_total - 1
 
@@ -132,8 +142,32 @@ def block_geometry(
         s = south(x)
         w = west(x)
         e = east(x)
-        return (n + s + w + e
-                + 0.5 * (west(n) + east(n) + west(s) + east(s)) - 6.0 * x)
+        if fiber is not None:
+            dxx, dxy, dyy = fiber
+            vxx = w - 2.0 * x + e
+            vyy = n - 2.0 * x + s
+            vxy = 0.25 * (east(s) + west(n) - west(s) - east(n))
+            l = 2.0 * (dxx * vxx + 2.0 * dxy * vxy + dyy * vyy)
+        else:
+            l = (n + s + w + e
+                 + 0.5 * (west(n) + east(n) + west(s) + east(s)) - 6.0 * x)
+        if phase_ext is None and dmap_ext is None:
+            return l
+        if dmap_ext is not None:
+            l = dmap_ext * l
+            q = dmap_ext * phase_ext if phase_ext is not None else dmap_ext
+        else:
+            q = phase_ext
+        phi = phase_ext if phase_ext is not None else 1.0
+        gx = e - w
+        gy = s - n
+        qx = east(q) - west(q)
+        qy = south(q) - north(q)
+        if fiber is not None:
+            flux = gx * (dxx * qx + dxy * qy) + gy * (dxy * qx + dyy * qy)
+        else:
+            flux = gy * qy + gx * qx
+        return l + flux / (4.0 * phi)
 
     def enforce_boundary(x):
         x = torch.where(top, _row_down(x), x)       # row 0 <- row 1
@@ -148,12 +182,17 @@ def block_geometry(
 
 class BlockKernel:
     """ctypes binding of one cell body's entry `<body>_block` of
-    csrc/br_block.cu.  The library is built and loaded on the first launch;
-    `launches` counts successful launches."""
+    csrc/br_block.cu, or with `geom` its GEOM form `<body>_block_geom`.
+    The library is built and loaded on the first launch; `launches` counts
+    successful launches."""
 
-    def __init__(self, body: str):
+    def __init__(self, body: str, geom: bool = False):
         self.body = BODIES[body]
-        self.entry = f"{body}_block"
+        self.geom = geom
+        self.entry = f"{body}_block" + ("_geom" if geom else "")
+        # the GEOM entries are a second library of the same source
+        self.library_name = "br_block" + ("_geom" if geom else "")
+        self.defines = ("FIBTORCH_GEOM_ENTRIES",) if geom else ()
         self._lib = None
         self.reset_launches()
 
@@ -162,11 +201,13 @@ class BlockKernel:
 
     def build(self):
         """Build the library (if needed) and return its path."""
-        return build.build("br_block", [SOURCE], HEADERS)
+        return build.build(self.library_name, [SOURCE], HEADERS,
+                           self.defines)
 
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = build.load("br_block", [SOURCE], HEADERS)
+            lib = build.load(self.library_name, [SOURCE], HEADERS,
+                             self.defines)
             fn = getattr(lib, self.entry)
             fn.argtypes = (
                 [ctypes.c_void_p, ctypes.c_int,      # params, n_params
@@ -183,10 +224,12 @@ class BlockKernel:
                  ctypes.c_longlong,                  # probe index
                  ctypes.c_int,                       # device ordinal
                  ctypes.c_void_p]                    # cudaStream_t
+                + (cuda_step.GEOMETRY_ARGTYPES if self.geom else [])
             )
             fn.restype = ctypes.c_int
             cuda_step.check_layout(lib, self.entry, self.body)
-            cuda_tiled.check_tile_shape(lib, self.entry, self.body.name)
+            cuda_tiled.check_tile_shape(lib, self.entry, self.body.name,
+                                        self.geom)
             self._lib = lib
         return self._lib
 
@@ -194,9 +237,11 @@ class BlockKernel:
                rstart: int, cstart: int, halo: int, two_d: bool,
                h_total: int, w_total: int, schedule,
                probe: Optional[torch.Tensor], probe_pixel, probe_index: int,
-               stream: int):
+               stream: int, geometry: tuple = ()):
         """One outer step on CUDA tensors already validated by the
-        caller: reads `ext_in`, writes the centre of `ext_out`."""
+        caller: reads `ext_in`, writes the centre of `ext_out`.
+        `geometry` is a GEOM entry's trailing arguments, the maps of the
+        extended layout (`cuda_step.kernel_geometry_args`)."""
         fn = getattr(self.library(), self.entry)
         pot, planes = self.body.model.pot_key, self.body.planes
         v_in = ext_in[pot]
@@ -210,7 +255,7 @@ class BlockKernel:
             h_total, w_total, len(schedule), cuda_tiled.slow_mask(schedule),
             probe.data_ptr() if probe is not None else None,
             probe_pixel[0], probe_pixel[1], probe_index,
-            v_in.device.index, stream,
+            v_in.device.index, stream, *geometry,
         )
         if err != 0:
             raise RuntimeError(
@@ -220,9 +265,10 @@ class BlockKernel:
         self.launches += 1
 
 
-# the process-wide bindings, one per cell body: the built library is
-# process-wide too.  KERNEL is Beeler-Reuter's.
+# the process-wide bindings, one per cell body and form: the built library
+# is process-wide too.  KERNEL is Beeler-Reuter's.
 KERNELS = {name: BlockKernel(name) for name in BODIES}
+GEOM_KERNELS = {name: BlockKernel(name, geom=True) for name in BODIES}
 KERNEL = KERNELS["br"]
 
 
@@ -243,12 +289,15 @@ def centre(x: torch.Tensor, halo: int, two_d: bool) -> torch.Tensor:
 def plain_block_step(model: IonicModel, ext_in: State, ext_out: State,
                      rstart: int, cstart: int, two_d: bool,
                      probe: Optional[torch.Tensor] = None,
-                     probe_index: int = 0) -> State:
+                     probe_index: int = 0,
+                     phase_ext: Optional[torch.Tensor] = None,
+                     fiber: Optional[tuple] = None,
+                     dmap_ext: Optional[torch.Tensor] = None) -> State:
     """Plain PyTorch version of one launch: `model.step` on the extended
-    block under `block_geometry`, its centre copied into `ext_out`
-    (spmd.py:406-414).  With `probe` (the owning shard only), the
-    normalised new potential at the model's probe pixel goes to
-    `probe[probe_index]`."""
+    block under `block_geometry` (with the block's `phase_ext`, `fiber`,
+    `dmap_ext`), its centre copied into `ext_out` (spmd.py:406-414).  With
+    `probe` (the owning shard only), the normalised new potential at the
+    model's probe pixel goes to `probe[probe_index]`."""
     cfg = model.cfg
     halo = model.dt_per_step
     ext_h, ext_w = ext_in[model.pot_key].shape
@@ -256,7 +305,7 @@ def plain_block_step(model: IonicModel, ext_in: State, ext_out: State,
     geom = block_geometry(
         global_rows(rstart, ext_h, dev), cfg.height,
         global_cols(cstart, ext_w, dev) if two_d else None,
-        cfg.width if two_d else None)
+        cfg.width if two_d else None, phase_ext, fiber, dmap_ext)
     new = model.step(dict(ext_in), geom)
     for k, t in new.items():
         centre(ext_out[k], halo, two_d).copy_(centre(t, halo, two_d))
@@ -267,37 +316,49 @@ def plain_block_step(model: IonicModel, ext_in: State, ext_out: State,
     return ext_out
 
 
-def make_block_step(model: IonicModel, two_d: bool):
+def make_block_step(model: IonicModel, two_d: bool,
+                    fiber: Optional[tuple] = None):
     """Build `step(ext_in, ext_out, rstart, cstart, probe=None,
-    probe_index=0, stream=None) -> ext_out`: one outer step of one shard's
-    extended block in one launch of the block kernel.  `rstart` / `cstart`
-    are the global indices of the block's element (0, 0), ghosts included
-    (`cstart` is 0 on a 1D mesh).  Pass `probe` only on the shard that owns
-    the model's probe pixel.  `stream` is the CUDA stream to launch on
-    (default: the device's current one).  CPU blocks take
+    probe_index=0, stream=None, phase_ext=None, dmap_ext=None) -> ext_out`:
+    one outer step of one shard's extended block in one launch of the
+    block kernel.  `rstart` / `cstart` are the global indices of the
+    block's element (0, 0), ghosts included (`cstart` is 0 on a 1D mesh).
+    Pass `probe` only on the shard that owns the model's probe pixel.
+    `stream` is the CUDA stream to launch on (default: the device's
+    current one).  `phase_ext` / `dmap_ext` are the shard's phase field and
+    diffusion map extended like its block; with them or with `fiber` (dxx,
+    dxy, dyy) the launch is the GEOM entry.  CPU blocks take
     `plain_block_step`.
 
     `SimConfig.substeps_per_launch`, which the reference's block kernel
     takes to bound its compile time, has no effect here: the launch always
     fuses the whole outer step."""
     body = cuda_step.cell_body(model).name
-    kernel = KERNELS[body]
     schedule = cuda_step.slow_schedule(model)
     halo = model.dt_per_step
-    if min(cuda_tiled.tile_interior(len(schedule), body)) < 1:
-        raise ValueError(f"tile {cuda_tiled.tile_of(body)} has no interior "
-                         f"left after a {len(schedule)}-ring halo")
+    for geom in (False, True):
+        if min(cuda_tiled.tile_interior(len(schedule), body, geom)) < 1:
+            raise ValueError(
+                f"tile {cuda_tiled.tile_of(body, geom)} has no interior "
+                f"left after a {len(schedule)}-ring halo")
+    if fiber is not None:
+        fiber = tuple(float(f) for f in fiber)
     params = cuda_step.pack_params(model)
     h_total, w_total = model.state_shape()
 
     def step(ext_in: State, ext_out: State, rstart: int, cstart: int = 0,
              probe: Optional[torch.Tensor] = None, probe_index: int = 0,
-             stream: Optional[torch.cuda.Stream] = None) -> State:
+             stream: Optional[torch.cuda.Stream] = None,
+             phase_ext: Optional[torch.Tensor] = None,
+             dmap_ext: Optional[torch.Tensor] = None) -> State:
         shape = tuple(ext_in[model.pot_key].shape)
         dev = cuda_step.check_state(model, ext_in, shape)
         if cuda_step.check_state(model, ext_out, shape) != dev:
             raise ValueError("ext_in and ext_out are on different devices")
         _check_block(shape, rstart, cstart, halo, two_d, h_total, w_total)
+        cuda_step.check_maps((phase_ext, dmap_ext), shape, dev)
+        geom = (fiber is not None or phase_ext is not None
+                or dmap_ext is not None)
         if probe is not None:
             r, c = model.probe_pixel
             lr, lc = r - rstart - halo, c - cstart - (halo if two_d else 0)
@@ -307,11 +368,15 @@ def make_block_step(model: IonicModel, two_d: bool):
                                   (own_h, own_w))
         if dev.type == "cpu":
             return plain_block_step(model, ext_in, ext_out, rstart, cstart,
-                                    two_d, probe, probe_index)
+                                    two_d, probe, probe_index, phase_ext,
+                                    fiber, dmap_ext)
         s = stream if stream is not None else torch.cuda.current_stream(dev)
+        kernel = (GEOM_KERNELS if geom else KERNELS)[body]
         kernel.launch(params, ext_in, ext_out, rstart, cstart, halo, two_d,
                       h_total, w_total, schedule, probe, model.probe_pixel,
-                      probe_index, s.cuda_stream)
+                      probe_index, s.cuda_stream,
+                      cuda_step.kernel_geometry_args(phase_ext, dmap_ext,
+                                                     fiber) if geom else ())
         return ext_out
 
     return step

@@ -23,6 +23,12 @@ PyTorch version (the model's own `solve` on the ported stencil); CUDA
 tensors launch the kernel, and a launch that fails raises.  Nothing falls
 back from the card to the plain version.
 
+Geometry (`GeometryMaps`: a phase field, a diffusion map, a fiber tensor;
+make_pallas_step's `phase`, `dmap` and `fiber`) takes each entry's GEOM
+form, `<body>_substep_geom` (`GEOM_KERNELS`), and the plain version takes
+the model's `solve` under `grid_geometry`'s operators.  A run without
+geometry launches the isotropic entries, as before.
+
 State update contract (both versions): the state dict is updated IN PLACE
 and returned.  The potential (`model.pot_key`: "V" for BR, "u" for Fenton
 and Mitchell-Schaeffer) is replaced by a new tensor (the kernel
@@ -40,7 +46,8 @@ import numpy as np
 import torch
 
 from fib_tf_tpu_torch.kernels import build
-from fib_tf_tpu_torch.models.base import IonicModel, grid_geometry
+from fib_tf_tpu_torch.models.base import (Geometry, IonicModel,
+                                          grid_geometry, tissue_geometry)
 from fib_tf_tpu_torch.models.beeler_reuter import (
     FAST_CURRENTS,
     G_NA,
@@ -59,7 +66,12 @@ SOURCE = build.CSRC_DIR / "br_substep.cu"
 HEADERS = (build.CSRC_DIR / "br_cell.cuh",
            build.CSRC_DIR / "br_variant_cell.cuh",
            build.CSRC_DIR / "fenton_cell.cuh",
+           build.CSRC_DIR / "geometry.cuh",
            build.CSRC_DIR / "ms_cell.cuh")
+# the GEOM entries' extra arguments: phase, dmap (device pointers or null),
+# tensor flag, dxx, dxy, dyy (csrc/geometry.cuh Geometry)
+GEOMETRY_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_float, ctypes.c_float, ctypes.c_float]
 # BrParams::coef order in br_cell.cuh
 FIT_ORDER = (
     "x1_inf", "x1_rl", "m_inf", "m_rl", "h_inf", "h_rl", "j_inf", "j_rl",
@@ -246,16 +258,101 @@ def plane_pointers(state: State, planes):
         *[state[k].data_ptr() for k in planes])
 
 
+class GeometryMaps:
+    """A 2D run's static geometry as the kernels and their plain versions
+    take it: the phase field ϕ and the relative diffusion map d (`[H, W]`
+    numpy float32, or None: ϕ ≡ 1, d ≡ 1) and the fiber tensor (dxx, dxy,
+    dyy) (None: the isotropic 9-point operator).  Their tensors are made
+    once per device: `plain(device)` is the plain path's `Geometry`,
+    `args(device)` the GEOM entries' trailing arguments (the maps'
+    pointers, which the kernels read with the state's layout)."""
+
+    def __init__(self, shape, phase: Optional[np.ndarray] = None,
+                 fiber: Optional[tuple] = None,
+                 dmap: Optional[np.ndarray] = None):
+        self.shape = tuple(shape)
+        self.phase = self._map(phase, "phase")
+        self.dmap = self._map(dmap, "dmap")
+        self.fiber = (None if fiber is None
+                      else tuple(float(f) for f in fiber))
+        if self.fiber is not None and len(self.fiber) != 3:
+            raise ValueError(f"fiber must be (dxx, dxy, dyy), got {fiber}")
+        self._tensors: Dict[torch.device, tuple] = {}
+        self._plain: Dict[torch.device, Geometry] = {}
+
+    def _map(self, a, name):
+        if a is None:
+            return None
+        a = np.ascontiguousarray(a, np.float32)
+        if a.shape != self.shape:
+            raise ValueError(f"{name} has shape {a.shape}, the grid is "
+                             f"{self.shape}")
+        return a
+
+    @property
+    def empty(self) -> bool:
+        """No geometry: the isotropic kernels and stencil."""
+        return self.phase is None and self.dmap is None and self.fiber is None
+
+    def tensors(self, device) -> tuple:
+        """(phase, dmap) as float32 tensors on `device` (or None)."""
+        device = torch.device(device)
+        if device not in self._tensors:
+            self._tensors[device] = tuple(
+                None if a is None else torch.tensor(a, device=device)
+                for a in (self.phase, self.dmap))
+        return self._tensors[device]
+
+    def plain(self, device) -> Geometry:
+        """The plain operators (`tissue_geometry`) with the maps on
+        `device`."""
+        device = torch.device(device)
+        if device not in self._plain:
+            self._plain[device] = tissue_geometry(self.phase, self.fiber,
+                                                  self.dmap, device)
+        return self._plain[device]
+
+    def args(self, device) -> tuple:
+        """The GEOM entries' trailing arguments on `device`."""
+        return kernel_geometry_args(*self.tensors(device), self.fiber)
+
+
+def kernel_geometry_args(phase: Optional[torch.Tensor],
+                         dmap: Optional[torch.Tensor],
+                         fiber: Optional[tuple]) -> tuple:
+    """The GEOM entries' trailing arguments (GEOMETRY_ARGTYPES) for the
+    maps `phase` / `dmap` (tensors of the state's layout, or None) and the
+    fiber tensor."""
+    dxx, dxy, dyy = fiber if fiber is not None else (1.0, 0.0, 1.0)
+    return (None if phase is None else phase.data_ptr(),
+            None if dmap is None else dmap.data_ptr(),
+            int(fiber is not None), dxx, dxy, dyy)
+
+
+def check_maps(maps, shape, dev: torch.device):
+    """The maps a GEOM launch reads: float32, contiguous, of the state's
+    `shape` and on its device `dev`."""
+    for name, t in zip(("phase", "dmap"), maps):
+        if t is None:
+            continue
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous float32 {tuple(shape)} tensor "
+                f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 class SubstepKernel:
     """ctypes binding of one cell body's entry `<body>_substep` of
-    csrc/br_substep.cu.  The library is built and loaded on the first
-    launch; `launches` counts successful launches per template flag
-    ("slow" = SLOW=true, "frozen" = SLOW=false; Fenton and
-    Mitchell-Schaeffer launch SLOW=true alone)."""
+    csrc/br_substep.cu, or with `geom` its GEOM form `<body>_substep_geom`.
+    The library is built and loaded on the first launch; `launches` counts
+    successful launches per template flag ("slow" = SLOW=true, "frozen" =
+    SLOW=false; Fenton and Mitchell-Schaeffer launch SLOW=true alone)."""
 
-    def __init__(self, body: str):
+    def __init__(self, body: str, geom: bool = False):
         self.body = BODIES[body]
-        self.entry = f"{body}_substep"
+        self.geom = geom
+        self.entry = f"{body}_substep" + ("_geom" if geom else "")
         self._lib = None
         self.reset_launches()
 
@@ -279,16 +376,19 @@ class SubstepKernel:
                    ctypes.c_longlong,                # probe index
                    ctypes.c_int,                     # device ordinal
                    ctypes.c_void_p]                  # cudaStream_t
+                + (GEOMETRY_ARGTYPES if self.geom else [])
             )
             fn.restype = ctypes.c_int
-            check_layout(lib, self.entry, self.body)
+            check_layout(lib, f"{self.body.name}_substep", self.body)
             self._lib = lib
         return self._lib
 
     def launch(self, params: np.ndarray, state: State, slow: bool,
                probe: Optional[torch.Tensor], probe_pixel, probe_index: int,
-               stream: int):
-        """One substep on CUDA tensors already validated by the caller."""
+               stream: int, geometry: tuple = ()):
+        """One substep on CUDA tensors already validated by the caller;
+        `geometry` is a GEOM entry's trailing arguments
+        (`kernel_geometry_args`)."""
         fn = getattr(self.library(), self.entry)
         pot = self.body.model.pot_key
         v_in = state[pot]
@@ -301,7 +401,7 @@ class SubstepKernel:
             h, w,
             probe.data_ptr() if probe is not None else None,
             probe_pixel[0], probe_pixel[1], probe_index,
-            v_in.device.index, stream,
+            v_in.device.index, stream, *geometry,
         )
         if err != 0:
             raise RuntimeError(
@@ -328,9 +428,10 @@ def check_layout(lib: ctypes.CDLL, entry: str, body: CellBody):
             f"module packs {tuple(want)}")
 
 
-# the process-wide bindings, one per cell body: the built library is
-# process-wide too.  KERNEL is Beeler-Reuter's.
+# the process-wide bindings, one per cell body and form: the built library
+# is process-wide too.  KERNEL is Beeler-Reuter's.
 KERNELS = {name: SubstepKernel(name) for name in BODIES}
+GEOM_KERNELS = {name: SubstepKernel(name, geom=True) for name in BODIES}
 KERNEL = KERNELS["br"]
 
 
@@ -416,10 +517,13 @@ def solve_substep(model: IonicModel, state: State, geom, slow: bool) -> State:
 
 def plain_substep(model: IonicModel, state: State, slow: bool,
                   probe: Optional[torch.Tensor] = None,
-                  probe_index: int = 0) -> State:
-    """Plain PyTorch version of one kernel launch: `solve_substep`,
-    written back into `state` under the kernel's contract."""
-    write_back(state, solve_substep(model, state, grid_geometry(), slow),
+                  probe_index: int = 0,
+                  geom: Optional[Geometry] = None) -> State:
+    """Plain PyTorch version of one kernel launch: `solve_substep` under
+    `geom` (default the isotropic `grid_geometry()`), written back into
+    `state` under the kernel's contract."""
+    geom = grid_geometry() if geom is None else geom
+    write_back(state, solve_substep(model, state, geom, slow),
                model.pot_key)
     if probe is not None:
         probe[probe_index] = model.probe(state)
@@ -428,19 +532,24 @@ def plain_substep(model: IonicModel, state: State, slow: bool,
 
 def substep(model: IonicModel, state: State, slow: bool,
             probe: Optional[torch.Tensor] = None,
-            probe_index: int = 0) -> State:
+            probe_index: int = 0,
+            maps: Optional[GeometryMaps] = None) -> State:
     """One substep: the kernel on CUDA tensors, the plain version on CPU
-    tensors.  For BR, `slow` advances the slow gates (the n=5 substep
-    under skip).  With `probe`, writes the normalized new potential at
-    `model.probe_pixel` to `probe[probe_index]`."""
+    tensors, under the geometry `maps` if given.  For BR, `slow` advances
+    the slow gates (the n=5 substep under skip).  With `probe`, writes the
+    normalized new potential at `model.probe_pixel` to
+    `probe[probe_index]`."""
     body = cell_body(model)
     dev = check_state(model, state)
     _check_probe(model, probe, probe_index, dev)
+    geometric = maps is not None and not maps.empty
     if dev.type == "cpu":
-        return plain_substep(model, state, slow, probe, probe_index)
-    KERNELS[body.name].launch(
-        pack_params(model), state, slow, probe, model.probe_pixel,
-        probe_index, torch.cuda.current_stream(dev).cuda_stream)
+        return plain_substep(model, state, slow, probe, probe_index,
+                             maps.plain(dev) if geometric else None)
+    kernel = (GEOM_KERNELS if geometric else KERNELS)[body.name]
+    kernel.launch(pack_params(model), state, slow, probe, model.probe_pixel,
+                  probe_index, torch.cuda.current_stream(dev).cuda_stream,
+                  maps.args(dev) if geometric else ())
     return state
 
 
@@ -454,23 +563,31 @@ def slow_schedule(model: IonicModel):
 
 def plain_step(model: IonicModel, state: State,
                probe: Optional[torch.Tensor] = None,
-               probe_index: int = 0) -> State:
-    """Plain version of one outer step (`dt_per_step` `plain_substep`s;
-    the probe is taken after the last)."""
+               probe_index: int = 0,
+               geom: Optional[Geometry] = None) -> State:
+    """Plain version of one outer step (`dt_per_step` `plain_substep`s
+    under `geom`, default the isotropic stencil; the probe is taken after
+    the last)."""
+    geom = grid_geometry() if geom is None else geom
     for slow in slow_schedule(model):
-        plain_substep(model, state, slow)
+        plain_substep(model, state, slow, geom=geom)
     if probe is not None:
         probe[probe_index] = model.probe(state)
     return state
 
 
-def make_cuda_step(model: IonicModel):
+def make_cuda_step(model: IonicModel, phase: Optional[np.ndarray] = None,
+                   fiber: Optional[tuple] = None,
+                   dmap: Optional[np.ndarray] = None):
     """Build `step(state, probe=None, probe_index=0) -> state`, one outer
     step: one launch per substep (BR: one slow launch and four frozen ones
     under skip, five slow launches without; Fenton and Mitchell-Schaeffer:
-    ten).  The last launch writes the probe.  CPU states take
-    `plain_step`."""
-    kernel = KERNELS[cell_body(model).name]
+    ten).  The last launch writes the probe.  With a phase field, a fiber
+    tensor (dxx, dxy, dyy) or a diffusion map (make_pallas_step's), each
+    launch is the body's GEOM entry.  CPU states take `plain_step`."""
+    maps = GeometryMaps(model.state_shape(), phase, fiber, dmap)
+    body = cell_body(model).name
+    kernel = (KERNELS if maps.empty else GEOM_KERNELS)[body]
     params = pack_params(model)
     schedule = slow_schedule(model)
     last = len(schedule) - 1
@@ -480,12 +597,14 @@ def make_cuda_step(model: IonicModel):
         dev = check_state(model, state)
         _check_probe(model, probe, probe_index, dev)
         if dev.type == "cpu":
-            return plain_step(model, state, probe, probe_index)
+            return plain_step(model, state, probe, probe_index,
+                              maps.plain(dev))
         stream = torch.cuda.current_stream(dev).cuda_stream
+        geometry = () if maps.empty else maps.args(dev)
         for i, slow in enumerate(schedule):
             kernel.launch(params, state, slow,
                           probe if i == last else None, model.probe_pixel,
-                          probe_index, stream)
+                          probe_index, stream, geometry)
         return state
 
     return step

@@ -12,7 +12,10 @@ source note says what bounds it and why the tiles are 2D.
 Routing is by the device of the state's tensors, as in ops/cuda_step.py:
 CPU tensors take the plain version, CUDA tensors launch the kernel, and a
 launch that fails raises.  Nothing falls back from the card to the plain
-version.
+version.  With a phase field, a fiber tensor or a diffusion map
+(make_tiled_pallas_step's `phase`, `fiber`, `dmap`) the launch is the
+body's GEOM entry, `<body>_tiled_geom` (`GEOM_KERNELS`), on its own tile
+shape (`tile_of(body, geom=True)`).
 
 State update contract: the state dict is updated IN PLACE and returned.
 On the card every plane is replaced by a new tensor (the kernel reads all
@@ -37,6 +40,7 @@ SOURCE = build.CSRC_DIR / "br_tiled.cu"
 HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh",
            build.CSRC_DIR / "br_variant_cell.cuh",
            build.CSRC_DIR / "fenton_cell.cuh",
+           build.CSRC_DIR / "geometry.cuh",
            build.CSRC_DIR / "ms_cell.cuh")
 # The tile shape of a body's entry in br_tiled.cu and br_block.cu: (threads
 # in x, threads in y, cells per thread along y).  The extended tile is
@@ -49,10 +53,17 @@ HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh",
 # tile.  Checked against the library on load.
 TILE = (64, 16, 4)
 TILES = {"br_variant": (64, 8, 8), "br_variant_ab2": (64, 8, 8)}
+# the GEOM entries' tile shapes where they differ from TILES: BR's main
+# body with the geometry spills at 64 registers (4 bytes, -Xptxas -v on the
+# card), so its GEOM entries run 512 threads on the same 64 x 64 tile
+GEOM_TILES = {"br": (64, 8, 8)}
 
 
-def tile_of(body: str):
-    """The tile shape of cell body `body`'s entry."""
+def tile_of(body: str, geom: bool = False):
+    """The tile shape of cell body `body`'s entry (`geom`: its GEOM
+    entry's)."""
+    if geom and body in GEOM_TILES:
+        return GEOM_TILES[body]
     return TILES.get(body, TILE)
 
 # The plain version of one outer step is the substep kernel's: the tiled
@@ -60,10 +71,11 @@ def tile_of(body: str):
 plain_tiled_step = cuda_step.plain_step
 
 
-def tile_interior(n_sub: int, body: str = "br"):
-    """(rows, cols) of the largest interior a tile of body `body` writes
-    when it runs `n_sub` substeps (its halo is n_sub rings)."""
-    bx, by, ry = tile_of(body)
+def tile_interior(n_sub: int, body: str = "br", geom: bool = False):
+    """(rows, cols) of the largest interior a tile of body `body` (`geom`:
+    its GEOM entry) writes when it runs `n_sub` substeps (its halo is n_sub
+    rings)."""
+    bx, by, ry = tile_of(body, geom)
     return by * ry - 2 * n_sub, bx - 2 * n_sub
 
 
@@ -92,12 +104,17 @@ def slow_mask(schedule) -> int:
 
 class TiledKernel:
     """ctypes binding of one cell body's entry `<body>_tiled` of
-    csrc/br_tiled.cu.  The library is built and loaded on the first
-    launch; `launches` counts successful launches."""
+    csrc/br_tiled.cu, or with `geom` its GEOM form `<body>_tiled_geom`.
+    The library is built and loaded on the first launch; `launches` counts
+    successful launches."""
 
-    def __init__(self, body: str):
+    def __init__(self, body: str, geom: bool = False):
         self.body = BODIES[body]
-        self.entry = f"{body}_tiled"
+        self.geom = geom
+        self.entry = f"{body}_tiled" + ("_geom" if geom else "")
+        # the GEOM entries are a second library of the same source
+        self.library_name = "br_tiled" + ("_geom" if geom else "")
+        self.defines = ("FIBTORCH_GEOM_ENTRIES",) if geom else ()
         self._lib = None
         self.reset_launches()
 
@@ -106,11 +123,13 @@ class TiledKernel:
 
     def build(self):
         """Build the library (if needed) and return its path."""
-        return build.build("br_tiled", [SOURCE], HEADERS)
+        return build.build(self.library_name, [SOURCE], HEADERS,
+                           self.defines)
 
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = build.load("br_tiled", [SOURCE], HEADERS)
+            lib = build.load(self.library_name, [SOURCE], HEADERS,
+                             self.defines)
             lib.br_tiled_split.argtypes = [ctypes.c_int, ctypes.c_int] + [
                 ctypes.POINTER(ctypes.c_int)] * 3
             lib.br_tiled_split.restype = None
@@ -127,19 +146,22 @@ class TiledKernel:
                  ctypes.c_longlong,                  # probe index
                  ctypes.c_int,                       # device ordinal
                  ctypes.c_void_p]                    # cudaStream_t
+                + (cuda_step.GEOMETRY_ARGTYPES if self.geom else [])
             )
             fn.restype = ctypes.c_int
             cuda_step.check_layout(lib, self.entry, self.body)
-            check_tile_shape(lib, self.entry, self.body.name)
+            check_tile_shape(lib, self.entry, self.body.name, self.geom)
             _check_split(lib)
             self._lib = lib
         return self._lib
 
     def launch(self, params: np.ndarray, state: State, schedule,
                probe: Optional[torch.Tensor], probe_pixel, probe_index: int,
-               stream: int):
+               stream: int, geometry: tuple = ()):
         """One outer step on CUDA tensors already validated by the caller;
-        the state's planes are replaced by the new ones."""
+        the state's planes are replaced by the new ones.  `geometry` is a
+        GEOM entry's trailing arguments
+        (`cuda_step.kernel_geometry_args`)."""
         fn = getattr(self.library(), self.entry)
         pot, planes = self.body.model.pot_key, self.body.planes
         v_in = state[pot]
@@ -155,7 +177,7 @@ class TiledKernel:
             len(planes), h, w, len(schedule), slow_mask(schedule),
             probe.data_ptr() if probe is not None else None,
             probe_pixel[0], probe_pixel[1], probe_index,
-            v_in.device.index, stream,
+            v_in.device.index, stream, *geometry,
         )
         if err != 0:
             raise RuntimeError(
@@ -165,7 +187,7 @@ class TiledKernel:
         state.update(out)
 
 
-def check_tile_shape(lib, entry: str, body: str):
+def check_tile_shape(lib, entry: str, body: str, geom: bool = False):
     """The tile shape of the library's `entry` must be the one this module
     sizes for `body` (`tile_of`)."""
     fn = getattr(lib, f"{entry}_tile_shape")
@@ -174,9 +196,9 @@ def check_tile_shape(lib, entry: str, body: str):
     shape = [ctypes.c_int() for _ in range(3)]
     fn(*map(ctypes.byref, shape))
     got = tuple(s.value for s in shape)
-    if got != tile_of(body):
-        raise RuntimeError(
-            f"{entry}'s tile is {got}, this module sizes {tile_of(body)}")
+    if got != tile_of(body, geom):
+        raise RuntimeError(f"{entry}'s tile is {got}, this module sizes "
+                           f"{tile_of(body, geom)}")
 
 
 def _check_split(lib):
@@ -194,18 +216,26 @@ def _check_split(lib):
                 f"tile_spans into {tile_spans(length, max_tile)}")
 
 
-# the process-wide bindings, one per cell body: the built library is
-# process-wide too.  KERNEL is Beeler-Reuter's.
+# the process-wide bindings, one per cell body and form: the built library
+# is process-wide too.  KERNEL is Beeler-Reuter's.
 KERNELS = {name: TiledKernel(name) for name in BODIES}
+GEOM_KERNELS = {name: TiledKernel(name, geom=True) for name in BODIES}
 KERNEL = KERNELS["br"]
 
 
-def make_tiled_cuda_step(model: IonicModel):
+def make_tiled_cuda_step(model: IonicModel,
+                         phase: Optional[np.ndarray] = None,
+                         fiber: Optional[tuple] = None,
+                         dmap: Optional[np.ndarray] = None):
     """Build `step(state, probe=None, probe_index=0) -> state`, one outer
-    step in one launch of the tiled kernel.  The kernel writes the probe
-    after the last substep.  CPU states take `plain_tiled_step`."""
+    step in one launch of the tiled kernel, under the geometry `phase`,
+    `fiber` (dxx, dxy, dyy), `dmap` if given (the GEOM entry).  The kernel
+    writes the probe after the last substep.  CPU states take
+    `plain_tiled_step`."""
+    maps = cuda_step.GeometryMaps(model.state_shape(), phase, fiber, dmap)
     body = cuda_step.cell_body(model).name
-    kernel = KERNELS[body]
+    geom = not maps.empty
+    kernel = (GEOM_KERNELS if geom else KERNELS)[body]
     if model.cfg.substeps_per_launch is not None:
         # fib_tf_tpu/engine/simulation.py:590-597
         raise ValueError(
@@ -214,9 +244,9 @@ def make_tiled_cuda_step(model: IonicModel):
             "the full substep group and cannot split — drop the knob or "
             "stay under the whole-grid state budget")
     schedule = cuda_step.slow_schedule(model)
-    if min(tile_interior(len(schedule), body)) < 1:
-        raise ValueError(f"tile {tile_of(body)} has no interior left after "
-                         f"a {len(schedule)}-ring halo")
+    if min(tile_interior(len(schedule), body, geom)) < 1:
+        raise ValueError(f"tile {tile_of(body, geom)} has no interior left "
+                         f"after a {len(schedule)}-ring halo")
     params = cuda_step.pack_params(model)
 
     def step(state: State, probe: Optional[torch.Tensor] = None,
@@ -224,9 +254,11 @@ def make_tiled_cuda_step(model: IonicModel):
         dev = cuda_step.check_state(model, state)
         cuda_step._check_probe(model, probe, probe_index, dev)
         if dev.type == "cpu":
-            return plain_tiled_step(model, state, probe, probe_index)
+            return plain_tiled_step(model, state, probe, probe_index,
+                                    maps.plain(dev))
         kernel.launch(params, state, schedule, probe, model.probe_pixel,
-                      probe_index, torch.cuda.current_stream(dev).cuda_stream)
+                      probe_index, torch.cuda.current_stream(dev).cuda_stream,
+                      maps.args(dev) if geom else ())
         return state
 
     return step

@@ -44,7 +44,8 @@ from fib_tf_tpu_torch.ops.cuda_step import CELL_PLANES, PARAM_FLOATS, State
 from fib_tf_tpu_torch.ops.cuda_tiled import slow_mask, tile_spans, tile_walk
 
 SOURCE = build.CSRC_DIR / "br_volume_tiled.cu"
-HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh")
+HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh",
+           build.CSRC_DIR / "geometry.cuh")
 # The layout br_volume_tiled.cu is built for (checked against the library):
 # the extended in-plane tile (rows, columns), its threads (one per cell),
 # the most substeps per launch, the ring slots of the loaded V, of each

@@ -1,7 +1,7 @@
 """The sharded chunk: `length` outer steps of a grid sharded over a mesh,
 with explicit halo exchange between neighbouring shards (counterpart of
-fib_tf_tpu/parallel/spmd.py::make_spmd_chunk, without phase fields,
-diffusion maps, fibers and the sharded observables).
+fib_tf_tpu/parallel/spmd.py::make_spmd_chunk, without the sharded
+observables).
 
 Layout: every `[H, W]` state plane is sharded by rows over a 1D mesh, or by
 rows and columns over a 2D mesh.  Two comm schedules:
@@ -16,6 +16,14 @@ rows and columns over a 2D mesh.  Two comm schedules:
     ops/cuda_block.py; csrc/br_block.cu on CUDA tensors) or the plain step
     under `block_geometry`.
 
+Geometry: a phase field and a diffusion map are static, so each shard's
+block of them is extended once (`shard_maps`: by K rings for the wide halo,
+wrapped round the domain as the reference's ring exchange does, by one ring
+for the per-substep exchange) and every step reads it; the fiber tensor
+needs the wide halo (spmd.py:231-236).  A 2x2 mesh's K x K corners, which
+the tensor's mixed derivative reads, ride the column exchange of the
+row-extended block.
+
 One process drives all shards.  On CUDA devices each shard works on its own
 stream, also when shards share a card, and `torch.cuda.Event`s order a
 shard's step against its neighbours' halo copies (see `_WideHalo`); on the
@@ -29,6 +37,7 @@ only.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -37,11 +46,11 @@ import torch
 from fib_tf_tpu_torch.models.base import IonicModel
 from fib_tf_tpu_torch.ops import cuda_block
 from fib_tf_tpu_torch.parallel import halo
-from fib_tf_tpu_torch.parallel.sharding import Mesh, object_array
+from fib_tf_tpu_torch.parallel.sharding import (Mesh, object_array,
+                                                shard_array, shard_bounds)
 
 State = Dict[str, torch.Tensor]
 
-_GEOMETRY = "ROADMAP Queue 1 item 9"
 _OBSERVABLES = "ROADMAP Queue 1 item 19"
 
 
@@ -273,6 +282,63 @@ class _WideHalo:
                  for key, t in s.items()} for s in self.cur]
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardMaps:
+    """The static maps of a sharded run, extended once per shard:
+    `phase` / `dmap` are None or object arrays of the mesh's shape of
+    per-shard tensors, `[h + 2K, w (+ 2K)]` (`wide_halo`, the blocks'
+    layout) or `[h + 2, w + 2]` (the per-substep exchange)."""
+
+    phase: Optional[np.ndarray]
+    dmap: Optional[np.ndarray]
+    wide_halo: bool
+
+
+def _wide_map(a: np.ndarray, mesh: Mesh, k: int) -> np.ndarray:
+    """A static `[H, W]` map as every shard's block extended by K ghost
+    rows (and columns on a 2D mesh), in the extended blocks' layout; the
+    ghosts beyond the domain wrap round it, as the reference's ring
+    exchange fills them (never read)."""
+    n_rows, n_cols = mesh.grid
+    height, width = a.shape
+    h = shard_bounds(height, n_rows, "extent")
+    w = shard_bounds(width, n_cols, "width") if n_cols > 1 else width
+    out = np.empty(mesh.devices.shape, dtype=object)
+    for i in range(mesh.size):
+        r, c = divmod(i, n_cols)
+        rows = np.arange(r * h - k, (r + 1) * h + k) % height
+        cols = (np.arange(c * w - k, (c + 1) * w + k) % width
+                if n_cols > 1 else np.arange(width))
+        out.flat[i] = torch.tensor(np.ascontiguousarray(a[np.ix_(rows, cols)]),
+                                   device=mesh.devices.flat[i])
+    return out
+
+
+def shard_maps(model: IonicModel, mesh: Mesh,
+               phase: Optional[np.ndarray] = None,
+               dmap: Optional[np.ndarray] = None,
+               wide_halo: bool = False) -> ShardMaps:
+    """Each shard's block of `phase` and `dmap` (`[H, W]`), extended once
+    for the comm schedule: K = dt_per_step rings with `wide_halo`, else one
+    ring (halo.extend_phase / extend_phase_2d)."""
+    n_rows, n_cols = mesh.grid
+
+    def extend(a):
+        if a is None:
+            return None
+        a = np.asarray(a, np.float32)
+        if a.shape != model.state_shape():
+            raise ValueError(f"map of shape {a.shape} on the "
+                             f"{model.state_shape()} grid")
+        if wide_halo:
+            return _wide_map(a, mesh, model.dt_per_step)
+        blocks = shard_array(a, mesh)
+        return (halo.extend_phase_2d(blocks) if n_cols > 1
+                else halo.extend_phase(blocks))
+
+    return ShardMaps(extend(phase), extend(dmap), wide_halo)
+
+
 def make_spmd_chunk(
     model: IonicModel,
     mesh: Mesh,
@@ -286,6 +352,7 @@ def make_spmd_chunk(
     trend_points: Optional[tuple] = None,
     ecg_weights: Optional[list] = None,
     rotor: Optional[tuple] = None,
+    maps: Optional[ShardMaps] = None,
 ):
     """Build `chunk(state) -> (state, probes)` running `length` outer steps
     of a sharded state (`parallel.shard_state`) over `mesh`; `probes["v"]`
@@ -299,30 +366,47 @@ def make_spmd_chunk(
     mesh its plain version, which is also the `use_kernel=False` step.
     2D meshes (rows x cols) are supported on both schedules.
 
-    `phase`, `dmap`, `fiber`, `egm_masks`, `trend_points`, `ecg_weights`
-    and `rotor` are the reference's and raise NotImplementedError: not
-    ported yet."""
+    `phase` / `dmap` (`[H, W]`) are the phase field and the relative
+    diffusion map, extended per shard when the chunk is built, or `maps`
+    (`shard_maps`) their extensions built beforehand; `fiber` = (dxx, dxy,
+    dyy) selects the anisotropic operator and requires `wide_halo`.
+
+    `egm_masks`, `trend_points`, `ecg_weights` and `rotor` are the
+    reference's and raise NotImplementedError: not ported yet."""
     if use_kernel and not wide_halo:
         raise ValueError(
             "use_kernel requires wide_halo=True (the per-substep "
             "exchange path has no fused block to hand the kernel)"
         )
-    for name, value, item in (
-            ("phase", phase, _GEOMETRY), ("dmap", dmap, _GEOMETRY),
-            ("fiber", fiber, _GEOMETRY),
-            ("egm_masks", egm_masks, _OBSERVABLES),
-            ("trend_points", trend_points, _OBSERVABLES),
-            ("ecg_weights", ecg_weights, _OBSERVABLES),
-            ("rotor", rotor, _OBSERVABLES)):
+    if fiber is not None and not wide_halo:
+        raise ValueError(
+            "fiber anisotropy on the halo-exchange path requires "
+            "wide_halo=True (the per-substep halo geometries implement "
+            "the isotropic stencil only)"
+        )
+    for name, value in (("egm_masks", egm_masks),
+                        ("trend_points", trend_points),
+                        ("ecg_weights", ecg_weights), ("rotor", rotor)):
         if value is not None:
             raise NotImplementedError(
-                f"{name} on the sharded path is not ported yet ({item})")
+                f"{name} on the sharded path is not ported yet "
+                f"({_OBSERVABLES})")
+    if maps is None:
+        maps = shard_maps(model, mesh, phase, dmap, wide_halo)
+    elif phase is not None or dmap is not None:
+        raise ValueError("pass phase / dmap or their shard maps, not both")
+    elif maps.wide_halo != wide_halo:
+        raise ValueError("the shard maps were extended for the other comm "
+                         "schedule")
     n_rows, n_cols = mesh.grid
     is_2d = n_cols > 1
     keys = model.state_keys()
     streams = ShardStreams(mesh)
-    block_step = (cuda_block.make_block_step(model, is_2d) if use_kernel
-                  else None)
+    block_step = (cuda_block.make_block_step(model, is_2d, fiber)
+                  if use_kernel else None)
+
+    def shard_map(m, i):
+        return None if m is None else m.flat[i]
 
     def probe_buffer(shards):
         h, w = shards[0][keys[0]].shape
@@ -339,14 +423,18 @@ def make_spmd_chunk(
             for i in range(mesh.size):
                 rstart, cstart = blocks.origin(i)
                 own = probe if i == owner else None
+                phase_ext = shard_map(maps.phase, i)
+                dmap_ext = shard_map(maps.dmap, i)
                 with streams.on(i):
                     if use_kernel:
                         block_step(blocks.cur[i], blocks.nxt[i], rstart,
-                                   cstart, own, t, streams.streams[i])
+                                   cstart, own, t, streams.streams[i],
+                                   phase_ext, dmap_ext)
                     else:
                         cuda_block.plain_block_step(
                             model, blocks.cur[i], blocks.nxt[i], rstart,
-                            cstart, is_2d, own, t)
+                            cstart, is_2d, own, t, phase_ext, fiber,
+                            dmap_ext)
                     blocks.mark_stepped(i)
             blocks.exchange(blocks.nxt_stacks)
             blocks.swap()
@@ -361,7 +449,8 @@ def make_spmd_chunk(
             for sub in range(model.dt_per_step):
                 ring = halo.HaloExchange(
                     object_array([s[pot] for s in shards],
-                                 (n_rows, n_cols)), is_2d)
+                                 (n_rows, n_cols)), is_2d, maps.phase,
+                    maps.dmap)
                 for i in range(mesh.size):
                     fns, _ = model.substep_fns(
                         ring.geometry(*divmod(i, n_cols)))

@@ -1,7 +1,8 @@
 """The CUDA kernels (2D substep and tiled, volume substep and tiled, and the
 per-shard block kernels of the sharded paths) against their plain PyTorch
 version, on the card: Beeler-Reuter on all six, Fenton and
-Mitchell-Schaeffer on the four that host their cell bodies.
+Mitchell-Schaeffer on the four that host their cell bodies, and the 2D
+geometry's GEOM entries of kernels 1-3 for every cell body.
 
 Marked `cuda`: without a CUDA device (and nvcc) every test here skips.  On
 the card:  python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q"""
@@ -583,3 +584,174 @@ def test_small_model_simulate_routes(device, name, monkeypatch):
     monkeypatch.setattr(volume, "VOLUME_KERNEL_STATE_MB_MAX", 0.0)
     with pytest.raises(NotImplementedError, match="Queue 2 item D"):
         run_volume(model, 24, 2, device=device)
+
+
+# -- 2D geometry: the GEOM entries of kernels 1-3 ---------------------------------------
+
+GEOM_BODIES = {
+    "br": (BeelerReuter, dict(diff=0.809, cheby=True, skip=True)),
+    "br_variant": (BeelerReuter, dict(diff=0.809, cheby=False, skip=False)),
+    "br_variant_ab2": (BeelerReuter, dict(diff=0.809, skip=True, ab2=True)),
+    "fenton": (Fenton4v, dict(diff=1.5)),
+    "fenton_ab2": (Fenton4v, dict(diff=1.5, dt=0.025, ab2=True)),
+    "ms": (MitchellSchaeffer, dict(diff=1.5)),
+}
+
+
+def _geom_model(name, hw):
+    cls, kw = GEOM_BODIES[name]
+    return cls(CFG.replace(height=hw[0], width=hw[1], **kw))
+
+
+def _geom_state(model, device, seed):
+    """The initial state, its potential raised per cell from a seed, the
+    ab2 derivatives bootstrapped."""
+    rng = np.random.RandomState(seed)
+    st = model.initial_state()
+    key = model.pot_key
+    shape = st[key].shape
+    st[key] = st[key] + (rng.normal(0, 1.0, shape) if key == "V"
+                         else rng.uniform(0, 0.02, shape)).astype(np.float32)
+    if model.cfg.ab2:
+        st = model.bootstrap_ab2({k: v for k, v in st.items()
+                                  if not k.startswith("_")})
+    return interop.state_from_numpy(st, device)
+
+
+def _geometry(kind, hw):
+    """(phase, fiber, dmap): (a) br_spiral's hole scaled and a neg=True rim
+    (phi != 1 at the border), (b) with fibrosis, (c) with fibers at 30
+    degrees, ratio 0.25."""
+    from fib_tf_tpu_torch.ops import stencil
+    h, w = hw
+    phase = stencil.add_hole_to_phase_field(
+        None, h, w, w * 150 // 512, h * 200 // 512, max(w * 40 // 512, 4))
+    phase = stencil.add_hole_to_phase_field(phase, h, w, w / 2, h / 2,
+                                            min(h, w) / 2 + 10, neg=True)
+    dmap = stencil.fibrosis_map(h, w, 0.25, 0.8, 0) if kind in "bc" else None
+    fiber = (stencil.fiber_tensor(np.deg2rad(30.0), 0.25) if kind == "c"
+             else None)
+    return phase, fiber, dmap
+
+
+def _geom_two_steps(step, plain, base):
+    """`_two_steps`, with the AB2 derivative planes at atol 1e-5 / (0.5 dt)
+    = 2e-4 at dt 0.1: they enter the next substep as 0.5 dt f_prev
+    (chip_smoke.py DERIVATIVE_ATOL)."""
+    dev = next(iter(base.values())).device
+    got = {k: v.clone() for k, v in base.items()}
+    want = {k: v.clone() for k, v in base.items()}
+    pk, pp = torch.zeros(2, device=dev), torch.zeros(2, device=dev)
+    for i in range(2):
+        got = step(got, pk, i)
+        want = plain(want, pp, i)
+    for k in want:
+        atol = 2e-4 if k.startswith("_d") else 1e-5
+        torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=atol)
+    torch.testing.assert_close(pk, pp, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["a", "b", "c"])
+@pytest.mark.parametrize("name", sorted(GEOM_BODIES))
+def test_geometry_kernels_match_plain_version(device, name, kind):
+    """Kernels 1 and 2's GEOM entries at 67x131 against the plain step
+    under the same geometry, two outer steps; only the GEOM entries
+    launch."""
+    hw = (67, 131)
+    model = _geom_model(name, hw)
+    phase, fiber, dmap = _geometry(kind, hw)
+    base = _geom_state(model, device, 7)
+    geom = cuda_step.GeometryMaps(hw, phase, fiber, dmap).plain(device)
+    plain = lambda st, p, i: cuda_step.plain_step(model, st, p, i, geom)
+    kernels = [cuda_step.KERNELS[name], cuda_step.GEOM_KERNELS[name],
+               cuda_tiled.KERNELS[name], cuda_tiled.GEOM_KERNELS[name]]
+    for kern in kernels:
+        kern.reset_launches()
+    _geom_two_steps(cuda_step.make_cuda_step(model, phase, fiber, dmap),
+                    plain, base)
+    _geom_two_steps(cuda_tiled.make_tiled_cuda_step(model, phase, fiber,
+                                                    dmap), plain, base)
+    n = 2 * len(cuda_step.slow_schedule(model))
+    assert sum(kernels[1].launches.values()) == n
+    assert sum(kernels[0].launches.values()) == 0
+    assert kernels[3].launches == 2 and kernels[2].launches == 0
+
+
+@pytest.mark.parametrize("kind", ["a", "c"])
+@pytest.mark.parametrize("origin", [(0, None), (60, None), (120, None),
+                                    (0, 0), (60, 70)],
+                         ids=lambda o: f"r{o[0]}c{o[1]}")
+@pytest.mark.parametrize("name", ["br", "fenton", "ms"])
+def test_geometry_block_kernel_matches_plain_version(device, name, origin,
+                                                     kind):
+    """Kernel 3's GEOM entry on a 40-row (x 50-column) shard of 160x160,
+    its maps extended like the block, against the plain block step."""
+    hw = (160, 160)
+    model = _geom_model(name, hw)
+    k = model.dt_per_step
+    phase, fiber, dmap = _geometry(kind, hw)
+    st = {kk: v.cpu().numpy() for kk, v in
+          _geom_state(model, "cpu", 8).items()}
+    two_d = origin[1] is not None
+    r0, c0 = origin[0] - k, (origin[1] - k if two_d else 0)
+    r1, c1 = origin[0] + 40 + k, (origin[1] + 50 + k if two_d else 160)
+    cur = _extended(st, r0, r1, c0, c1, device)
+    maps = _extended({"p": phase, **({"d": dmap} if dmap is not None
+                                     else {})}, r0, r1, c0, c1, device)
+    got_out = {kk: torch.zeros_like(v) for kk, v in cur.items()}
+    want_out = {kk: torch.zeros_like(v) for kk, v in cur.items()}
+    kernel = cuda_block.GEOM_KERNELS[name]
+    before = kernel.launches
+    cuda_block.make_block_step(model, two_d, fiber)(
+        cur, got_out, r0, c0, phase_ext=maps["p"], dmap_ext=maps.get("d"))
+    cuda_block.plain_block_step(model, cur, want_out, r0, c0, two_d, None, 0,
+                                maps["p"], fiber, maps.get("d"))
+    assert kernel.launches - before == 1
+    for kk in want_out:
+        torch.testing.assert_close(got_out[kk], want_out[kk], rtol=1e-3,
+                                   atol=1e-5)
+
+
+def test_geometry_simulate_routes(device, monkeypatch):
+    """simulate() with a hole, fibrosis and fibers: the substep route
+    launches kernel 1's GEOM entry 5 times per outer step, the tiled route
+    kernel 2's once, a 2x2 mesh of four shards on the card kernel 3's four
+    times, bit-equal to the tiled run; each within 0.12 mV of
+    kernel='xla' and crossing with it."""
+    cfg = CFG.replace(height=64, width=96, duration=30,
+                      fiber_angle=np.deg2rad(30.0), fiber_ratio=0.25)
+    phase, _, dmap = _geometry("b", (64, 96))
+
+    def run(c, **kw):
+        sim = Simulation(BeelerReuter(c), **kw)
+        sim.phase = phase
+        sim.set_diffusion_map(dmap)
+        sim.define()
+        return sim, sim.simulate()
+
+    _, ref = run(cfg.replace(kernel="xla"), device=device)
+    kernels = [cuda_step.GEOM_KERNELS["br"], cuda_tiled.GEOM_KERNELS["br"],
+               cuda_block.GEOM_KERNELS["br"], cuda_step.KERNELS["br"],
+               cuda_tiled.KERNELS["br"], cuda_block.KERNELS["br"]]
+    runs = {}
+    for how in ("substep", "tiled", "block"):
+        if how == "tiled":
+            monkeypatch.setattr(Simulation, "WHOLE_GRID_STATE_MB_MAX", 0)
+        kw = (dict(mesh=make_mesh(shape=(2, 2), devices=[device] * 4),
+                   wide_halo=True) if how == "block" else dict(device=device))
+        for kern in kernels:
+            kern.reset_launches()
+        sim, res = run(cfg, **kw)
+        assert sim.route == how
+        counts = [sum(k.launches.values()) if isinstance(k.launches, dict)
+                  else k.launches for k in kernels]
+        want = {"substep": 5, "tiled": 1, "block": 4}[how] * (res.steps + 1)
+        assert counts == [want if i == ("substep", "tiled", "block").index(
+            how) else 0 for i in range(6)], counts
+        np.testing.assert_allclose(res.state["V"], ref.state["V"],
+                                   atol=0.12, rtol=0)
+        assert res.cycle_lengths == ref.cycle_lengths
+        runs[how] = res
+    for k in runs["tiled"].state:
+        np.testing.assert_array_equal(runs["block"].state[k],
+                                      runs["tiled"].state[k])

@@ -3,6 +3,7 @@ plus its routing rules and the features it does not carry yet."""
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -13,7 +14,10 @@ from fib_tf_tpu.engine.observers import CycleLengthDetector as JaxDetector
 from fib_tf_tpu.models import BeelerReuter as JaxBR
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import CycleLengthDetector, Simulation
-from fib_tf_tpu_torch.models import BeelerReuter, grid_geometry
+from fib_tf_tpu.models import grid_geometry as jax_grid_geometry
+from fib_tf_tpu_torch.models import BeelerReuter, grid_geometry, volume_geometry
+from fib_tf_tpu_torch.ops import stencil
+from fib_tf_tpu_torch.parallel import make_mesh
 
 
 def jax_cfg(c):
@@ -130,6 +134,9 @@ def test_xla_and_auto_agree_on_cpu():
         np.testing.assert_array_equal(ra.state[k], rb.state[k])
 
 
+GEOMETRY_CALLS = ("phase", "dmap")
+
+
 @pytest.mark.parametrize("call", [
     lambda s: s.add_hole_to_phase_field(16, 16, 4),
     lambda s: s.set_diffusion_map(np.ones((64, 64), np.float32)),
@@ -139,8 +146,18 @@ def test_xla_and_auto_agree_on_cpu():
     lambda s: s.fire_op("s2"),
     lambda s: s.simulate(record_frames_every_ms=1.0),
 ], ids=["phase", "dmap", "electrode", "ecg", "run", "fire_op", "frames"])
-def test_unported_engine_features_raise(call):
+def test_unported_engine_features_raise(call, request):
+    """The engine features not ported yet raise NotImplementedError.  The
+    phase field and the diffusion map are ported: they raise as the
+    reference does, after define() (tests/test_torch_geometry.py holds
+    them to the JAX engine)."""
     sim = Simulation(BeelerReuter(CFG), device="cpu")
+    if request.node.callspec.id in GEOMETRY_CALLS:
+        call(sim)
+        sim.define()
+        with pytest.raises(AssertionError, match="before define"):
+            call(sim)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(sim)
 
@@ -152,6 +169,18 @@ def test_unported_engine_features_raise(call):
     dict(timeline=True),
 ])
 def test_unported_config_features_raise(kw):
+    """The configuration features not ported yet raise NotImplementedError.
+    Fiber anisotropy is ported: it raises as the reference does on a mesh
+    without wide halos, and runs otherwise."""
+    if "fiber_angle" in kw:
+        c = CFG.replace(**kw)
+        mesh = make_mesh(devices=["cpu"] * 4)
+        with pytest.raises(ValueError, match="wide_halo"):
+            Simulation(BeelerReuter(c), device="cpu", mesh=mesh)
+        sim = Simulation(BeelerReuter(c.replace(duration=1)), device="cpu")
+        assert sim._fiber() == stencil.fiber_tensor(0.5, 0.5)
+        assert np.isfinite(sim.simulate().state["V"]).all()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Simulation(BeelerReuter(CFG.replace(**kw)), device="cpu")
 
@@ -161,8 +190,20 @@ def test_unported_config_features_raise(kw):
     dict(fiber_angle=0.3, fiber_ratio=0.5),
 ])
 def test_unported_geometry_raises(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        grid_geometry(**kw)
+    """The 2D geometry is ported: grid_geometry(**kw) is the JAX
+    operator (tests/test_torch_geometry.py holds every form); the 3D forms
+    of the phase field and the fiber tensor still raise (ROADMAP Queue 1
+    item 18)."""
+    x = np.random.RandomState(0).uniform(-80, 20, (8, 8)).astype(np.float32)
+    got = grid_geometry(**kw).laplace(torch.tensor(x)).numpy()
+    want = np.asarray(jax_grid_geometry(**kw).laplace(jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    volume_kw = ({"phase": kw["phase"]} if "phase" in kw
+                 else {"fiber": stencil.fiber_tensor(0.3, 0.5)}
+                 if "fiber_angle" in kw else None)
+    if volume_kw is not None:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            volume_geometry(**volume_kw)
 
 
 def test_pacing_and_resume_errors():

@@ -111,6 +111,37 @@ def test_edited_header_changes_the_library_path(monkeypatch, tmp_path):
     assert build.build("k", [src], [hdr]) == edited
 
 
+def test_defines_reach_nvcc_and_the_library_path(monkeypatch, tmp_path):
+    """A library built with -D macros (kernels 2 and 3's GEOM entries) is
+    another library of the same source."""
+    home = _fake_nvcc(tmp_path, 'for a; do case "$p" in -o) out=$a;; esac; '
+                      'p=$a; done\necho "$@" > "$out"\n')
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    src = tmp_path / "k.cu"
+    src.write_text("// v1\n")
+    plain = build.build("k", [src])
+    geom = build.build("k_geom", [src], defines=("FIBTORCH_GEOM_ENTRIES",))
+    assert geom != plain
+    assert "-DFIBTORCH_GEOM_ENTRIES" in geom.read_text()
+    assert "-D" not in plain.read_text().split()
+    assert (build.library_path("k", [src], defines=("X",))
+            != build.library_path("k", [src]))
+
+
+def test_geom_libraries_are_the_sources_with_a_define():
+    from fib_tf_tpu_torch.ops import cuda_block, cuda_step, cuda_tiled
+    for mod, name in ((cuda_tiled, "br_tiled"), (cuda_block, "br_block")):
+        for body, kernel in mod.GEOM_KERNELS.items():
+            assert kernel.library_name == f"{name}_geom"
+            assert kernel.defines == ("FIBTORCH_GEOM_ENTRIES",)
+            assert kernel.entry == f"{body}_{name[3:]}_geom"
+            assert mod.KERNELS[body].defines == ()
+        assert "FIBTORCH_GEOM_ENTRIES" in mod.SOURCE.read_text()
+    assert all(k.entry.endswith("_substep_geom")
+               for k in cuda_step.GEOM_KERNELS.values())
+
+
 def _quoted_includes(path):
     return {line.split('"')[1] for line in path.read_text().splitlines()
             if line.startswith('#include "')}
@@ -163,6 +194,7 @@ def test_kernel_sources_ship_with_the_package():
     for name in ("br_substep.cu", "br_tiled.cu", "br_volume.cu",
                  "br_volume_tiled.cu", "br_cell.cuh", "br_block.cu",
                  "br_volume_block.cu", "br_tile.cuh", "br_volume_cell.cuh",
-                 "br_variant_cell.cuh", "fenton_cell.cuh", "ms_cell.cuh"):
+                 "br_variant_cell.cuh", "fenton_cell.cuh", "ms_cell.cuh",
+                 "geometry.cuh"):
         assert (build.CSRC_DIR / name).is_file()
     assert os.path.commonpath([build.BUILD_DIR, ROOT]) == str(ROOT)

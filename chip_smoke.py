@@ -5,9 +5,10 @@ Run from the root of the checkout:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase carries on after a failure):
   1. the card's name and power limit, the torch/CUDA versions, and the
-     build of all six kernels from csrc/ with nvcc (in parallel, eight
-     libraries: kernels 2 and 3 build their GEOM entries as a second
-     library of the same source): the
+     build of all six kernels from csrc/ with nvcc (in parallel, ten
+     libraries: kernels 2 and 3 build their GEOM entries, and kernels 1
+     and 4 their Courtemanche bodies, as a second library of the same
+     source): the
      substep kernel br_substep.cu, the tiled outer-step kernel br_tiled.cu,
      the volume substep kernel br_volume.cu, the tiled volume kernel
      br_volume_tiled.cu, and the per-shard block kernels br_block.cu and
@@ -16,7 +17,9 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      other variants without and with ab2, Fenton without and with ab2,
      Mitchell-Schaeffer); the -Xptxas -v lines of every kernel, and
      neither the tile skeleton's libraries (br_tiled, br_block and their
-     GEOM libraries) nor the tiled volume kernel may spill;
+     GEOM libraries) nor the tiled volume kernel may spill (nor the
+     Courtemanche bodies' libraries, court_substep and court_volume: the
+     same sources built with -DFIBTORCH_COURT_ENTRIES and -fmad=false);
   2. substep kernel vs plain PyTorch on the card at 512x512, on a seeded
      state that holds a wavefront: one slow (n=5) launch, one frozen (n=0)
      launch and two outer steps, all 8 planes at rtol 1e-3 / atol 1e-5;
@@ -216,7 +219,44 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      geometry (c)), exact launches, the 4x1 and 2x2 runs bit-equal to
      kernel 2's;
  37. the device time of every GEOM entry beside its isotropic entry, the
-     plain version and the bound, and each full-width run's wall-s/sim-s.
+     plain version and the bound, and each full-width run's wall-s/sim-s;
+ 38. Courtemanche and Courtemanche-ultra's entries (court_substep,
+     court_substep_geom, court_ultra_substep, court_ultra_substep_geom on
+     kernel 1, court_volume and court_ultra_volume on kernel 4) vs plain
+     PyTorch in every rate mode (direct, the hybrid fits with and without
+     the folded gates; and direct with chronic=False, a dV cap and every
+     g_scale factor): one launch of each form (the fast commit
+     SLOW=false, the slow commit SLOW=true; ultra's full commit) and 2
+     outer steps, every plane and the probe at rtol 1e-3 / atol 1e-5 (a
+     cell outside them arbitrated by a float64 plain run and counted), at
+     512x512 isotropic, under the annulus of examples/court_run.py and
+     under geometry (c), and at 8x128x512; a direct-rate launch equal to
+     plain bit for bit (court_cell.cuh rounds as the plain path does),
+     the fitted modes' count of cells that differ printed; exact launches
+     (11 per outer step for Courtemanche, 10 for ultra);
+ 39. examples/court_run.py's first model at 512x512 (dt 0.1, diff 0.809,
+     the annulus, S2 at 350 ms, 1000 ms) on kernel 1's GEOM entry: exact
+     launches and no other kernel, the JAX engine's first crossing (148)
+     +- 2, the final V within 1e-3 of the model's range of kernel='xla' on
+     the card or, past it, no further from a float64 plain run than the
+     float32 plain run is (PR 9's rule), and the trend stream with it (to
+     the S2 where arbitrated); probe_at_step read in the cl_observer;
+ 40. examples/court_ultra_run.py's run_small at 512x512 (diff 1.5, hole r
+     10, S2 at 300 ms, 1000 ms) on court_ultra_substep_geom, with
+     probe_at_step(i, 'ultra') read inside the cl_observer and held to the
+     recorded stream; exact launches, the JAX engine's first crossing (119)
+     +- 2, the final V, the trend and the ultra streams against
+     kernel='xla' as in phase 39;
+ 41. a regional _p_chronic plane (the left half remodeled) at 512x512 for
+     400 ms, both models on kernel 1, against kernel='xla' (past 1e-3 of
+     the range, arbitrated by a float64 plain run, as in phase 39);
+ 42. run_volume of both models at 8x128x512 on kernel 4 (300 outer steps;
+     ultra 100 at dt 0.05), against kernel='xla' (past 1e-3 of the range,
+     arbitrated by a float64 plain run);
+ 43. the device time of every Courtemanche entry beside its plain version
+     (timed between CUDA events as the stream runs it: its launches cannot
+     queue behind the spin kernel) and its bound, and each run's
+     wall-s/sim-s.
 
 Prints the nvidia-smi line and one JSON line describing the kernels before
 its last line, which is {"ok": true, "device": {...}}.  Needs a CUDA GPU and
@@ -528,7 +568,8 @@ def main():
         from fib_tf_tpu_torch.engine import (CycleLengthDetector,
                                              Simulation, VolumeEvent,
                                              run_volume, volume)
-        from fib_tf_tpu_torch.models import (BeelerReuter, Fenton4v,
+        from fib_tf_tpu_torch.models import (BeelerReuter, Courtemanche,
+                                             CourtemancheUltra, Fenton4v,
                                              MitchellSchaeffer)
         from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
                                           cuda_volume, cuda_volume_block,
@@ -594,7 +635,7 @@ def main():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
     for name in ("br_tiled", "br_block", "br_volume_tiled", "br_tiled_geom",
-                 "br_block_geom"):
+                 "br_block_geom", "court_substep", "court_volume"):
         log = lib_paths[name].with_name(lib_paths[name].name + ".log")
         spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
                             r"loads", log.read_text())
@@ -1188,6 +1229,12 @@ def main():
         cuda_tiled=cuda_tiled, cuda_block=cuda_block, stencil=stencil,
         make_mesh=make_mesh, reset_counts=reset_counts,
         read_counts=read_counts), card, rng)
+    court_entries = court_phases(torch, types.SimpleNamespace(
+        SimConfig=SimConfig, interop=interop, Simulation=Simulation,
+        run_volume=run_volume, volume=volume, Courtemanche=Courtemanche,
+        CourtemancheUltra=CourtemancheUltra, cuda_step=cuda_step,
+        cuda_volume=cuda_volume, stencil=stencil,
+        reset_counts=reset_counts, read_counts=read_counts), card, rng)
 
     cells = int(np.prod(shape))
     cells_large = int(np.prod(large.state_shape()))
@@ -1240,6 +1287,7 @@ def main():
     kernels.extend(small_entries)
     kernels.extend(variant_entries)
     kernels.extend(geometry_entries)
+    kernels.extend(court_entries)
     for k in kernels:
         print(f"  {k['name']}: {k['ms'] * 1e3:.3f} us against a bound of "
               f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}) [{card}]",
@@ -3701,6 +3749,563 @@ def geometry_phases(torch, m, card, rng):
         print(f"  2048x2048 {label}: "
               f"{1.0 / res.sim_seconds_per_wall_second:.6f} wall-s/sim-s "
               f"[{card}]", flush=True)
+    stamp("the end")
+    return entries
+
+
+# Courtemanche and Courtemanche-ultra (phases 38-43).  The rate modes each
+# entry runs (one entry per body hosts all three, a float of its parameter
+# block): direct, the hybrid fits with folded gates, and without the fold
+COURT_CHECKS = {"court": ("court", {}),
+                "court-cheby": ("court", dict(court_cheby=True)),
+                "court-unfolded": ("court", dict(court_cheby=True,
+                                                 cheby_fold=False)),
+                # healthy tissue, a dV cap that the upstroke meets, and a
+                # factor on each of the 13 channels: every scale slot of
+                # _pack_court and the kernel's clip
+                "court-blocked": ("court", dict(
+                    chronic=False, dv_max=2.0, g_scale=(
+                        ("g_Na", 0.9), ("g_CaL", 0.7), ("g_Kr", 1.3),
+                        ("g_Ks", 1.1), ("g_to", 0.6), ("g_Kur", 0.5),
+                        ("g_K1", 1.2), ("g_NaK", 0.95), ("g_NaCa", 1.15),
+                        ("g_pCa", 0.85), ("g_bNa", 1.05), ("g_bCa", 0.9),
+                        ("g_bK", 2.0)))),
+                "court_ultra": ("court_ultra", {}),
+                "court_ultra-cheby": ("court_ultra", dict(court_cheby=True))}
+# examples/court_run.py's first model (512x512, dt 0.1, diff 0.809, the
+# annulus of a disk hole of radius n // 17 and a neg ring of n // 2 - 6, an
+# S2 'luq' 10.0 at 350 ms, 1000 ms) and examples/court_ultra_run.py's
+# run_small (diff 1.5, hole radius n // 50, S2 at 300 ms), and the JAX
+# engine's first crossings of the same runs, pinned on the CPU:
+#   SimConfig(width=512, height=512, dt=0.1, dt_per_plot=10, diff=D,
+#             duration=1000.0, kernel='xla') -> Simulation(Model(cfg));
+#   add_hole_to_phase_field(256, 256, r); add_hole_to_phase_field(256,
+#   256, 250, neg=True); define(); add_pace_op('s2', 'luq', 10.0);
+#   simulate(schedule=[(S2, 's2')]).cycle_lengths
+COURT_CFG = dict(width=512, height=512, dt=0.1, dt_per_plot=10, diff=0.809,
+                 duration=1000.0)
+ULTRA_CFG = dict(COURT_CFG, diff=1.5)
+COURT_HOLE, COURT_S2 = 512 // 17, 350.0
+ULTRA_HOLE, ULTRA_S2 = 512 // 50, 300.0
+COURT_RING = 512 // 2 - 6
+# gives court [(148, 148.0), (628, 480.0), (864, 236.0)] and court_ultra
+# [(119, 119.0), (538, 419.0), (743, 205.0), (938, 195.0)] (ultra_slow=True)
+COURT_CROSSINGS = {"court": 148, "court_ultra": 119}
+# the chronic-plane runs (the left half remodeled) and the volume runs
+CHRONIC_MS = 400.0
+COURT_VOL_STEPS = {"court": 300, "court_ultra": 100}
+# whole runs: 1e-3 of the model's 150 mV range (tests/test_golden.py)
+COURT_RUN_ATOL_MV = 0.15
+# float32 operations per cell of each form (court_cell.cuh, counted by
+# hand on the direct rates, a transcendental or a division as one; the
+# fitted modes are within a tenth of it): the currents both commits need
+# 99, the fast commit's own 79 and the stencil 10, the slow commit's own
+# 383, ultra's us gate 23 more; a volume's z term 4
+COURT_FLOPS = {"fast": 10 + 99 + 79, "slow": 99 + 383,
+               "full": 10 + 99 + 79 + 383 + 23}
+# the planes each form reads besides V, and writes (V included)
+COURT_IO = {"fast": (15, 4), "slow": (18, 17), "full": (21, 22)}
+
+
+def court_form(model, slow: bool) -> str:
+    return ("full" if model.name == "court_ultra"
+            else ("slow" if slow else "fast"))
+
+
+def court_bound(model, cells: int, slow: bool, volume=False, maps=None):
+    """(bound_ms, bound_by) of one launch of a Courtemanche form on
+    `cells` cells: V and the planes the form reads (the chronic plane
+    where attached; a GEOM entry's maps where it takes the Laplacian), read
+    once, the planes it commits written once, and its operations."""
+    form = court_form(model, slow)
+    reads, writes = COURT_IO[form]
+    reads += 1 + len(model.het)
+    flops = COURT_FLOPS[form]
+    if form != "slow":
+        flops += 4 if volume else 0
+        if maps is not None:
+            reads += geometry_bytes(maps) // 4
+            flops += geometry_flops(maps)
+    return bound(4 * cells * (reads + writes), cells * flops)
+
+
+def court_seeded(torch, m, model, dev, rng, depth=None):
+    """The initial state (S1 stripe, any chronic plane), V raised per cell
+    by N(0, 1) mV, then 12 plain outer steps on the card, so that a
+    wavefront has left the stripe; a volume extrudes it over `depth` with
+    per-cell noise on V."""
+    st = model.initial_state()
+    shape = st["V"].shape
+    st["V"] = st["V"] + rng.normal(0.0, 1.0, shape).astype(np.float32)
+    base = m.interop.state_from_numpy(st, dev)
+    for _ in range(12):
+        m.cuda_step.plain_step(model, base)
+    if depth is not None:
+        base = {k: v[None].repeat(depth, 1, 1).contiguous()
+                for k, v in base.items()}
+        base["V"] += torch.randn(base["V"].shape, device=dev,
+                                 generator=torch.Generator(dev).manual_seed(
+                                     int(rng.integers(1 << 30))))
+    torch.cuda.synchronize()
+    check(bool(base["V"].isfinite().all())
+          and float(base["V"].max()) > WAVEFRONT_MV,
+          f"{model.name} {tuple(base['V'].shape)} seeded state holds no "
+          f"wavefront")
+    return base
+
+
+def unequal_cells(got, want) -> int:
+    """The number of cells, over every plane, where `got` and `want`
+    differ at all."""
+    return sum(int((got[k] != want[k]).sum()) for k in want)
+
+
+def check_rounding(name, model, got, want):
+    """A direct-rate Courtemanche launch rounds as the plain path does
+    (court_cell.cuh): equal to it bit for bit.  The fitted modes sum their
+    series in another order: their count is printed."""
+    n = unequal_cells(got, want)
+    print(f"    {n} cells not bit-equal to plain", flush=True)
+    if model.rate_mode == "direct":
+        check(n == 0, f"{name}: {n} cells differ from the plain version, "
+                      f"which a direct-rate launch equals bit for bit")
+
+
+def court_annulus(stencil, n, hole):
+    """The phase field of examples/court_run.py's domain at n x n."""
+    phase = stencil.add_hole_to_phase_field(None, n, n, n // 2, n // 2,
+                                            hole)
+    return stencil.add_hole_to_phase_field(phase, n, n, n // 2, n // 2,
+                                           n // 2 - 6, neg=True)
+
+
+def stream_us(torch, fn, reps: int) -> float:
+    """Microseconds per call of `fn` between CUDA events on the stream,
+    host gaps included: the plain Courtemanche substeps (about 350 small
+    launches each) block the host when queued behind device_us's spin
+    kernel, so they are timed as the stream runs them."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / reps
+
+
+def court_float64_run(torch, m, model, phase, s2_ms, n_steps):
+    """The final V and the trend stream of a Courtemanche run (Simulation
+    with `phase`, a luq S2 10.0 at `s2_ms`; either may be None) on the
+    plain path in float64, the S2 fired where simulate() fires it."""
+    dev = torch.device("cuda")
+    h, w = model.state_shape()
+    geom = m.cuda_step.GeometryMaps((h, w), phase).plain(dev)
+    state = {k: torch.tensor(v, dtype=torch.float64, device=dev)
+             for k, v in model.initial_state().items()}
+    mask = torch.tensor(m.stencil.pace_mask(h, w, "luq", 10.0, model.min_v),
+                        dtype=torch.float64, device=dev)
+    fire = (-1 if s2_ms is None else min(
+        model.cfg.millisecond_to_step(s2_ms, model.dt_per_step) + 1,
+        n_steps))
+    trend = []
+    for i in range(n_steps):
+        m.cuda_step.plain_step(model, state, geom=geom)
+        if i + 1 == fire:
+            state["V"] = torch.maximum(state["V"], mask)
+        trend.append(model.trend_probe(state))
+    return state["V"].cpu().numpy(), torch.stack(trend).cpu().numpy()
+
+
+def court_arbitrate(name, res, ref, ex_v):
+    """A kernel run `res` past COURT_RUN_ATOL_MV of the plain run `ref`:
+    it passes when it ends no further from the float64 run's final V
+    `ex_v` than `ref` does (max abs; PR 9's rule)."""
+    ke = float(np.abs(res.state["V"] - ex_v).max())
+    pe = float(np.abs(ref.state["V"] - ex_v).max())
+    print(f"  {name}: arbitrated by the float64 plain run: the kernel run "
+          f"ends {ke:.4g} from it (mean abs "
+          f"{float(np.abs(res.state['V'] - ex_v).mean()):.4g}), the float32 "
+          f"plain run {pe:.4g} (mean abs "
+          f"{float(np.abs(ref.state['V'] - ex_v).mean()):.4g})", flush=True)
+    check(ke <= pe,
+          f"{name}: final V: the kernel run ends {ke} from the float64 run, "
+          f"the float32 plain run {pe}")
+
+
+def court_phases(torch, m, card, rng):
+    """Phases 38-43: Courtemanche and Courtemanche-ultra on kernels 1
+    (isotropic and GEOM) and 4.  `m` carries the port's modules and
+    main()'s launch counters; returns their entries of the JSON line."""
+    dev = torch.device("cuda")
+    k1, k4, st_ = m.cuda_step, m.cuda_volume, m.stencil
+    classes = {"court": m.Courtemanche, "court_ultra": m.CourtemancheUltra}
+    errs, launches, runs = {}, {}, {}
+    t0 = time.perf_counter()
+
+    def stamp(phase):
+        print(f"  ({phase} starts {time.perf_counter() - t0:.1f} s into "
+              f"phases 38-43)", flush=True)
+
+    def model_of(key, **kw):
+        body, flags = COURT_CHECKS[key]
+        return classes[body](m.SimConfig(**dict(COURT_CFG, **flags, **kw)))
+
+    def note(entry, err):
+        errs[entry] = max(errs.get(entry, 0.0), err)
+
+    def count(entry, counts):
+        old = launches.setdefault(entry, {"slow": 0, "frozen": 0})
+        for kk in counts[entry]:
+            old[kk] += counts[entry][kk]
+
+    # -- phase 38 ---------------------------------------------------------------
+    print("phase 38: every Courtemanche entry vs plain PyTorch, every rate "
+          "mode: kernel 1 at 512x512 (isotropic, and GEOM under the annulus "
+          "of examples/court_run.py and under geometry (c)), kernel 4 at "
+          "8x128x512; one launch of each form and 2 outer steps", flush=True)
+    annulus = k1.GeometryMaps((512, 512), court_annulus(st_, 512,
+                                                        COURT_HOLE))
+    for key in COURT_CHECKS:
+        model = model_of(key)
+        body = k1.cell_body(model).name
+        windows = model.ill_conditioned
+        base = court_seeded(torch, m, model, dev, rng)
+        for label, maps in (("isotropic", None), ("annulus", annulus),
+                            ("(c)", geometry_maps(k1, st_, "c",
+                                                  (512, 512)))):
+            geom = (k1.grid_geometry(device=dev) if maps is None
+                    else maps.plain(dev))
+            entry = f"{body}_substep" + ("" if maps is None else "_geom")
+            m.reset_counts()
+            for slow in sorted(set(k1.slow_schedule(model))):
+                name = f"{entry} 512x512 {label} ({key}) slow={slow}"
+                pk = torch.zeros(1, device=dev)
+                pp = torch.zeros(1, device=dev)
+                got = k1.substep(model, clone(base), slow, pk, 0, maps=maps)
+                want = k1.plain_substep(model, clone(base), slow, pp, 0,
+                                        geom)
+                torch.cuda.synchronize()
+
+                def exact(slow=slow, geom=geom):
+                    ex = {kk: v.double() for kk, v in base.items()}
+                    return k1.plain_substep(model, ex, slow, geom=geom), base
+
+                note(entry, compare(f"{name}, one launch", got, want, exact,
+                                    windows))
+                check_rounding(name, model, got, want)
+                compare_probes(name, pk, pp)
+            step = (k1.make_cuda_step(model) if maps is None else
+                    k1.make_cuda_step(model, maps.phase, maps.fiber,
+                                      maps.dmap))
+            note(entry, check_outer_steps(
+                torch, step, lambda s, p, i, geom=geom: k1.plain_step(
+                    model, s, p, i, geom), base, 2,
+                f"{entry} 512x512 {label} ({key})", windows=windows))
+            want_n = expected_launches(k1, model, 2)
+            for slow in set(k1.slow_schedule(model)):
+                want_n["slow" if slow else "frozen"] += 1
+            check_launched(m.read_counts(), entry, want_n,
+                           f"{entry} ({key}, {label})")
+        vmodel = model_of(key, height=128)
+        vbase = court_seeded(torch, m, vmodel, dev, rng, depth=DEPTH)
+        entry = f"{body}_volume"
+        m.reset_counts()
+        for slow in sorted(set(k1.slow_schedule(vmodel))):
+            name = f"{entry} 8x128x512 ({key}) slow={slow}"
+            got = k4.volume_substep(vmodel, clone(vbase), slow)
+            want = k4.plain_volume_substep(vmodel, clone(vbase), slow)
+            torch.cuda.synchronize()
+
+            def exact(slow=slow):
+                ex = {kk: v.double() for kk, v in vbase.items()}
+                return k4.plain_volume_substep(vmodel, ex, slow), vbase
+
+            note(entry, compare(f"{name}, one launch", got, want, exact,
+                                vmodel.ill_conditioned))
+            check_rounding(name, vmodel, got, want)
+        note(entry, check_outer_steps(
+            torch, k4.make_volume_step(vmodel, DEPTH),
+            plain_volume(k4, vmodel), vbase, 2, f"{entry} 8x128x512 ({key})",
+            windows=vmodel.ill_conditioned))
+        want_n = expected_launches(k1, vmodel, 2)
+        for slow in set(k1.slow_schedule(vmodel)):
+            want_n["slow" if slow else "frozen"] += 1
+        check_launched(m.read_counts(), entry, want_n, f"{entry} ({key})")
+
+    def annulus_sim(cls, cfg, hole, **kw):
+        sim = m.Simulation(cls(cfg), **kw)
+        sim.add_hole_to_phase_field(cfg.width // 2, cfg.height // 2, hole)
+        sim.add_hole_to_phase_field(cfg.width // 2, cfg.height // 2,
+                                    cfg.width // 2 - 6, neg=True)
+        sim.define()
+        sim.add_pace_op("s2", "luq", 10.0)
+        return sim
+
+    # -- phases 39 and 40 -------------------------------------------------------
+    for body, cfg_kw, hole, s2, phase_no, example in (
+            ("court", COURT_CFG, COURT_HOLE, COURT_S2, 39,
+             "examples/court_run.py's first model"),
+            ("court_ultra", ULTRA_CFG, ULTRA_HOLE, ULTRA_S2, 40,
+             "examples/court_ultra_run.py's run_small")):
+        stamp(f"phase {phase_no}")
+        print(f"phase {phase_no}: {example} at 512x512 for 1000 ms (hole r "
+              f"{hole}, ring r {COURT_RING}, S2 at {s2} ms) on kernel 1's "
+              f"GEOM entry, against kernel='xla' on the card", flush=True)
+        cls = classes[body]
+        cfg = m.SimConfig(**cfg_kw)
+        entry = f"{body}_substep_geom"
+        out = {}
+        for kernel in ("auto", "xla"):
+            sim = annulus_sim(cls, cfg.replace(kernel=kernel), hole,
+                              device="cuda")
+            check(sim.route == ("substep" if kernel == "auto" else "plain"),
+                  f"{body} annulus run routes {sim.route!r}")
+            seen = []
+            key = "ultra" if body == "court_ultra" else "trend"
+            sim.cl_observer = (lambda i, cl, sim=sim, seen=seen, key=key:
+                               seen.append((i, sim.probe_at_step(i, key))))
+            m.reset_counts()
+            res = sim.simulate(schedule=[(s2, "s2")])
+            counts = m.read_counts()
+            out[kernel] = (sim, res, seen)
+            if kernel == "xla":
+                check(all(total_launches(c) == 0 for c in counts.values()),
+                      f"the kernel='xla' {body} run launched a kernel")
+                continue
+            check_launched(counts, entry,
+                           expected_launches(k1, sim.model, res.steps),
+                           f"the {body} annulus run")
+            count(entry, counts)
+            print(f"  {body}: route {sim.route}, steps {res.steps}, launches "
+                  f"{counts[entry]}, cycle_lengths {res.cycle_lengths}, "
+                  f"{1.0 / res.sim_seconds_per_wall_second:.6f} "
+                  f"wall-s/sim-s [{card}]", flush=True)
+            check_run(res, (512, 512), COURT_CROSSINGS[body])
+            check(len(seen) == len(res.cycle_lengths),
+                  f"{body}: the cl_observer ran {len(seen)} times")
+            for i, value in seen:
+                check(np.array_equal(value, res.probes[key][i]),
+                      f"{body}: probe_at_step({i}, {key!r}) read {value}, "
+                      f"the run recorded {res.probes[key][i]}")
+            check(all(np.isfinite(res.probes[k]).all() for k in res.probes),
+                  f"{body}: a probe stream is not finite")
+            print(f"  {body}: {len(seen)} live reads of {key!r}, the first "
+                  f"{seen[0][1] if seen else None}", flush=True)
+        _, res, _ = out["auto"]
+        runs[body] = res
+        xsim, ref, _ = out["xla"]
+        n_steps = ref.steps
+        dv = float(np.abs(res.state["V"] - ref.state["V"]).max())
+        dtrend = np.abs(res.probes["trend"] - ref.probes["trend"])
+        fire = min(xsim.millisecond_to_step(s2) + 1, n_steps)
+        print(f"  final V vs kernel='xla': max abs {dv:.4g} (bound "
+              f"{COURT_RUN_ATOL_MV}), "
+              f"{int((res.state['V'] != ref.state['V']).sum())} cells not "
+              f"bit-equal; trend max abs {dtrend.max(0)} over the run, "
+              f"{dtrend[:fire].max(0)} to the S2; crossings "
+              f"{ref.cycle_lengths}", flush=True)
+        check(ref.cycle_lengths[:1] == res.cycle_lengths[:1],
+              f"{body}: kernel and kernel-free runs cross at different steps")
+        upto = n_steps
+        if dv > COURT_RUN_ATOL_MV:
+            ex_v, ex_trend = court_float64_run(torch, m, xsim.model,
+                                               xsim.phase, s2, n_steps)
+            court_arbitrate(body, res, ref, ex_v)
+            print(f"  {body}: the trend to the S2 within "
+                  f"{np.abs(res.probes['trend'] - ex_trend)[:fire].max(0)} "
+                  f"of float64's", flush=True)
+            upto = fire
+        check(bool((dtrend[:upto, 0] <= COURT_RUN_ATOL_MV).all()
+                   and (dtrend[:upto, 1] <= 1e-3 * np.abs(
+                       ref.probes["trend"][:upto, 1])).all()),
+              f"{body}: the trend stream parts from kernel='xla' by "
+              f"{dtrend[:upto].max(0)} over its first {upto} steps")
+        if "ultra" in ref.probes:
+            # the grid means of Na_i, f_Ca, us and the us rates
+            dultra = np.abs(res.probes["ultra"] - ref.probes["ultra"])
+            rel = dultra[:upto] / np.abs(ref.probes["ultra"][:upto])
+            print(f"  {body}: ultra stream max rel {rel.max(0)} over its "
+                  f"first {upto} steps", flush=True)
+            check(bool((rel <= 1e-3).all()),
+                  f"{body}: the ultra stream parts from kernel='xla' by "
+                  f"{rel.max(0)} (relative) over its first {upto} steps")
+
+    stamp("phase 41")
+    # -- phase 41 ---------------------------------------------------------------
+    print(f"phase 41: a regional _p_chronic plane (the left half remodeled, "
+          f"a 0.5 border) at 512x512 for {CHRONIC_MS:.0f} ms on kernel 1, "
+          f"Courtemanche and Courtemanche-ultra, against kernel='xla'",
+          flush=True)
+    plane = np.zeros((512, 512), np.float32)
+    plane[:, :256] = 1.0
+    plane[:, 248:264] = 0.5
+    for body, cfg_kw in (("court", COURT_CFG), ("court_ultra", ULTRA_CFG)):
+        cls = classes[body]
+        out = {}
+        for kernel in ("auto", "xla"):
+            cfg = m.SimConfig(**dict(cfg_kw, duration=CHRONIC_MS,
+                                     kernel=kernel))
+            model = cls(cfg).set_het(chronic=plane)
+            sim = m.Simulation(model, device="cuda").define()
+            m.reset_counts()
+            res = out[kernel] = sim.simulate()
+            counts = m.read_counts()
+            if kernel == "auto":
+                check(sim.route == "substep", f"{body} routes {sim.route}")
+                check_launched(counts, f"{body}_substep",
+                               expected_launches(k1, model, res.steps),
+                               f"the {body} chronic-plane run")
+                count(f"{body}_substep", counts)
+                check(all(np.isfinite(v).all() for v in res.state.values())
+                      and len(res.cycle_lengths) >= 1,
+                      f"the {body} chronic-plane run is not finite or saw "
+                      f"no wavefront")
+        dv = float(np.abs(out["auto"].state["V"]
+                          - out["xla"].state["V"]).max())
+        print(f"  {body}: final V vs kernel='xla': max abs {dv:.4g} (bound "
+              f"{COURT_RUN_ATOL_MV}); crossings {out['xla'].cycle_lengths}",
+              flush=True)
+        check(out["xla"].cycle_lengths[:1] == out["auto"].cycle_lengths[:1],
+              f"{body}: the chronic-plane runs cross at different steps")
+        if dv > COURT_RUN_ATOL_MV:
+            court_arbitrate(f"{body} chronic", out["auto"], out["xla"],
+                            court_float64_run(torch, m, model, None, None,
+                                              out["xla"].steps)[0])
+        v = out["auto"].state["V"]
+        print(f"  {body}: cycle_lengths {out['auto'].cycle_lengths}, mean V "
+              f"remodeled {float(v[:, :248].mean()):.3f} mV, healthy "
+              f"{float(v[:, 264:].mean()):.3f} mV, "
+              f"{1.0 / out['auto'].sim_seconds_per_wall_second:.6f} "
+              f"wall-s/sim-s [{card}]", flush=True)
+        runs[f"{body} chronic"] = out["auto"]
+
+    stamp("phase 42")
+    # -- phase 42 ---------------------------------------------------------------
+    print(f"phase 42: run_volume of Courtemanche ({COURT_VOL_STEPS['court']} "
+          f"outer steps) and Courtemanche-ultra "
+          f"({COURT_VOL_STEPS['court_ultra']}) at {DEPTH}x128x512 on kernel "
+          f"4, against kernel='xla'", flush=True)
+    # court_ultra's diff 1.5 takes dt 0.05 under the 3D explicit limit
+    # 2 / ((8 + 8) diff)
+    for body, cfg_kw in (("court", COURT_CFG),
+                         ("court_ultra", dict(ULTRA_CFG, dt=0.05))):
+        vcfg = m.SimConfig(**dict(cfg_kw, height=128))
+        n_steps = COURT_VOL_STEPS[body]
+        vol = {}
+        for kernel in ("auto", "xla"):
+            model = classes[body](vcfg)
+            m.reset_counts()
+            t = time.perf_counter()
+            st, probes, _ = m.run_volume(model, DEPTH, n_steps,
+                                         kernel=kernel)
+            wall = time.perf_counter() - t
+            counts = m.read_counts()
+            vol[kernel] = (st, probes, wall)
+            if kernel == "auto":
+                check(m.volume.volume_route(model, DEPTH, "cuda", "auto")
+                      == "substep", f"the {body} volume does not route "
+                                    f"'substep'")
+                check_launched(counts, f"{body}_volume", expected_launches(
+                    k1, model, n_steps), f"the {body} volume run")
+                count(f"{body}_volume", counts)
+            else:
+                check(all(total_launches(c) == 0 for c in counts.values()),
+                      f"the kernel='xla' {body} volume run launched a "
+                      f"kernel")
+        dv = float(np.abs(vol["auto"][0]["V"] - vol["xla"][0]["V"]).max())
+        dp = float(np.abs(vol["auto"][1] - vol["xla"][1]).max())
+        sim_s = n_steps * 10 * vcfg.dt / 1000.0
+        print(f"  {body}: final V vs kernel='xla': max abs {dv:.4g}; probe "
+              f"max abs {dp:.3g}, probe max "
+              f"{float(vol['auto'][1].max()):.3f}; "
+              f"{vol['auto'][2] / sim_s:.6f} wall-s/sim-s on kernel 4, "
+              f"{vol['xla'][2] / sim_s:.6f} with kernel='xla' [{card}]",
+              flush=True)
+        check(all(np.isfinite(v).all() for v in vol["auto"][0].values()),
+              f"the {body} volume run is not finite")
+        if dv > COURT_RUN_ATOL_MV or dp > 1e-3:
+            ex = {k: torch.tensor(v, dtype=torch.float64, device=dev)
+                  for k, v in m.volume.volume_state(model, DEPTH).items()}
+            for _ in range(n_steps):
+                k4.plain_volume_step(model, ex)
+            court_arbitrate(
+                f"{body} volume",
+                types.SimpleNamespace(state=vol["auto"][0]),
+                types.SimpleNamespace(state=vol["xla"][0]),
+                ex["V"].cpu().numpy())
+
+    stamp("phase 43")
+    # -- phase 43 ---------------------------------------------------------------
+    print(f"phase 43: device time of every Courtemanche entry beside its "
+          f"plain version and its bound [{card}]", flush=True)
+    entries = []
+    stream = torch.cuda.current_stream().cuda_stream
+    cells = 512 * 512
+    for body in ("court", "court_ultra"):
+        model = model_of(body)
+        base = court_seeded(torch, m, model, dev, rng)
+        params = k1.pack_params(model)
+        for label, maps in (("", None), ("_geom", annulus)):
+            kernel = (k1.KERNELS if maps is None else k1.GEOM_KERNELS)[body]
+            geom = (k1.grid_geometry(device=dev) if maps is None
+                    else maps.plain(dev))
+            args = () if maps is None else maps.args(dev)
+            for slow in sorted(set(k1.slow_schedule(model)), reverse=True):
+                state = clone(base)
+                us = device_us(torch, lambda: kernel.launch(
+                    params, state, slow, None, model.probe_pixel, 0, stream,
+                    args), reps=100)
+                plain = stream_us(torch, lambda: k1.plain_substep(
+                    model, state, slow, geom=geom), reps=5)
+                b = court_bound(model, cells, slow, maps=maps)
+                name = f"{body}_substep{label}<SLOW={str(slow).lower()}>"
+                print(f"  {name} 512x512: {us:.3f} us/launch, plain "
+                      f"{plain:.1f} us, bound {b[0] * 1e3:.3f} us ({b[1]}) "
+                      f"[{card}]", flush=True)
+                entries.append(kernel_entry(
+                    name, "fib_tf_tpu_torch/csrc/br_substep.cu",
+                    "fib_tf_tpu/ops/pallas_step.py:205",
+                    launches.get(f"{body}_substep{label}", {}).get(
+                        "slow" if slow else "frozen", 0),
+                    errs[f"{body}_substep{label}"], us, plain, b))
+        vmodel = model_of(body, height=128)
+        vbase = court_seeded(torch, m, vmodel, dev, rng, depth=DEPTH)
+        vparams = k1.pack_params(vmodel)
+        pixel = k4.volume_probe_pixel(vmodel, DEPTH)
+        timing = {}
+        for slow in set(k1.slow_schedule(vmodel)):
+            state = clone(vbase)
+            timing[slow] = {
+                "kernel_us": device_us(torch, lambda: k4.KERNELS[body].launch(
+                    vparams, state, slow, 1.0, None, pixel, 0, stream),
+                    reps=100),
+                "plain_us": stream_us(torch, lambda: k4.plain_volume_substep(
+                    vmodel, state, slow), reps=5)}
+        for slow in sorted(timing, reverse=True):
+            b = court_bound(vmodel, DEPTH * 128 * 512, slow, volume=True)
+            name = f"{body}_volume<SLOW={str(slow).lower()}>"
+            print(f"  {name} {DEPTH}x128x512: "
+                  f"{timing[slow]['kernel_us']:.3f} us/launch, plain "
+                  f"{timing[slow]['plain_us']:.1f} us, bound "
+                  f"{b[0] * 1e3:.3f} us ({b[1]}) [{card}]", flush=True)
+            entries.append(kernel_entry(
+                name, "fib_tf_tpu_torch/csrc/br_volume.cu",
+                "fib_tf_tpu/ops/pallas_volume.py:499",
+                launches.get(f"{body}_volume", {}).get(
+                    "slow" if slow else "frozen", 0),
+                errs[f"{body}_volume"], timing[slow]["kernel_us"],
+                timing[slow]["plain_us"], b))
+    for label, res in runs.items():
+        print(f"  {label} 512x512 run: "
+              f"{1.0 / res.sim_seconds_per_wall_second:.6f} wall-s/sim-s "
+              f"[{card}]", flush=True)
+    for e in entries:
+        check(e["launches"] > 0, f"{e['name']} was not launched on a main "
+                                 f"path")
     stamp("the end")
     return entries
 

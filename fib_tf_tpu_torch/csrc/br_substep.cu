@@ -4,7 +4,11 @@
 // without and with ab2 (fenton_cell.cuh) and Mitchell-Schaeffer
 // (ms_cell.cuh).  The file keeps its first model's name; it hosts every
 // body, one extern "C" entry each (br_substep, br_variant_substep,
-// br_variant_ab2_substep, fenton_substep, fenton_ab2_substep, ms_substep).
+// br_variant_ab2_substep, fenton_substep, fenton_ab2_substep, ms_substep);
+// and, as a second library of this source (-DFIBTORCH_COURT_ENTRIES
+// -fmad=false), court_substep and court_ultra_substep (court_cell.cuh:
+// Courtemanche's fast and slow commits, eleven launches per outer step,
+// and Courtemanche-ultra's full commit, ten).
 //
 // Replaces the TPU kernel fib_tf_tpu/ops/pallas_step.py::make_pallas_step as
 // the engine launches it for Beeler-Reuter cheby+skip (one substep per
@@ -72,6 +76,8 @@
 
 #include "br_cell.cuh"
 #include "br_variant_cell.cuh"
+#include "cell_traits.cuh"
+#include "court_cell.cuh"
 #include "fenton_cell.cuh"
 #include "geometry.cuh"
 #include "ms_cell.cuh"
@@ -108,24 +114,26 @@ __global__ void substep_kernel(const typename Body::Params p,
   const int ce = clamp_index(col + 1, width);
 
   const float v0 = v_in[rc + cc];
-  float lap;
-  if constexpr (GEOM) {
-    lap = fibtorch::geometry_laplace(
-        geo, row, col, height, width, v_in[rn + cc], v_in[rs + cc],
-        v_in[rc + cw], v_in[rc + ce], v_in[rn + cw], v_in[rs + cw],
-        v_in[rn + ce], v_in[rs + ce], v0);
-  } else {
-    lap = laplace9(v_in[rn + cc], v_in[rs + cc], v_in[rc + cw],
-                   v_in[rc + ce], v_in[rn + cw], v_in[rs + cw],
-                   v_in[rn + ce], v_in[rs + ce], v0);
+  // a form that keeps the potential (cell_traits.cuh) needs no Laplacian
+  float lap = 0.0f;
+  if constexpr (fibtorch::writes_potential<Body, SLOW>()) {
+    if constexpr (GEOM) {
+      lap = fibtorch::geometry_laplace(
+          geo, row, col, height, width, v_in[rn + cc], v_in[rs + cc],
+          v_in[rc + cw], v_in[rc + ce], v_in[rn + cw], v_in[rs + cw],
+          v_in[rn + ce], v_in[rs + ce], v0);
+    } else {
+      lap = laplace9(v_in[rn + cc], v_in[rs + cc], v_in[rc + cw],
+                     v_in[rc + ce], v_in[rn + cw], v_in[rs + cw],
+                     v_in[rn + ce], v_in[rs + ce], v0);
+    }
   }
 
   const long long idx = (long long)row * width + col;
   float q[Body::kPlanes];
-#pragma unroll
-  for (int k = 0; k < Body::kPlanes; ++k) q[k] = planes.p[k][idx];
+  fibtorch::load_planes<Body>(planes.p, idx, q);
   const float v1 = Body::template update<SLOW>(p, v0, v_in[idx], lap, q);
-  v_out[idx] = v1;
+  if constexpr (fibtorch::writes_potential<Body, SLOW>()) v_out[idx] = v1;
 #pragma unroll
   for (int k = 0; k < Body::kPlanes; ++k) {
     if (Body::template stores<SLOW>(k)) planes.p[k][idx] = q[k];
@@ -144,15 +152,19 @@ int launch_substep(int slow, const float* params, int n_params,
                    int probe_row, int probe_col, long long probe_index,
                    int device, void* stream,
                    const fibtorch::GeometryArg<GEOM>& geo) {
+  // v_out is null exactly for a form that keeps the potential
+  const bool writes = slow ? fibtorch::writes_potential<Body, true>()
+                           : fibtorch::writes_potential<Body, false>();
   if (n_params != fibtorch::param_floats<Body>() ||
       n_planes != Body::kPlanes || height < 3 || width < 3 ||
-      v_in == v_out) {
+      v_in == v_out || writes != (v_out != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   CellPlanes<Body::kPlanes> pl;
   for (int k = 0; k < Body::kPlanes; ++k) {
     pl.p[k] = static_cast<float*>(planes[k]);
-    if (pl.p[k] == v_in || pl.p[k] == v_out) {
+    if ((pl.p[k] == nullptr && k != fibtorch::NullablePlane<Body>::value) ||
+        pl.p[k] == v_in || (pl.p[k] != nullptr && pl.p[k] == v_out)) {
       return (int)cudaErrorInvalidValue;
     }
   }
@@ -226,11 +238,20 @@ int launch_substep(int slow, const float* params, int n_params,
         geo);                                                               \
   }
 
+// The Courtemanche bodies build as a library of their own, this source with
+// -DFIBTORCH_COURT_ENTRIES (court_substep[_geom], court_ultra_substep[_geom]),
+// so that nvcc compiles them beside the rest, and with -fmad=false
+// (court_cell.cuh's rounding).
 extern "C" {
+#ifdef FIBTORCH_COURT_ENTRIES
+SUBSTEP_ENTRIES(court, fibtorch::CourtCell<false>)
+SUBSTEP_ENTRIES(court_ultra, fibtorch::CourtCell<true>)
+#else
 SUBSTEP_ENTRIES(br, fibtorch::BeelerReuterCell)
 SUBSTEP_ENTRIES(br_variant, fibtorch::BrVariantCell<false>)
 SUBSTEP_ENTRIES(br_variant_ab2, fibtorch::BrVariantCell<true>)
 SUBSTEP_ENTRIES(fenton, fibtorch::FentonCell)
 SUBSTEP_ENTRIES(fenton_ab2, fibtorch::FentonAb2Cell)
 SUBSTEP_ENTRIES(ms, fibtorch::MsCell)
+#endif
 }  // extern "C"

@@ -4,7 +4,10 @@
 // br_variant_volume and br_variant_ab2_volume (BR's other variants),
 // fenton_volume, fenton_ab2_volume and ms_volume (Fenton and
 // Mitchell-Schaeffer, ten launches per outer step; e.g.
-// examples/scroll_wave.py's Fenton scroll wave).
+// examples/scroll_wave.py's Fenton scroll wave); and, as a second library
+// of this source (-DFIBTORCH_COURT_ENTRIES -fmad=false), court_volume and
+// court_ultra_volume (court_cell.cuh: eleven and ten launches per outer
+// step).
 //
 // Replaces the TPU kernel fib_tf_tpu/ops/pallas_volume.py::
 // make_pallas_volume_step, which run_volume (engine/volume.py) runs for a
@@ -43,6 +46,8 @@
 #include "br_cell.cuh"
 #include "br_variant_cell.cuh"
 #include "br_volume_cell.cuh"
+#include "cell_traits.cuh"
+#include "court_cell.cuh"
 #include "fenton_cell.cuh"
 #include "ms_cell.cuh"
 
@@ -91,15 +96,20 @@ int launch_volume(int slow, const float* params, int n_params,
   const dim3 block(32, 8);
   const dim3 grid((width + block.x - 1) / block.x,
                   (height + block.y - 1) / block.y, depth);
+  // v_out is null exactly for a form that keeps the potential
+  const bool writes = slow ? fibtorch::writes_potential<Body, true>()
+                           : fibtorch::writes_potential<Body, false>();
   if (n_params != fibtorch::param_floats<Body>() ||
       n_planes != Body::kPlanes || depth < 3 || height < 3 || width < 3 ||
-      depth > 65535 || grid.y > 65535 || v_in == v_out) {
+      depth > 65535 || grid.y > 65535 || v_in == v_out ||
+      writes != (v_out != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   CellPlanes<Body::kPlanes> pl;
   for (int k = 0; k < Body::kPlanes; ++k) {
     pl.p[k] = static_cast<float*>(planes[k]);
-    if (pl.p[k] == v_in || pl.p[k] == v_out) {
+    if ((pl.p[k] == nullptr && k != fibtorch::NullablePlane<Body>::value) ||
+        pl.p[k] == v_in || (pl.p[k] != nullptr && pl.p[k] == v_out)) {
       return (int)cudaErrorInvalidValue;
     }
   }
@@ -149,11 +159,20 @@ int launch_volume(int slow, const float* params, int n_params,
                                probe_index, device, stream);                \
   }
 
+// The Courtemanche bodies build as a library of their own, this source with
+// -DFIBTORCH_COURT_ENTRIES (court_volume, court_ultra_volume), so that nvcc
+// compiles them beside the rest, and with -fmad=false (court_cell.cuh's
+// rounding).
 extern "C" {
+#ifdef FIBTORCH_COURT_ENTRIES
+VOLUME_ENTRIES(court, fibtorch::CourtCell<false>)
+VOLUME_ENTRIES(court_ultra, fibtorch::CourtCell<true>)
+#else
 VOLUME_ENTRIES(br, fibtorch::BeelerReuterCell)
 VOLUME_ENTRIES(br_variant, fibtorch::BrVariantCell<false>)
 VOLUME_ENTRIES(br_variant_ab2, fibtorch::BrVariantCell<true>)
 VOLUME_ENTRIES(fenton, fibtorch::FentonCell)
 VOLUME_ENTRIES(fenton_ab2, fibtorch::FentonAb2Cell)
 VOLUME_ENTRIES(ms, fibtorch::MsCell)
+#endif
 }  // extern "C"

@@ -48,6 +48,7 @@
 #include "br_cell.cuh"
 #include "br_variant_cell.cuh"
 #include "br_volume_cell.cuh"
+#include "cell_traits.cuh"
 #include "fenton_cell.cuh"
 #include "ms_cell.cuh"
 

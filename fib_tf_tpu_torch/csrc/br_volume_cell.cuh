@@ -15,14 +15,16 @@
 // body's update, with the cell's raw centre v_in[z, row, col] beside v0.
 //
 // Memory: the potential is read from `v_in` and written to `v_out` (never
-// the same array); the per-cell planes are read and rewritten in place,
-// each thread its own cell.
+// the same array), except by a form that keeps it (cell_traits.cuh); the
+// per-cell planes are read and rewritten in place, each thread its own
+// cell.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include "br_cell.cuh"
+#include "cell_traits.cuh"
 
 namespace fibtorch {
 
@@ -46,17 +48,20 @@ __device__ __forceinline__ float volume_cell(
   const int ce = clamp_index(col + 1, width);
 
   const float v0 = sc[rc + cc];
-  const float planar = laplace9(sc[rn + cc], sc[rs + cc], sc[rc + cw],
-                                sc[rc + ce], sc[rn + cw], sc[rs + cw],
-                                sc[rn + ce], sc[rs + ce], v0);
-  const float lap = planar + dz2 * ((su[rc + cc] - 2.0f * v0) + sd[rc + cc]);
+  // a form that keeps the potential (cell_traits.cuh) needs no Laplacian
+  float lap = 0.0f;
+  if constexpr (writes_potential<Body, SLOW>()) {
+    const float planar = laplace9(sc[rn + cc], sc[rs + cc], sc[rc + cw],
+                                  sc[rc + ce], sc[rn + cw], sc[rs + cw],
+                                  sc[rn + ce], sc[rs + ce], v0);
+    lap = planar + dz2 * ((su[rc + cc] - 2.0f * v0) + sd[rc + cc]);
+  }
 
   const long long idx = z * plane + (long long)row * width + col;
   float q[Body::kPlanes];
-#pragma unroll
-  for (int k = 0; k < Body::kPlanes; ++k) q[k] = planes[k][idx];
+  load_planes<Body>(planes, idx, q);
   const float v1 = Body::template update<SLOW>(p, v0, v_in[idx], lap, q);
-  v_out[idx] = v1;
+  if constexpr (writes_potential<Body, SLOW>()) v_out[idx] = v1;
 #pragma unroll
   for (int k = 0; k < Body::kPlanes; ++k) {
     if (Body::template stores<SLOW>(k)) planes[k][idx] = q[k];

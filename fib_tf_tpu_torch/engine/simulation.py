@@ -12,13 +12,24 @@ consumes the probes.
 Kernel routing (`route`, as the JAX engine's `_use_pallas` / `_step_fn`
 route): 'xla' runs the plain PyTorch path anywhere; 'auto' and 'pallas' run
 a CUDA kernel on a CUDA device, the substep kernel (one launch per substep:
-five per outer step for Beeler-Reuter, ten for Fenton and
-Mitchell-Schaeffer) while the state fits WHOLE_GRID_STATE_MB_MAX and the
-tiled kernel (one launch per outer step) past it; on the CPU 'auto' runs
-the plain path and 'pallas' raises.  The three models the port carries
-all have their cell bodies on both kernels and on the block kernel, as the
-reference routes them (fib_tf_tpu/engine/simulation.py:463-492,
-`SPMD_KERNEL_MODELS` :797-798).
+five per outer step for Beeler-Reuter, ten for Fenton, Mitchell-Schaeffer
+and Courtemanche-ultra, eleven for Courtemanche) while the state fits
+WHOLE_GRID_STATE_MB_MAX and the tiled kernel (one launch per outer step)
+past it; on the CPU 'auto' runs the plain path and 'pallas' raises.
+Beeler-Reuter, Fenton and Mitchell-Schaeffer have their cell bodies on both
+kernels and on the block kernel, as the reference routes them
+(fib_tf_tpu/engine/simulation.py:463-492, `SPMD_KERNEL_MODELS` :797-798).
+Courtemanche and Courtemanche-ultra take the substep kernel at every size
+(the reference never gives them its tiled kernel, and past its 32 MB VMEM
+cap runs XLA, a cap the card's substep kernel does not have); with
+`table=True` they run the plain path ('pallas' raises), and on a mesh they
+raise NotImplementedError (ROADMAP Queue 2 item E).
+
+Probes: the kernel's last launch of an outer step writes the "v" probe;
+a model's `extra_probes` add their streams: Courtemanche's "trend" (V and
+Na_i at one pixel) and court_ultra's "ultra" (phase-weighted means), taken
+after each outer step on the device.  `probe_at_step(i,
+key)` reads the chunk being consumed from inside a `cl_observer`.
 
 Sharded runs (`Simulation(model, mesh=..., wide_halo=...)`, or
 `SimConfig.mesh_shape` with `mesh_mode` 'auto' / 'spmd'): the grid is
@@ -61,6 +72,11 @@ from fib_tf_tpu_torch.parallel import spmd
 
 _ENGINE = "ROADMAP Queue 1 item 14"
 _PARALLEL = "ROADMAP Queue 1 item 19"
+_COURT_SHARDED = "ROADMAP Queue 2 item E"
+# kernel='pallas' with Courtemanche's table mode (the reference raises the
+# same on its TPU kernels, fib_tf_tpu/engine/simulation.py:435-440)
+TABLE_KERNEL_MESSAGE = ("table-mode gathers don't run in the CUDA kernels; "
+                        "use kernel='xla' or drop table=True")
 
 
 def _not_ported(what: str, item: str):
@@ -113,6 +129,10 @@ class Simulation:
         if model.fast_slow_ratio:
             _not_ported("fast_slow_ratio dispatch", _ENGINE)
         if mesh is not None:
+            if not model.sharded:
+                _not_ported(f"{model.name} on a mesh (its block kernel and "
+                            f"the sharded trend / ultra probes)",
+                            _COURT_SHARDED)
             _check_mesh(model, mesh, wide_halo)
         self.model = model
         # the geometry (numpy, static), set before define()
@@ -134,6 +154,10 @@ class Simulation:
         self._defined = False
         self._step = None
         self._shard_maps: Optional[spmd.ShardMaps] = None
+        # the phase field on the device (the `ultra` probe's weights)
+        self._phase_t: Optional[torch.Tensor] = None
+        # (first step, host probes) of the chunk simulate() is consuming
+        self._probe_window: Optional[Tuple[int, Dict[str, np.ndarray]]] = None
 
     # Whole-grid vs tiled cutover in MB of state (planes x H x W x 4): the
     # JAX engine's value (fib_tf_tpu/engine/simulation.py:507), where its
@@ -231,6 +255,8 @@ class Simulation:
         geometry = {k: v for k, v in dict(phase=self.phase, fiber=fiber,
                                           dmap=self.dmap).items()
                     if v is not None}
+        if self.phase is not None:
+            self._phase_t = torch.tensor(self.phase, device=self.device)
         if self.route == "tiled":
             self._step = cuda_tiled.make_tiled_cuda_step(self.model,
                                                          **geometry)
@@ -243,10 +269,7 @@ class Simulation:
                                    self.cfg.fiber_ratio, self.dmap,
                                    self.device))
         if self.device.type == "cuda":
-            scratch = interop.state_from_numpy(init, self.device)
-            probe = torch.empty(1, device=self.device)
-            scratch = self._step(scratch, probe, 0)
-            self._read_chunk(probe, scratch)
+            self._run_chunk(interop.state_from_numpy(init, self.device), 1)
         self._defined = True
         return self
 
@@ -282,17 +305,33 @@ class Simulation:
     def millisecond_to_step(self, t_ms: float) -> int:
         return self.cfg.millisecond_to_step(t_ms, self.model.dt_per_step)
 
-    def _read_chunk(self, probe: torch.Tensor, state) -> np.ndarray:
-        """The chunk's one device-to-host copy: the probe buffer followed
-        by the finiteness flag of the potential (on a mesh, the AND of the
-        shards' own cells, gathered on the probe's device)."""
+    def _extra_probes(self, state) -> Dict[str, torch.Tensor]:
+        """The probe streams beside "v" of one outer step, as the
+        reference's `_probes`: the model's `extra_probes` (Courtemanche's
+        `trend`, court_ultra's phase-weighted `ultra` means)."""
+        return self.model.extra_probes(state, self._phase_t)
+
+    def _read_chunk(self, probe: torch.Tensor, state,
+                    extra: Optional[Dict[str, torch.Tensor]] = None):
+        """The chunk's one device-to-host copy: the probe buffer, the
+        `extra` probe streams (`[n, ...]` buffers) and the finiteness flag
+        of the potential (on a mesh, the AND of the shards' own cells,
+        gathered on the probe's device).  Returns ({stream: host array},
+        finite)."""
         pot = state[self.model.pot_key]
         if self._mesh is None:
             finite = torch.isfinite(pot).all()
         else:
             finite = torch.stack([torch.isfinite(t).all().to(probe.device)
                                   for t in pot.flat]).all()
-        return torch.cat([probe, finite.to(probe.dtype).reshape(1)]).cpu().numpy()
+        extra = extra or {}
+        flat = torch.cat([probe] + [t.reshape(-1) for t in extra.values()]
+                         + [finite.to(probe.dtype).reshape(1)]).cpu().numpy()
+        out, at = {"v": flat[:probe.numel()]}, probe.numel()
+        for key, t in extra.items():
+            out[key] = flat[at:at + t.numel()].reshape(tuple(t.shape))
+            at += t.numel()
+        return out, bool(flat[-1])
 
     def _to_device(self, state: Dict[str, np.ndarray]):
         """Host planes to the device state: tensors, or shards on a mesh."""
@@ -305,16 +344,21 @@ class Simulation:
         the n probes and the finiteness flag)."""
         if self._mesh is None:
             probe = torch.empty(n, dtype=torch.float32, device=self.device)
+            extra: Dict[str, torch.Tensor] = {}
             for k in range(n):
                 state = self._step(state, probe, k)
-            return state, self._read_chunk(probe, state)
+                for key, value in self._extra_probes(state).items():
+                    if key not in extra:
+                        extra[key] = value.new_empty((n,) + value.shape)
+                    extra[key][k] = value
+            return (state, *self._read_chunk(probe, state, extra))
         if n not in self._spmd_chunks:
             self._spmd_chunks[n] = spmd.make_spmd_chunk(
                 self.model, self._mesh, n, wide_halo=self._wide_halo,
                 use_kernel=self.route == "block", fiber=self._fiber(),
                 maps=self._shard_maps)
         state, probes = self._spmd_chunks[n](state)
-        return state, self._read_chunk(probes["v"], state)
+        return (state, *self._read_chunk(probes["v"], state))
 
     def _synchronize(self):
         devices = ([self.device] if self._mesh is None
@@ -370,7 +414,7 @@ class Simulation:
                 self.fire_on(dict(dev_state), events[0][1])
             self._synchronize()
 
-        probes_acc: List[np.ndarray] = []
+        probes_acc: Dict[str, List[np.ndarray]] = {}
         scale = np.float32(self._probe_scale())
         ev_idx = 0
         step = 0
@@ -379,14 +423,19 @@ class Simulation:
             seg = b - a
             while seg > 0:
                 n = min(seg, max_chunk_steps)
-                dev_state, host = self._run_chunk(dev_state, n)
-                if check_finite and not host[-1]:
+                dev_state, host, finite = self._run_chunk(dev_state, n)
+                if check_finite and not finite:
                     raise FloatingPointError(
                         f"non-finite {model.pot_key} detected at outer "
                         f"step {step + n}")
-                probe = host[:-1] if scale == 1 else host[:-1] * scale
-                probes_acc.append(probe)
-                detector.feed(step, probe)
+                if scale != 1:
+                    host["v"] = host["v"] * scale
+                for key, value in host.items():
+                    probes_acc.setdefault(key, []).append(value)
+                # cl_observer callbacks read this chunk's live probes
+                # (probe_at_step)
+                self._probe_window = (step, host)
+                detector.feed(step, host["v"])
                 step += n
                 seg -= n
             if ev_idx < len(events) and events[ev_idx][0] == b:
@@ -401,7 +450,7 @@ class Simulation:
         self.state = (interop.state_to_numpy(dev_state)
                       if self._mesh is None
                       else interop.gather_state(dev_state))
-        probes = {"v": np.concatenate(probes_acc)} if probes_acc else {}
+        probes = {k: np.concatenate(v) for k, v in probes_acc.items()}
         return SimResult(
             state=self.state,
             probes=probes,
@@ -412,6 +461,20 @@ class Simulation:
             sim_seconds_per_wall_second=sim_s / max(elapsed, 1e-9),
             cycle_lengths=detector.cycle_lengths,
         )
+
+    def probe_at_step(self, i: int, key: str) -> np.ndarray:
+        """Probe stream `key` at outer step `i` of the chunk simulate() is
+        consuming: valid inside cl_observer callbacks."""
+        if self._probe_window is None:
+            raise RuntimeError(
+                "probe_at_step is only valid while a run is consuming "
+                "probe chunks (e.g. inside a cl_observer callback)")
+        start, out = self._probe_window
+        n = len(out[key])
+        if not 0 <= i - start < n:
+            raise IndexError(f"step {i} outside the live probe window "
+                             f"[{start}, {start + n})")
+        return np.asarray(out[key][i - start])
 
 
 def pace(model: IonicModel, state, mask: torch.Tensor):
@@ -581,8 +644,17 @@ def route(model: IonicModel, device_type: str, kernel: str) -> str:
         raise ValueError(
             "kernel='pallas' runs the hand-written CUDA kernels and needs "
             "a CUDA device; use kernel='auto' or 'xla' on the CPU")
+    if model.kernel_free:
+        if kernel == "pallas":
+            raise ValueError(TABLE_KERNEL_MESSAGE)
+        return "plain"
     if kernel == "xla" or device_type != "cuda":
         return "plain"
-    if state_mb(model) <= Simulation.WHOLE_GRID_STATE_MB_MAX:
+    if (state_mb(model) <= Simulation.WHOLE_GRID_STATE_MB_MAX
+            or 2 not in cuda_step.cell_body(model).kernels):
+        # Courtemanche takes the substep kernel at every size: the
+        # reference keeps it off its tiled kernel and runs XLA past its
+        # VMEM cap, which the card's substep kernel does not have
         return "substep"
     return "tiled"
+

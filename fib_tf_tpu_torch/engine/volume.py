@@ -27,11 +27,12 @@ z over a `parallel.Mesh` and runs parallel/volume_spmd's wide-halo chunk:
 per shard the volume block kernel (csrc/br_volume_block.cu) under
 `_use_shard_kernel`, or the plain step.
 
-The volume substep kernel hosts Beeler-Reuter, Fenton and
-Mitchell-Schaeffer; the tiled and block volume kernels host BR alone, so
-Fenton and Mitchell-Schaeffer raise NotImplementedError where 'auto' or
-'pallas' would take them (the cutover lowered, or a CUDA mesh with
-`wide_halo`; ROADMAP Queue 2 item D).
+The volume substep kernel hosts Beeler-Reuter, Fenton, Mitchell-Schaeffer,
+Courtemanche and Courtemanche-ultra; the tiled volume kernel hosts BR's
+main body alone, so the others raise NotImplementedError where 'auto' or
+'pallas' would take it (the cutover lowered; ROADMAP Queue 2 item D); the
+block volume kernel hosts all but Courtemanche, which raises on a mesh
+(Queue 2 item E).  Courtemanche's table mode runs the plain path.
 
 Not ported yet, and raising NotImplementedError when asked for: phase
 fields, fiber twist / ratio / elevation (ROADMAP Queue 1 items 9 and 18),
@@ -50,7 +51,8 @@ import numpy as np
 import torch
 
 from fib_tf_tpu_torch import interop
-from fib_tf_tpu_torch.engine.simulation import resolve_device
+from fib_tf_tpu_torch.engine.simulation import (TABLE_KERNEL_MESSAGE,
+                                                resolve_device)
 from fib_tf_tpu_torch.models.base import IonicModel
 from fib_tf_tpu_torch.ops import (cuda_step, cuda_volume, cuda_volume_tiled,
                                   stencil3d)
@@ -60,6 +62,7 @@ _GEOMETRY = "ROADMAP Queue 1 items 9 and 18"
 _VOLUME = "ROADMAP Queue 1 item 18"
 _PARALLEL = "ROADMAP Queue 1 item 19"
 _ADAPTIVE = "ROADMAP Queue 1 item 15"
+_COURT_SHARDED = "ROADMAP Queue 2 item E"
 
 # Whole-volume vs tiled cutover in MB of state (planes x D x H x W x 4).
 # The reference's is 32 MB (fib_tf_tpu/engine/volume.py:78).  On the card
@@ -124,13 +127,17 @@ def volume_route(model: IonicModel, depth: int, device_type: str,
     one launch per outer step, any depth; Beeler-Reuter's main body only:
     the other bodies raise NotImplementedError there) or 'plain'
     (PyTorch).  Under the card's cutover (no limit) 'auto' never takes
-    'tiled'."""
+    'tiled'.  Courtemanche's table mode runs 'plain' ('pallas' raises)."""
     if kernel not in ("auto", "pallas", "xla"):
         raise ValueError(f"kernel must be auto|pallas|xla, got {kernel!r}")
     if kernel == "pallas" and device_type != "cuda":
         raise ValueError(
             "kernel='pallas' runs the hand-written CUDA kernels and needs "
             "a CUDA device; use kernel='auto' or 'xla' on the CPU")
+    if model.kernel_free:
+        if kernel == "pallas":
+            raise ValueError(TABLE_KERNEL_MESSAGE)
+        return "plain"
     if kernel == "xla" or device_type != "cuda":
         return "plain"
     if (kernel == "pallas"
@@ -153,6 +160,9 @@ def _check_unported(model, phase, fiber_twist, fiber_angle0, fiber_ratio,
             or fiber_elevation != 0.0):
         _not_ported("fiber twist / ratio / elevation in run_volume",
                     _GEOMETRY)
+    if mesh is not None and not model.sharded:
+        _not_ported(f"{model.name} on a mesh (its volume block kernel)",
+                    _COURT_SHARDED)
     if mesh is not None and not wide_halo:
         _not_ported("the GSPMD z-sharded volume (mesh without wide_halo)",
                     _PARALLEL)

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from fib_tf_tpu_torch.config import SimConfig
+from fib_tf_tpu_torch.models import courtemanche as court
 from fib_tf_tpu_torch.models.beeler_reuter import CHEBY_DEG, GATES
 from fib_tf_tpu_torch.parallel import sharding
 
@@ -75,3 +76,53 @@ def cheby_coef_from_numpy(coef: Mapping[str, np.ndarray],
                 f"coefficient {k!r} must be {CHEBY_DEG + 1} finite values")
         out[k] = a
     return out
+
+
+def court_params_from_numpy(model: court.Courtemanche,
+                            cheby: Optional[Mapping[str, np.ndarray]] = None,
+                            table: Optional[np.ndarray] = None,
+                            het: Optional[Mapping[str, np.ndarray]] = None,
+                            scales: Optional[Mapping[str, float]] = None
+                            ) -> court.Courtemanche:
+    """Carry a Courtemanche model's parameters, as numpy arrays, into the
+    port's `model` (a `Courtemanche` or `CourtemancheUltra` of the same
+    configuration), so that both compute with the same constants: the
+    hybrid Chebyshev fits (the JAX model's `_cheby`: the smooth
+    intermediates, with `rl_<gate>` under `cheby_fold`), the table (its
+    `_table`, 150 x 30), the het planes (its `het`) and the `g_scale`
+    factors (its `scales`).  Each must match the model's configuration:
+    fits only with `court_cheby`, a table only with `table`.  Returns
+    `model`."""
+    if cheby is not None:
+        if model.cheby_coef is None:
+            raise ValueError("the model takes no Chebyshev fits (set "
+                             "court_cheby and not table)")
+        if set(cheby) != set(model.cheby_coef):
+            raise ValueError(
+                f"fits {sorted(cheby)} != the configuration's "
+                f"{sorted(model.cheby_coef)}")
+        fits = {}
+        for k, v in cheby.items():
+            a = np.array(v, dtype=np.float64)
+            if (a.shape != (court.CHEBY_DEG_COURT + 1,)
+                    or not np.isfinite(a).all()):
+                raise ValueError(f"fit {k!r} must be "
+                                 f"{court.CHEBY_DEG_COURT + 1} finite values")
+            fits[k] = a
+        model.cheby_coef = fits
+    if table is not None:
+        if model.table is None:
+            raise ValueError("the model takes no table (set table=True)")
+        t = np.array(table, dtype=np.float32)
+        if t.shape != model.table.shape or not np.isfinite(t).all():
+            raise ValueError(f"table must be a finite {model.table.shape} "
+                             f"array, got {t.shape}")
+        model.table = t
+        model._tables.clear()
+    if het is not None:
+        model.set_het(**{k: None for k in model.het})
+        model.set_het(**dict(het))
+    if scales is not None:
+        model.set_scale(**{k: None for k in model.scales})
+        model.set_scale(**dict(scales))
+    return model

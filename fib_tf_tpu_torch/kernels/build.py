@@ -54,17 +54,18 @@ def find_nvcc() -> str:
     )
 
 
-def _flags(defines: Sequence[str]):
-    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+def _flags(defines: Sequence[str], flags: Sequence[str]):
+    return (*NVCC_FLAGS, *flags, *(f"-D{d}" for d in defines))
 
 
 def library_path(name: str, sources: Sequence[Path],
                  headers: Sequence[Path] = (),
-                 defines: Sequence[str] = ()) -> Path:
+                 defines: Sequence[str] = (),
+                 flags: Sequence[str] = ()) -> Path:
     """Where `build` puts the library of `sources`: keyed by a hash of
     their bytes, of the `headers` they include and of the nvcc flags
-    (with the preprocessor `defines`)."""
-    h = hashlib.sha256(" ".join(_flags(defines)).encode())
+    (with the preprocessor `defines` and the extra `flags`)."""
+    h = hashlib.sha256(" ".join(_flags(defines, flags)).encode())
     for src in [*sources, *headers]:
         h.update(Path(src).name.encode())
         h.update(Path(src).read_bytes())
@@ -72,19 +73,22 @@ def library_path(name: str, sources: Sequence[Path],
 
 
 def build(name: str, sources: Sequence[Path],
-          headers: Sequence[Path] = (), defines: Sequence[str] = ()) -> Path:
+          headers: Sequence[Path] = (), defines: Sequence[str] = (),
+          flags: Sequence[str] = ()) -> Path:
     """Compile `sources` into one shared library unless a library of the
-    same sources, `headers` and `defines` (macros set with -D, which
-    select what a source compiles) exists; return its path.  The headers
-    are hashed, not passed to nvcc.  The compiler's output (with the
-    -Xptxas -v resource report) is kept beside it as `<lib>.log`."""
-    out = library_path(name, sources, headers, defines)
+    same sources, `headers`, `defines` (macros set with -D, which select
+    what a source compiles) and extra nvcc `flags` exists; return its
+    path.  The headers are hashed, not passed to nvcc.  The compiler's
+    output (with the -Xptxas -v resource report) is kept beside it as
+    `<lib>.log`."""
+    out = library_path(name, sources, headers, defines, flags)
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *_flags(defines), "-o", str(tmp), *map(str, sources)]
+    cmd = [nvcc, *_flags(defines, flags), "-o", str(tmp),
+           *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
     out.with_name(out.name + ".log").write_text(log)
@@ -98,7 +102,7 @@ def build(name: str, sources: Sequence[Path],
 
 
 def load(name: str, sources: Sequence[Path],
-         headers: Sequence[Path] = (),
-         defines: Sequence[str] = ()) -> ctypes.CDLL:
+         headers: Sequence[Path] = (), defines: Sequence[str] = (),
+         flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (if needed) and load the library of `sources`."""
-    return ctypes.CDLL(str(build(name, sources, headers, defines)))
+    return ctypes.CDLL(str(build(name, sources, headers, defines, flags)))

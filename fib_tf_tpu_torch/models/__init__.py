@@ -1,4 +1,5 @@
-"""The port's model zoo: Beeler-Reuter, Fenton and Mitchell-Schaeffer."""
+"""The port's model zoo: Beeler-Reuter, Fenton, Mitchell-Schaeffer,
+Courtemanche and Courtemanche-ultra."""
 
 from fib_tf_tpu_torch.models.base import (
     Geometry,
@@ -8,6 +9,8 @@ from fib_tf_tpu_torch.models.base import (
     volume_geometry,
 )
 from fib_tf_tpu_torch.models.beeler_reuter import BeelerReuter
+from fib_tf_tpu_torch.models.courtemanche import (Courtemanche,
+                                                  CourtemancheUltra)
 from fib_tf_tpu_torch.models.fenton import Fenton4v
 from fib_tf_tpu_torch.models.mitchell_schaeffer import MitchellSchaeffer
 
@@ -19,10 +22,15 @@ MODEL_REGISTRY = {
     "beeler_reuter": BeelerReuter,
     "ms": MitchellSchaeffer,
     "mitchell_schaeffer": MitchellSchaeffer,
+    "court": Courtemanche,
+    "courtemanche": Courtemanche,
+    "court_ultra": CourtemancheUltra,
 }
 
 __all__ = [
     "BeelerReuter",
+    "Courtemanche",
+    "CourtemancheUltra",
     "Fenton4v",
     "Geometry",
     "IonicModel",

@@ -147,13 +147,77 @@ class IonicModel:
     # is ill-conditioned; a kernel's and the plain path's rounding may part
     # there past rtol/atol (tests and chip_smoke.py arbitrate such cells)
     ill_conditioned: tuple = ()
+    # whether the model runs on a mesh: Courtemanche's sharded path (its
+    # block kernels and sharded probes) is not ported yet
+    sharded: bool = True
 
     def __init__(self, cfg: SimConfig):
         self.cfg = cfg
+        # per-pixel parameter planes (set_het); {} = homogeneous tissue
+        self.het: Dict[str, np.ndarray] = {}
         # per-channel conductance scale factors; {} = drug-free
         self.scales: Dict[str, float] = {}
         if cfg.g_scale:
             self.set_scale(**dict(cfg.g_scale))
+
+    # -- per-pixel parameter heterogeneity ---------------------------------
+    #
+    # Each plane rides the state dict under a reserved "_p_<name>" key
+    # (fib_tf_tpu/models/base.py:168-245): models read it in solve() and
+    # pass it through unchanged, so every path carries it as an ordinary
+    # state plane that no substep writes.
+
+    HET_PREFIX = "_p_"
+    # names set_het accepts; models with heterogeneity override
+    HET_PARAMS: tuple = ()
+
+    def set_het(self, **planes):
+        """Attach per-pixel parameter planes, e.g.
+        `model.set_het(chronic=mask)`: a finite `[H, W]` array per name
+        (None removes a plane).  Must precede initial_state() / define().
+        Returns self."""
+        het = dict(self.het)
+        for name, arr in planes.items():
+            if name not in self.HET_PARAMS:
+                raise ValueError(
+                    f"{type(self).__name__} has no heterogeneous "
+                    f"parameter {name!r}; available: {self.HET_PARAMS}"
+                )
+            if arr is None:
+                het.pop(name, None)
+                continue
+            a = np.asarray(arr, np.float32)
+            if a.shape != self.state_shape():
+                raise ValueError(
+                    f"het plane {name!r} shape {a.shape} != grid "
+                    f"{self.state_shape()}"
+                )
+            if not np.isfinite(a).all():
+                raise ValueError(f"het plane {name!r} must be finite")
+            het[name] = a
+        self.het = het
+        return self
+
+    def het_keys(self) -> tuple:
+        """State keys of the attached planes."""
+        return tuple(self.HET_PREFIX + k for k in sorted(self.het))
+
+    def attach_het(self, state: Dict[str, np.ndarray]):
+        """Add the _p_* planes to an initial-state dict."""
+        for name, arr in self.het.items():
+            state[self.HET_PREFIX + name] = np.asarray(arr, np.float32)
+        return state
+
+    def het_param(self, state: State, name: str, default):
+        """The per-pixel plane when attached, else the scalar default."""
+        return state.get(self.HET_PREFIX + name, default)
+
+    def carry_het(self, state: State, out: State) -> State:
+        """Pass the constant planes through a solve() output."""
+        for k in state:
+            if k.startswith(self.HET_PREFIX):
+                out[k] = state[k]
+        return out
 
     # -- channel block (drug) interface -----------------------------------
 
@@ -214,6 +278,32 @@ class IonicModel:
         `step(state, geom)`, and equal labels mean identical bodies."""
         fn = lambda s: self.solve(s, geom)
         return [fn] * self.dt_per_step, ("solve",) * self.dt_per_step
+
+    # -- the kernels' view -------------------------------------------------
+
+    @property
+    def kernel_free(self) -> bool:
+        """A configuration that no CUDA cell body carries, which the
+        engine runs on the plain path: none by default."""
+        return False
+
+    @property
+    def launch_schedule(self) -> tuple:
+        """The `slow` flag of each kernel launch of an outer step: by
+        default the one body, `dt_per_step` times."""
+        return (True,) * self.dt_per_step
+
+    def commit(self, state: State, geom: Geometry, slow: bool) -> State:
+        """The substep that a kernel launch with `slow` computes, on the
+        plain path: by default the one body, which only `slow` selects."""
+        if not slow:
+            raise ValueError(f"{self.name} has one substep body: slow=True")
+        return self.solve(state, geom)
+
+    def extra_probes(self, state: State, phase=None) -> Dict:
+        """The probe streams beside "v" of one outer step (`phase`: the
+        phase field as a tensor, or None): none by default."""
+        return {}
 
     @property
     def has_uniform_substeps(self) -> bool:

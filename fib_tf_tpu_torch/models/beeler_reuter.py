@@ -363,6 +363,16 @@ class BeelerReuter(IonicModel):
         arbitrary boundaries."""
         return not self.cfg.skip and self.cfg.adaptive_dv is None
 
+    @property
+    def launch_schedule(self) -> tuple:
+        """One slow launch and four frozen ones under skip, five slow
+        (n=1) ones without."""
+        return (True,) + (not self.cfg.skip,) * 4
+
+    def commit(self, state: State, geom: Geometry, slow: bool) -> State:
+        """The n = slow_n substep (`slow`) or the n = 0 one."""
+        return self.solve(state, geom, n=self.slow_n if slow else 0)
+
     def substep_fns(self, geom: Geometry):
         """With `skip`, substep 0 advances the slow gates 5 dt (n=5) and
         substeps 1-4 freeze them (n=0); without, five n=1 substeps."""

@@ -267,8 +267,9 @@ class BlockKernel:
 
 # the process-wide bindings, one per cell body and form: the built library
 # is process-wide too.  KERNEL is Beeler-Reuter's.
-KERNELS = {name: BlockKernel(name) for name in BODIES}
-GEOM_KERNELS = {name: BlockKernel(name, geom=True) for name in BODIES}
+KERNELS = {name: BlockKernel(name) for name in cuda_step.hosted(3)}
+GEOM_KERNELS = {name: BlockKernel(name, geom=True)
+                for name in cuda_step.hosted(3)}
 KERNEL = KERNELS["br"]
 
 
@@ -333,7 +334,7 @@ def make_block_step(model: IonicModel, two_d: bool,
     `SimConfig.substeps_per_launch`, which the reference's block kernel
     takes to bound its compile time, has no effect here: the launch always
     fuses the whole outer step."""
-    body = cuda_step.cell_body(model).name
+    body = cuda_step.body_on(model, 3).name
     schedule = cuda_step.slow_schedule(model)
     halo = model.dt_per_step
     for geom in (False, True):

@@ -6,12 +6,17 @@ engine runs it: one launch per substep.  The kernel is csrc/br_substep.cu
 (CUDA C++, built with nvcc and bound with ctypes), which hosts every cell
 body of the port (`BODIES`), one entry each: Beeler-Reuter's main path
 (cheby + cheby_fold + cheby_currents), its other variants with and
-without ab2, Fenton with and without ab2, and Mitchell-Schaeffer.  A BR
-body has two forms (the substep that advances the slow gates, n=5 under
-skip, and the n=0 substep that freezes them); Fenton's and
-Mitchell-Schaeffer's one form runs ten launches per outer step.  Its
-source note says what bounds it and what the simple design leaves for
-later.
+without ab2, Fenton with and without ab2, and Mitchell-Schaeffer; and,
+built as a second library of the same source (`COURT_LIBRARY`),
+Courtemanche and Courtemanche-ultra.  A BR body has two forms (the substep
+that advances the slow gates, n=5 under skip, and the n=0 substep that
+freezes them); Fenton's and Mitchell-Schaeffer's one form runs ten
+launches per outer step.  Courtemanche's two forms are the fast commit
+(SLOW=false) and the slow commit (SLOW=true), which reads the new V and
+writes no potential: eleven launches per outer step; Courtemanche-ultra's
+one form ten.  Table mode has no body: the engine runs it on the plain
+path.  Its source note says what bounds it and what the simple design
+leaves for later.
 
 `CellBody` is what every kernel wrapper needs of a model: the prefix of its
 C entry points, the configurations it carries, its per-cell planes in the
@@ -57,6 +62,9 @@ from fib_tf_tpu_torch.models.beeler_reuter import (
     RATE_PARAMS,
     BeelerReuter,
 )
+from fib_tf_tpu_torch.models import courtemanche as court
+from fib_tf_tpu_torch.models.courtemanche import (Courtemanche,
+                                                  CourtemancheUltra)
 from fib_tf_tpu_torch.models.fenton import Fenton4v
 from fib_tf_tpu_torch.models.mitchell_schaeffer import MitchellSchaeffer
 
@@ -65,6 +73,8 @@ State = Dict[str, torch.Tensor]
 SOURCE = build.CSRC_DIR / "br_substep.cu"
 HEADERS = (build.CSRC_DIR / "br_cell.cuh",
            build.CSRC_DIR / "br_variant_cell.cuh",
+           build.CSRC_DIR / "cell_traits.cuh",
+           build.CSRC_DIR / "court_cell.cuh",
            build.CSRC_DIR / "fenton_cell.cuh",
            build.CSRC_DIR / "geometry.cuh",
            build.CSRC_DIR / "ms_cell.cuh")
@@ -93,6 +103,20 @@ CURRENT_MODES = {"cheby": 0, "fast": 1, "plain": 2}
 FENTON_PLANES = ("v", "w", "s")
 FENTON_AB2_PLANES = FENTON_PLANES + ("_du_", "_dv_", "_dw_", "_ds_")
 MS_PLANES = ("h",)
+# CourtCell<ULTRA>::Plane: the fast Na_i, m, h, the 17 slow planes, us
+# (ultra), then the chronic plane, passed as a null pointer when it is not
+# attached (csrc/cell_traits.cuh)
+COURT_PLANES = ("Na_i", "m", "h", "j", "K_i", "oa", "oi", "ua", "ui", "xr",
+                "xs", "Ca_i", "d", "f", "f_Ca", "Ca_rel", "u_gate", "v_gate",
+                "w_gate", "Ca_up", "_p_chronic")
+COURT_ULTRA_PLANES = COURT_PLANES[:-1] + ("us", "_p_chronic")
+# CourtParams::coef order (court_cell.cuh court::Fit): the smooth fits,
+# then the folded multipliers
+COURT_FIT_ORDER = court.CHEBY_SMOOTH_KEYS + tuple(
+    f"rl_{g}" for g in Courtemanche.FITTED_GATES)
+# 36 fits of 13 coefficients, then 28 scalars (_pack_court)
+COURT_PARAM_FLOATS = len(COURT_FIT_ORDER) * (court.CHEBY_DEG_COURT + 1) + 28
+COURT_RATE_MODES = {"direct": 0, "cheby": 1, "fold": 2}
 
 
 def _pack_br(model: BeelerReuter) -> np.ndarray:
@@ -186,6 +210,80 @@ def _pack_ms(model: MitchellSchaeffer) -> np.ndarray:
                      model.min_v, model.max_v - model.min_v], np.float32)
 
 
+def _pack_court(model: Courtemanche) -> np.ndarray:
+    """CourtParams as a float32 array: the fits (zeros where the mode fits
+    nothing), the rate mode, whether the chronic plane is attached, the
+    conductances with the g_scale factors (and the global chronic flag)
+    folded in, each product formed in double in the reference's order, the
+    g_scale factors of the currents it scales as tensors, dt of the fast
+    and of the slow states, diff * dt, the dV cap, the Chebyshev domain and
+    the probe normalisation (its span as a reciprocal, as torch divides a
+    tensor by a Python number)."""
+    cfg, f = model.cfg, model.scales.get
+    fits = np.zeros((len(COURT_FIT_ORDER), court.CHEBY_DEG_COURT + 1),
+                    np.float32)
+    for i, k in enumerate(COURT_FIT_ORDER):
+        if model.cheby_coef is not None and k in model.cheby_coef:
+            fits[i] = model.cheby_coef[k]
+    c = 1.0 if cfg.chronic else 0.0
+    cm = court.CM
+    g = model.gscale
+    scalars = np.array([
+        COURT_RATE_MODES[model.rate_mode],
+        1.0 if "chronic" in model.het else 0.0,
+        (1.0 - 0.5 * c) * cm * g("g_to", court.G_TO),
+        (1.0 - 0.5 * c) * cm,
+        (1.0 - 0.7 * c) * cm * g("g_CaL", court.G_CA_L),
+        g("g_to", court.G_TO),
+        g("g_CaL", court.G_CA_L),
+        f("g_Kur", 1.0), f("g_K1", 1.0), f("g_Kr", 1.0), f("g_NaCa", 1.0),
+        cm * g("g_Ks", court.G_KS),
+        cm * g("g_NaK", court.I_NAK_MAX),
+        court.K_O / (court.K_O + court.KM_K_O),
+        cm * g("g_bK", court.G_B_K),
+        cm * g("g_Na", court.G_NA),
+        cm * g("g_bNa", court.G_B_NA),
+        cm * g("g_pCa", court.I_CAP_MAX),
+        cm * g("g_bCa", court.G_B_CA),
+        model.dt_for("V"),
+        model.dt_for("Ca_i"),
+        cfg.diff * model.dt_for("V"),
+        0.0 if cfg.dv_max is None else cfg.dv_max,
+        0.0 if cfg.dv_max is None else 1.0,
+        0.5 * (model.max_v + model.min_v),
+        0.5 * (model.max_v - model.min_v),
+        model.min_v,
+        1.0 / (model.max_v - model.min_v),
+    ], np.float32)
+    return np.concatenate([fits.ravel(), scalars])
+
+
+@dataclasses.dataclass(frozen=True)
+class Library:
+    """How a kernel source is built for a set of cell bodies: `prefix`
+    names the library (`<prefix>_substep`, `<prefix>_volume`), `defines`
+    are the macros that select its entries and `flags` its extra nvcc
+    flags."""
+
+    prefix: str
+    defines: tuple = ()
+    flags: tuple = ()
+
+    def name(self, kernel: str) -> str:
+        """The library of the kernel source `kernel` ('substep',
+        'volume')."""
+        return f"{self.prefix}_{kernel}"
+
+
+BR_LIBRARY = Library("br")
+# the Courtemanche bodies' entries of kernels 1 and 4, their sources'
+# second library, compiled beside the first; without contraction into FMA,
+# so that the direct rates round as the plain path does on the card
+# (csrc/court_cell.cuh)
+COURT_LIBRARY = Library("court", ("FIBTORCH_COURT_ENTRIES",),
+                        ("-fmad=false",))
+
+
 @dataclasses.dataclass(frozen=True)
 class CellBody:
     """A model's CUDA cell body (csrc/br_cell.cuh, br_variant_cell.cuh,
@@ -193,7 +291,14 @@ class CellBody:
     its C entry points (`<name>_substep`, `<name>_tiled`, ...), `model`
     and `accepts` say which models' configurations it runs, `planes` are
     its per-cell planes in the struct's Plane order (the potential apart),
-    and `pack` returns its parameter block of `param_floats` float32s."""
+    `pack` returns its parameter block of `param_floats` float32s, and
+    `kernels` are the numbers of the kernels that host it (1 the substep
+    kernel, 2 the tiled, 3 the block, 4 the volume substep, 6 the volume
+    block kernel; kernel 5 hosts BR's main body alone).  With
+    `slow_keeps_potential`, a SLOW launch commits other planes only and
+    writes no potential (csrc/cell_traits.cuh).  `library` says how its
+    kernels' sources are built: BR_LIBRARY, or COURT_LIBRARY for the
+    Courtemanche bodies."""
 
     name: str
     model: type
@@ -201,6 +306,13 @@ class CellBody:
     planes: tuple
     param_floats: int
     pack: Callable[[IonicModel], np.ndarray]
+    kernels: tuple = (1, 2, 3, 4, 6)
+    slow_keeps_potential: bool = False
+    library: Library = BR_LIBRARY
+
+    def writes_potential(self, slow: bool) -> bool:
+        """Whether a launch of form `slow` writes the potential."""
+        return not (slow and self.slow_keeps_potential)
 
 
 def _br_main(model: BeelerReuter) -> bool:
@@ -223,7 +335,19 @@ BODIES = {b.name: b for b in (
              7, _pack_fenton_ab2),
     CellBody("ms", MitchellSchaeffer, lambda m: True, MS_PLANES, 8,
              _pack_ms),
+    # table mode has no body: the engine routes it to the plain path
+    CellBody("court", Courtemanche, lambda m: not m.kernel_free,
+             COURT_PLANES, COURT_PARAM_FLOATS, _pack_court, (1, 4), True,
+             COURT_LIBRARY),
+    CellBody("court_ultra", CourtemancheUltra,
+             lambda m: not m.kernel_free, COURT_ULTRA_PLANES,
+             COURT_PARAM_FLOATS, _pack_court, (1, 4), False,
+             COURT_LIBRARY),
 )}
+
+# what each kernel is, for the message of a body it does not host
+KERNEL_NAMES = {1: "substep", 2: "tiled", 3: "block", 4: "volume substep",
+                6: "volume block"}
 
 
 def cell_body(model: IonicModel) -> CellBody:
@@ -234,6 +358,23 @@ def cell_body(model: IonicModel) -> CellBody:
             return body
     raise NotImplementedError(
         f"no CUDA kernel for model {model.name!r} yet (ROADMAP Queue 1)")
+
+
+def body_on(model: IonicModel, kernel: int) -> CellBody:
+    """The model's cell body, which kernel number `kernel` must host;
+    raises NotImplementedError where it does not yet."""
+    body = cell_body(model)
+    if kernel not in body.kernels:
+        raise NotImplementedError(
+            f"the {body.name!r} body is not ported to the "
+            f"{KERNEL_NAMES[kernel]} kernel (kernel {kernel}) yet (ROADMAP "
+            f"Queue 2 item E)")
+    return body
+
+
+def hosted(kernel: int):
+    """The names of the bodies kernel number `kernel` hosts."""
+    return [name for name, b in BODIES.items() if kernel in b.kernels]
 
 
 def pack_params(model: IonicModel) -> np.ndarray:
@@ -253,9 +394,11 @@ def main_body_only(model: IonicModel, kernel: str):
 
 
 def plane_pointers(state: State, planes):
-    """A ctypes array of the device pointers of `state`'s `planes`."""
+    """A ctypes array of the device pointers of `state`'s `planes`; a het
+    plane that is not attached is a null pointer."""
     return (ctypes.c_void_p * len(planes))(
-        *[state[k].data_ptr() for k in planes])
+        *[None if k.startswith(IonicModel.HET_PREFIX) and k not in state
+          else state[k].data_ptr() for k in planes])
 
 
 class GeometryMaps:
@@ -345,14 +488,18 @@ def check_maps(maps, shape, dev: torch.device):
 class SubstepKernel:
     """ctypes binding of one cell body's entry `<body>_substep` of
     csrc/br_substep.cu, or with `geom` its GEOM form `<body>_substep_geom`.
-    The library is built and loaded on the first launch; `launches` counts
-    successful launches per template flag ("slow" = SLOW=true, "frozen" =
-    SLOW=false; Fenton and Mitchell-Schaeffer launch SLOW=true alone)."""
+    The library (`library_name`: br_substep, or court_substep for the
+    Courtemanche bodies) is built and loaded on the first launch;
+    `launches` counts successful launches per template flag ("slow" =
+    SLOW=true, "frozen" = SLOW=false; Fenton, Mitchell-Schaeffer and
+    Courtemanche-ultra launch SLOW=true alone, Courtemanche's slow commit
+    is SLOW=true and its fast commit SLOW=false)."""
 
     def __init__(self, body: str, geom: bool = False):
         self.body = BODIES[body]
         self.geom = geom
         self.entry = f"{body}_substep" + ("_geom" if geom else "")
+        self.library_name = self.body.library.name("substep")
         self._lib = None
         self.reset_launches()
 
@@ -361,11 +508,15 @@ class SubstepKernel:
 
     def build(self):
         """Build the library (if needed) and return its path."""
-        return build.build("br_substep", [SOURCE], HEADERS)
+        lib = self.body.library
+        return build.build(self.library_name, [SOURCE], HEADERS,
+                           lib.defines, lib.flags)
 
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = build.load("br_substep", [SOURCE], HEADERS)
+            lib = build.load(self.library_name, [SOURCE], HEADERS,
+                             self.body.library.defines,
+                             self.body.library.flags)
             fn = getattr(lib, self.entry)
             fn.argtypes = (
                 [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
@@ -392,11 +543,12 @@ class SubstepKernel:
         fn = getattr(self.library(), self.entry)
         pot = self.body.model.pot_key
         v_in = state[pot]
-        v_out = torch.empty_like(v_in)
+        writes = self.body.writes_potential(slow)
+        v_out = torch.empty_like(v_in) if writes else None
         h, w = v_in.shape
         err = fn(
             int(slow), params.ctypes.data, params.size,
-            v_in.data_ptr(), v_out.data_ptr(),
+            v_in.data_ptr(), v_out.data_ptr() if writes else None,
             plane_pointers(state, self.body.planes), len(self.body.planes),
             h, w,
             probe.data_ptr() if probe is not None else None,
@@ -409,7 +561,8 @@ class SubstepKernel:
                 f"({h}x{w}, slow={slow})"
             )
         self.launches["slow" if slow else "frozen"] += 1
-        state[pot] = v_out
+        if writes:
+            state[pot] = v_out
 
 
 def check_layout(lib: ctypes.CDLL, entry: str, body: CellBody):
@@ -430,8 +583,8 @@ def check_layout(lib: ctypes.CDLL, entry: str, body: CellBody):
 
 # the process-wide bindings, one per cell body and form: the built library
 # is process-wide too.  KERNEL is Beeler-Reuter's.
-KERNELS = {name: SubstepKernel(name) for name in BODIES}
-GEOM_KERNELS = {name: SubstepKernel(name, geom=True) for name in BODIES}
+KERNELS = {name: SubstepKernel(name) for name in hosted(1)}
+GEOM_KERNELS = {name: SubstepKernel(name, geom=True) for name in hosted(1)}
 KERNEL = KERNELS["br"]
 
 
@@ -505,14 +658,11 @@ def write_back(state: State, new: State, pot_key: str) -> State:
 
 
 def solve_substep(model: IonicModel, state: State, geom, slow: bool) -> State:
-    """The model's substep that a launch with `slow` computes: BR's
-    n = slow_n (slow) or n = 0 (frozen) body; the other models' one body,
-    which only `slow` selects."""
-    if isinstance(model, BeelerReuter):
-        return model.solve(state, geom, n=model.slow_n if slow else 0)
-    if not slow:
-        raise ValueError(f"{model.name} has one substep body: slow=True")
-    return model.solve(state, geom)
+    """The model's substep that a launch with `slow` computes (its
+    `commit`): BR's n = slow_n (slow) or n = 0 (frozen) body;
+    Courtemanche's slow or fast commit; the other models' one body, which
+    only `slow` selects."""
+    return model.commit(state, geom, slow)
 
 
 def plain_substep(model: IonicModel, state: State, slow: bool,
@@ -539,7 +689,7 @@ def substep(model: IonicModel, state: State, slow: bool,
     the slow gates (the n=5 substep under skip).  With `probe`, writes the
     normalized new potential at `model.probe_pixel` to
     `probe[probe_index]`."""
-    body = cell_body(model)
+    body = body_on(model, 1)
     dev = check_state(model, state)
     _check_probe(model, probe, probe_index, dev)
     geometric = maps is not None and not maps.empty
@@ -554,11 +704,12 @@ def substep(model: IonicModel, state: State, slow: bool,
 
 
 def slow_schedule(model: IonicModel):
-    """`slow` flag of each substep of an outer step: for BR one slow
-    substep and four frozen ones under skip, five slow ones without; for
+    """`slow` flag of each launch of an outer step (the model's
+    `launch_schedule`): for BR one slow substep and four frozen ones under
+    skip, five slow ones without; for Courtemanche the fast commit, the
+    slow commit and nine fast commits (11 launches for 10 substeps); for
     the other models `dt_per_step` slow ones (their one body)."""
-    _, labels = model.substep_fns(grid_geometry())
-    return tuple(label != "n0" for label in labels)
+    return model.launch_schedule
 
 
 def plain_step(model: IonicModel, state: State,
@@ -581,12 +732,14 @@ def make_cuda_step(model: IonicModel, phase: Optional[np.ndarray] = None,
                    dmap: Optional[np.ndarray] = None):
     """Build `step(state, probe=None, probe_index=0) -> state`, one outer
     step: one launch per substep (BR: one slow launch and four frozen ones
-    under skip, five slow launches without; Fenton and Mitchell-Schaeffer:
-    ten).  The last launch writes the probe.  With a phase field, a fiber
-    tensor (dxx, dxy, dyy) or a diffusion map (make_pallas_step's), each
-    launch is the body's GEOM entry.  CPU states take `plain_step`."""
+    under skip, five slow launches without; Fenton, Mitchell-Schaeffer and
+    Courtemanche-ultra: ten; Courtemanche: eleven, its substep 0 being the
+    fast commit and the slow commit).  The last launch writes the probe.
+    With a phase field, a fiber tensor (dxx, dxy, dyy) or a diffusion map
+    (make_pallas_step's), each launch is the body's GEOM entry.  CPU
+    states take `plain_step`."""
     maps = GeometryMaps(model.state_shape(), phase, fiber, dmap)
-    body = cell_body(model).name
+    body = body_on(model, 1).name
     kernel = (KERNELS if maps.empty else GEOM_KERNELS)[body]
     params = pack_params(model)
     schedule = slow_schedule(model)

@@ -218,8 +218,9 @@ def _check_split(lib):
 
 # the process-wide bindings, one per cell body and form: the built library
 # is process-wide too.  KERNEL is Beeler-Reuter's.
-KERNELS = {name: TiledKernel(name) for name in BODIES}
-GEOM_KERNELS = {name: TiledKernel(name, geom=True) for name in BODIES}
+KERNELS = {name: TiledKernel(name) for name in cuda_step.hosted(2)}
+GEOM_KERNELS = {name: TiledKernel(name, geom=True)
+                for name in cuda_step.hosted(2)}
 KERNEL = KERNELS["br"]
 
 
@@ -233,7 +234,7 @@ def make_tiled_cuda_step(model: IonicModel,
     writes the probe after the last substep.  CPU states take
     `plain_tiled_step`."""
     maps = cuda_step.GeometryMaps(model.state_shape(), phase, fiber, dmap)
-    body = cuda_step.cell_body(model).name
+    body = cuda_step.body_on(model, 2).name
     geom = not maps.empty
     kernel = (GEOM_KERNELS if geom else KERNELS)[body]
     if model.cfg.substeps_per_launch is not None:

@@ -42,6 +42,8 @@ SOURCE = build.CSRC_DIR / "br_volume.cu"
 HEADERS = (build.CSRC_DIR / "br_cell.cuh",
            build.CSRC_DIR / "br_variant_cell.cuh",
            build.CSRC_DIR / "br_volume_cell.cuh",
+           build.CSRC_DIR / "cell_traits.cuh",
+           build.CSRC_DIR / "court_cell.cuh",
            build.CSRC_DIR / "fenton_cell.cuh",
            build.CSRC_DIR / "ms_cell.cuh")
 
@@ -81,14 +83,15 @@ def check_volume(model: IonicModel, state: State, depth: int,
 
 class VolumeKernel:
     """ctypes binding of one cell body's entry `<body>_volume` of
-    csrc/br_volume.cu.  The library is built and loaded on the first
-    launch; `launches` counts successful launches per template flag
-    ("slow" = SLOW=true, "frozen" = SLOW=false; Fenton and
-    Mitchell-Schaeffer launch SLOW=true alone)."""
+    csrc/br_volume.cu.  The library (`library_name`: br_volume, or
+    court_volume for the Courtemanche bodies) is built and loaded on the
+    first launch; `launches` counts successful launches per template flag
+    ("slow" = SLOW=true, "frozen" = SLOW=false, as ops/cuda_step.py's)."""
 
     def __init__(self, body: str):
         self.body = BODIES[body]
         self.entry = f"{body}_volume"
+        self.library_name = self.body.library.name("volume")
         self._lib = None
         self.reset_launches()
 
@@ -97,11 +100,15 @@ class VolumeKernel:
 
     def build(self):
         """Build the library (if needed) and return its path."""
-        return build.build("br_volume", [SOURCE], HEADERS)
+        lib = self.body.library
+        return build.build(self.library_name, [SOURCE], HEADERS,
+                           lib.defines, lib.flags)
 
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = build.load("br_volume", [SOURCE], HEADERS)
+            lib = build.load(self.library_name, [SOURCE], HEADERS,
+                             self.body.library.defines,
+                             self.body.library.flags)
             fn = getattr(lib, self.entry)
             fn.argtypes = (
                 [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,  # slow, params
@@ -126,11 +133,12 @@ class VolumeKernel:
         fn = getattr(self.library(), self.entry)
         pot = self.body.model.pot_key
         v_in = state[pot]
-        v_out = torch.empty_like(v_in)
+        writes = self.body.writes_potential(slow)
+        v_out = torch.empty_like(v_in) if writes else None
         d, h, w = v_in.shape
         err = fn(
             int(slow), params.ctypes.data, params.size, dz_ratio,
-            v_in.data_ptr(), v_out.data_ptr(),
+            v_in.data_ptr(), v_out.data_ptr() if writes else None,
             cuda_step.plane_pointers(state, self.body.planes),
             len(self.body.planes), d, h, w,
             probe.data_ptr() if probe is not None else None,
@@ -141,12 +149,13 @@ class VolumeKernel:
                 f"{self.entry} launch failed with CUDA error {err} "
                 f"({d}x{h}x{w}, slow={slow})")
         self.launches["slow" if slow else "frozen"] += 1
-        state[pot] = v_out
+        if writes:
+            state[pot] = v_out
 
 
 # the process-wide bindings, one per cell body: the built library is
 # process-wide too.  KERNEL is Beeler-Reuter's.
-KERNELS = {name: VolumeKernel(name) for name in BODIES}
+KERNELS = {name: VolumeKernel(name) for name in cuda_step.hosted(4)}
 KERNEL = KERNELS["br"]
 
 
@@ -183,7 +192,7 @@ def volume_substep(model: IonicModel, state: State, slow: bool,
                    probe_index: int = 0, dz_ratio: float = 1.0) -> State:
     """One substep of a volume: the kernel on CUDA tensors, the plain
     version on CPU tensors."""
-    body = cuda_step.cell_body(model)
+    body = cuda_step.body_on(model, 4)
     pot = state[model.pot_key]
     if pot.dim() != 3:
         raise ValueError(f"{model.pot_key} has shape {tuple(pot.shape)}, "
@@ -205,9 +214,10 @@ def make_volume_step(model: IonicModel, depth: int,
     """Build `step(state, probe=None, probe_index=0) -> state`, one outer
     step of a `[depth, H, W]` volume, one launch per substep (BR: one
     slow launch and four frozen ones under skip, five slow launches
-    without; Fenton and Mitchell-Schaeffer: ten).  The last launch writes
-    the probe.  CPU states take `plain_volume_step`."""
-    kernel = KERNELS[cuda_step.cell_body(model).name]
+    without; Fenton, Mitchell-Schaeffer and Courtemanche-ultra: ten;
+    Courtemanche: eleven, as ops/cuda_step.make_cuda_step).  The last
+    launch writes the probe.  CPU states take `plain_volume_step`."""
+    kernel = KERNELS[cuda_step.body_on(model, 4).name]
     params = cuda_step.pack_params(model)
     schedule = cuda_step.slow_schedule(model)
     last = len(schedule) - 1

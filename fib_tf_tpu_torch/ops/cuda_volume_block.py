@@ -51,6 +51,7 @@ SOURCE = build.CSRC_DIR / "br_volume_block.cu"
 HEADERS = (build.CSRC_DIR / "br_cell.cuh",
            build.CSRC_DIR / "br_variant_cell.cuh",
            build.CSRC_DIR / "br_volume_cell.cuh",
+           build.CSRC_DIR / "cell_traits.cuh",
            build.CSRC_DIR / "fenton_cell.cuh",
            build.CSRC_DIR / "ms_cell.cuh")
 
@@ -182,7 +183,7 @@ class VolumeBlockKernel:
 
 # the process-wide bindings, one per cell body: the built library is
 # process-wide too.  KERNEL is Beeler-Reuter's.
-KERNELS = {name: VolumeBlockKernel(name) for name in BODIES}
+KERNELS = {name: VolumeBlockKernel(name) for name in cuda_step.hosted(6)}
 KERNEL = KERNELS["br"]
 
 
@@ -248,7 +249,7 @@ def make_volume_block_step(model: IonicModel, ext_d: int, d_total: int,
     owns the probe pixel, with its LOCAL slice; the group's last launch
     writes it.  `stream` is the CUDA stream to launch on (default: the
     device's current one).  CPU blocks take `plain_volume_block_step`."""
-    kernel = KERNELS[cuda_step.cell_body(model).name]
+    kernel = KERNELS[cuda_step.body_on(model, 6).name]
     schedule = group_schedule(model, substeps)
     n = len(schedule)
     if ext_d <= 2 * n:

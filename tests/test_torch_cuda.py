@@ -1,8 +1,9 @@
 """The CUDA kernels (2D substep and tiled, volume substep and tiled, and the
 per-shard block kernels of the sharded paths) against their plain PyTorch
 version, on the card: Beeler-Reuter on all six, Fenton and
-Mitchell-Schaeffer on the four that host their cell bodies, and the 2D
-geometry's GEOM entries of kernels 1-3 for every cell body.
+Mitchell-Schaeffer on the four that host their cell bodies, the 2D
+geometry's GEOM entries of kernels 1-3 for every cell body, and
+Courtemanche and Courtemanche-ultra on kernels 1 (with GEOM) and 4.
 
 Marked `cuda`: without a CUDA device (and nvcc) every test here skips.  On
 the card:  python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q"""
@@ -14,7 +15,8 @@ import torch
 from fib_tf_tpu_torch import SimConfig, interop
 from fib_tf_tpu_torch.engine import (Simulation, VolumeEvent, run_volume,
                                      volume, volume_state)
-from fib_tf_tpu_torch.models import (BeelerReuter, Fenton4v,
+from fib_tf_tpu_torch.models import (BeelerReuter, Courtemanche,
+                                     CourtemancheUltra, Fenton4v,
                                      MitchellSchaeffer)
 from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
                                   cuda_volume, cuda_volume_block,
@@ -634,10 +636,11 @@ def _geometry(kind, hw):
     return phase, fiber, dmap
 
 
-def _geom_two_steps(step, plain, base):
+def _geom_two_steps(step, plain, base, exact=False):
     """`_two_steps`, with the AB2 derivative planes at atol 1e-5 / (0.5 dt)
     = 2e-4 at dt 0.1: they enter the next substep as 0.5 dt f_prev
-    (chip_smoke.py DERIVATIVE_ATOL)."""
+    (chip_smoke.py DERIVATIVE_ATOL); with `exact`, every plane and the
+    probe bit for bit."""
     dev = next(iter(base.values())).device
     got = {k: v.clone() for k, v in base.items()}
     want = {k: v.clone() for k, v in base.items()}
@@ -645,10 +648,11 @@ def _geom_two_steps(step, plain, base):
     for i in range(2):
         got = step(got, pk, i)
         want = plain(want, pp, i)
+    rtol = 0.0 if exact else 1e-3
     for k in want:
-        atol = 2e-4 if k.startswith("_d") else 1e-5
-        torch.testing.assert_close(got[k], want[k], rtol=1e-3, atol=atol)
-    torch.testing.assert_close(pk, pp, rtol=1e-3, atol=1e-5)
+        atol = 0.0 if exact else 2e-4 if k.startswith("_d") else 1e-5
+        torch.testing.assert_close(got[k], want[k], rtol=rtol, atol=atol)
+    torch.testing.assert_close(pk, pp, rtol=rtol, atol=0.0 if exact else 1e-5)
 
 
 @pytest.mark.parametrize("kind", ["a", "b", "c"])
@@ -755,3 +759,101 @@ def test_geometry_simulate_routes(device, monkeypatch):
     for k in runs["tiled"].state:
         np.testing.assert_array_equal(runs["block"].state[k],
                                       runs["tiled"].state[k])
+
+
+# -- Courtemanche and Courtemanche-ultra: kernels 1 and 4 -------------------------------
+
+COURT_FLAGS = {"direct": {}, "cheby": dict(court_cheby=True),
+               "unfolded": dict(court_cheby=True, cheby_fold=False),
+               # healthy tissue, a dV cap the upstroke meets and a factor
+               # on each of the 13 channels (every scale slot of the
+               # parameter block, and the kernel's clip)
+               "blocked": dict(chronic=False, dv_max=2.0, g_scale=(
+                   ("g_Na", 0.9), ("g_CaL", 0.7), ("g_Kr", 1.3),
+                   ("g_Ks", 1.1), ("g_to", 0.6), ("g_Kur", 0.5),
+                   ("g_K1", 1.2), ("g_NaK", 0.95), ("g_NaCa", 1.15),
+                   ("g_pCa", 0.85), ("g_bNa", 1.05), ("g_bCa", 0.9),
+                   ("g_bK", 2.0)))}
+
+
+def _court_state(model, device, depth=None):
+    """The initial state with V raised per cell from a seed and 12 plain
+    outer steps, so that the S1 front has left its stripe."""
+    rng = np.random.RandomState(1)
+    st = model.initial_state()
+    st["V"] = st["V"] + rng.normal(0, 1.0, st["V"].shape).astype(np.float32)
+    if depth is not None:
+        st = {k: np.repeat(v[None], depth, axis=0) for k, v in st.items()}
+    s = interop.state_from_numpy(st, device)
+    plain = (cuda_step.plain_step if depth is None
+             else cuda_volume.plain_volume_step)
+    for _ in range(12):
+        plain(model, s)
+    return s
+
+
+@pytest.mark.parametrize("ultra", [False, True], ids=["court", "ultra"])
+@pytest.mark.parametrize("flags", sorted(COURT_FLAGS))
+def test_court_kernels_match_plain_version(device, flags, ultra):
+    """Kernel 1 (isotropic, and GEOM with the annulus of
+    examples/court_run.py and a regional chronic plane) and kernel 4 at
+    67x131 (4x67x131), two outer steps; the direct rates bit for bit
+    (csrc/court_cell.cuh rounds as the plain path does, -fmad=false);
+    exact launches: eleven per outer step for Courtemanche (one SLOW=true
+    slow commit), ten for ultra."""
+    from fib_tf_tpu_torch.ops import stencil
+    cls = CourtemancheUltra if ultra else Courtemanche
+    model = cls(CFG.replace(height=67, width=131, **COURT_FLAGS[flags]))
+    plane = np.zeros((67, 131), np.float32)
+    plane[:, :65] = 1.0
+    het = cls(model.cfg).set_het(chronic=plane)
+    phase = stencil.add_hole_to_phase_field(None, 67, 131, 65, 33, 4)
+    phase = stencil.add_hole_to_phase_field(phase, 67, 131, 65, 33, 27,
+                                            neg=True)
+    name = cuda_step.cell_body(model).name
+    exact = model.rate_mode == "direct"
+    per_step = ({"slow": 10, "frozen": 0} if ultra
+                else {"slow": 1, "frozen": 10})
+    for m, geo, kernels in ((model, {}, cuda_step.KERNELS),
+                            (het, {}, cuda_step.KERNELS),
+                            (model, dict(phase=phase),
+                             cuda_step.GEOM_KERNELS)):
+        maps = cuda_step.GeometryMaps(m.state_shape(), **geo)
+        geom = maps.plain(device)
+        kernels[name].reset_launches()
+        _geom_two_steps(cuda_step.make_cuda_step(m, **geo),
+                        lambda s, p, i: cuda_step.plain_step(m, s, p, i,
+                                                             geom),
+                        _court_state(m, device), exact)
+        assert kernels[name].launches == {k: 2 * v
+                                          for k, v in per_step.items()}
+    kernel = cuda_volume.KERNELS[name]
+    kernel.reset_launches()
+    _geom_two_steps(cuda_volume.make_volume_step(model, 4),
+                    lambda s, p, i: cuda_volume.plain_volume_step(
+                        model, s, p, i),
+                    _court_state(model, device, depth=4), exact)
+    assert kernel.launches == {k: 2 * v for k, v in per_step.items()}
+
+
+def test_court_auto_launches_kernels_1_and_4(device):
+    """kernel='auto' without a table: Simulation launches kernel 1 (no
+    other kernel) and run_volume kernel 4; table mode launches none."""
+    cfg = CFG.replace(duration=5)
+    for kernels in (cuda_step.KERNELS, cuda_volume.KERNELS):
+        kernels["court"].reset_launches()
+    sim = Simulation(Courtemanche(cfg), device=device).define()
+    assert sim.route == "substep"
+    cuda_step.KERNELS["court"].reset_launches()
+    res = sim.simulate()
+    assert cuda_step.KERNELS["court"].launches == {"slow": res.steps,
+                                                   "frozen": 10 * res.steps}
+    assert res.probes["trend"].shape == (res.steps, 2)
+    run_volume(Courtemanche(cfg.replace(dt=0.05)), 4, 3, device=device)
+    assert cuda_volume.KERNELS["court"].launches == {"slow": 3,
+                                                     "frozen": 30}
+    before = dict(cuda_step.KERNELS["court"].launches)
+    tab = Simulation(Courtemanche(cfg.replace(table=True)), device=device)
+    assert tab.route == "plain"
+    tab.define().simulate()
+    assert cuda_step.KERNELS["court"].launches == before

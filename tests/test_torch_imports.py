@@ -166,7 +166,8 @@ def test_bindings_hash_every_header_their_sources_include():
 
 def test_block_kernels_share_the_earlier_kernels_headers():
     """Kernel 3 hosts the same cell bodies as kernel 2, and kernel 6 the
-    same as kernel 4: every body of the port."""
+    same as kernel 4 but Courtemanche's two, which kernels 1 and 4 host
+    alone (kernels 3 and 6 are ROADMAP Queue 2 item E's next slice)."""
     from fib_tf_tpu_torch.ops import (cuda_block, cuda_tiled, cuda_volume,
                                       cuda_volume_block)
     assert set(cuda_block.HEADERS) == set(cuda_tiled.HEADERS)
@@ -174,7 +175,12 @@ def test_block_kernels_share_the_earlier_kernels_headers():
         "br_cell.cuh", "br_variant_cell.cuh", "fenton_cell.cuh",
         "ms_cell.cuh")}
     assert bodies <= set(cuda_volume.HEADERS)
-    assert set(cuda_volume_block.HEADERS) == set(cuda_volume.HEADERS)
+    court = build.CSRC_DIR / "court_cell.cuh"
+    assert set(cuda_volume_block.HEADERS) == set(cuda_volume.HEADERS) - {
+        court}
+    assert set(cuda_volume_block.KERNELS) == set(cuda_volume.KERNELS) - {
+        "court", "court_ultra"}
+    assert set(cuda_block.KERNELS) == set(cuda_tiled.KERNELS)
 
 
 def test_failed_build_raises_with_log(monkeypatch, tmp_path):
@@ -195,6 +201,6 @@ def test_kernel_sources_ship_with_the_package():
                  "br_volume_tiled.cu", "br_cell.cuh", "br_block.cu",
                  "br_volume_block.cu", "br_tile.cuh", "br_volume_cell.cuh",
                  "br_variant_cell.cuh", "fenton_cell.cuh", "ms_cell.cuh",
-                 "geometry.cuh"):
+                 "geometry.cuh", "cell_traits.cuh", "court_cell.cuh"):
         assert (build.CSRC_DIR / name).is_file()
     assert os.path.commonpath([build.BUILD_DIR, ROOT]) == str(ROOT)

@@ -98,7 +98,8 @@ def test_registry_names_match_reference():
     for name, cls in MODEL_REGISTRY.items():
         assert JAX_REGISTRY[name].__name__ == cls.__name__
     assert set(MODEL_REGISTRY) == {"br", "beeler_reuter", "fenton", "ms",
-                                   "mitchell_schaeffer"}
+                                   "mitchell_schaeffer", "court",
+                                   "courtemanche", "court_ultra"}
 
 
 def test_plain_solve_matches_jax_and_takes_the_raw_u():

@@ -31,6 +31,19 @@ from fib_tf_tpu_torch.ops.cuda_tiled import tile_spans
 VOLUME_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run this module's many small torch ops on one intra-op thread: the
+    emulation is slower on torch's default of one thread per core even
+    alone (68 s against 38 s for its eight cases), and among the suite's
+    six pytest workers, which oversubscribe the cores, one case took
+    1046 s."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def cfg(**kw):
     base = dict(width=24, height=16, dt=0.1, diff=0.809, duration=1,
                 cheby=True, skip=True)

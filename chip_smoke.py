@@ -5,10 +5,10 @@ Run from the root of the checkout:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase carries on after a failure):
   1. the card's name and power limit, the torch/CUDA versions, and the
-     build of all six kernels from csrc/ with nvcc (in parallel, ten
+     build of all six kernels from csrc/ with nvcc (in parallel, twelve
      libraries: kernels 2 and 3 build their GEOM entries, and kernels 1
-     and 4 their Courtemanche bodies, as a second library of the same
-     source): the
+     and 4 their Courtemanche bodies and their Luo-Rudy and tp06 bodies,
+     as second and third libraries of the same source): the
      substep kernel br_substep.cu, the tiled outer-step kernel br_tiled.cu,
      the volume substep kernel br_volume.cu, the tiled volume kernel
      br_volume_tiled.cu, and the per-shard block kernels br_block.cu and
@@ -19,7 +19,9 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      neither the tile skeleton's libraries (br_tiled, br_block and their
      GEOM libraries) nor the tiled volume kernel may spill (nor the
      Courtemanche bodies' libraries, court_substep and court_volume: the
-     same sources built with -DFIBTORCH_COURT_ENTRIES and -fmad=false);
+     same sources built with -DFIBTORCH_COURT_ENTRIES and -fmad=false; nor
+     Luo-Rudy's and tp06's, lrtp_substep and lrtp_volume, built with
+     -DFIBTORCH_LRTP_ENTRIES and -fmad=false);
   2. substep kernel vs plain PyTorch on the card at 512x512, on a seeded
      state that holds a wavefront: one slow (n=5) launch, one frozen (n=0)
      launch and two outer steps, all 8 planes at rtol 1e-3 / atol 1e-5;
@@ -256,7 +258,36 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
  43. the device time of every Courtemanche entry beside its plain version
      (timed between CUDA events as the stream runs it: its launches cannot
      queue behind the spin kernel) and its bound, and each run's
-     wall-s/sim-s.
+     wall-s/sim-s;
+ 44. Luo-Rudy 1991's and ten Tusscher-Panfilov 2006's entries on kernel 1
+     (lr1_substep, tp06_substep) vs plain PyTorch at 512x512, one launch of
+     each form and 2 outer steps, skip on and off: LR1 with g_si 0.02 set
+     after construction and with every g_scale factor; tp06 in each cell
+     type (m set after construction), transmural, with a g_kr plane alone,
+     and with both and every g_scale factor; every launch bit-equal to
+     plain (lr1_cell.cuh and tp06_cell.cuh round as the plain path does),
+     exact launches;
+ 45. their GEOM entries under the annulus of examples/court_run.py and
+     fibers (one launch of each form and 2 outer steps, bit-equal), and a
+     20 ms Simulation of each with that geometry, bit-equal to
+     kernel='xla' or no further from a float64 plain run than the
+     float32 plain run is;
+ 46. their kernel-4 entries at 8x128x512 (bit-equal, as in 44) and
+     run_volume for 50 outer steps against kernel='xla' (tp06's wedge
+     banded along z, transmural_volume_state);
+ 47. the main path at full width under 'auto': examples/lr1_spiral.py
+     (512x512, dt 0.02, diff 0.809, g_si 0.02) and
+     examples/tp06_spiral.py (epi, diff 0.15), skip off and on (the
+     examples' --skip): the S1 wave to the example's
+     cut on the kernel, the cut, 40 ms of stage 2, each held against
+     kernel='xla' (LR1's whole stage 1, tp06's first 40 ms, and stage 2
+     from the same cut state); examples/tp06_transmural.py's 4x256 strip
+     for one 800 ms beat, its first 60 ms against kernel='xla'; exact
+     launches;
+ 48. the device time of every LR1 and tp06 entry (kernel 1 at 512x512,
+     isotropic and GEOM; kernel 4 at 8x128x512), its plain version's, its
+     bound (bytes and operations per form, lrtp_bytes / lrtp_flops) and its
+     ptxas registers and spills (neither library may spill).
 
 Prints the nvidia-smi line and one JSON line describing the kernels before
 its last line, which is {"ok": true, "device": {...}}.  Needs a CUDA GPU and
@@ -570,7 +601,9 @@ def main():
                                              run_volume, volume)
         from fib_tf_tpu_torch.models import (BeelerReuter, Courtemanche,
                                              CourtemancheUltra, Fenton4v,
-                                             MitchellSchaeffer)
+                                             LuoRudy91, MitchellSchaeffer,
+                                             TenTusscher06)
+        from fib_tf_tpu_torch.models.tp06 import transmural_volume_state
         from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
                                           cuda_volume, cuda_volume_block,
                                           cuda_volume_tiled, stencil)
@@ -635,7 +668,8 @@ def main():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
     for name in ("br_tiled", "br_block", "br_volume_tiled", "br_tiled_geom",
-                 "br_block_geom", "court_substep", "court_volume"):
+                 "br_block_geom", "court_substep", "court_volume",
+                 "lrtp_substep", "lrtp_volume"):
         log = lib_paths[name].with_name(lib_paths[name].name + ".log")
         spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
                             r"loads", log.read_text())
@@ -1235,6 +1269,14 @@ def main():
         CourtemancheUltra=CourtemancheUltra, cuda_step=cuda_step,
         cuda_volume=cuda_volume, stencil=stencil,
         reset_counts=reset_counts, read_counts=read_counts), card, rng)
+    lrtp_entries = lrtp_phases(torch, types.SimpleNamespace(
+        SimConfig=SimConfig, interop=interop, Simulation=Simulation,
+        run_volume=run_volume, volume=volume, LuoRudy91=LuoRudy91,
+        TenTusscher06=TenTusscher06,
+        transmural_volume_state=transmural_volume_state,
+        cuda_step=cuda_step, cuda_volume=cuda_volume, stencil=stencil,
+        reset_counts=reset_counts, read_counts=read_counts), card, rng,
+        lib_paths)
 
     cells = int(np.prod(shape))
     cells_large = int(np.prod(large.state_shape()))
@@ -1288,6 +1330,7 @@ def main():
     kernels.extend(variant_entries)
     kernels.extend(geometry_entries)
     kernels.extend(court_entries)
+    kernels.extend(lrtp_entries)
     for k in kernels:
         print(f"  {k['name']}: {k['ms'] * 1e3:.3f} us against a bound of "
               f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}) [{card}]",
@@ -4303,6 +4346,570 @@ def court_phases(torch, m, card, rng):
         print(f"  {label} 512x512 run: "
               f"{1.0 / res.sim_seconds_per_wall_second:.6f} wall-s/sim-s "
               f"[{card}]", flush=True)
+    for e in entries:
+        check(e["launches"] > 0, f"{e['name']} was not launched on a main "
+                                 f"path")
+    stamp("the end")
+    return entries
+
+
+# Luo-Rudy 1991 and ten Tusscher-Panfilov 2006 (phases 44-48).  Their
+# configurations are the examples': examples/lr1_spiral.py (512x512, dt
+# 0.02, diff 0.809, g_si 0.02 set after construction, skip off by default),
+# examples/tp06_spiral.py (512x512, dt 0.02, diff 0.15, epi) and
+# examples/tp06_transmural.py (a 4x256 strip, dt 0.02, diff 0.809, the
+# transmural bands 0.25 / 0.60, paced at its left edge)
+LRTP_SIZE = 512
+LR1_CFG = dict(width=LRTP_SIZE, height=LRTP_SIZE, dt=0.02, dt_per_plot=10,
+               diff=0.809, duration=1.0)
+TP06_CFG = dict(LR1_CFG, diff=0.15)
+TRANSMURAL_CFG = dict(width=256, height=4, dt=0.02, dt_per_plot=10,
+                      diff=0.809, duration=800.0, cell_type="transmural",
+                      cell_type_bands=(0.25, 0.60))
+LR1_GSI = 0.02
+# the spiral protocol: an S1 plane wave to the cut (lr1_spiral.py's default
+# round(n / 2 / 2.2) ms; tp06_spiral.py's round(2 n / 3 / cv) ms at diff
+# 0.15), the lower half of every plane reset to rest, then stage 2.  The
+# plain kernel='xla' runs cost 18 ms (LR1) and 63 ms (tp06) per outer step
+# at 512x512 on the card, so they cover LR1's whole stage 1, the first
+# LRTP_PREFIX_MS of tp06's stage 1 and of the transmural beat, and
+# LRTP_STAGE2_MS of stage 2 from the kernel run's cut state
+LR1_CUT_MS = round(LRTP_SIZE / 2 / 2.2)
+TP06_CUT_MS = round(2 * LRTP_SIZE / 3 / (2.22 * np.sqrt(0.15 / 0.809)))
+LRTP_PREFIX_MS = 40.0
+TRANSMURAL_PREFIX_MS = 60.0
+LRTP_STAGE2_MS = 40.0
+LRTP_GEOM_MS = 20.0
+LRTP_VOL_STEPS = 50
+# every form and het-plane subset on kernel 1: (body, configuration, what
+# is set after construction, a g_kr dose plane)
+LRTP_SCALES = {
+    "lr1": (("g_Na", 0.9), ("g_si", 0.5), ("g_K", 1.2), ("g_K1", 1.1),
+            ("g_Kp", 0.8), ("g_b", 1.3)),
+    "tp06": (("g_Na", 0.8), ("g_CaL", 0.85), ("g_Kr", 0.9), ("g_Ks", 0.95),
+             ("g_to", 1.0), ("g_K1", 1.05), ("g_NaK", 1.1),
+             ("g_NaCa", 1.15), ("g_pCa", 1.2), ("g_pK", 1.25),
+             ("g_bNa", 1.3), ("g_bCa", 1.35))}
+LRTP_CHECKS = {
+    "lr1-skip": ("lr1", dict(LR1_CFG, skip=True), LR1_GSI, False),
+    "lr1": ("lr1", LR1_CFG, LR1_GSI, False),
+    "lr1-scaled": ("lr1", dict(LR1_CFG, skip=True,
+                               g_scale=LRTP_SCALES["lr1"]), LR1_GSI, False),
+    "tp06-epi-skip": ("tp06", dict(TP06_CFG, skip=True), None, False),
+    "tp06-epi": ("tp06", TP06_CFG, None, False),
+    "tp06-endo-skip": ("tp06", dict(TP06_CFG, skip=True, cell_type="endo"),
+                       None, False),
+    "tp06-endo": ("tp06", dict(TP06_CFG, cell_type="endo"), None, False),
+    "tp06-m-skip": ("tp06", dict(TP06_CFG, skip=True), "m", False),
+    "tp06-m": ("tp06", TP06_CFG, "m", False),
+    "tp06-transmural-skip": ("tp06", dict(LR1_CFG, skip=True,
+                                          cell_type="transmural"), None,
+                             False),
+    "tp06-g_kr": ("tp06", TP06_CFG, None, True),
+    "tp06-transmural-g_kr-scaled": ("tp06", dict(
+        LR1_CFG, cell_type="transmural", g_scale=LRTP_SCALES["tp06"]), None,
+        True),
+}
+# the GEOM entries' checks and runs (under the annulus of court_annulus and
+# fibers at FIBER_DEG / FIBER_RATIO), and the volumes
+LRTP_GEOM_CHECKS = ("lr1-skip", "tp06-transmural-skip")
+LRTP_VOL_CHECKS = ("lr1-skip", "tp06-epi-skip", "tp06-transmural-skip")
+# float32 operations per cell of each form (lr1_cell.cuh, tp06_cell.cuh,
+# counted by hand, a transcendental or a division as one), the 9-point
+# stencil's 10 included: LR1's fast gates 72, slow gates 81, currents 70,
+# Cai and V 10; tp06's fast gates 154, slow gates 131, fcass 13, currents
+# 135, SR and pools 98, V 4.  Each het plane adds its product, the endo
+# blend 20 to the slow form; a volume's z term 4
+LRTP_FLOPS = {("lr1", True): 243, ("lr1", False): 162,
+              ("tp06", True): 545, ("tp06", False): 414}
+# the planes each form writes besides V (lr1_cell.cuh, tp06_cell.cuh)
+LRTP_WRITES = {("lr1", True): 7, ("lr1", False): 4,
+               ("tp06", True): 18, ("tp06", False): 13}
+
+
+def lrtp_flops(model, slow: bool, volume: bool) -> int:
+    """Float32 operations per cell-substep of the Luo-Rudy or tp06 body."""
+    n = LRTP_FLOPS[(model.name, slow)] + (4 if volume else 0)
+    het = getattr(model, "het", {})
+    n += sum(k in het for k in ("g_to", "g_ks", "g_kr"))
+    return n + (20 if slow and "endo" in het else 0)
+
+
+def lrtp_bytes(model, slow: bool) -> int:
+    """Bytes per cell of one launch: V and the per-cell planes read (the
+    attached het planes too), V and the planes the form commits written."""
+    body = model.name
+    planes = {"lr1": 7, "tp06": 18}[body] + len(getattr(model, "het", {}))
+    return 4 * ((1 + planes) + (1 + LRTP_WRITES[(body, slow)]))
+
+
+def ptxas_kernels(log_text: str):
+    """{mangled entry: (registers, spill store bytes)} from a library's
+    -Xptxas -v log."""
+    out, name, spill = {}, None, None
+    for line in log_text.splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            name, spill = hit.group(1), None
+            continue
+        hit = re.search(r"(\d+) bytes spill stores", line)
+        if hit:
+            spill = int(hit.group(1))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and name is not None:
+            out[name] = (int(hit.group(1)), spill)
+            name = None
+    return out
+
+
+def lrtp_ptxas(kernels, body: str, slow: bool, geom=None):
+    """(registers, spills) of one (body, form) instantiation: substep_kernel
+    <Body, SLOW, GEOM> (`geom` True or False) or volume_kernel<Body,
+    SLOW> (`geom` None)."""
+    cell = {"lr1": "7Lr1Cell", "tp06": "8Tp06Cell"}[body]
+    flags = f"ELb{int(slow)}E" + ("" if geom is None else f"Lb{int(geom)}E")
+    kind = "volume_kernel" if geom is None else "substep_kernel"
+    found = [v for k, v in kernels.items()
+             if kind in k and f"fibtorch{cell}{flags}" in k]
+    check(len(found) == 1, f"ptxas log has {len(found)} entries for "
+                           f"{kind}<{body}, {slow}, {geom}>")
+    return found[0]
+
+
+def lrtp_float64(torch, m, model, state, n_steps, maps=None, depth=None):
+    """The final potential of `n_steps` outer steps from the numpy `state`
+    on the plain path in float64 (under `maps`' geometry, or of a volume of
+    `depth`)."""
+    dev = torch.device("cuda")
+    st = {k: torch.tensor(np.asarray(v), dtype=torch.float64, device=dev)
+          for k, v in state.items()}
+    for _ in range(n_steps):
+        if depth is not None:
+            m.cuda_volume.plain_volume_step(model, st)
+        else:
+            m.cuda_step.plain_step(model, st, geom=None if maps is None
+                                   else maps.plain(dev))
+    return st["V"].cpu().numpy()
+
+
+def lrtp_against_xla(torch, m, name, got, ref, state, model, n_steps,
+                     maps=None, depth=None):
+    """A kernel run's final state `got` against the kernel='xla' run's
+    `ref` from the same numpy `state`: bit for bit, or past that no further
+    from a float64 plain run than the float32 plain run is (with no
+    factor).  Returns the max abs difference of V."""
+    unequal = sum(int((got[k] != ref[k]).sum()) for k in ref)
+    dv = float(np.abs(got["V"] - ref["V"]).max())
+    print(f"  {name}: vs kernel='xla': {unequal} cells not bit-equal over "
+          f"{len(ref)} planes, V max abs {dv:.4g}", flush=True)
+    check(all(np.isfinite(v).all() for v in got.values()),
+          f"{name}: the kernel run is not finite")
+    if unequal:
+        ex = lrtp_float64(torch, m, model, state, n_steps, maps, depth)
+        ke = float(np.abs(got["V"] - ex).max())
+        pe = float(np.abs(ref["V"] - ex).max())
+        print(f"  {name}: arbitrated by the float64 plain run: the kernel "
+              f"run ends {ke:.4g} from it, the float32 plain run {pe:.4g}",
+              flush=True)
+        check(ke <= pe, f"{name}: the kernel run ends {ke} from the float64 "
+                        f"run, the float32 plain run {pe}")
+    return dv
+
+
+def lrtp_phases(torch, m, card, rng, lib_paths):
+    """Phases 44-48: Luo-Rudy 1991 and ten Tusscher-Panfilov 2006 on
+    kernels 1 (isotropic and GEOM) and 4.  `m` carries the port's modules
+    and main()'s launch counters, `lib_paths` the built libraries; returns
+    their entries of the JSON line."""
+    dev = torch.device("cuda")
+    k1, k4, st_ = m.cuda_step, m.cuda_volume, m.stencil
+    classes = {"lr1": m.LuoRudy91, "tp06": m.TenTusscher06}
+    errs, launches, runs = {}, {}, {}
+    t0 = time.perf_counter()
+
+    def stamp(phase):
+        print(f"  ({phase} starts {time.perf_counter() - t0:.1f} s into "
+              f"phases 44-48)", flush=True)
+
+    def model_of(key, **kw):
+        body, cfg, after, kr = LRTP_CHECKS[key]
+        model = classes[body](m.SimConfig(**dict(cfg, **kw)))
+        if after is not None:
+            setattr(model, "g_si" if body == "lr1" else "cell_type", after)
+        if kr:
+            h, w = model.state_shape()
+            model.set_het(g_kr=np.linspace(0.2, 1.0, w, dtype=np.float32)[
+                None].repeat(h, 0))
+        return model
+
+    def seeded(model, depth=None):
+        """The initial state (S1 stripe, any het planes), V raised per cell
+        by N(0, 1) mV, then 20 plain outer steps (4 ms) on the card, so
+        that the S1 front has left its stripe; a volume extrudes it over
+        `depth` with per-cell noise on V."""
+        st = model.initial_state()
+        shape = st["V"].shape
+        st["V"] = st["V"] + rng.normal(0.0, 1.0, shape).astype(np.float32)
+        base = m.interop.state_from_numpy(st, dev)
+        for _ in range(20):
+            k1.plain_step(model, base)
+        if depth is not None:
+            base = {k: v[None].repeat(depth, 1, 1).contiguous()
+                    for k, v in base.items()}
+            base["V"] += torch.randn(base["V"].shape, device=dev,
+                                     generator=torch.Generator(dev)
+                                     .manual_seed(int(rng.integers(1 << 30))))
+        torch.cuda.synchronize()
+        check(bool(base["V"].isfinite().all())
+              and float(base["V"].max()) > WAVEFRONT_MV,
+              f"{model.name} {tuple(base['V'].shape)} seeded state holds no "
+              f"wavefront")
+        return base
+
+    def note(entry, err):
+        errs[entry] = max(errs.get(entry, 0.0), err)
+
+    def count(entry, counts):
+        old = launches.setdefault(entry, {"slow": 0, "frozen": 0})
+        for kk in counts[entry]:
+            old[kk] += counts[entry][kk]
+
+    def check_entry(key, model, base, entry, launch, plain, step, plain_step,
+                    label):
+        """One launch of each form and 2 outer steps of `entry` vs plain,
+        bit for bit (the bodies round as the plain path does), with exact
+        launches."""
+        windows = model.ill_conditioned
+        m.reset_counts()
+        for slow in sorted(set(k1.slow_schedule(model))):
+            name = f"{entry} {label} ({key}) slow={slow}"
+            got = launch(clone(base), slow)
+            want = plain(clone(base), slow)
+            torch.cuda.synchronize()
+
+            def exact(slow=slow):
+                return plain({kk: v.double() for kk, v in base.items()},
+                             slow), base
+
+            note(entry, compare(f"{name}, one launch", got, want, exact,
+                                windows))
+            n = unequal_cells(got, want)
+            print(f"    {n} cells not bit-equal to plain", flush=True)
+            check(n == 0, f"{name}: {n} cells differ from the plain version, "
+                          f"which a launch equals bit for bit")
+        note(entry, check_outer_steps(torch, step, plain_step, base, 2,
+                                      f"{entry} {label} ({key})",
+                                      windows=windows))
+        want_n = expected_launches(k1, model, 2)
+        for slow in set(k1.slow_schedule(model)):
+            want_n["slow" if slow else "frozen"] += 1
+        check_launched(m.read_counts(), entry, want_n, f"{entry} ({key})")
+
+    # -- phase 44 ---------------------------------------------------------------
+    stamp("phase 44")
+    print(f"phase 44: lr1_substep and tp06_substep vs plain PyTorch at "
+          f"{LRTP_SIZE}x{LRTP_SIZE}: one launch of each form and 2 outer "
+          f"steps, skip on and off, LR1 with g_si {LR1_GSI} set after "
+          f"construction and every g_scale factor, tp06 in each cell type (m "
+          f"set after construction), transmural, with a g_kr plane alone "
+          f"and with both and every g_scale factor", flush=True)
+    iso = k1.grid_geometry(device=dev)
+    for key in LRTP_CHECKS:
+        model = model_of(key)
+        body = k1.cell_body(model).name
+        check_entry(
+            key, model, seeded(model), f"{body}_substep",
+            lambda s, slow, model=model: k1.substep(model, s, slow),
+            lambda s, slow, model=model: k1.plain_substep(model, s, slow,
+                                                          geom=iso),
+            k1.make_cuda_step(model),
+            lambda s, p, i, model=model: k1.plain_step(model, s, p, i, iso),
+            f"{LRTP_SIZE}x{LRTP_SIZE}")
+
+    # -- phase 45 ---------------------------------------------------------------
+    stamp("phase 45")
+    maps = k1.GeometryMaps(
+        (LRTP_SIZE, LRTP_SIZE), court_annulus(st_, LRTP_SIZE, COURT_HOLE),
+        st_.fiber_tensor(np.deg2rad(FIBER_DEG), FIBER_RATIO))
+    print(f"phase 45: the GEOM entries under the annulus of "
+          f"examples/court_run.py and fibers at {FIBER_DEG} degrees, ratio "
+          f"{FIBER_RATIO}: one launch of each form and 2 outer steps; then "
+          f"Simulation with the same geometry for {LRTP_GEOM_MS} ms against "
+          f"kernel='xla'", flush=True)
+    gplain = maps.plain(dev)
+    for key in LRTP_GEOM_CHECKS:
+        model = model_of(key)
+        body = k1.cell_body(model).name
+        check_entry(
+            key, model, seeded(model), f"{body}_substep_geom",
+            lambda s, slow, model=model: k1.substep(model, s, slow,
+                                                    maps=maps),
+            lambda s, slow, model=model: k1.plain_substep(model, s, slow,
+                                                          geom=gplain),
+            k1.make_cuda_step(model, maps.phase, maps.fiber),
+            lambda s, p, i, model=model: k1.plain_step(model, s, p, i,
+                                                       gplain),
+            "annulus+fibers")
+        out = {}
+        for kernel in ("auto", "xla"):
+            model = model_of(key, duration=LRTP_GEOM_MS, kernel=kernel,
+                             fiber_angle=np.deg2rad(FIBER_DEG),
+                             fiber_ratio=FIBER_RATIO)
+            sim = m.Simulation(model, device="cuda")
+            sim.phase = maps.phase
+            sim.define()
+            m.reset_counts()
+            out[kernel] = res = sim.simulate()
+            counts = m.read_counts()
+            if kernel == "auto":
+                check(sim.route == "substep", f"{key} routes {sim.route}")
+                check_launched(counts, f"{body}_substep_geom",
+                               expected_launches(k1, model, res.steps),
+                               f"the {key} annulus run")
+                count(f"{body}_substep_geom", counts)
+            else:
+                check(all(total_launches(c) == 0 for c in counts.values()),
+                      f"the kernel='xla' {key} run launched a kernel")
+        note(f"{body}_substep_geom", lrtp_against_xla(
+            torch, m, f"{key} annulus+fibers run", out["auto"].state,
+            out["xla"].state, model.initial_state(), model, out["xla"].steps,
+            maps))
+        runs[f"{key} annulus+fibers"] = out["auto"]
+
+    # -- phase 46 ---------------------------------------------------------------
+    stamp("phase 46")
+    print(f"phase 46: lr1_volume and tp06_volume vs plain PyTorch at "
+          f"{DEPTH}x128x{LRTP_SIZE}: one launch of each form and 2 outer "
+          f"steps; run_volume for {LRTP_VOL_STEPS} outer steps against "
+          f"kernel='xla' (tp06's wedge banded along z)", flush=True)
+    for key in LRTP_VOL_CHECKS:
+        vmodel = model_of(key, height=128)
+        body = k1.cell_body(vmodel).name
+        check_entry(
+            key, vmodel, seeded(vmodel, depth=DEPTH), f"{body}_volume",
+            lambda s, slow, vm=vmodel: k4.volume_substep(vm, s, slow),
+            lambda s, slow, vm=vmodel: k4.plain_volume_substep(vm, s, slow),
+            k4.make_volume_step(vmodel, DEPTH), plain_volume(k4, vmodel),
+            f"{DEPTH}x128x{LRTP_SIZE}")
+        state = (m.transmural_volume_state(vmodel, DEPTH)
+                 if "transmural" in key
+                 else m.volume.volume_state(vmodel, DEPTH))
+        vol = {}
+        for kernel in ("auto", "xla"):
+            m.reset_counts()
+            t = time.perf_counter()
+            st, probes, _ = m.run_volume(vmodel, DEPTH, LRTP_VOL_STEPS,
+                                         state=state, kernel=kernel)
+            vol[kernel] = (st, time.perf_counter() - t)
+            counts = m.read_counts()
+            if kernel == "auto":
+                check(m.volume.volume_route(vmodel, DEPTH, "cuda", "auto")
+                      == "substep", f"the {key} volume does not route "
+                                    f"'substep'")
+                check_launched(counts, f"{body}_volume", expected_launches(
+                    k1, vmodel, LRTP_VOL_STEPS), f"the {key} volume run")
+                count(f"{body}_volume", counts)
+            else:
+                check(all(total_launches(c) == 0 for c in counts.values()),
+                      f"the kernel='xla' {key} volume run launched a kernel")
+        note(f"{body}_volume", lrtp_against_xla(
+            torch, m, f"{key} run_volume", vol["auto"][0], vol["xla"][0],
+            state, vmodel, LRTP_VOL_STEPS, depth=DEPTH))
+        sim_s = LRTP_VOL_STEPS * 10 * vmodel.cfg.dt / 1000.0
+        print(f"  {key} run_volume: {vol['auto'][1] / sim_s:.6f} wall-s/sim-s "
+              f"on kernel 4, {vol['xla'][1] / sim_s:.6f} with kernel='xla' "
+              f"[{card}]", flush=True)
+
+    # -- phase 47 ---------------------------------------------------------------
+    stamp("phase 47")
+    print(f"phase 47: the main path at full width under 'auto': "
+          f"examples/lr1_spiral.py (g_si {LR1_GSI}; the cut at "
+          f"{LR1_CUT_MS} ms) and examples/tp06_spiral.py (epi, diff 0.15; the "
+          f"cut at {TP06_CUT_MS} ms), skip off and on, stage 2 for "
+          f"{LRTP_STAGE2_MS} ms; "
+          f"examples/tp06_transmural.py's strip for one {TRANSMURAL_CFG['duration']:.0f} ms "
+          f"beat; each against kernel='xla' on the card", flush=True)
+
+    def run(model, state=None):
+        """A Simulation of `model` from `state` (None: its initial state),
+        as the examples drive it, with its launch counts."""
+        sim = m.Simulation(model, device="cuda")
+        check(sim.route == ("plain" if model.cfg.kernel == "xla"
+                            else "substep"),
+              f"{model.name} routes {sim.route!r}")
+        sim.define()
+        m.reset_counts()
+        res = sim.simulate(state=state)
+        return res, m.read_counts()
+
+    for label, key, cut_ms, prefix_ms in (
+            ("lr1_spiral", "lr1", LR1_CUT_MS, float(LR1_CUT_MS)),
+            ("lr1_spiral --skip", "lr1-skip", LR1_CUT_MS, float(LR1_CUT_MS)),
+            ("tp06_spiral", "tp06-epi", TP06_CUT_MS, LRTP_PREFIX_MS),
+            ("tp06_spiral --skip", "tp06-epi-skip", TP06_CUT_MS,
+             LRTP_PREFIX_MS)):
+        body = LRTP_CHECKS[key][0]
+        entry = f"{body}_substep"
+        # stage 1 on the kernel to the cut, and its first prefix_ms against
+        # kernel='xla'
+        stage1, counts = run(model_of(key, duration=float(cut_ms)))
+        check_launched(counts, entry, expected_launches(
+            k1, model_of(key), stage1.steps), f"{label} stage 1")
+        count(entry, counts)
+        check(all(np.isfinite(v).all() for v in stage1.state.values()),
+              f"{label}: stage 1 is not finite")
+        pre = {}
+        for kernel in ("auto", "xla"):
+            model = model_of(key, duration=prefix_ms, kernel=kernel)
+            pre[kernel], counts = run(model)
+            if kernel == "auto":
+                count(entry, counts)
+        note(entry, lrtp_against_xla(
+            torch, m, f"{label} stage 1, {prefix_ms:.0f} ms",
+            pre["auto"].state, pre["xla"].state, model.initial_state(),
+            model, pre["xla"].steps))
+        # the cut: the lower half of every plane back to rest
+        cut = {k: np.array(v) for k, v in stage1.state.items()}
+        rest = classes[body](m.SimConfig(width=LRTP_SIZE, height=LRTP_SIZE,
+                                         dt=0.02, duration=1)
+                             ).initial_state(s1=False)
+        for k in cut:
+            cut[k][LRTP_SIZE // 2:, :] = rest[k][LRTP_SIZE // 2:, :]
+        stage2 = {}
+        for kernel in ("auto", "xla"):
+            model = model_of(key, duration=LRTP_STAGE2_MS, kernel=kernel)
+            t = time.perf_counter()
+            stage2[kernel], counts = run(model, cut)
+            wall = time.perf_counter() - t
+            if kernel == "auto":
+                check_launched(counts, entry, expected_launches(
+                    k1, model, stage2[kernel].steps), f"{label} stage 2")
+                count(entry, counts)
+            print(f"  {label} stage 2 ({kernel}): {stage2[kernel].steps} "
+                  f"outer steps, {wall / (LRTP_STAGE2_MS / 1000.0):.6f} "
+                  f"wall-s/sim-s [{card}]", flush=True)
+        note(entry, lrtp_against_xla(
+            torch, m, f"{label} stage 2", stage2["auto"].state,
+            stage2["xla"].state, cut, model, stage2["xla"].steps))
+        active = float((stage2["auto"].state["V"] > -40.0).mean())
+        print(f"  {label}: stage 1 crossings {stage1.cycle_lengths}, "
+              f"active fraction after stage 2 {active:.3f}, "
+              f"{1.0 / stage1.sim_seconds_per_wall_second:.6f} wall-s/sim-s "
+              f"in stage 1 [{card}]", flush=True)
+        check(0.0 < active < 1.0, f"{label}: no free wave end after the cut")
+        runs[label] = stage1
+
+    # the transmural strip: the whole beat on the kernel, its first
+    # TRANSMURAL_PREFIX_MS against kernel='xla'
+    beat, counts = run(classes["tp06"](m.SimConfig(**TRANSMURAL_CFG)))
+    strip = classes["tp06"](m.SimConfig(**TRANSMURAL_CFG))
+    check_launched(counts, "tp06_substep", expected_launches(
+        k1, strip, beat.steps), "the transmural beat")
+    count("tp06_substep", counts)
+    check(all(np.isfinite(v).all() for v in beat.state.values())
+          and len(beat.cycle_lengths) >= 1,
+          f"the transmural beat is not finite or never crossed its probe "
+          f"{strip.probe_pixel}")
+    pre = {}
+    for kernel in ("auto", "xla"):
+        model = classes["tp06"](m.SimConfig(**dict(
+            TRANSMURAL_CFG, duration=TRANSMURAL_PREFIX_MS, kernel=kernel)))
+        pre[kernel], counts = run(model)
+        if kernel == "auto":
+            count("tp06_substep", counts)
+    note("tp06_substep", lrtp_against_xla(
+        torch, m, f"tp06_transmural, {TRANSMURAL_PREFIX_MS:.0f} ms",
+        pre["auto"].state, pre["xla"].state, model.initial_state(), model,
+        pre["xla"].steps))
+    v = beat.state["V"]
+    print(f"  tp06_transmural: {beat.steps} outer steps, crossings "
+          f"{beat.cycle_lengths} at {strip.probe_pixel}, final V by band "
+          f"(endo, M, epi) {float(v[:, :64].mean()):.3f}, "
+          f"{float(v[:, 64:153].mean()):.3f}, {float(v[:, 153:].mean()):.3f} "
+          f"mV, {1.0 / beat.sim_seconds_per_wall_second:.6f} wall-s/sim-s "
+          f"[{card}]", flush=True)
+    runs["tp06_transmural"] = beat
+
+    # -- phase 48 ---------------------------------------------------------------
+    stamp("phase 48")
+    print(f"phase 48: device time of every Luo-Rudy and tp06 entry beside "
+          f"its plain version, its bound and its registers [{card}]",
+          flush=True)
+    entries = []
+    stream = torch.cuda.current_stream().cuda_stream
+    ptx = {lib: ptxas_kernels(lib_paths[lib].with_name(
+        lib_paths[lib].name + ".log").read_text())
+        for lib in ("lrtp_substep", "lrtp_volume")}
+    cells = LRTP_SIZE * LRTP_SIZE
+    for key in ("lr1-skip", "tp06-transmural-skip"):
+        model = model_of(key)
+        body = k1.cell_body(model).name
+        base = seeded(model)
+        params = k1.pack_params(model)
+        for label, gm in (("", None), ("_geom", maps)):
+            kernel = (k1.KERNELS if gm is None else k1.GEOM_KERNELS)[body]
+            geom = iso if gm is None else gm.plain(dev)
+            args = () if gm is None else gm.args(dev)
+            for slow in (True, False):
+                state = clone(base)
+                us = device_us(torch, lambda: kernel.launch(
+                    params, state, slow, None, model.probe_pixel, 0, stream,
+                    args), reps=100)
+                plain = stream_us(torch, lambda: k1.plain_substep(
+                    model, state, slow, geom=geom), reps=5)
+                extra = 0 if gm is None else geometry_bytes(gm)
+                b = bound(cells * (lrtp_bytes(model, slow) + extra),
+                          cells * (lrtp_flops(model, slow, False)
+                                   + (0 if gm is None
+                                      else geometry_flops(gm))))
+                regs, spills = lrtp_ptxas(ptx["lrtp_substep"], body, slow,
+                                          gm is not None)
+                check(spills == 0, f"{body}_substep{label} spills {spills}")
+                name = f"{body}_substep{label}<SLOW={str(slow).lower()}>"
+                print(f"  {name} {LRTP_SIZE}x{LRTP_SIZE} ({key}): {us:.3f} "
+                      f"us/launch, plain {plain:.1f} us, bound "
+                      f"{b[0] * 1e3:.3f} us ({b[1]}), {regs} registers, "
+                      f"{spills} bytes spilled [{card}]", flush=True)
+                e = kernel_entry(
+                    name, "fib_tf_tpu_torch/csrc/br_substep.cu",
+                    "fib_tf_tpu/ops/pallas_step.py:205",
+                    launches.get(f"{body}_substep{label}", {}).get(
+                        "slow" if slow else "frozen", 0),
+                    errs[f"{body}_substep{label}"], us, plain, b)
+                e["registers"], e["spill_bytes"] = regs, spills
+                entries.append(e)
+        vmodel = model_of(key, height=128)
+        vbase = seeded(vmodel, depth=DEPTH)
+        vparams = k1.pack_params(vmodel)
+        pixel = k4.volume_probe_pixel(vmodel, DEPTH)
+        vcells = DEPTH * 128 * LRTP_SIZE
+        for slow in (True, False):
+            state = clone(vbase)
+            us = device_us(torch, lambda: k4.KERNELS[body].launch(
+                vparams, state, slow, 1.0, None, pixel, 0, stream),
+                reps=100)
+            plain = stream_us(torch, lambda: k4.plain_volume_substep(
+                vmodel, state, slow), reps=5)
+            b = bound(vcells * lrtp_bytes(vmodel, slow),
+                      vcells * lrtp_flops(vmodel, slow, True))
+            regs, spills = lrtp_ptxas(ptx["lrtp_volume"], body, slow)
+            check(spills == 0, f"{body}_volume spills {spills}")
+            name = f"{body}_volume<SLOW={str(slow).lower()}>"
+            print(f"  {name} {DEPTH}x128x{LRTP_SIZE} ({key}): {us:.3f} "
+                  f"us/launch, plain {plain:.1f} us, bound {b[0] * 1e3:.3f} "
+                  f"us ({b[1]}), {regs} registers, {spills} bytes spilled "
+                  f"[{card}]", flush=True)
+            e = kernel_entry(
+                name, "fib_tf_tpu_torch/csrc/br_volume.cu",
+                "fib_tf_tpu/ops/pallas_volume.py:499",
+                launches.get(f"{body}_volume", {}).get(
+                    "slow" if slow else "frozen", 0),
+                errs[f"{body}_volume"], us, plain, b)
+            e["registers"], e["spill_bytes"] = regs, spills
+            entries.append(e)
+    for label, res in runs.items():
+        print(f"  {label} run: {1.0 / res.sim_seconds_per_wall_second:.6f} "
+              f"wall-s/sim-s [{card}]", flush=True)
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched on a main "
                                  f"path")

@@ -8,7 +8,11 @@
 // and, as a second library of this source (-DFIBTORCH_COURT_ENTRIES
 // -fmad=false), court_substep and court_ultra_substep (court_cell.cuh:
 // Courtemanche's fast and slow commits, eleven launches per outer step,
-// and Courtemanche-ultra's full commit, ten).
+// and Courtemanche-ultra's full commit, ten); and, as a third
+// (-DFIBTORCH_LRTP_ENTRIES -fmad=false), lr1_substep and tp06_substep
+// (lr1_cell.cuh, tp06_cell.cuh: Luo-Rudy 1991 and ten Tusscher-Panfilov
+// 2006, one SLOW launch and nine frozen ones per outer step under skip,
+// ten SLOW ones without).
 //
 // Replaces the TPU kernel fib_tf_tpu/ops/pallas_step.py::make_pallas_step as
 // the engine launches it for Beeler-Reuter cheby+skip (one substep per
@@ -80,7 +84,10 @@
 #include "court_cell.cuh"
 #include "fenton_cell.cuh"
 #include "geometry.cuh"
+#include "lr1_cell.cuh"
 #include "ms_cell.cuh"
+#include "torch_rounding.cuh"
+#include "tp06_cell.cuh"
 
 namespace {
 
@@ -163,7 +170,7 @@ int launch_substep(int slow, const float* params, int n_params,
   CellPlanes<Body::kPlanes> pl;
   for (int k = 0; k < Body::kPlanes; ++k) {
     pl.p[k] = static_cast<float*>(planes[k]);
-    if ((pl.p[k] == nullptr && k != fibtorch::NullablePlane<Body>::value) ||
+    if ((pl.p[k] == nullptr && !fibtorch::nullable<Body>(k)) ||
         pl.p[k] == v_in || (pl.p[k] != nullptr && pl.p[k] == v_out)) {
       return (int)cudaErrorInvalidValue;
     }
@@ -241,11 +248,16 @@ int launch_substep(int slow, const float* params, int n_params,
 // The Courtemanche bodies build as a library of their own, this source with
 // -DFIBTORCH_COURT_ENTRIES (court_substep[_geom], court_ultra_substep[_geom]),
 // so that nvcc compiles them beside the rest, and with -fmad=false
-// (court_cell.cuh's rounding).
+// (court_cell.cuh's rounding); Luo-Rudy's and tp06's as a third, with
+// -DFIBTORCH_LRTP_ENTRIES (lr1_substep[_geom], tp06_substep[_geom]) and the
+// same flag.
 extern "C" {
-#ifdef FIBTORCH_COURT_ENTRIES
+#if defined(FIBTORCH_COURT_ENTRIES)
 SUBSTEP_ENTRIES(court, fibtorch::CourtCell<false>)
 SUBSTEP_ENTRIES(court_ultra, fibtorch::CourtCell<true>)
+#elif defined(FIBTORCH_LRTP_ENTRIES)
+SUBSTEP_ENTRIES(lr1, fibtorch::Lr1Cell)
+SUBSTEP_ENTRIES(tp06, fibtorch::Tp06Cell)
 #else
 SUBSTEP_ENTRIES(br, fibtorch::BeelerReuterCell)
 SUBSTEP_ENTRIES(br_variant, fibtorch::BrVariantCell<false>)

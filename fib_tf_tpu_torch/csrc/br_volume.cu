@@ -7,6 +7,8 @@
 // examples/scroll_wave.py's Fenton scroll wave); and, as a second library
 // of this source (-DFIBTORCH_COURT_ENTRIES -fmad=false), court_volume and
 // court_ultra_volume (court_cell.cuh: eleven and ten launches per outer
+// step); and, as a third (-DFIBTORCH_LRTP_ENTRIES -fmad=false), lr1_volume
+// and tp06_volume (lr1_cell.cuh, tp06_cell.cuh: ten launches per outer
 // step).
 //
 // Replaces the TPU kernel fib_tf_tpu/ops/pallas_volume.py::
@@ -49,7 +51,10 @@
 #include "cell_traits.cuh"
 #include "court_cell.cuh"
 #include "fenton_cell.cuh"
+#include "lr1_cell.cuh"
 #include "ms_cell.cuh"
+#include "torch_rounding.cuh"
+#include "tp06_cell.cuh"
 
 namespace {
 
@@ -108,7 +113,7 @@ int launch_volume(int slow, const float* params, int n_params,
   CellPlanes<Body::kPlanes> pl;
   for (int k = 0; k < Body::kPlanes; ++k) {
     pl.p[k] = static_cast<float*>(planes[k]);
-    if ((pl.p[k] == nullptr && k != fibtorch::NullablePlane<Body>::value) ||
+    if ((pl.p[k] == nullptr && !fibtorch::nullable<Body>(k)) ||
         pl.p[k] == v_in || (pl.p[k] != nullptr && pl.p[k] == v_out)) {
       return (int)cudaErrorInvalidValue;
     }
@@ -162,11 +167,15 @@ int launch_volume(int slow, const float* params, int n_params,
 // The Courtemanche bodies build as a library of their own, this source with
 // -DFIBTORCH_COURT_ENTRIES (court_volume, court_ultra_volume), so that nvcc
 // compiles them beside the rest, and with -fmad=false (court_cell.cuh's
-// rounding).
+// rounding); Luo-Rudy's and tp06's as a third, with -DFIBTORCH_LRTP_ENTRIES
+// (lr1_volume, tp06_volume) and the same flag.
 extern "C" {
-#ifdef FIBTORCH_COURT_ENTRIES
+#if defined(FIBTORCH_COURT_ENTRIES)
 VOLUME_ENTRIES(court, fibtorch::CourtCell<false>)
 VOLUME_ENTRIES(court_ultra, fibtorch::CourtCell<true>)
+#elif defined(FIBTORCH_LRTP_ENTRIES)
+VOLUME_ENTRIES(lr1, fibtorch::Lr1Cell)
+VOLUME_ENTRIES(tp06, fibtorch::Tp06Cell)
 #else
 VOLUME_ENTRIES(br, fibtorch::BeelerReuterCell)
 VOLUME_ENTRIES(br_variant, fibtorch::BrVariantCell<false>)

@@ -1,10 +1,12 @@
 // What the kernels ask of a cell body beyond br_cell.cuh's contract, with
 // defaults for the bodies that declare nothing (Beeler-Reuter, Fenton,
 // Mitchell-Schaeffer keep their code unchanged):
-//   kNullablePlane       the one per-cell plane the host may pass as a null
-//                        pointer (a read-only parameter plane that is not
-//                        attached); the kernels then load 0 in its place and
-//                        the body reads its Params to know.  Default: none;
+//   kNullablePlanes      a bit mask of the per-cell planes the host may pass
+//                        as null pointers (read-only parameter planes that
+//                        are not attached: Courtemanche's chronic plane,
+//                        tp06's four het planes); the kernels then load 0
+//                        in their place and the body reads its Params to
+//                        know.  Default: none;
 //   kSlowKeepsPotential  true when the SLOW form commits other planes only
 //                        and must not write the potential (Courtemanche's
 //                        slow commit, which reads the new V that the fast
@@ -20,11 +22,17 @@
 namespace fibtorch {
 
 template <class Body, class = void>
-struct NullablePlane : std::integral_constant<int, -1> {};
+struct NullablePlanes : std::integral_constant<unsigned, 0u> {};
 
 template <class Body>
-struct NullablePlane<Body, std::void_t<decltype(Body::kNullablePlane)>>
-    : std::integral_constant<int, Body::kNullablePlane> {};
+struct NullablePlanes<Body, std::void_t<decltype(Body::kNullablePlanes)>>
+    : std::integral_constant<unsigned, Body::kNullablePlanes> {};
+
+// Whether the host may pass plane k of `Body` as a null pointer.
+template <class Body>
+__host__ __device__ constexpr bool nullable(int k) {
+  return (NullablePlanes<Body>::value >> k) & 1u;
+}
 
 template <class Body, class = void>
 struct SlowKeepsPotential : std::false_type {};
@@ -41,15 +49,14 @@ __host__ __device__ constexpr bool writes_potential() {
 }
 
 // Load a cell's per-cell planes at element `idx`; the body's nullable
-// plane reads 0 where its pointer is null.
+// planes read 0 where their pointers are null.
 template <class Body>
 __device__ __forceinline__ void load_planes(float* const* planes,
                                             long long idx,
                                             float (&q)[Body::kPlanes]) {
-  constexpr int nullable = NullablePlane<Body>::value;
 #pragma unroll
   for (int k = 0; k < Body::kPlanes; ++k) {
-    if (k == nullable) {
+    if (nullable<Body>(k)) {
       q[k] = planes[k] != nullptr ? planes[k][idx] : 0.0f;
     } else {
       q[k] = planes[k][idx];

@@ -59,6 +59,7 @@
 
 #include "br_cell.cuh"
 #include "cell_traits.cuh"
+#include "torch_rounding.cuh"
 
 namespace fibtorch {
 
@@ -80,13 +81,9 @@ enum Fit {
 // compound constants, from double as the reference's Python forms them
 constexpr double kRT = 8.3143 * 310.0;
 constexpr double kF = 96.4867;
-// x / c, a plane over a Python number c, is x * inv(c) on the card: torch
-// multiplies by the reciprocal, formed in double from the Python number
-// and rounded to float once (for 1/17.54, 1/5.3, 1/5.1237, 1/6.8,
-// 1/0.00035 and 1/(R T) that is not 1.0f / (float)c)
-__host__ __device__ constexpr float inv(double c) {
-  return (float)(1.0 / c);
-}
+// the rounding rules of torch on the card (torch_rounding.cuh)
+using fibtorch::inv;
+using fibtorch::rush_larsen;
 
 constexpr float kRtF = (float)(kRT / kF);
 constexpr float kRtF2 = (float)((kRT / kF) / 2.0);
@@ -123,11 +120,6 @@ __device__ __forceinline__ float cheb(const float* d, const float* s) {
 #pragma unroll
   for (int k = 1; k < kTerms; ++k) r = r + d[k] * s[k];
   return r;
-}
-
-__device__ __forceinline__ float rush_larsen(float g, float inf, float tau,
-                                             float dt) {
-  return clip(g + (g - inf) * expm1f(-dt / tau), 0.00001f, 0.99999f);
 }
 
 // The direct intermediates (calc_intermediates), one at a time.
@@ -303,7 +295,7 @@ struct CourtCell {
   static constexpr int kUs = kFirstExtra;   // ultra only
   static constexpr int kChronic = kFirstExtra + (ULTRA ? 1 : 0);
   static constexpr int kPlanes = kChronic + 1;
-  static constexpr int kNullablePlane = kChronic;
+  static constexpr unsigned kNullablePlanes = 1u << kChronic;
   static constexpr bool kSlowKeepsPotential = !ULTRA;
 
   // the fast commit stores Na_i, m, h; the slow commit the 17 slow planes;

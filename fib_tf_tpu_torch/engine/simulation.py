@@ -12,18 +12,20 @@ consumes the probes.
 Kernel routing (`route`, as the JAX engine's `_use_pallas` / `_step_fn`
 route): 'xla' runs the plain PyTorch path anywhere; 'auto' and 'pallas' run
 a CUDA kernel on a CUDA device, the substep kernel (one launch per substep:
-five per outer step for Beeler-Reuter, ten for Fenton, Mitchell-Schaeffer
-and Courtemanche-ultra, eleven for Courtemanche) while the state fits
+five per outer step for Beeler-Reuter, ten for Fenton, Mitchell-Schaeffer,
+Courtemanche-ultra, Luo-Rudy and tp06, eleven for Courtemanche) while the
+state fits
 WHOLE_GRID_STATE_MB_MAX and the tiled kernel (one launch per outer step)
 past it; on the CPU 'auto' runs the plain path and 'pallas' raises.
 Beeler-Reuter, Fenton and Mitchell-Schaeffer have their cell bodies on both
 kernels and on the block kernel, as the reference routes them
 (fib_tf_tpu/engine/simulation.py:463-492, `SPMD_KERNEL_MODELS` :797-798).
-Courtemanche and Courtemanche-ultra take the substep kernel at every size
-(the reference never gives them its tiled kernel, and past its 32 MB VMEM
-cap runs XLA, a cap the card's substep kernel does not have); with
-`table=True` they run the plain path ('pallas' raises), and on a mesh they
-raise NotImplementedError (ROADMAP Queue 2 item E).
+Courtemanche, Courtemanche-ultra, Luo-Rudy and tp06 take the substep
+kernel at every size (the reference never gives them its tiled kernel, and
+past its 32 MB VMEM cap runs XLA, a cap the card's substep kernel does not
+have); Courtemanche with `table=True` runs the plain path ('pallas'
+raises), and on a mesh the four raise NotImplementedError (ROADMAP Queue 2
+item E).
 
 Probes: the kernel's last launch of an outer step writes the "v" probe;
 a model's `extra_probes` add their streams: Courtemanche's "trend" (V and
@@ -652,9 +654,9 @@ def route(model: IonicModel, device_type: str, kernel: str) -> str:
         return "plain"
     if (state_mb(model) <= Simulation.WHOLE_GRID_STATE_MB_MAX
             or 2 not in cuda_step.cell_body(model).kernels):
-        # Courtemanche takes the substep kernel at every size: the
-        # reference keeps it off its tiled kernel and runs XLA past its
-        # VMEM cap, which the card's substep kernel does not have
+        # Courtemanche, LR1 and tp06 take the substep kernel at every
+        # size: the reference keeps them off its tiled kernel and runs XLA
+        # past its VMEM cap, which the card's substep kernel does not have
         return "substep"
     return "tiled"
 

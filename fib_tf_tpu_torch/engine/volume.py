@@ -27,12 +27,14 @@ z over a `parallel.Mesh` and runs parallel/volume_spmd's wide-halo chunk:
 per shard the volume block kernel (csrc/br_volume_block.cu) under
 `_use_shard_kernel`, or the plain step.
 
-The volume substep kernel hosts Beeler-Reuter, Fenton, Mitchell-Schaeffer,
-Courtemanche and Courtemanche-ultra; the tiled volume kernel hosts BR's
-main body alone, so the others raise NotImplementedError where 'auto' or
-'pallas' would take it (the cutover lowered; ROADMAP Queue 2 item D); the
-block volume kernel hosts all but Courtemanche, which raises on a mesh
-(Queue 2 item E).  Courtemanche's table mode runs the plain path.
+The volume substep kernel hosts every model: Beeler-Reuter, Fenton,
+Mitchell-Schaeffer, Courtemanche, Courtemanche-ultra, Luo-Rudy and tp06
+(the reference's 'auto' keeps the last two on XLA, volume.py:182); the
+tiled volume kernel hosts BR's main body alone, so the others raise
+NotImplementedError where 'auto' or 'pallas' would take it (the cutover
+lowered; ROADMAP Queue 2 item D); the block volume kernel hosts all but
+the Courtemanche models, Luo-Rudy and tp06, which raise on a mesh (Queue 2
+item E).  Courtemanche's table mode runs the plain path.
 
 Not ported yet, and raising NotImplementedError when asked for: phase
 fields, fiber twist / ratio / elevation (ROADMAP Queue 1 items 9 and 18),

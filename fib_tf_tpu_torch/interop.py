@@ -10,6 +10,7 @@ import torch
 
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.models import courtemanche as court
+from fib_tf_tpu_torch.models import luo_rudy, tp06
 from fib_tf_tpu_torch.models.beeler_reuter import CHEBY_DEG, GATES
 from fib_tf_tpu_torch.parallel import sharding
 
@@ -119,6 +120,12 @@ def court_params_from_numpy(model: court.Courtemanche,
                              f"array, got {t.shape}")
         model.table = t
         model._tables.clear()
+    return _carry_het_and_scales(model, het, scales)
+
+
+def _carry_het_and_scales(model, het, scales):
+    """Replace the model's het planes and g_scale factors with `het` and
+    `scales` where given (set_het / set_scale validate them)."""
     if het is not None:
         model.set_het(**{k: None for k in model.het})
         model.set_het(**dict(het))
@@ -126,3 +133,38 @@ def court_params_from_numpy(model: court.Courtemanche,
         model.set_scale(**{k: None for k in model.scales})
         model.set_scale(**dict(scales))
     return model
+
+
+def lr1_params_from_numpy(model: luo_rudy.LuoRudy91,
+                          g_si: Optional[float] = None,
+                          scales: Optional[Mapping[str, float]] = None
+                          ) -> luo_rudy.LuoRudy91:
+    """Carry a Luo-Rudy model's parameters into the port's `model`: its
+    instance `g_si` (the JAX model's attribute, which a caller may have
+    set after construction) and its `g_scale` factors (its `scales`).
+    Returns `model`."""
+    if g_si is not None:
+        g = float(g_si)
+        if not np.isfinite(g) or g < 0.0:
+            raise ValueError(f"g_si must be a finite conductance >= 0, got "
+                             f"{g_si}")
+        model.g_si = g
+    return _carry_het_and_scales(model, None, scales)
+
+
+def tp06_params_from_numpy(model: tp06.TenTusscher06,
+                           cell_type: Optional[str] = None,
+                           het: Optional[Mapping[str, np.ndarray]] = None,
+                           scales: Optional[Mapping[str, float]] = None
+                           ) -> tp06.TenTusscher06:
+    """Carry a ten Tusscher-Panfilov model's parameters into the port's
+    `model`: its instance `cell_type` ('epi', 'endo' or 'm'), its het
+    planes (its `het`: g_to, g_ks, endo, g_kr, each an [H, W] array of the
+    model's grid) and its `g_scale` factors (its `scales`).  Returns
+    `model`."""
+    if cell_type is not None:
+        if cell_type not in tp06.CELL_TYPES:
+            raise ValueError(f"cell_type must be one of "
+                             f"{sorted(tp06.CELL_TYPES)}, got {cell_type!r}")
+        model.cell_type = cell_type
+    return _carry_het_and_scales(model, het, scales)

@@ -347,3 +347,44 @@ class IonicModel:
         r, c = self.probe_pixel
         return (state[self.pot_key][r, c] - self.min_v) / (
             self.max_v - self.min_v)
+
+
+class SkipSchedule:
+    """The multi-rate schedule of `cfg.skip` (the reference's Beeler-Reuter
+    technique, br.py:96-107), for a model whose `solve(state, geom, n)`
+    advances its slow gates by `n` dt: with skip, an outer step is one
+    n = `dt_per_step` substep and `dt_per_step` - 1 frozen n = 0 ones;
+    without, `dt_per_step` n = 1 substeps.  Beeler-Reuter, Luo-Rudy and
+    tp06 mix it in before IonicModel."""
+
+    @property
+    def slow_n(self) -> int:
+        """How many dt a slow launch advances the slow gates."""
+        return self.dt_per_step if self.cfg.skip else 1
+
+    @property
+    def has_uniform_substeps(self) -> bool:
+        """Without skip the substeps are identical solve(n=1) calls; the
+        skip schedule is not splittable at arbitrary boundaries."""
+        return not self.cfg.skip and self.cfg.adaptive_dv is None
+
+    @property
+    def launch_schedule(self) -> tuple:
+        """One slow launch and the frozen ones under skip, all slow (n=1)
+        without."""
+        return (True,) + (not self.cfg.skip,) * (self.dt_per_step - 1)
+
+    def commit(self, state: State, geom: Geometry, slow: bool) -> State:
+        """The n = slow_n substep (`slow`) or the n = 0 one."""
+        return self.solve(state, geom, n=self.slow_n if slow else 0)
+
+    def substep_fns(self, geom: Geometry):
+        """With skip, the n = dt_per_step substep then the shared n = 0
+        body; without, the n = 1 body `dt_per_step` times."""
+        k = self.dt_per_step
+        if not self.cfg.skip:
+            fn = lambda s: self.solve(s, geom, n=1)
+            return [fn] * k, ("n1",) * k
+        first = lambda s: self.solve(s, geom, n=k)
+        rest = lambda s: self.solve(s, geom, n=0)
+        return [first] + [rest] * (k - 1), (f"n{k}",) + ("n0",) * (k - 1)

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from fib_tf_tpu_torch.config import SimConfig
-from fib_tf_tpu_torch.models.base import Geometry, IonicModel, State
+from fib_tf_tpu_torch.models.base import (Geometry, IonicModel,
+                                          SkipSchedule, State)
 from fib_tf_tpu_torch.ops.chebyshev import (
     chebyshev_eval,
     chebyshev_fit,
@@ -118,7 +119,7 @@ def _check_variant(cfg: SimConfig):
             "adaptive_dv is not ported yet (ROADMAP Queue 1 item 15)")
 
 
-class BeelerReuter(IonicModel):
+class BeelerReuter(SkipSchedule, IonicModel):
     name = "br"
     min_v = -90.0
     max_v = 30.0
@@ -130,8 +131,6 @@ class BeelerReuter(IonicModel):
     def __init__(self, cfg: SimConfig):
         _check_variant(cfg)
         super().__init__(cfg)
-        # dt multiple of the slow gates' substep that advances them
-        self.slow_n = 5 if cfg.skip else 1
         # float64 coefficients in the S basis, keyed like the JAX model's
         # `_cheby_coef` (interop.cheby_coef_from_numpy replaces them);
         # empty with direct rates
@@ -356,29 +355,3 @@ class BeelerReuter(IonicModel):
         out["_dV_"] = torch.where(v1 == v1_raw, g_v, (v1 - v0) / dt)
         out["_dC_"] = g_c
         return out
-    @property
-    def has_uniform_substeps(self) -> bool:
-        """Without `skip` the 5 substeps are identical solve(n=1) calls;
-        the skip schedule (one n=5 + four n=0) is not splittable at
-        arbitrary boundaries."""
-        return not self.cfg.skip and self.cfg.adaptive_dv is None
-
-    @property
-    def launch_schedule(self) -> tuple:
-        """One slow launch and four frozen ones under skip, five slow
-        (n=1) ones without."""
-        return (True,) + (not self.cfg.skip,) * 4
-
-    def commit(self, state: State, geom: Geometry, slow: bool) -> State:
-        """The n = slow_n substep (`slow`) or the n = 0 one."""
-        return self.solve(state, geom, n=self.slow_n if slow else 0)
-
-    def substep_fns(self, geom: Geometry):
-        """With `skip`, substep 0 advances the slow gates 5 dt (n=5) and
-        substeps 1-4 freeze them (n=0); without, five n=1 substeps."""
-        if not self.cfg.skip:
-            fn = lambda s: self.solve(s, geom, n=1)
-            return [fn] * 5, ("n1",) * 5
-        first = lambda s: self.solve(s, geom, n=5)
-        rest = lambda s: self.solve(s, geom, n=0)
-        return [first] + [rest] * 4, ("n5",) + ("n0",) * 4

@@ -24,7 +24,7 @@ fast/slow split: ten full-commit substeps.
 
 `calc_intermediates` runs under numpy (table and fits, in float64) or torch
 (the plain path, float32): every Python number over a tensor is one IEEE
-division (`rdiv`), as the reference's jnp arithmetic is.
+division (`divide`), as the reference's jnp arithmetic is.
 """
 
 from __future__ import annotations
@@ -41,8 +41,8 @@ from fib_tf_tpu_torch.ops import table as table_ops
 from fib_tf_tpu_torch.ops.chebyshev import (chebyshev_eval, chebyshev_fit,
                                             chebyshev_terms,
                                             normalize_voltage)
-from fib_tf_tpu_torch.ops.integrators import (GATE_MAX, GATE_MIN, euler,
-                                               rdiv, rush_larsen)
+from fib_tf_tpu_torch.ops.integrators import (GATE_MAX, GATE_MIN, divide,
+                                               euler, rush_larsen)
 
 # -- physical constants: a copy of the JAX model's (pinned equal by
 # tests/test_torch_court.py) ------------------------------------------------
@@ -110,29 +110,19 @@ FAST_STATES = ("V", "Na_i", "m", "h")
 SLOW_RATIO = 10
 
 
-def _divider(xp):
-    """`num / den` as the reference's arithmetic: one IEEE division, also
-    for a Python number over a tensor (torch would take a reciprocal)."""
-    if xp is torch:
-        return lambda a, b: (rdiv(a, b) if not isinstance(a, torch.Tensor)
-                             else a / b)
-    return lambda a, b: a / b
-
-
 def calc_intermediates(v, xp=torch, ultra_slow: bool = False) -> Dict:
     """The 30 voltage-dependent intermediates (and with `ultra_slow` the us
     gate's two), under numpy or torch.  The `eps = V*1e-20` terms are the
     reference's guards at the removable singularities, and the tau_d branch
     keeps its V + 10.0001 shift."""
-    div = _divider(xp)
     rt = R_GAS * TEMP
     inter = {}
     eps = v * 1e-20
 
-    inter["d_infinity"] = div(1.0, 1.0 + xp.exp((v + 10.0) / -8.0))
+    inter["d_infinity"] = divide(1.0, 1.0 + xp.exp((v + 10.0) / -8.0))
     inter["tau_d"] = xp.where(
         xp.abs(v + 10.0001) < 1.0e-10,
-        div(4.579, 1.0 + xp.exp((v + 10.0) / -6.24)),
+        divide(4.579, 1.0 + xp.exp((v + 10.0) / -6.24)),
         (1.0 - xp.exp((v + 10.0001) / -6.24))
         / (0.035 * (v + 10.0001) * (1.0 + xp.exp((v + 10.0001) / -6.24))),
     )
@@ -140,7 +130,7 @@ def calc_intermediates(v, xp=torch, ultra_slow: bool = False) -> Dict:
     inter["f_infinity"] = xp.exp(-(v + 28.0) / 6.9) / (
         1.0 + xp.exp(-(v + 28.0) / 6.9)
     )
-    inter["tau_f"] = div(9.0, (
+    inter["tau_f"] = divide(9.0, (
         0.0197 * xp.exp(-(0.0337**2) * (v + 10.0) ** 2) + 0.02
     ))
 
@@ -150,7 +140,7 @@ def calc_intermediates(v, xp=torch, ultra_slow: bool = False) -> Dict:
         (6.0 * (1.0 - xp.exp(-(v - 7.9) / 5.0)))
         / ((1.0 + 0.3 * xp.exp(-(v - 7.9) / 5.0)) * (v - 7.9)),
     )
-    inter["w_infinity"] = 1.0 - div(1.0, 1.0 + xp.exp(-(v - 40.0) / 17.0))
+    inter["w_infinity"] = 1.0 - divide(1.0, 1.0 + xp.exp(-(v - 40.0) / 17.0))
 
     alpha_m = xp.where(
         xp.abs(v + 47.13) < 0.001,
@@ -159,32 +149,32 @@ def calc_intermediates(v, xp=torch, ultra_slow: bool = False) -> Dict:
     )
     beta_m = 0.08 * xp.exp(-v / 11.0)
     inter["m_inf"] = alpha_m / (alpha_m + beta_m)
-    inter["tau_m"] = div(1.0, alpha_m + beta_m)
+    inter["tau_m"] = divide(1.0, alpha_m + beta_m)
 
     inter.update(calc_hj_rates(v, xp))
 
     # the transient outward (oa/oi) and ultrarapid (ua/ui) K gates take the
     # shifted voltage V + 10
     vs = v + 10.0
-    alpha_oa = div(0.65, xp.exp(vs / -8.5) + xp.exp((vs - 40.0) / -59.0))
-    beta_oa = div(0.65, 2.5 + xp.exp((vs + 72.0) / 17.0))
-    inter["tau_oa"] = div(1.0, alpha_oa + beta_oa) / K_Q10
-    inter["oa_infinity"] = div(1.0, 1.0 + xp.exp((vs + 10.47) / -17.54))
+    alpha_oa = divide(0.65, xp.exp(vs / -8.5) + xp.exp((vs - 40.0) / -59.0))
+    beta_oa = divide(0.65, 2.5 + xp.exp((vs + 72.0) / 17.0))
+    inter["tau_oa"] = divide(1.0, alpha_oa + beta_oa) / K_Q10
+    inter["oa_infinity"] = divide(1.0, 1.0 + xp.exp((vs + 10.47) / -17.54))
 
-    alpha_oi = div(1.0, 18.53 + xp.exp((vs + 103.7) / 10.95))
-    beta_oi = div(1.0, 35.56 + xp.exp((vs - 8.74) / -7.44))
-    inter["tau_oi"] = div(1.0, alpha_oi + beta_oi) / K_Q10
-    inter["oi_infinity"] = div(1.0, 1.0 + xp.exp((vs + 33.1) / 5.3))
+    alpha_oi = divide(1.0, 18.53 + xp.exp((vs + 103.7) / 10.95))
+    beta_oi = divide(1.0, 35.56 + xp.exp((vs - 8.74) / -7.44))
+    inter["tau_oi"] = divide(1.0, alpha_oi + beta_oi) / K_Q10
+    inter["oi_infinity"] = divide(1.0, 1.0 + xp.exp((vs + 33.1) / 5.3))
 
-    alpha_ua = div(0.65, xp.exp(vs / -8.5) + xp.exp((vs - 40.0) / -59.0))
-    beta_ua = div(0.65, 2.5 + xp.exp((vs + 72.0) / 17.0))
-    inter["tau_ua"] = div(1.0, alpha_ua + beta_ua) / K_Q10
-    inter["ua_infinity"] = div(1.0, 1.0 + xp.exp((vs + 20.3) / -9.6))
+    alpha_ua = divide(0.65, xp.exp(vs / -8.5) + xp.exp((vs - 40.0) / -59.0))
+    beta_ua = divide(0.65, 2.5 + xp.exp((vs + 72.0) / 17.0))
+    inter["tau_ua"] = divide(1.0, alpha_ua + beta_ua) / K_Q10
+    inter["ua_infinity"] = divide(1.0, 1.0 + xp.exp((vs + 20.3) / -9.6))
 
-    alpha_ui = div(1.0, 21.0 + xp.exp((vs - 195.0) / -28.0))
-    beta_ui = div(1.0, xp.exp((vs - 168.0) / -16.0))
-    inter["tau_ui"] = div(1.0, alpha_ui + beta_ui) / K_Q10
-    inter["ui_infinity"] = div(1.0, 1.0 + xp.exp((vs - 109.45) / 27.48))
+    alpha_ui = divide(1.0, 21.0 + xp.exp((vs - 195.0) / -28.0))
+    beta_ui = divide(1.0, xp.exp((vs - 168.0) / -16.0))
+    inter["tau_ui"] = divide(1.0, alpha_ui + beta_ui) / K_Q10
+    inter["ui_infinity"] = divide(1.0, 1.0 + xp.exp((vs - 109.45) / 27.48))
 
     alpha_xr = xp.where(
         xp.abs(v + 14.1) < 1.0e-10,
@@ -196,8 +186,8 @@ def calc_intermediates(v, xp=torch, ultra_slow: bool = False) -> Dict:
         eps + 0.000378361,
         (7.3898e-05 * (v - 3.3328)) / (xp.exp((v - 3.3328) / 5.1237) - 1.0),
     )
-    inter["tau_xr"] = div(1.0, alpha_xr + beta_xr)
-    inter["xr_infinity"] = div(1.0, 1.0 + xp.exp((v + 14.1) / -6.5))
+    inter["tau_xr"] = divide(1.0, alpha_xr + beta_xr)
+    inter["xr_infinity"] = divide(1.0, 1.0 + xp.exp((v + 14.1) / -6.5))
 
     alpha_xs = xp.where(
         xp.abs(v - 19.9) < 1.0e-10,
@@ -209,13 +199,13 @@ def calc_intermediates(v, xp=torch, ultra_slow: bool = False) -> Dict:
         eps + 0.000315,
         (3.5e-05 * (v - 19.9)) / (xp.exp((v - 19.9) / 9.0) - 1.0),
     )
-    inter["tau_xs"] = div(0.5, alpha_xs + beta_xs)
+    inter["tau_xs"] = divide(0.5, alpha_xs + beta_xs)
     inter["xs_infinity"] = xp.sqrt(
-        div(1.0, 1.0 + xp.exp((v - 19.9) / -12.7)))
+        divide(1.0, 1.0 + xp.exp((v - 19.9) / -12.7)))
 
-    inter["g_Kur"] = 0.005 + div(0.05, 1.0 + xp.exp((v - 15.0) / -13.0))
+    inter["g_Kur"] = 0.005 + divide(0.05, 1.0 + xp.exp((v - 15.0) / -13.0))
 
-    inter["f_NaK"] = div(1.0, (
+    inter["f_NaK"] = divide(1.0, (
         1.0
         + 0.1245 * xp.exp((-0.1 * FARADAY * v) / rt)
         + 0.0365 * SIGMA * xp.exp((-FARADAY * v) / rt)
@@ -234,8 +224,8 @@ def calc_intermediates(v, xp=torch, ultra_slow: bool = False) -> Dict:
                            * NA_O**3)
     ) / i_na_ca_den
 
-    inter["i_K1a"] = div(CM * G_K1, 1.0 + xp.exp(0.07 * (v + 80.0)))
-    inter["i_Kra"] = div(CM * G_KR, 1.0 + xp.exp((v + 15.0) / 22.4))
+    inter["i_K1a"] = divide(CM * G_K1, 1.0 + xp.exp(0.07 * (v + 80.0)))
+    inter["i_Kra"] = divide(CM * G_KR, 1.0 + xp.exp((v + 15.0) / 22.4))
 
     if ultra_slow:
         inter["us_infinity"], inter["tau_us"] = us_rates(v, xp)
@@ -244,10 +234,9 @@ def calc_intermediates(v, xp=torch, ultra_slow: bool = False) -> Dict:
 
 def us_rates(v, xp=torch):
     """The ultra-slow gate's inf and tau from its tanh-shaped rates."""
-    div = _divider(xp)
     alpha_us = 3e-5 * (0.5 * (1.0 - xp.tanh((v - V_US) / K_US)))
     beta_us = 1e-5 * (0.5 * (1.0 + xp.tanh((v - (V_US + 30.0)) / K_US)))
-    return alpha_us / (alpha_us + beta_us), div(1.0, alpha_us + beta_us)
+    return alpha_us / (alpha_us + beta_us), divide(1.0, alpha_us + beta_us)
 
 
 def calc_intermediates_np(v: np.ndarray) -> Dict[str, np.ndarray]:
@@ -268,17 +257,16 @@ CHEBY_SAMPLES_COURT = 5001
 def calc_hj_rates(v, xp=torch) -> Dict:
     """The branchy fast-Na inactivation rates: h_inf, tau_h, j_inf,
     tau_j."""
-    div = _divider(xp)
     eps = v * 1e-20
     out = {}
     alpha_h = xp.where(v < -40.0, 0.135 * xp.exp((v + 80.0) / -6.8), eps)
     beta_h = xp.where(
         v < -40.0,
         3.56 * xp.exp(0.079 * v) + 310000.0 * xp.exp(0.35 * v),
-        div(1.0, 0.13 * (1.0 + xp.exp((v + 10.66) / -11.1))),
+        divide(1.0, 0.13 * (1.0 + xp.exp((v + 10.66) / -11.1))),
     )
     out["h_inf"] = alpha_h / (alpha_h + beta_h)
-    out["tau_h"] = div(1.0, alpha_h + beta_h)
+    out["tau_h"] = divide(1.0, alpha_h + beta_h)
 
     alpha_j = xp.where(
         v < -40.0,
@@ -297,7 +285,7 @@ def calc_hj_rates(v, xp=torch) -> Dict:
         (0.3 * xp.exp(-2.535e-07 * v)) / (1.0 + xp.exp(-0.1 * (v + 32.0))),
     )
     out["j_inf"] = alpha_j / (alpha_j + beta_j)
-    out["tau_j"] = div(1.0, alpha_j + beta_j)
+    out["tau_j"] = divide(1.0, alpha_j + beta_j)
     return out
 
 
@@ -488,7 +476,6 @@ class Courtemanche(IonicModel):
         """One substep of every state; returns (new_state,
         intermediates)."""
         dt_ = self.dt_for
-        div = _divider(torch)
         rt_f = (R_GAS * TEMP) / FARADAY
         chronic = self.het_param(
             state, "chronic", 1.0 if self.cfg.chronic else 0.0)
@@ -509,12 +496,12 @@ class Courtemanche(IonicModel):
 
         # the constant time constants as planes: rush_larsen's -dt / tau
         # is then one float32 division, as the kernels take it
-        f_ca_inf = div(1.0, 1.0 + state["Ca_i"] / 0.00035)
+        f_ca_inf = divide(1.0, 1.0 + state["Ca_i"] / 0.00035)
         s1["f_Ca"] = rush_larsen(state["f_Ca"], f_ca_inf,
                                  torch.full_like(f_ca_inf, TAU_F_CA),
                                  dt_("f_Ca"))
 
-        e_k = rt_f * torch.log(div(K_O, state["K_i"]))
+        e_k = rt_f * torch.log(divide(K_O, state["K_i"]))
         i_k1 = self.gscale("g_K1", inter["i_K1a"]) * (v - e_k)
         i_to = ((1.0 - 0.5 * chronic) * CM * self.gscale("g_to", G_TO)
                 * state["oa"] ** 3 * state["oi"] * (v - e_k))
@@ -525,7 +512,7 @@ class Courtemanche(IonicModel):
         i_ks = CM * self.gscale("g_Ks", G_KS) * state["xs"] ** 2 * (v - e_k)
         i_nak = (
             (CM * self.gscale("g_NaK", I_NAK_MAX) * inter["f_NaK"])
-            / (1.0 + torch.sqrt(div(KM_NA_I, state["Na_i"]) ** 3))
+            / (1.0 + torch.sqrt(divide(KM_NA_I, state["Na_i"]) ** 3))
         ) * (K_O / (K_O + KM_K_O))
         i_b_k = CM * self.gscale("g_bK", G_B_K) * (v - e_k)
 
@@ -536,7 +523,7 @@ class Courtemanche(IonicModel):
             dt_("K_i"),
         )
 
-        e_na = rt_f * torch.log(div(NA_O, state["Na_i"]))
+        e_na = rt_f * torch.log(divide(NA_O, state["Na_i"]))
         i_na = (CM * self.gscale("g_Na", G_NA) * state["m"] ** 3
                 * state["h"] * state["j"] * (v - e_na))
         if self.ultra_slow:
@@ -555,7 +542,7 @@ class Courtemanche(IonicModel):
                   * state["d"] * state["f"] * state["f_Ca"] * (v - 65.0))
         i_cap = ((CM * self.gscale("g_pCa", I_CAP_MAX) * state["Ca_i"])
                  / (0.0005 + state["Ca_i"]))
-        e_ca = (rt_f / 2.0) * torch.log(div(CA_O, state["Ca_i"]))
+        e_ca = (rt_f / 2.0) * torch.log(divide(CA_O, state["Ca_i"]))
         i_b_ca = CM * self.gscale("g_bCa", G_B_CA) * (v - e_ca)
 
         dv = euler(
@@ -576,7 +563,7 @@ class Courtemanche(IonicModel):
         s1["Ca_rel"] = euler(
             state["Ca_rel"],
             (i_tr - i_rel)
-            / (1.0 + div(CSQN_MAX * KM_CSQN,
+            / (1.0 + divide(CSQN_MAX * KM_CSQN,
                          (state["Ca_rel"] + KM_CSQN) ** 2)),
             dt_("Ca_rel"),
         )
@@ -585,18 +572,18 @@ class Courtemanche(IonicModel):
             1.0e-15 * V_REL * i_rel
             - (1.0e-15 / (2.0 * FARADAY)) * (0.5 * i_ca_l - 0.2 * i_naca)
         )
-        u_inf = div(1.0, 1.0 + torch.exp(-(fn - 3.4175e-13) / 1.367e-15))
+        u_inf = divide(1.0, 1.0 + torch.exp(-(fn - 3.4175e-13) / 1.367e-15))
         s1["u_gate"] = rush_larsen(state["u_gate"], u_inf,
                                    torch.full_like(u_inf, TAU_U),
                                    dt_("u_gate"))
 
         tau_v = 1.91 + 2.09 * u_inf
-        v_inf = 1.0 - div(1.0,
+        v_inf = 1.0 - divide(1.0,
                           1.0 + torch.exp(-(fn - 6.835e-14) / 1.367e-15))
         s1["v_gate"] = rush_larsen(state["v_gate"], v_inf, tau_v,
                                    dt_("v_gate"))
 
-        i_up = div(I_UP_MAX, 1.0 + div(K_UP, state["Ca_i"]))
+        i_up = divide(I_UP_MAX, 1.0 + divide(K_UP, state["Ca_i"]))
         i_up_leak = (I_UP_MAX * state["Ca_up"]) / CA_UP_MAX
 
         s1["Ca_up"] = euler(
@@ -610,8 +597,8 @@ class Courtemanche(IonicModel):
             V_UP * (i_up_leak - i_up) + i_rel * V_REL) / V_I
         b2 = (
             1.0
-            + div(TRPN_MAX * KM_TRPN, (state["Ca_i"] + KM_TRPN) ** 2)
-            + div(CMDN_MAX * KM_CMDN, (state["Ca_i"] + KM_CMDN) ** 2)
+            + divide(TRPN_MAX * KM_TRPN, (state["Ca_i"] + KM_TRPN) ** 2)
+            + divide(CMDN_MAX * KM_CMDN, (state["Ca_i"] + KM_CMDN) ** 2)
         )
         s1["Ca_i"] = euler(state["Ca_i"], b1 / b2, dt_("Ca_i"))
         return s1, inter

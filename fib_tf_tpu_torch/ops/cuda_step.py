@@ -8,13 +8,14 @@ body of the port (`BODIES`), one entry each: Beeler-Reuter's main path
 (cheby + cheby_fold + cheby_currents), its other variants with and
 without ab2, Fenton with and without ab2, and Mitchell-Schaeffer; and,
 built as a second library of the same source (`COURT_LIBRARY`),
-Courtemanche and Courtemanche-ultra.  A BR body has two forms (the substep
-that advances the slow gates, n=5 under skip, and the n=0 substep that
-freezes them); Fenton's and Mitchell-Schaeffer's one form runs ten
-launches per outer step.  Courtemanche's two forms are the fast commit
-(SLOW=false) and the slow commit (SLOW=true), which reads the new V and
-writes no potential: eleven launches per outer step; Courtemanche-ultra's
-one form ten.  Table mode has no body: the engine runs it on the plain
+Courtemanche and Courtemanche-ultra, and as a third (`LRTP_LIBRARY`),
+Luo-Rudy 1991 and ten Tusscher-Panfilov 2006.  A BR body has two forms (the
+substep that advances the slow gates, n=5 under skip, and the n=0 substep
+that freezes them), and so do LR1's and tp06's (n=10 under skip);
+Fenton's and Mitchell-Schaeffer's one form runs ten launches per outer
+step.  Courtemanche's two forms are the fast commit (SLOW=false) and the
+slow commit (SLOW=true), which reads the new V and writes no potential:
+eleven launches per outer step; Courtemanche-ultra's one form ten.  Table mode has no body: the engine runs it on the plain
 path.  Its source note says what bounds it and what the simple design
 leaves for later.
 
@@ -65,8 +66,12 @@ from fib_tf_tpu_torch.models.beeler_reuter import (
 from fib_tf_tpu_torch.models import courtemanche as court
 from fib_tf_tpu_torch.models.courtemanche import (Courtemanche,
                                                   CourtemancheUltra)
+from fib_tf_tpu_torch.models import luo_rudy as lr1
+from fib_tf_tpu_torch.models import tp06
 from fib_tf_tpu_torch.models.fenton import Fenton4v
+from fib_tf_tpu_torch.models.luo_rudy import LuoRudy91
 from fib_tf_tpu_torch.models.mitchell_schaeffer import MitchellSchaeffer
+from fib_tf_tpu_torch.models.tp06 import TenTusscher06
 
 State = Dict[str, torch.Tensor]
 
@@ -77,7 +82,10 @@ HEADERS = (build.CSRC_DIR / "br_cell.cuh",
            build.CSRC_DIR / "court_cell.cuh",
            build.CSRC_DIR / "fenton_cell.cuh",
            build.CSRC_DIR / "geometry.cuh",
-           build.CSRC_DIR / "ms_cell.cuh")
+           build.CSRC_DIR / "lr1_cell.cuh",
+           build.CSRC_DIR / "ms_cell.cuh",
+           build.CSRC_DIR / "torch_rounding.cuh",
+           build.CSRC_DIR / "tp06_cell.cuh")
 # the GEOM entries' extra arguments: phase, dmap (device pointers or null),
 # tensor flag, dxx, dxy, dyy (csrc/geometry.cuh Geometry)
 GEOMETRY_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -117,6 +125,15 @@ COURT_FIT_ORDER = court.CHEBY_SMOOTH_KEYS + tuple(
 # 36 fits of 13 coefficients, then 28 scalars (_pack_court)
 COURT_PARAM_FLOATS = len(COURT_FIT_ORDER) * (court.CHEBY_DEG_COURT + 1) + 28
 COURT_RATE_MODES = {"direct": 0, "cheby": 1, "fold": 2}
+# Lr1Cell::Plane: Cai, the fast gates, the slow gates
+LR1_PLANES = ("Cai", "m", "h", "j", "d", "f", "x")
+# Tp06Cell::Plane: the state's sorted keys but V, then the four het planes,
+# each passed as a null pointer when it is not attached
+# (csrc/cell_traits.cuh)
+TP06_HET_PLANES = ("_p_endo", "_p_g_kr", "_p_g_ks", "_p_g_to")
+TP06_PLANES = ("CaSR", "CaSS", "Cai", "Ki", "Nai", "Rq", "d", "f", "f2",
+               "fcass", "h", "j", "m", "r", "s", "xr1", "xr2",
+               "xs") + TP06_HET_PLANES
 
 
 def _pack_br(model: BeelerReuter) -> np.ndarray:
@@ -258,6 +275,50 @@ def _pack_court(model: Courtemanche) -> np.ndarray:
     return np.concatenate([fits.ravel(), scalars])
 
 
+def _pack_lr1(model: LuoRudy91) -> np.ndarray:
+    """Lr1Params as a float32 array: the six conductances with their
+    g_scale factors (g_si the instance's, read now: a caller may set it
+    after construction), the reversal potentials and Xi's limit, dt, the
+    slow gates' dt * slow_n, diff * dt and the probe normalisation (its
+    span as a reciprocal, as torch divides a tensor by a Python
+    number)."""
+    cfg, g = model.cfg, model.gscale
+    return np.array([
+        g("g_Na", lr1.G_NA), g("g_si", model.g_si), g("g_K", lr1.G_K),
+        g("g_K1", lr1.G_K1), g("g_Kp", lr1.G_KP), g("g_b", lr1.G_B),
+        lr1.E_NA, lr1.E_K, lr1.E_K1, lr1.E_KP, lr1.E_B, lr1.XI_LIM,
+        cfg.dt, cfg.dt * model.slow_n, cfg.diff * cfg.dt,
+        model.min_v, 1.0 / (model.max_v - model.min_v),
+    ], np.float32)
+
+
+def _pack_tp06(model: TenTusscher06) -> np.ndarray:
+    """Tp06Params as a float32 array: the conductances with their
+    g_scale factors folded in, each product formed in double in the plain
+    path's order (g_to and g_Ks those of the instance's `cell_type`, read
+    now: a caller may set it after construction), the g_to and g_Ks factors
+    for the planes, which het planes are attached, whether the cell type is
+    'endo', dt, the slow gates' dt * slow_n, diff * dt and the probe
+    normalisation."""
+    cfg, g, f = model.cfg, model.gscale, model.scales.get
+    g_to, g_ks = tp06.CELL_TYPES[model.cell_type]
+    root = float(np.sqrt(tp06.K_O / 5.4))
+    return np.array([
+        g("g_Na", tp06.G_NA), g("g_bNa", tp06.G_B_NA),
+        g("g_CaL", tp06.G_CAL), g("g_bCa", tp06.G_B_CA),
+        g("g_to", g_to), g("g_Ks", g_ks), g("g_Kr", tp06.G_KR * root),
+        g("g_K1", tp06.G_K1 * root), g("g_NaCa", tp06.K_NACA),
+        g("g_NaK", tp06.P_NAK) * tp06.K_O,
+        g("g_pCa", tp06.G_P_CA), g("g_pK", tp06.G_P_K),
+        f("g_to", 1.0), f("g_Ks", 1.0),
+        *(1.0 if k in model.het else 0.0
+          for k in ("g_to", "g_ks", "endo", "g_kr")),
+        1.0 if model.cell_type == "endo" else 0.0,
+        cfg.dt, cfg.dt * model.slow_n, cfg.diff * cfg.dt,
+        model.min_v, 1.0 / (model.max_v - model.min_v),
+    ], np.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class Library:
     """How a kernel source is built for a set of cell bodies: `prefix`
@@ -282,6 +343,9 @@ BR_LIBRARY = Library("br")
 # (csrc/court_cell.cuh)
 COURT_LIBRARY = Library("court", ("FIBTORCH_COURT_ENTRIES",),
                         ("-fmad=false",))
+# Luo-Rudy's and tp06's entries of kernels 1 and 4, their sources' third
+# library, with the same rounding rule (csrc/lr1_cell.cuh, tp06_cell.cuh)
+LRTP_LIBRARY = Library("lrtp", ("FIBTORCH_LRTP_ENTRIES",), ("-fmad=false",))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,8 +361,8 @@ class CellBody:
     block kernel; kernel 5 hosts BR's main body alone).  With
     `slow_keeps_potential`, a SLOW launch commits other planes only and
     writes no potential (csrc/cell_traits.cuh).  `library` says how its
-    kernels' sources are built: BR_LIBRARY, or COURT_LIBRARY for the
-    Courtemanche bodies."""
+    kernels' sources are built: BR_LIBRARY, COURT_LIBRARY for the
+    Courtemanche bodies or LRTP_LIBRARY for Luo-Rudy's and tp06's."""
 
     name: str
     model: type
@@ -343,6 +407,10 @@ BODIES = {b.name: b for b in (
              lambda m: not m.kernel_free, COURT_ULTRA_PLANES,
              COURT_PARAM_FLOATS, _pack_court, (1, 4), False,
              COURT_LIBRARY),
+    CellBody("lr1", LuoRudy91, lambda m: True, LR1_PLANES, 17, _pack_lr1,
+             (1, 4), False, LRTP_LIBRARY),
+    CellBody("tp06", TenTusscher06, lambda m: True, TP06_PLANES, 24,
+             _pack_tp06, (1, 4), False, LRTP_LIBRARY),
 )}
 
 # what each kernel is, for the message of a body it does not host
@@ -488,8 +556,9 @@ def check_maps(maps, shape, dev: torch.device):
 class SubstepKernel:
     """ctypes binding of one cell body's entry `<body>_substep` of
     csrc/br_substep.cu, or with `geom` its GEOM form `<body>_substep_geom`.
-    The library (`library_name`: br_substep, or court_substep for the
-    Courtemanche bodies) is built and loaded on the first launch;
+    The library (`library_name`: br_substep, court_substep for the
+    Courtemanche bodies or lrtp_substep for Luo-Rudy's and tp06's) is
+    built and loaded on the first launch;
     `launches` counts successful launches per template flag ("slow" =
     SLOW=true, "frozen" = SLOW=false; Fenton, Mitchell-Schaeffer and
     Courtemanche-ultra launch SLOW=true alone, Courtemanche's slow commit

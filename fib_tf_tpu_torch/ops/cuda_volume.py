@@ -45,7 +45,10 @@ HEADERS = (build.CSRC_DIR / "br_cell.cuh",
            build.CSRC_DIR / "cell_traits.cuh",
            build.CSRC_DIR / "court_cell.cuh",
            build.CSRC_DIR / "fenton_cell.cuh",
-           build.CSRC_DIR / "ms_cell.cuh")
+           build.CSRC_DIR / "lr1_cell.cuh",
+           build.CSRC_DIR / "ms_cell.cuh",
+           build.CSRC_DIR / "torch_rounding.cuh",
+           build.CSRC_DIR / "tp06_cell.cuh")
 
 
 def volume_shape(model: IonicModel, depth: int):
@@ -83,8 +86,9 @@ def check_volume(model: IonicModel, state: State, depth: int,
 
 class VolumeKernel:
     """ctypes binding of one cell body's entry `<body>_volume` of
-    csrc/br_volume.cu.  The library (`library_name`: br_volume, or
-    court_volume for the Courtemanche bodies) is built and loaded on the
+    csrc/br_volume.cu.  The library (`library_name`: br_volume,
+    court_volume for the Courtemanche bodies or lrtp_volume for Luo-Rudy's
+    and tp06's) is built and loaded on the
     first launch; `launches` counts successful launches per template flag
     ("slow" = SLOW=true, "frozen" = SLOW=false, as ops/cuda_step.py's)."""
 

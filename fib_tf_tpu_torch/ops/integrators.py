@@ -28,6 +28,15 @@ def rdiv(num: float, t: torch.Tensor) -> torch.Tensor:
     return torch.full_like(t, num) / t
 
 
+def divide(num, den):
+    """`num / den` as the reference's arithmetic: one IEEE division, also
+    for a Python number over a tensor (rdiv); numpy and tensor operands
+    divide as they are."""
+    if isinstance(den, torch.Tensor) and not isinstance(num, torch.Tensor):
+        return rdiv(num, den)
+    return num / den
+
+
 def euler(g: torch.Tensor, rate: torch.Tensor, dt: float) -> torch.Tensor:
     """Forward Euler step."""
     return g + rate * dt

@@ -32,6 +32,7 @@ from fib_tf_tpu_torch.models import cell_geometry
 from fib_tf_tpu_torch.parallel import make_mesh
 
 import test_torch_br_variants as variants
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 BR_ATOL = 1e-3 * (tbr.BeelerReuter.max_v - tbr.BeelerReuter.min_v)
 

@@ -19,6 +19,7 @@ from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.models import cell_geometry, grid_geometry
 from fib_tf_tpu_torch.ops import cuda_step
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 
 def jax_cfg(c):

@@ -52,6 +52,7 @@ from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
                                   cuda_volume, cuda_volume_block)
 from fib_tf_tpu_torch.ops.chebyshev import (chebyshev_eval, chebyshev_terms,
                                             normalize_voltage)
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 KERNEL_TOL = dict(rtol=1e-3, atol=1e-5)

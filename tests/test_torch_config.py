@@ -9,6 +9,7 @@ import pytest
 from fib_tf_tpu.config import SimConfig as JaxSimConfig
 from fib_tf_tpu_torch import SimConfig as PackageSimConfig
 from fib_tf_tpu_torch.config import SimConfig
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 
 def test_fields_and_defaults_equal_reference():

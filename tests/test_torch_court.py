@@ -35,6 +35,7 @@ from fib_tf_tpu_torch.models import MODEL_REGISTRY, cell_geometry, grid_geometry
 from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
                                   cuda_volume, stencil, table)
 from fib_tf_tpu_torch.parallel import make_mesh
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 TOL = dict(rtol=1e-3, atol=1e-5)

@@ -34,6 +34,7 @@ from fib_tf_tpu_torch.parallel import make_mesh
 
 from test_torch_court import (GOLDEN, TOL, V_ATOL, assert_states_close, cfg,
                               jax_cfg, models, seeded_state, to_jax)
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 ULTRA_TOL = dict(rtol=1e-4, atol=1e-6)
 

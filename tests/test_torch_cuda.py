@@ -3,7 +3,8 @@ per-shard block kernels of the sharded paths) against their plain PyTorch
 version, on the card: Beeler-Reuter on all six, Fenton and
 Mitchell-Schaeffer on the four that host their cell bodies, the 2D
 geometry's GEOM entries of kernels 1-3 for every cell body, and
-Courtemanche and Courtemanche-ultra on kernels 1 (with GEOM) and 4.
+Courtemanche, Courtemanche-ultra, Luo-Rudy 1991 and ten
+Tusscher-Panfilov 2006 on kernels 1 (with GEOM) and 4.
 
 Marked `cuda`: without a CUDA device (and nvcc) every test here skips.  On
 the card:  python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q"""
@@ -16,12 +17,13 @@ from fib_tf_tpu_torch import SimConfig, interop
 from fib_tf_tpu_torch.engine import (Simulation, VolumeEvent, run_volume,
                                      volume, volume_state)
 from fib_tf_tpu_torch.models import (BeelerReuter, Courtemanche,
-                                     CourtemancheUltra, Fenton4v,
-                                     MitchellSchaeffer)
+                                     CourtemancheUltra, Fenton4v, LuoRudy91,
+                                     MitchellSchaeffer, TenTusscher06)
 from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
                                   cuda_volume, cuda_volume_block,
                                   cuda_volume_tiled)
 from fib_tf_tpu_torch.parallel import make_mesh
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -857,3 +859,130 @@ def test_court_auto_launches_kernels_1_and_4(device):
     assert tab.route == "plain"
     tab.define().simulate()
     assert cuda_step.KERNELS["court"].launches == before
+
+
+# -- Luo-Rudy 1991 and ten Tusscher-Panfilov 2006: kernels 1 and 4 ------------------
+
+LRTP_CFG = CFG.replace(height=67, width=131, dt=0.02, skip=False)
+LRTP_SCALE = {"lr1": (("g_Na", 0.9), ("g_si", 0.5), ("g_K", 1.2),
+                      ("g_K1", 1.1), ("g_Kp", 0.8), ("g_b", 1.3)),
+              "tp06": tuple((k, 0.8 + 0.05 * i) for i, k in enumerate(
+                  TenTusscher06.SCALE_PARAMS))}
+# (model class, flags, g_si or cell_type set after construction, a g_kr
+# plane): every form and het-plane subset the chip phases run
+LRTP_CASES = {
+    "lr1-skip": (LuoRudy91, dict(skip=True), None, False),
+    "lr1": (LuoRudy91, {}, None, False),
+    "lr1-gsi-scaled": (LuoRudy91, dict(skip=True, g_scale=LRTP_SCALE["lr1"]),
+                       0.02, False),
+    "tp06-epi-skip": (TenTusscher06, dict(skip=True), None, False),
+    "tp06-endo": (TenTusscher06, dict(cell_type="endo"), None, False),
+    "tp06-m-after-skip": (TenTusscher06, dict(skip=True), "m", False),
+    "tp06-transmural-skip": (TenTusscher06, dict(
+        cell_type="transmural", skip=True), None, False),
+    "tp06-g_kr": (TenTusscher06, {}, None, True),
+    "tp06-transmural-g_kr-scaled": (TenTusscher06, dict(
+        cell_type="transmural", g_scale=LRTP_SCALE["tp06"]), None, True),
+}
+
+
+def _lrtp_model(case):
+    cls, flags, after, kr = LRTP_CASES[case]
+    model = cls(LRTP_CFG.replace(**flags))
+    if after is not None:
+        setattr(model, "g_si" if cls is LuoRudy91 else "cell_type", after)
+    if kr:
+        model.set_het(g_kr=np.random.RandomState(3).uniform(
+            0.2, 1.0, model.state_shape()).astype(np.float32))
+    return model
+
+
+def _lrtp_state(model, device, depth=None):
+    """The initial state with V raised per cell from a seed and 20 plain
+    outer steps (4 ms), so that the S1 front has left its stripe."""
+    rng = np.random.RandomState(1)
+    st = model.initial_state()
+    st["V"] = st["V"] + rng.normal(0, 1.0, st["V"].shape).astype(np.float32)
+    if depth is not None:
+        st = {k: np.repeat(v[None], depth, axis=0) for k, v in st.items()}
+    s = interop.state_from_numpy(st, device)
+    plain = (cuda_step.plain_step if depth is None
+             else cuda_volume.plain_volume_step)
+    for _ in range(20):
+        plain(model, s)
+    return s
+
+
+@pytest.mark.parametrize("case", sorted(LRTP_CASES))
+def test_lrtp_kernels_match_plain_version(device, case):
+    """Kernel 1 (isotropic, and GEOM under an annulus with fibers) and
+    kernel 4 at 67x131 (4x67x131): one launch of each form and two outer
+    steps equal to the plain version bit for bit (csrc/lr1_cell.cuh and
+    tp06_cell.cuh round as the plain path does, -fmad=false), and so
+    within rtol 1e-3 / atol 1e-5; exact launches (one SLOW and nine frozen
+    per outer step under skip, ten SLOW without)."""
+    from fib_tf_tpu_torch.ops import stencil
+    model = _lrtp_model(case)
+    name = cuda_step.cell_body(model).name
+    phase = stencil.add_hole_to_phase_field(None, 67, 131, 65, 33, 4)
+    phase = stencil.add_hole_to_phase_field(phase, 67, 131, 65, 33, 27,
+                                            neg=True)
+    fiber = stencil.fiber_tensor(np.deg2rad(30.0), 0.25)
+    schedule = cuda_step.slow_schedule(model)
+    per_step = {"slow": sum(schedule),
+                "frozen": len(schedule) - sum(schedule)}
+    base = _lrtp_state(model, device)
+    for geo, kernels in (({}, cuda_step.KERNELS),
+                         (dict(phase=phase, fiber=fiber),
+                          cuda_step.GEOM_KERNELS)):
+        maps = cuda_step.GeometryMaps(model.state_shape(), **geo)
+        geom = maps.plain(device)
+        for slow in sorted(set(schedule)):
+            got = cuda_step.substep(model, {k: v.clone()
+                                            for k, v in base.items()},
+                                    slow, maps=maps)
+            want = cuda_step.plain_substep(model, {k: v.clone() for k, v
+                                                   in base.items()}, slow,
+                                           geom=geom)
+            for k in want:
+                torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+        kernels[name].reset_launches()
+        _geom_two_steps(cuda_step.make_cuda_step(model, **geo),
+                        lambda s, p, i: cuda_step.plain_step(model, s, p, i,
+                                                             geom), base,
+                        exact=True)
+        assert kernels[name].launches == {k: 2 * v
+                                          for k, v in per_step.items()}
+    kernel = cuda_volume.KERNELS[name]
+    vbase = _lrtp_state(model, device, depth=4)
+    for slow in sorted(set(schedule)):
+        got = cuda_volume.volume_substep(model, {k: v.clone() for k, v
+                                                 in vbase.items()}, slow)
+        want = cuda_volume.plain_volume_substep(model, {k: v.clone() for k, v
+                                                        in vbase.items()},
+                                                slow)
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+    kernel.reset_launches()
+    _geom_two_steps(cuda_volume.make_volume_step(model, 4),
+                    lambda s, p, i: cuda_volume.plain_volume_step(
+                        model, s, p, i), vbase, exact=True)
+    assert kernel.launches == {k: 2 * v for k, v in per_step.items()}
+
+
+def test_lrtp_auto_launches_kernels_1_and_4(device):
+    """kernel='auto': Simulation launches kernel 1 (no other kernel) and
+    run_volume kernel 4, for both models."""
+    for cls in (LuoRudy91, TenTusscher06):
+        cfg = LRTP_CFG.replace(duration=2, skip=True)
+        name = cls.name
+        sim = Simulation(cls(cfg), device=device).define()
+        assert sim.route == "substep"
+        for kernels in (cuda_step.KERNELS, cuda_volume.KERNELS):
+            kernels[name].reset_launches()
+        res = sim.simulate()
+        assert cuda_step.KERNELS[name].launches == {
+            "slow": res.steps, "frozen": 9 * res.steps}
+        run_volume(cls(cfg), 4, 3, device=device)
+        assert cuda_volume.KERNELS[name].launches == {"slow": 3,
+                                                      "frozen": 27}

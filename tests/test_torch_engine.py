@@ -18,6 +18,7 @@ from fib_tf_tpu.models import grid_geometry as jax_grid_geometry
 from fib_tf_tpu_torch.models import BeelerReuter, grid_geometry, volume_geometry
 from fib_tf_tpu_torch.ops import stencil
 from fib_tf_tpu_torch.parallel import make_mesh
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 
 def jax_cfg(c):

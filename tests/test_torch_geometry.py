@@ -41,6 +41,7 @@ from fib_tf_tpu_torch.models import (BeelerReuter, Fenton4v,
                                      MitchellSchaeffer, grid_geometry)
 from fib_tf_tpu_torch.models.base import tissue_geometry
 from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled, stencil
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 OP_TOL = dict(rtol=1e-5, atol=1e-5)
 STEP_TOL = dict(rtol=1e-5, atol=1e-5)

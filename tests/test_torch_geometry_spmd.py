@@ -38,6 +38,7 @@ from fib_tf_tpu_torch.parallel import (gather_state, halo, make_mesh,
                                        shard_state, spmd)
 from fib_tf_tpu_torch.parallel.sharding import (gather_array,
                                                 object_array, shard_array)
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 OP_TOL = dict(rtol=1e-5, atol=1e-5)
 KERNEL_TOL = dict(rtol=1e-3, atol=1e-5)

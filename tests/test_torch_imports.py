@@ -13,6 +13,7 @@ from pathlib import Path
 import pytest
 
 from fib_tf_tpu_torch.kernels import build
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "fib_tf_tpu_torch").rglob("*.py")) + [
@@ -166,8 +167,9 @@ def test_bindings_hash_every_header_their_sources_include():
 
 def test_block_kernels_share_the_earlier_kernels_headers():
     """Kernel 3 hosts the same cell bodies as kernel 2, and kernel 6 the
-    same as kernel 4 but Courtemanche's two, which kernels 1 and 4 host
-    alone (kernels 3 and 6 are ROADMAP Queue 2 item E's next slice)."""
+    same as kernel 4 but Courtemanche's two, Luo-Rudy's and tp06's, which
+    kernels 1 and 4 host alone (kernels 3 and 6 are ROADMAP Queue 2 item
+    E's next slice)."""
     from fib_tf_tpu_torch.ops import (cuda_block, cuda_tiled, cuda_volume,
                                       cuda_volume_block)
     assert set(cuda_block.HEADERS) == set(cuda_tiled.HEADERS)
@@ -175,11 +177,12 @@ def test_block_kernels_share_the_earlier_kernels_headers():
         "br_cell.cuh", "br_variant_cell.cuh", "fenton_cell.cuh",
         "ms_cell.cuh")}
     assert bodies <= set(cuda_volume.HEADERS)
-    court = build.CSRC_DIR / "court_cell.cuh"
-    assert set(cuda_volume_block.HEADERS) == set(cuda_volume.HEADERS) - {
-        court}
+    large = {build.CSRC_DIR / name for name in (
+        "court_cell.cuh", "lr1_cell.cuh", "tp06_cell.cuh",
+        "torch_rounding.cuh")}
+    assert set(cuda_volume_block.HEADERS) == set(cuda_volume.HEADERS) - large
     assert set(cuda_volume_block.KERNELS) == set(cuda_volume.KERNELS) - {
-        "court", "court_ultra"}
+        "court", "court_ultra", "lr1", "tp06"}
     assert set(cuda_block.KERNELS) == set(cuda_tiled.KERNELS)
 
 

@@ -30,6 +30,7 @@ from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import Simulation, simulation
 from fib_tf_tpu_torch.models import MODEL_REGISTRY, cell_geometry, grid_geometry
 from fib_tf_tpu_torch.ops import cuda_block, cuda_step, cuda_tiled
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-3, atol=1e-5)
 U_ATOL = 1e-3 * (tms.MitchellSchaeffer.max_v - tms.MitchellSchaeffer.min_v)
@@ -99,7 +100,9 @@ def test_registry_names_match_reference():
         assert JAX_REGISTRY[name].__name__ == cls.__name__
     assert set(MODEL_REGISTRY) == {"br", "beeler_reuter", "fenton", "ms",
                                    "mitchell_schaeffer", "court",
-                                   "courtemanche", "court_ultra"}
+                                   "courtemanche", "court_ultra", "lr1",
+                                   "luo_rudy", "tp06", "tentusscher"}
+    assert set(MODEL_REGISTRY) == set(JAX_REGISTRY)
 
 
 def test_plain_solve_matches_jax_and_takes_the_raw_u():

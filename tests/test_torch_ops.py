@@ -13,6 +13,7 @@ from fib_tf_tpu.ops import stencil as jst
 from fib_tf_tpu_torch.ops import chebyshev as tcheb
 from fib_tf_tpu_torch.ops import integrators as tint
 from fib_tf_tpu_torch.ops import stencil as tst
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 SHAPES = [(4, 4), (5, 7), (32, 48)]
 TOL = dict(rtol=1e-6, atol=1e-6)   # elementwise, as tests/test_pallas.py

@@ -32,6 +32,7 @@ from fib_tf_tpu_torch.engine import Simulation, simulation
 from fib_tf_tpu_torch.ops import cuda_block, cuda_step
 from fib_tf_tpu_torch.parallel import (gather_state, halo, make_mesh,
                                        shard_state, spmd)
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-3, atol=1e-5)
 V_ATOL = 1e-3 * (tbr.BeelerReuter.max_v - tbr.BeelerReuter.min_v)

@@ -20,6 +20,7 @@ from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import Simulation, simulation
 from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 
 def jax_cfg(c):

@@ -31,6 +31,7 @@ from fib_tf_tpu_torch.engine import VolumeEvent, run_volume, volume
 from fib_tf_tpu_torch.ops import (cuda_step, cuda_volume, cuda_volume_block,
                                   cuda_volume_tiled, stencil3d)
 from fib_tf_tpu_torch.parallel import make_mesh
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 
 def jax_cfg(c):

@@ -30,6 +30,7 @@ from fib_tf_tpu_torch.engine import VolumeEvent, run_volume, volume
 from fib_tf_tpu_torch.ops import cuda_volume, cuda_volume_block
 from fib_tf_tpu_torch.parallel import (gather_state, make_mesh, shard_state,
                                        volume_spmd)
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-3, atol=1e-5)
 V_ATOL = 1e-3 * (tbr.BeelerReuter.max_v - tbr.BeelerReuter.min_v)

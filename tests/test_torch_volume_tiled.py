@@ -25,23 +25,11 @@ from fib_tf_tpu_torch.ops import cuda_step, cuda_volume
 from fib_tf_tpu_torch.ops import cuda_volume_tiled as cvt
 from fib_tf_tpu_torch.ops.cuda_step import CELL_PLANES
 from fib_tf_tpu_torch.ops.cuda_tiled import tile_spans
+from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 # the reference's own kernel-vs-XLA bound for volumes
 # (tests/test_volume.py:319-344, 463-475)
 VOLUME_TOL = dict(rtol=2e-5, atol=2e-5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Run this module's many small torch ops on one intra-op thread: the
-    emulation is slower on torch's default of one thread per core even
-    alone (68 s against 38 s for its eight cases), and among the suite's
-    six pytest workers, which oversubscribe the cores, one case took
-    1046 s."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def cfg(**kw):

@@ -5,10 +5,11 @@ Run from the root of the checkout:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase carries on after a failure):
   1. the card's name and power limit, the torch/CUDA versions, and the
-     build of all six kernels from csrc/ with nvcc (in parallel, twelve
-     libraries: kernels 2 and 3 build their GEOM entries, and kernels 1
-     and 4 their Courtemanche bodies and their Luo-Rudy and tp06 bodies,
-     as second and third libraries of the same source): the
+     build of all six kernels from csrc/ with nvcc (in parallel, sixteen
+     libraries: kernels 2 and 3 build their GEOM entries, and kernels 1,
+     4 and 6 their Courtemanche bodies and their Luo-Rudy and tp06 bodies,
+     as second and third libraries of the same source, and kernel 3 those
+     four bodies from csrc/large_block.cu, court_block and lrtp_block): the
      substep kernel br_substep.cu, the tiled outer-step kernel br_tiled.cu,
      the volume substep kernel br_volume.cu, the tiled volume kernel
      br_volume_tiled.cu, and the per-shard block kernels br_block.cu and
@@ -21,7 +22,9 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
      Courtemanche bodies' libraries, court_substep and court_volume: the
      same sources built with -DFIBTORCH_COURT_ENTRIES and -fmad=false; nor
      Luo-Rudy's and tp06's, lrtp_substep and lrtp_volume, built with
-     -DFIBTORCH_LRTP_ENTRIES and -fmad=false);
+     -DFIBTORCH_LRTP_ENTRIES and -fmad=false; nor kernels 3 and 6's
+     libraries of the four, court_block, lrtp_block, court_volume_block and
+     lrtp_volume_block);
   2. substep kernel vs plain PyTorch on the card at 512x512, on a seeded
      state that holds a wavefront: one slow (n=5) launch, one frozen (n=0)
      launch and two outer steps, all 8 planes at rtol 1e-3 / atol 1e-5;
@@ -287,7 +290,38 @@ Phases (any failure exits non-zero; no phase carries on after a failure):
  48. the device time of every LR1 and tp06 entry (kernel 1 at 512x512,
      isotropic and GEOM; kernel 4 at 8x128x512), its plain version's, its
      bound (bytes and operations per form, lrtp_bytes / lrtp_flops) and its
-     ptxas registers and spills (neither library may spill).
+     ptxas registers and spills (neither library may spill);
+ 49. kernel 3's large bodies (csrc/large_block.cu: court_block,
+     court_ultra_block, lr1_block, tp06_block and their GEOM entries; one
+     launch per commit) vs plain_block_step at 2048x2048 (Courtemanche
+     with its chronic plane, LR1 and tp06 with skip, tp06 with its
+     transmural and g_kr planes): one outer step of a 4x1 shard's
+     532x2048 block (the top, an interior and the bottom shard) and of a
+     2x2 shard's 1044x1044 block, and under the annulus with fibers; every
+     plane and the probe at rtol 1e-3 / atol 1e-5, 0 cells not bit-equal,
+     exact launches;
+ 50. examples/court_run.py's first model on a 4x1 mesh and
+     court_ultra_run.py's run_small on a 2x2 mesh (four shards on the
+     card, 512x512, the annulus, 1000 ms) under 'auto', bit-equal to the
+     unsharded kernel-1 runs (the final state, "v" and "trend"; "ultra"
+     within rtol 1e-5), crossing at (148, 148.0) / (119, 119.0) +- 2; the
+     court run's first 50 ms against the sharded kernel='xla' run; 50 ms
+     of each without geometry on the other mesh shape;
+ 51. examples/lr1_spiral.py and tp06_spiral.py (skip on) at 512x512 on a
+     4x1 mesh: the S1 wave to the cut, the cut, 40 ms of stage 2, bit-equal
+     to the unsharded kernel-1 runs; tp06 with its transmural and g_kr
+     planes for 40 ms; both under the annulus with fibers on a 2x2 mesh for
+     20 ms;
+ 52. kernel 6's large bodies (court_volume_block, court_ultra_volume_block,
+     lr1_volume_block, tp06_volume_block): one group on a shard's
+     30x128x512 block vs plain_volume_block_step, bit-equal on the centre;
+     run_volume at 40x128x512 on four z shards (10 slices, K = 10)
+     bit-equal to the unsharded kernel-4 run (court and court_ultra 100
+     outer steps, LR1 and tp06 50);
+ 53. the device time of every kernel-3 and kernel-6 entry of the large
+     bodies per launch and per outer step (CUDA events behind the spin
+     kernel), its plain version's, its bound and its ptxas registers and
+     spills (none may spill).
 
 Prints the nvidia-smi line and one JSON line describing the kernels before
 its last line, which is {"ok": true, "device": {...}}.  Needs a CUDA GPU and
@@ -646,7 +680,8 @@ def main():
         for kernel in (*getattr(mod, "KERNELS", {"br": mod.KERNEL}).values(),
                        *getattr(mod, "GEOM_KERNELS", {}).values()):
             name = getattr(kernel, "library_name", mod.SOURCE.stem)
-            libraries.setdefault(name, (kernel, mod.SOURCE))
+            libraries.setdefault(name, (kernel, getattr(kernel, "source",
+                                                        mod.SOURCE)))
             bindings[getattr(kernel, "entry", mod.SOURCE.stem)] = (kernel,
                                                                   name)
     t0 = time.perf_counter()
@@ -669,7 +704,8 @@ def main():
                 print(f"  ptxas: {line.strip()}", flush=True)
     for name in ("br_tiled", "br_block", "br_volume_tiled", "br_tiled_geom",
                  "br_block_geom", "court_substep", "court_volume",
-                 "lrtp_substep", "lrtp_volume"):
+                 "lrtp_substep", "lrtp_volume", "court_block", "lrtp_block",
+                 "court_volume_block", "lrtp_volume_block"):
         log = lib_paths[name].with_name(lib_paths[name].name + ".log")
         spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
                             r"loads", log.read_text())
@@ -1277,6 +1313,14 @@ def main():
         cuda_step=cuda_step, cuda_volume=cuda_volume, stencil=stencil,
         reset_counts=reset_counts, read_counts=read_counts), card, rng,
         lib_paths)
+    large_entries = large_phases(torch, types.SimpleNamespace(
+        SimConfig=SimConfig, interop=interop, Simulation=Simulation,
+        run_volume=run_volume, Courtemanche=Courtemanche,
+        CourtemancheUltra=CourtemancheUltra, LuoRudy91=LuoRudy91,
+        TenTusscher06=TenTusscher06, cuda_step=cuda_step,
+        cuda_block=cuda_block, cuda_volume_block=cuda_volume_block,
+        stencil=stencil, make_mesh=make_mesh, reset_counts=reset_counts,
+        read_counts=read_counts), card, rng, lib_paths)
 
     cells = int(np.prod(shape))
     cells_large = int(np.prod(large.state_shape()))
@@ -1331,6 +1375,7 @@ def main():
     kernels.extend(geometry_entries)
     kernels.extend(court_entries)
     kernels.extend(lrtp_entries)
+    kernels.extend(large_entries)
     for k in kernels:
         print(f"  {k['name']}: {k['ms'] * 1e3:.3f} us against a bound of "
               f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}) [{card}]",
@@ -3922,6 +3967,20 @@ def court_annulus(stencil, n, hole):
                                            n // 2 - 6, neg=True)
 
 
+def court_annulus_sim(m, cls, cfg, hole, annulus=True, **kw):
+    """A defined Simulation of examples/court_run.py's domain (with its
+    annulus unless `annulus` is False) and its luq S2 op; `kw` go to
+    Simulation."""
+    sim = m.Simulation(cls(cfg), **kw)
+    if annulus:
+        sim.add_hole_to_phase_field(cfg.width // 2, cfg.height // 2, hole)
+        sim.add_hole_to_phase_field(cfg.width // 2, cfg.height // 2,
+                                    cfg.width // 2 - 6, neg=True)
+    sim.define()
+    sim.add_pace_op("s2", "luq", 10.0)
+    return sim
+
+
 def stream_us(torch, fn, reps: int) -> float:
     """Microseconds per call of `fn` between CUDA events on the stream,
     host gaps included: the plain Courtemanche substeps (about 350 small
@@ -4079,15 +4138,6 @@ def court_phases(torch, m, card, rng):
             want_n["slow" if slow else "frozen"] += 1
         check_launched(m.read_counts(), entry, want_n, f"{entry} ({key})")
 
-    def annulus_sim(cls, cfg, hole, **kw):
-        sim = m.Simulation(cls(cfg), **kw)
-        sim.add_hole_to_phase_field(cfg.width // 2, cfg.height // 2, hole)
-        sim.add_hole_to_phase_field(cfg.width // 2, cfg.height // 2,
-                                    cfg.width // 2 - 6, neg=True)
-        sim.define()
-        sim.add_pace_op("s2", "luq", 10.0)
-        return sim
-
     # -- phases 39 and 40 -------------------------------------------------------
     for body, cfg_kw, hole, s2, phase_no, example in (
             ("court", COURT_CFG, COURT_HOLE, COURT_S2, 39,
@@ -4103,8 +4153,8 @@ def court_phases(torch, m, card, rng):
         entry = f"{body}_substep_geom"
         out = {}
         for kernel in ("auto", "xla"):
-            sim = annulus_sim(cls, cfg.replace(kernel=kernel), hole,
-                              device="cuda")
+            sim = court_annulus_sim(m, cls, cfg.replace(kernel=kernel), hole,
+                                    device="cuda")
             check(sim.route == ("substep" if kernel == "auto" else "plain"),
                   f"{body} annulus run routes {sim.route!r}")
             seen = []
@@ -4427,6 +4477,21 @@ LRTP_WRITES = {("lr1", True): 7, ("lr1", False): 4,
                ("tp06", True): 18, ("tp06", False): 13}
 
 
+def lrtp_model(m, key, **kw):
+    """The model of LRTP_CHECKS[key] (the configuration with `kw`), with
+    what is set after construction and its g_kr dose plane."""
+    body, cfg, after, kr = LRTP_CHECKS[key]
+    cls = {"lr1": m.LuoRudy91, "tp06": m.TenTusscher06}[body]
+    model = cls(m.SimConfig(**dict(cfg, **kw)))
+    if after is not None:
+        setattr(model, "g_si" if body == "lr1" else "cell_type", after)
+    if kr:
+        h, w = model.state_shape()
+        model.set_het(g_kr=np.linspace(0.2, 1.0, w, dtype=np.float32)[
+            None].repeat(h, 0))
+    return model
+
+
 def lrtp_flops(model, slow: bool, volume: bool) -> int:
     """Float32 operations per cell-substep of the Luo-Rudy or tp06 body."""
     n = LRTP_FLOPS[(model.name, slow)] + (4 if volume else 0)
@@ -4531,17 +4596,6 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
         print(f"  ({phase} starts {time.perf_counter() - t0:.1f} s into "
               f"phases 44-48)", flush=True)
 
-    def model_of(key, **kw):
-        body, cfg, after, kr = LRTP_CHECKS[key]
-        model = classes[body](m.SimConfig(**dict(cfg, **kw)))
-        if after is not None:
-            setattr(model, "g_si" if body == "lr1" else "cell_type", after)
-        if kr:
-            h, w = model.state_shape()
-            model.set_het(g_kr=np.linspace(0.2, 1.0, w, dtype=np.float32)[
-                None].repeat(h, 0))
-        return model
-
     def seeded(model, depth=None):
         """The initial state (S1 stripe, any het planes), V raised per cell
         by N(0, 1) mV, then 20 plain outer steps (4 ms) on the card, so
@@ -4615,7 +4669,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
           f"and with both and every g_scale factor", flush=True)
     iso = k1.grid_geometry(device=dev)
     for key in LRTP_CHECKS:
-        model = model_of(key)
+        model = lrtp_model(m, key)
         body = k1.cell_body(model).name
         check_entry(
             key, model, seeded(model), f"{body}_substep",
@@ -4638,7 +4692,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
           f"kernel='xla'", flush=True)
     gplain = maps.plain(dev)
     for key in LRTP_GEOM_CHECKS:
-        model = model_of(key)
+        model = lrtp_model(m, key)
         body = k1.cell_body(model).name
         check_entry(
             key, model, seeded(model), f"{body}_substep_geom",
@@ -4652,7 +4706,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
             "annulus+fibers")
         out = {}
         for kernel in ("auto", "xla"):
-            model = model_of(key, duration=LRTP_GEOM_MS, kernel=kernel,
+            model = lrtp_model(m, key, duration=LRTP_GEOM_MS, kernel=kernel,
                              fiber_angle=np.deg2rad(FIBER_DEG),
                              fiber_ratio=FIBER_RATIO)
             sim = m.Simulation(model, device="cuda")
@@ -4683,7 +4737,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
           f"steps; run_volume for {LRTP_VOL_STEPS} outer steps against "
           f"kernel='xla' (tp06's wedge banded along z)", flush=True)
     for key in LRTP_VOL_CHECKS:
-        vmodel = model_of(key, height=128)
+        vmodel = lrtp_model(m, key, height=128)
         body = k1.cell_body(vmodel).name
         check_entry(
             key, vmodel, seeded(vmodel, depth=DEPTH), f"{body}_volume",
@@ -4752,15 +4806,15 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
         entry = f"{body}_substep"
         # stage 1 on the kernel to the cut, and its first prefix_ms against
         # kernel='xla'
-        stage1, counts = run(model_of(key, duration=float(cut_ms)))
+        stage1, counts = run(lrtp_model(m, key, duration=float(cut_ms)))
         check_launched(counts, entry, expected_launches(
-            k1, model_of(key), stage1.steps), f"{label} stage 1")
+            k1, lrtp_model(m, key), stage1.steps), f"{label} stage 1")
         count(entry, counts)
         check(all(np.isfinite(v).all() for v in stage1.state.values()),
               f"{label}: stage 1 is not finite")
         pre = {}
         for kernel in ("auto", "xla"):
-            model = model_of(key, duration=prefix_ms, kernel=kernel)
+            model = lrtp_model(m, key, duration=prefix_ms, kernel=kernel)
             pre[kernel], counts = run(model)
             if kernel == "auto":
                 count(entry, counts)
@@ -4777,7 +4831,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
             cut[k][LRTP_SIZE // 2:, :] = rest[k][LRTP_SIZE // 2:, :]
         stage2 = {}
         for kernel in ("auto", "xla"):
-            model = model_of(key, duration=LRTP_STAGE2_MS, kernel=kernel)
+            model = lrtp_model(m, key, duration=LRTP_STAGE2_MS, kernel=kernel)
             t = time.perf_counter()
             stage2[kernel], counts = run(model, cut)
             wall = time.perf_counter() - t
@@ -4842,7 +4896,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
         for lib in ("lrtp_substep", "lrtp_volume")}
     cells = LRTP_SIZE * LRTP_SIZE
     for key in ("lr1-skip", "tp06-transmural-skip"):
-        model = model_of(key)
+        model = lrtp_model(m, key)
         body = k1.cell_body(model).name
         base = seeded(model)
         params = k1.pack_params(model)
@@ -4878,7 +4932,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
                     errs[f"{body}_substep{label}"], us, plain, b)
                 e["registers"], e["spill_bytes"] = regs, spills
                 entries.append(e)
-        vmodel = model_of(key, height=128)
+        vmodel = lrtp_model(m, key, height=128)
         vbase = seeded(vmodel, depth=DEPTH)
         vparams = k1.pack_params(vmodel)
         pixel = k4.volume_probe_pixel(vmodel, DEPTH)
@@ -4906,6 +4960,620 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
                     "slow" if slow else "frozen", 0),
                 errs[f"{body}_volume"], us, plain, b)
             e["registers"], e["spill_bytes"] = regs, spills
+            entries.append(e)
+    for label, res in runs.items():
+        print(f"  {label} run: {1.0 / res.sim_seconds_per_wall_second:.6f} "
+              f"wall-s/sim-s [{card}]", flush=True)
+    for e in entries:
+        check(e["launches"] > 0, f"{e['name']} was not launched on a main "
+                                 f"path")
+    stamp("the end")
+    return entries
+
+
+
+# The four large models on the sharded paths (phases 49-53): kernel 3's
+# csrc/large_block.cu and kernel 6's large bodies.  Phase 49's blocks are a
+# 2048x2048 domain's (4x1: 532x2048 with K = 10; 2x2: 1044x1044), its state
+# the initial one with V raised per cell by N(0, 1) mV and a band of
+# columns depolarized to +20 mV across every shard, so that each block
+# holds two fronts (no plain outer steps at 2048x2048: the plain tp06 step
+# costs 63 ms at 512x512).  The checks: (label, body, configuration, het)
+LARGE_SIZE = 2048
+LARGE_CHECKS = {
+    "court": ("court", dict(COURT_CFG, width=LARGE_SIZE, height=LARGE_SIZE),
+              "chronic"),
+    "court_ultra": ("court_ultra", dict(ULTRA_CFG, width=LARGE_SIZE,
+                                        height=LARGE_SIZE), None),
+    "lr1-skip": ("lr1", dict(LR1_CFG, width=LARGE_SIZE, height=LARGE_SIZE,
+                             skip=True), None),
+    "tp06-transmural-g_kr-skip": ("tp06", dict(
+        LR1_CFG, width=LARGE_SIZE, height=LARGE_SIZE, skip=True,
+        cell_type="transmural"), "g_kr"),
+}
+# (row, column) origins of the blocks: the 4x1 mesh's top, an interior and
+# the bottom shard (column None), and a 2x2 corner shard
+LARGE_ORIGINS = ((0, None), (512, None), (1536, None), (0, 0))
+LARGE_GEOM_ORIGINS = ((512, None), (0, 0))
+# phase 50's iso runs and the kernel='xla' comparison, phase 51's short
+# runs, and phase 52's volumes (four z shards of 10 slices, K = 10)
+LARGE_SHORT_MS = 50.0
+LARGE_GEOM_MS = 20.0
+LARGE_VOL_DEPTH = 40
+LARGE_VOL_STEPS = {"court": 100, "court_ultra": 100, "lr1": 50, "tp06": 50}
+LARGE_CELLS = {"court": "9CourtCellILb0EE", "court_ultra": "9CourtCellILb1EE",
+               "lr1": "7Lr1Cell", "tp06": "8Tp06Cell"}
+
+
+def large_ptxas(kernels, kind: str, body: str, slow: bool, geom=None):
+    """(registers, spills) of large_block_kernel<Body, SLOW, GEOM> (`kind`
+    'large_block_kernel') or volume_block_kernel<Body, SLOW> ('volume_block
+    _kernel', `geom` None)."""
+    flags = f"Lb{int(slow)}E" + ("" if geom is None else f"Lb{int(geom)}E")
+    token = f"fibtorch{LARGE_CELLS[body]}E{flags}"
+    found = [v for k, v in kernels.items() if kind in k and token in k]
+    check(len(found) == 1, f"ptxas log has {len(found)} entries for "
+                           f"{kind}<{body}, {slow}, {geom}>")
+    return found[0]
+
+
+def large_form_bound(model, cells: int, slow: bool, volume=False,
+                     maps=None):
+    """(bound_ms, bound_by) of one launch of a large body's form on
+    `cells` cells: court_bound for the Courtemanche bodies, lrtp_bytes /
+    lrtp_flops (and a GEOM entry's maps) for Luo-Rudy and tp06."""
+    if model.name.startswith("court"):
+        return court_bound(model, cells, slow, volume, maps)
+    extra_b = 0 if maps is None else geometry_bytes(maps)
+    extra_f = 0 if maps is None else geometry_flops(maps)
+    return bound(cells * (lrtp_bytes(model, slow) + extra_b),
+                 cells * (lrtp_flops(model, slow, volume) + extra_f))
+
+
+def large_phases(torch, m, card, rng, lib_paths):
+    """Phases 49-53: Courtemanche, Courtemanche-ultra, Luo-Rudy 1991 and
+    tp06 on the sharded paths, kernel 3 (csrc/large_block.cu, isotropic and
+    GEOM) and kernel 6's large bodies.  `m` carries the port's modules and
+    main()'s launch counters, `lib_paths` the built libraries; returns
+    their entries of the JSON line."""
+    dev = torch.device("cuda")
+    k1, k3, k6, st_ = m.cuda_step, m.cuda_block, m.cuda_volume_block, m.stencil
+    classes = {"court": m.Courtemanche, "court_ultra": m.CourtemancheUltra,
+               "lr1": m.LuoRudy91, "tp06": m.TenTusscher06}
+    errs, launches, runs, unequal = {}, {}, {}, {}
+    t0 = time.perf_counter()
+
+    def stamp(phase):
+        print(f"  ({phase} starts {time.perf_counter() - t0:.1f} s into "
+              f"phases 49-53)", flush=True)
+
+    def note(entry, err):
+        errs[entry] = max(errs.get(entry, 0.0), err)
+
+    def count(entry, counts):
+        old = launches.setdefault(entry, {"slow": 0, "frozen": 0})
+        for kk in counts[entry]:
+            old[kk] += counts[entry][kk]
+
+    def model_of(key, **kw):
+        body, cfg, het = LARGE_CHECKS[key]
+        model = classes[body](m.SimConfig(**dict(cfg, **kw)))
+        h, w = model.state_shape()
+        if body == "lr1":
+            model.g_si = LR1_GSI
+        if het == "chronic":
+            plane = np.zeros((h, w), np.float32)
+            plane[:, :w // 2] = 1.0
+            model.set_het(chronic=plane)
+        elif het == "g_kr":
+            model.set_het(g_kr=np.linspace(0.2, 1.0, w, dtype=np.float32)[
+                None].repeat(h, 0))
+        return model
+
+    def banded(model, depth=None):
+        """The initial state on the card, V raised per cell by N(0, 1) mV
+        and a band of columns (or, in a volume, of slices too) at +20 mV;
+        a volume extrudes it over `depth` with per-cell noise."""
+        st = model.initial_state()
+        h, w = model.state_shape()
+        st["V"] = st["V"] + rng.normal(0.0, 1.0, (h, w)).astype(np.float32)
+        st["V"][:, int(0.44 * w):int(0.54 * w)] = 20.0
+        base = m.interop.state_from_numpy(st, dev)
+        if depth is not None:
+            base = {k: v[None].repeat(depth, 1, 1).contiguous()
+                    for k, v in base.items()}
+            base["V"] += torch.randn(base["V"].shape, device=dev,
+                                     generator=torch.Generator(dev)
+                                     .manual_seed(int(rng.integers(1 << 30))))
+        return base
+
+    def window(full, rows, cols):
+        return {k: v[rows][:, cols].contiguous() for k, v in full.items()}
+
+    def block_geom(model, origin):
+        """(two_d, rstart, cstart, row and column indices) of the block of
+        `origin`, its ghosts wrapped round the domain."""
+        h, w = model.state_shape()
+        k = model.dt_per_step
+        two_d = origin[1] is not None
+        h_own, w_own = (h // 2, w // 2) if two_d else (h // 4, w)
+        rstart = origin[0] - k
+        cstart = origin[1] - k if two_d else 0
+        eh, ew = k3.block_shape(h_own, w_own, k, two_d)
+        rows = torch.arange(rstart, rstart + eh, device=dev) % h
+        cols = torch.arange(cstart, cstart + ew, device=dev) % w
+        return two_d, rstart, cstart, rows, cols
+
+    def check_bit_equal(name, got, want, entry):
+        n = unequal_cells(got, want)
+        unequal[entry] = unequal.get(entry, 0) + n
+        print(f"    {name}: {n} cells not bit-equal to plain", flush=True)
+        check(n == 0, f"{name}: {n} cells differ from the plain version, "
+                      f"which the large bodies equal bit for bit")
+
+    annulus = court_annulus(st_, LARGE_SIZE, COURT_HOLE * 4)
+    fiber = st_.fiber_tensor(np.deg2rad(FIBER_DEG), FIBER_RATIO)
+
+    # -- phase 49 ---------------------------------------------------------------
+    stamp("phase 49")
+    print(f"phase 49: kernel 3's large bodies (csrc/large_block.cu) vs "
+          f"plain_block_step at {LARGE_SIZE}x{LARGE_SIZE}: one outer step of "
+          f"a 4x1 shard's 532x{LARGE_SIZE} block (the top, an interior and "
+          f"the bottom shard) and a 2x2 shard's 1044x1044 block, and under "
+          f"the annulus with fibers (an interior 4x1 shard and the 2x2 "
+          f"one); every plane and the probe at rtol {RTOL} / atol {ATOL}, "
+          f"and the cells not bit-equal", flush=True)
+    block_cases = {}
+    for key in LARGE_CHECKS:
+        model = model_of(key)
+        body = k1.cell_body(model).name
+        full = banded(model)
+        k = model.dt_per_step
+        schedule = k1.slow_schedule(model)
+        per_step = {"slow": sum(schedule),
+                    "frozen": len(schedule) - sum(schedule)}
+        for geometry, origins in ((False, LARGE_ORIGINS),
+                                  (True, LARGE_GEOM_ORIGINS)):
+            entry = f"{body}_block" + ("_geom" if geometry else "")
+            for origin in origins:
+                two_d, rstart, cstart, rows, cols = block_geom(model, origin)
+                ext = window(full, rows, cols)
+                maps = {}
+                if geometry:
+                    phase = torch.tensor(annulus, device=dev)
+                    maps = dict(phase_ext=phase[rows][:, cols].contiguous())
+                r, c = model.probe_pixel
+                owns = (rstart + k <= r < rstart + len(rows) - k
+                        and (not two_d or cstart + k <= c
+                             < cstart + len(cols) - k))
+                outs, probes = [], []
+                m.reset_counts()
+                for kernel in (True, False):
+                    out = {kk: torch.zeros_like(v) for kk, v in ext.items()}
+                    probe = torch.zeros(1, device=dev)
+                    if kernel:
+                        k3.make_block_step(model, two_d,
+                                           fiber if geometry else None)(
+                            ext, out, rstart, cstart,
+                            probe if owns else None, **maps)
+                    else:
+                        k3.plain_block_step(
+                            model, ext, out, rstart, cstart, two_d,
+                            probe if owns else None, 0,
+                            maps.get("phase_ext"),
+                            fiber if geometry else None)
+                    outs.append(out)
+                    probes.append(probe)
+                torch.cuda.synchronize()
+                check_launched(m.read_counts(), entry, per_step,
+                               f"{entry} block at {origin}")
+                name = (f"{entry} ({key}) {len(rows)}x{len(cols)} block at "
+                        f"{origin}")
+                got = {kk: k3.centre(v, k, two_d) for kk, v in outs[0].items()}
+                want = {kk: k3.centre(v, k, two_d)
+                        for kk, v in outs[1].items()}
+                note(entry, compare(name, got, want))
+                compare_probes(name, probes[0], probes[1])
+                check_bit_equal(name, got, want, entry)
+        block_cases[key] = (model, full)
+
+    # -- phase 50 ---------------------------------------------------------------
+    stamp("phase 50")
+    print(f"phase 50: examples/court_run.py's first model on a 4x1 mesh and "
+          f"examples/court_ultra_run.py's run_small on a 2x2 mesh (four "
+          f"shards on the card, 512x512, the annulus, 1000 ms) under 'auto' "
+          f"(court_block_geom, court_ultra_block_geom), bit-equal to the "
+          f"unsharded kernel-1 runs (\"ultra\" within rtol 1e-5); the first "
+          f"{LARGE_SHORT_MS:.0f} ms of the court run against the sharded "
+          f"kernel='xla' run; {LARGE_SHORT_MS:.0f} ms of each without "
+          f"geometry on the other mesh shape (court_block, "
+          f"court_ultra_block)", flush=True)
+
+    def mesh_of(shape):
+        return m.make_mesh(shape=shape, devices=["cuda:0"] * 4)
+
+    def court_sim(body, cfg, hole, mesh, annulus=True):
+        return court_annulus_sim(m, classes[body], cfg, hole, annulus,
+                                 device="cuda", mesh=mesh,
+                                 wide_halo=mesh is not None)
+
+    def check_equal_runs(name, got, want):
+        """A sharded run against the unsharded one: every plane and the
+        "v" and "trend" streams bit-equal, "ultra" within rtol 1e-5."""
+        same = {k: np.array_equal(got.state[k], want.state[k])
+                for k in want.state}
+        dv = float(np.abs(got.state["V"] - want.state["V"]).max())
+        print(f"  {name}: final V max abs {dv:.4g} from the unsharded run; "
+              f"planes not bit-equal: {[k for k, v in same.items() if not v]}"
+              f"; crossings {got.cycle_lengths} vs {want.cycle_lengths}",
+              flush=True)
+        check(all(same.values()),
+              f"{name}: the sharded run is not bit-equal to the unsharded "
+              f"one")
+        check(sorted(got.probes) == sorted(want.probes),
+              f"{name}: probe streams {sorted(got.probes)} vs "
+              f"{sorted(want.probes)}")
+        for key in want.probes:
+            if key == "ultra":
+                check(np.allclose(got.probes[key], want.probes[key],
+                                  rtol=1e-5, atol=0),
+                      f"{name}: ultra differs past rtol 1e-5")
+            else:
+                check(np.array_equal(got.probes[key], want.probes[key]),
+                      f"{name}: the {key!r} stream is not bit-equal")
+        check(got.cycle_lengths == want.cycle_lengths,
+              f"{name}: crossings {got.cycle_lengths} vs "
+              f"{want.cycle_lengths}")
+
+    for body, cfg_kw, hole, s2, shape, iso_shape in (
+            ("court", COURT_CFG, COURT_HOLE, COURT_S2, (4,), (2, 2)),
+            ("court_ultra", ULTRA_CFG, ULTRA_HOLE, ULTRA_S2, (2, 2), (4,))):
+        cfg = m.SimConfig(**cfg_kw)
+        out = {}
+        for label, mesh in (("sharded", mesh_of(shape)), ("unsharded", None)):
+            sim = court_sim(body, cfg, hole, mesh)
+            check(sim.route == ("block" if mesh is not None else "substep"),
+                  f"{body} {label} routes {sim.route!r}")
+            m.reset_counts()
+            res = out[label] = sim.simulate(schedule=[(s2, "s2")])
+            counts = m.read_counts()
+            if mesh is not None:
+                entry = f"{body}_block_geom"
+                check_launched(counts, entry, expected_launches(
+                    k1, sim.model, res.steps, shards=4),
+                    f"the sharded {body} annulus run")
+                count(entry, counts)
+            check_run(res, (512, 512), COURT_CROSSINGS[body])
+        check_equal_runs(f"{body} {'x'.join(map(str, mesh_of(shape).grid))} "
+                         f"annulus run", out["sharded"], out["unsharded"])
+        print(f"  {body} annulus run: "
+              f"{1.0 / out['sharded'].sim_seconds_per_wall_second:.6f} "
+              f"wall-s/sim-s sharded, "
+              f"{1.0 / out['unsharded'].sim_seconds_per_wall_second:.6f} "
+              f"unsharded [{card}]", flush=True)
+        runs[f"{body} annulus, sharded"] = out["sharded"]
+        short = cfg.replace(duration=LARGE_SHORT_MS)
+        if body == "court":
+            # the first LARGE_SHORT_MS against the sharded kernel='xla' run
+            pre = {}
+            for kernel in ("auto", "xla"):
+                sim = court_sim(body, short.replace(kernel=kernel), hole,
+                                mesh_of(shape))
+                m.reset_counts()
+                pre[kernel] = sim.simulate()
+                counts = m.read_counts()
+                if kernel == "xla":
+                    check(sim.route == "plain" and all(
+                        total_launches(c) == 0 for c in counts.values()),
+                        "the sharded kernel='xla' court run launched a "
+                        "kernel")
+                else:
+                    count(f"{body}_block_geom", counts)
+            n = unequal_cells(pre["auto"].state, pre["xla"].state)
+            dv = float(np.abs(pre["auto"].state["V"]
+                              - pre["xla"].state["V"]).max())
+            print(f"  court sharded {LARGE_SHORT_MS:.0f} ms vs kernel='xla': "
+                  f"{n} cells not bit-equal, V max abs {dv:.4g}", flush=True)
+            check(dv <= COURT_RUN_ATOL_MV,
+                  f"the sharded court run ends {dv} mV from kernel='xla'")
+        # the isotropic entry: no geometry, on the other mesh shape
+        iso = {}
+        for label, mesh in (("sharded", mesh_of(iso_shape)),
+                            ("unsharded", None)):
+            sim = court_sim(body, short, hole, mesh, annulus=False)
+            m.reset_counts()
+            iso[label] = sim.simulate()
+            counts = m.read_counts()
+            if mesh is not None:
+                check_launched(counts, f"{body}_block", expected_launches(
+                    k1, sim.model, iso[label].steps, shards=4),
+                    f"the sharded {body} run")
+                count(f"{body}_block", counts)
+        check_equal_runs(f"{body} {LARGE_SHORT_MS:.0f} ms on "
+                         f"{'x'.join(map(str, mesh_of(iso_shape).grid))}",
+                         iso["sharded"], iso["unsharded"])
+
+    # -- phase 51 ---------------------------------------------------------------
+    stamp("phase 51")
+    print(f"phase 51: examples/lr1_spiral.py and examples/tp06_spiral.py "
+          f"(skip on) at 512x512 on a 4x1 mesh under 'auto' (lr1_block, "
+          f"tp06_block): the S1 wave to the cut, the cut, {LRTP_STAGE2_MS:.0f}"
+          f" ms of stage 2, bit-equal to the unsharded kernel-1 runs; tp06 "
+          f"with its transmural het planes and a g_kr plane for "
+          f"{LRTP_STAGE2_MS:.0f} ms; both models under the annulus with "
+          f"fibers on a 2x2 mesh for {LARGE_GEOM_MS:.0f} ms "
+          f"(lr1_block_geom, tp06_block_geom)", flush=True)
+
+    def lrtp_pair(label, make, entry, state=None, shape=(4,), geom=False):
+        """`make()`'s model sharded under 'auto' and unsharded, from
+        `state`, bit-equal; returns the sharded run."""
+        out = {}
+        for kind, mesh in (("sharded", mesh_of(shape)), ("unsharded", None)):
+            model = make()
+            sim = m.Simulation(model, device="cuda", mesh=mesh,
+                               wide_halo=mesh is not None)
+            if geom:
+                sim.phase = court_annulus(st_, LRTP_SIZE, COURT_HOLE)
+            sim.define()
+            m.reset_counts()
+            res = out[kind] = sim.simulate(state=state)
+            counts = m.read_counts()
+            if mesh is not None:
+                check(sim.route == "block", f"{label} routes {sim.route}")
+                check_launched(counts, entry, expected_launches(
+                    k1, model, res.steps, shards=4), f"{label} sharded")
+                count(entry, counts)
+        check_equal_runs(f"{label} on "
+                         f"{'x'.join(map(str, mesh_of(shape).grid))}",
+                         out["sharded"], out["unsharded"])
+        return out["sharded"]
+
+    for label, key, cut_ms in (
+            ("lr1_spiral --skip", "lr1-skip", LR1_CUT_MS),
+            ("tp06_spiral --skip", "tp06-epi-skip", TP06_CUT_MS)):
+        body = LRTP_CHECKS[key][0]
+        stage1 = lrtp_pair(f"{label} stage 1", lambda: lrtp_model(
+            m, key, duration=float(cut_ms)), f"{body}_block")
+        cut = {k: np.array(v) for k, v in stage1.state.items()}
+        rest = classes[body](m.SimConfig(width=LRTP_SIZE, height=LRTP_SIZE,
+                                         dt=0.02, duration=1)
+                             ).initial_state(s1=False)
+        for k in cut:
+            cut[k][LRTP_SIZE // 2:, :] = rest[k][LRTP_SIZE // 2:, :]
+        stage2 = lrtp_pair(f"{label} stage 2", lambda: lrtp_model(
+            m, key, duration=LRTP_STAGE2_MS), f"{body}_block", cut)
+        active = float((stage2.state["V"] > -40.0).mean())
+        print(f"  {label}: stage 1 crossings {stage1.cycle_lengths}, active "
+              f"fraction after stage 2 {active:.3f}, "
+              f"{1.0 / stage1.sim_seconds_per_wall_second:.6f} wall-s/sim-s "
+              f"sharded in stage 1 [{card}]", flush=True)
+        check(0.0 < active < 1.0, f"{label}: no free wave end after the cut")
+        runs[f"{label}, sharded"] = stage1
+    runs["tp06 transmural + g_kr, sharded"] = lrtp_pair(
+        "tp06 transmural + g_kr", lambda: lrtp_model(
+            m, "tp06-transmural-g_kr-scaled", duration=LRTP_STAGE2_MS),
+        "tp06_block")
+    for key in ("lr1-skip", "tp06-transmural-skip"):
+        body = LRTP_CHECKS[key][0]
+        runs[f"{key} annulus+fibers, sharded"] = lrtp_pair(
+            f"{key} annulus+fibers", lambda: lrtp_model(
+                m, key, duration=LARGE_GEOM_MS,
+                fiber_angle=np.deg2rad(FIBER_DEG), fiber_ratio=FIBER_RATIO),
+            f"{body}_block_geom", shape=(2, 2), geom=True)
+
+    # -- phase 52 ---------------------------------------------------------------
+    stamp("phase 52")
+    print(f"phase 52: kernel 6's large bodies: one group of each entry on a "
+          f"shard's 30x128x512 block (10 slices, K = 10) vs "
+          f"plain_volume_block_step, bit-equal on the centre; run_volume at "
+          f"{LARGE_VOL_DEPTH}x128x512 on four z shards under 'auto' against "
+          f"the unsharded kernel-4 run, bit-equal ({LARGE_VOL_STEPS} outer "
+          f"steps)", flush=True)
+    vol_cases = {}
+    for key, vkw in (("court", dict(height=128, width=512, dt=0.05)),
+                     ("court_ultra", dict(height=128, width=512, dt=0.05)),
+                     ("lr1-skip", dict(height=128, width=512)),
+                     ("tp06-transmural-g_kr-skip",
+                      dict(height=128, width=512))):
+        vmodel = model_of(key, **vkw)
+        body = k1.cell_body(vmodel).name
+        entry = f"{body}_volume_block"
+        depth, k = LARGE_VOL_DEPTH, vmodel.dt_per_step
+        vbase = banded(vmodel, depth)
+        zstart = 10
+        idx = torch.arange(zstart, zstart + 30, device=dev)
+        block = {kk: v[idx].contiguous() for kk, v in vbase.items()}
+        probes = [torch.zeros(1, device=dev) for _ in range(2)]
+        m.reset_counts()
+        got = clone(block)
+        got, _ = k6.make_volume_block_step(vmodel, 30, depth)(
+            got, torch.empty_like(got["V"]), zstart, probes[0], 0,
+            depth // 2 - zstart)
+        want = k6.plain_volume_block_step(vmodel, clone(block), zstart,
+                                          depth, probe=probes[1],
+                                          probe_slice=depth // 2 - zstart)
+        torch.cuda.synchronize()
+        schedule = k1.slow_schedule(vmodel)
+        check_launched(m.read_counts(), entry,
+                       {"slow": sum(schedule),
+                        "frozen": len(schedule) - sum(schedule)},
+                       f"{entry} group")
+        name = f"{entry} ({key}) 30x128x512 block at slice {zstart}"
+        gc = {kk: v[k:-k] for kk, v in got.items()}
+        wc = {kk: v[k:-k] for kk, v in want.items()}
+        note(entry, compare(name, gc, wc))
+        check_bit_equal(name, gc, wc, entry)
+        compare_probes(name, probes[0], probes[1])
+        vol_cases[key] = (vmodel, block, zstart)
+        # the main path
+        state = {kk: v.cpu().numpy() for kk, v in vbase.items()}
+        n_steps = LARGE_VOL_STEPS[body]
+        vol = {}
+        for kind, mesh in (("sharded", mesh_of((4,))), ("unsharded", None)):
+            m.reset_counts()
+            t = time.perf_counter()
+            vol[kind] = m.run_volume(
+                vmodel, depth, n_steps, state=state, mesh=mesh,
+                wide_halo=mesh is not None, device="cuda")
+            wall = time.perf_counter() - t
+            counts = m.read_counts()
+            if mesh is not None:
+                check_launched(counts, entry, expected_launches(
+                    k1, vmodel, n_steps, shards=4), f"the sharded {key} "
+                                                    f"volume")
+                count(entry, counts)
+            else:
+                check_launched(counts, f"{body}_volume", expected_launches(
+                    k1, vmodel, n_steps), f"the unsharded {key} volume")
+            print(f"  {key} run_volume {kind}: {wall:.3f} s for {n_steps} "
+                  f"outer steps [{card}]", flush=True)
+        same = [kk for kk in vol["unsharded"][0]
+                if not np.array_equal(vol["sharded"][0][kk],
+                                      vol["unsharded"][0][kk])]
+        print(f"  {key} volume: planes not bit-equal to kernel 4: {same}; "
+              f"probes bit-equal: "
+              f"{np.array_equal(vol['sharded'][1], vol['unsharded'][1])}",
+              flush=True)
+        check(not same and np.array_equal(vol["sharded"][1],
+                                          vol["unsharded"][1]),
+              f"the sharded {key} volume is not bit-equal to kernel 4's")
+
+    # -- phase 53 ---------------------------------------------------------------
+    stamp("phase 53")
+    print(f"phase 53: device time of every kernel-3 and kernel-6 entry of "
+          f"the large bodies, per launch and per outer step (kernel 3 on "
+          f"the interior 4x1 shard's 532x{LARGE_SIZE} block, kernel 6 on "
+          f"the 30x128x512 block), beside its plain version, its bound and "
+          f"its registers [{card}]", flush=True)
+    entries = []
+    stream = torch.cuda.current_stream()
+    ptx = {lib: ptxas_kernels(lib_paths[lib].with_name(
+        lib_paths[lib].name + ".log").read_text())
+        for lib in ("court_block", "lrtp_block", "court_volume_block",
+                    "lrtp_volume_block")}
+    for key, (model, full) in block_cases.items():
+        body = k1.cell_body(model).name
+        lib = k1.BODIES[body].library.name("block")
+        params = k1.pack_params(model)
+        schedule = k1.slow_schedule(model)
+        k = model.dt_per_step
+        two_d, rstart, cstart, rows, cols = block_geom(model, (512, None))
+        ext = window(full, rows, cols)
+        eh, ew = len(rows), len(cols)
+        gm = k1.GeometryMaps(model.state_shape(), annulus, fiber)
+        for geometry in (False, True):
+            entry = f"{body}_block" + ("_geom" if geometry else "")
+            kernel = (k3.GEOM_KERNELS if geometry else k3.KERNELS)[body]
+            phase_ext = (torch.tensor(annulus, device=dev)[rows][:, cols]
+                         .contiguous() if geometry else None)
+            fib = fiber if geometry else None
+            args = (k1.kernel_geometry_args(phase_ext, None, fib)
+                    if geometry else ())
+            geom = k3.block_geometry(k3.global_rows(rstart, eh, dev),
+                                     model.cfg.height, None, None, phase_ext,
+                                     fib)
+            out = clone(ext)
+            step_us = device_us(torch, lambda: kernel.step(
+                params, schedule, ext, out, rstart, cstart, k, two_d,
+                model.cfg.height, model.cfg.width, None, model.probe_pixel,
+                0, stream, args), reps=10)
+            step_plain = stream_us(torch, lambda: k3.plain_block_step(
+                model, ext, out, rstart, cstart, two_d, None, 0, phase_ext,
+                fib), reps=2)
+            # launch s of the step computes rows [s + 1, ext_h - 1 - s)
+            cells = (eh - 2) * ew
+            step_b, done = 0.0, 0
+            for slow in schedule:
+                step_b += large_form_bound(
+                    model, (eh - 2 - 2 * done) * ew, slow,
+                    maps=gm if geometry else None)[0]
+                done += int(k1.BODIES[body].writes_potential(slow))
+            for slow in sorted(set(schedule)):
+                state = clone(ext)
+                v_out = (torch.empty_like(state["V"])
+                         if k1.BODIES[body].writes_potential(slow) else None)
+                us = device_us(torch, lambda: kernel.launch(
+                    params, slow, state["V"], v_out, state, state, rstart,
+                    cstart, k, two_d, model.cfg.height, model.cfg.width, 0,
+                    False, None, model.probe_pixel, 0, stream.cuda_stream,
+                    args), reps=50)
+                plain = stream_us(torch, lambda: k1.plain_substep(
+                    model, state, slow, geom=geom), reps=2)
+                b = large_form_bound(model, cells, slow,
+                                     maps=gm if geometry else None)
+                regs, spills = large_ptxas(ptx[lib], "large_block_kernel",
+                                           body, slow, geometry)
+                check(spills == 0, f"{entry} spills {spills}")
+                name = f"{entry}<SLOW={str(slow).lower()}>"
+                print(f"  {name} {eh}x{ew} ({key}): {us:.3f} us/launch, plain "
+                      f"{plain:.1f} us, bound {b[0] * 1e3:.3f} us ({b[1]}); "
+                      f"outer step ({len(schedule)} launches) {step_us:.3f} "
+                      f"us, plain {step_plain:.1f} us, bound "
+                      f"{step_b * 1e3:.3f} us; {regs} registers, {spills} "
+                      f"bytes spilled [{card}]", flush=True)
+                e = kernel_entry(
+                    name, "fib_tf_tpu_torch/csrc/large_block.cu",
+                    "fib_tf_tpu/ops/pallas_tiled.py:202",
+                    launches.get(entry, {}).get(
+                        "slow" if slow else "frozen", 0),
+                    errs[entry], us, plain, b)
+                e.update(registers=regs, spill_bytes=spills,
+                         step_ms=step_us / 1e3, step_plain_ms=step_plain / 1e3,
+                         step_bound_ms=step_b,
+                         launches_per_step=len(schedule),
+                         unequal_cells=unequal.get(entry, 0))
+                entries.append(e)
+    for key, (vmodel, block, zstart) in vol_cases.items():
+        body = k1.cell_body(vmodel).name
+        lib = k1.BODIES[body].library.name("volume_block")
+        entry = f"{body}_volume_block"
+        kernel = k6.KERNELS[body]
+        params = k1.pack_params(vmodel)
+        schedule = k1.slow_schedule(vmodel)
+        k, depth = vmodel.dt_per_step, LARGE_VOL_DEPTH
+        step = k6.make_volume_block_step(vmodel, 30, depth)
+        state = clone(block)
+        spare = torch.empty_like(state["V"])
+        step_us = device_us(torch, lambda: step(state, spare, zstart),
+                            reps=10)
+        geom = k6.zblock_geometry(k6.global_slices(zstart, 30, dev), depth)
+        step_plain = stream_us(torch, lambda: k6.plain_volume_block_step(
+            vmodel, state, zstart, depth), reps=2)
+        plane_cells = 128 * 512
+        step_b, done = 0.0, 0
+        for slow in schedule:
+            step_b += large_form_bound(vmodel, (28 - 2 * done) * plane_cells,
+                                       slow, volume=True)[0]
+            done += int(k1.BODIES[body].writes_potential(slow))
+        for slow in sorted(set(schedule)):
+            state = clone(block)
+            v_out = (torch.empty_like(state["V"])
+                     if k1.BODIES[body].writes_potential(slow) else None)
+            pixel = (min(vmodel.probe_pixel[0], 127), vmodel.probe_pixel[1])
+            us = device_us(torch, lambda: kernel.launch(
+                params, state, v_out, slow, 1.0, zstart, depth, 1, 29, None,
+                (0,) + pixel, 0, stream.cuda_stream), reps=50)
+            plain = stream_us(torch, lambda: k1.plain_substep(
+                vmodel, state, slow, geom=geom), reps=2)
+            b = large_form_bound(vmodel, 28 * plane_cells, slow, volume=True)
+            regs, spills = large_ptxas(ptx[lib], "volume_block_kernel", body,
+                                       slow)
+            check(spills == 0, f"{entry} spills {spills}")
+            name = f"{entry}<SLOW={str(slow).lower()}>"
+            print(f"  {name} 30x128x512 ({key}): {us:.3f} us/launch, plain "
+                  f"{plain:.1f} us, bound {b[0] * 1e3:.3f} us ({b[1]}); group "
+                  f"({len(schedule)} launches) {step_us:.3f} us, plain "
+                  f"{step_plain:.1f} us, bound {step_b * 1e3:.3f} us; {regs} "
+                  f"registers, {spills} bytes spilled [{card}]", flush=True)
+            e = kernel_entry(
+                name, "fib_tf_tpu_torch/csrc/br_volume_block.cu",
+                "fib_tf_tpu/ops/pallas_volume.py:397",
+                launches.get(entry, {}).get("slow" if slow else "frozen", 0),
+                errs[entry], us, plain, b)
+            e.update(registers=regs, spill_bytes=spills,
+                     step_ms=step_us / 1e3, step_plain_ms=step_plain / 1e3,
+                     step_bound_ms=step_b, launches_per_step=len(schedule),
+                     unequal_cells=unequal.get(entry, 0))
             entries.append(e)
     for label, res in runs.items():
         print(f"  {label} run: {1.0 / res.sim_seconds_per_wall_second:.6f} "

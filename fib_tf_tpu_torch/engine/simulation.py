@@ -19,13 +19,13 @@ WHOLE_GRID_STATE_MB_MAX and the tiled kernel (one launch per outer step)
 past it; on the CPU 'auto' runs the plain path and 'pallas' raises.
 Beeler-Reuter, Fenton and Mitchell-Schaeffer have their cell bodies on both
 kernels and on the block kernel, as the reference routes them
-(fib_tf_tpu/engine/simulation.py:463-492, `SPMD_KERNEL_MODELS` :797-798).
+(fib_tf_tpu/engine/simulation.py:463-492, `SPMD_KERNEL_MODELS` :797-799).
 Courtemanche, Courtemanche-ultra, Luo-Rudy and tp06 take the substep
 kernel at every size (the reference never gives them its tiled kernel, and
 past its 32 MB VMEM cap runs XLA, a cap the card's substep kernel does not
-have); Courtemanche with `table=True` runs the plain path ('pallas'
-raises), and on a mesh the four raise NotImplementedError (ROADMAP Queue 2
-item E).
+have), and on a mesh the block kernel (csrc/large_block.cu, one launch per
+commit); Courtemanche with `table=True` runs the plain path ('pallas'
+raises), on a mesh too.
 
 Probes: the kernel's last launch of an outer step writes the "v" probe;
 a model's `extra_probes` add their streams: Courtemanche's "trend" (V and
@@ -37,9 +37,11 @@ Sharded runs (`Simulation(model, mesh=..., wide_halo=...)`, or
 `SimConfig.mesh_shape` with `mesh_mode` 'auto' / 'spmd'): the grid is
 sharded over a `parallel.Mesh` and every chunk runs through
 parallel/spmd.make_spmd_chunk, with the state, the pacing masks and the
-finiteness flag sharded alike.  With `wide_halo`, 'auto' on a CUDA mesh and
+finiteness flag sharded alike, and the chunk's `trend` / `ultra` streams
+read back with "v".  With `wide_halo`, 'auto' on a CUDA mesh and
 'pallas' run the per-shard block kernel (csrc/br_block.cu, one launch per
-shard per outer step), 'xla' the plain wide-halo step; without `wide_halo`
+shard per outer step; csrc/large_block.cu for the four large models, one
+launch per commit), 'xla' the plain wide-halo step; without `wide_halo`
 the per-substep exchange runs, which has no kernel.  The GSPMD modes
 (`sharding=`, `mesh_mode='gspmd'`, and 'auto' when the configuration
 cannot take the halo-exchange path) are not ported and raise.
@@ -74,7 +76,6 @@ from fib_tf_tpu_torch.parallel import spmd
 
 _ENGINE = "ROADMAP Queue 1 item 14"
 _PARALLEL = "ROADMAP Queue 1 item 19"
-_COURT_SHARDED = "ROADMAP Queue 2 item E"
 # kernel='pallas' with Courtemanche's table mode (the reference raises the
 # same on its TPU kernels, fib_tf_tpu/engine/simulation.py:435-440)
 TABLE_KERNEL_MESSAGE = ("table-mode gathers don't run in the CUDA kernels; "
@@ -131,10 +132,6 @@ class Simulation:
         if model.fast_slow_ratio:
             _not_ported("fast_slow_ratio dispatch", _ENGINE)
         if mesh is not None:
-            if not model.sharded:
-                _not_ported(f"{model.name} on a mesh (its block kernel and "
-                            f"the sharded trend / ultra probes)",
-                            _COURT_SHARDED)
             _check_mesh(model, mesh, wide_halo)
         self.model = model
         # the geometry (numpy, static), set before define()
@@ -358,9 +355,11 @@ class Simulation:
             self._spmd_chunks[n] = spmd.make_spmd_chunk(
                 self.model, self._mesh, n, wide_halo=self._wide_halo,
                 use_kernel=self.route == "block", fiber=self._fiber(),
+                trend_points=getattr(self.model, "trend_points", None),
                 maps=self._shard_maps)
         state, probes = self._spmd_chunks[n](state)
-        return (state, *self._read_chunk(probes["v"], state))
+        extra = {k: t for k, t in probes.items() if k != "v"}
+        return (state, *self._read_chunk(probes["v"], state, extra))
 
     def _synchronize(self):
         devices = ([self.device] if self._mesh is None
@@ -613,15 +612,22 @@ def _check_mesh(model: IonicModel, mesh: mesh_sharding.Mesh,
 
 def spmd_route(model: IonicModel, device_type: str, kernel: str,
                wide_halo: bool) -> str:
-    """The per-shard step of a sharded run: 'block' (csrc/br_block.cu, one
-    launch per shard per outer step, any of the three models) or 'plain'.  As the JAX engine's
-    `_spmd_use_kernel` (simulation.py:750-785) on a CUDA mesh: 'pallas'
-    forces the block kernel, 'auto' takes it with wide halos, 'xla' runs
-    the plain step.  kernel='pallas' on a CPU mesh raises."""
+    """The per-shard step of a sharded run: 'block' (the block kernel:
+    csrc/br_block.cu, one launch per shard per outer step, or for the four
+    large models csrc/large_block.cu, one launch per commit) or 'plain'.
+    As the JAX engine's `_spmd_use_kernel` (simulation.py:750-785) on a
+    CUDA mesh: 'pallas' forces the block kernel, 'auto' takes it with wide
+    halos, 'xla' runs the plain step; Courtemanche's table mode runs the
+    plain step ('pallas' raises), as `route` routes it.  kernel='pallas' on
+    a CPU mesh raises."""
     if kernel == "pallas" and device_type != "cuda":
         raise ValueError(
             "kernel='pallas' runs the hand-written CUDA kernels and needs "
             "a mesh of CUDA devices; use kernel='auto' or 'xla' on the CPU")
+    if model.kernel_free:
+        if kernel == "pallas":
+            raise ValueError(TABLE_KERNEL_MESSAGE)
+        return "plain"
     if kernel == "xla" or device_type != "cuda" or not wide_halo:
         return "plain"
     return "block"

@@ -32,9 +32,8 @@ Mitchell-Schaeffer, Courtemanche, Courtemanche-ultra, Luo-Rudy and tp06
 (the reference's 'auto' keeps the last two on XLA, volume.py:182); the
 tiled volume kernel hosts BR's main body alone, so the others raise
 NotImplementedError where 'auto' or 'pallas' would take it (the cutover
-lowered; ROADMAP Queue 2 item D); the block volume kernel hosts all but
-the Courtemanche models, Luo-Rudy and tp06, which raise on a mesh (Queue 2
-item E).  Courtemanche's table mode runs the plain path.
+lowered; ROADMAP Queue 2 item D); the block volume kernel hosts every
+model.  Courtemanche's table mode runs the plain path, on a mesh too.
 
 Not ported yet, and raising NotImplementedError when asked for: phase
 fields, fiber twist / ratio / elevation (ROADMAP Queue 1 items 9 and 18),
@@ -64,7 +63,6 @@ _GEOMETRY = "ROADMAP Queue 1 items 9 and 18"
 _VOLUME = "ROADMAP Queue 1 item 18"
 _PARALLEL = "ROADMAP Queue 1 item 19"
 _ADAPTIVE = "ROADMAP Queue 1 item 15"
-_COURT_SHARDED = "ROADMAP Queue 2 item E"
 
 # Whole-volume vs tiled cutover in MB of state (planes x D x H x W x 4).
 # The reference's is 32 MB (fib_tf_tpu/engine/volume.py:78).  On the card
@@ -162,9 +160,6 @@ def _check_unported(model, phase, fiber_twist, fiber_angle0, fiber_ratio,
             or fiber_elevation != 0.0):
         _not_ported("fiber twist / ratio / elevation in run_volume",
                     _GEOMETRY)
-    if mesh is not None and not model.sharded:
-        _not_ported(f"{model.name} on a mesh (its volume block kernel)",
-                    _COURT_SHARDED)
     if mesh is not None and not wide_halo:
         _not_ported("the GSPMD z-sharded volume (mesh without wide_halo)",
                     _PARALLEL)
@@ -184,16 +179,23 @@ def _use_shard_kernel(model: IonicModel, device_type: str,
     per-shard substep group run in the volume block kernel
     (csrc/br_volume_block.cu)?  As the reference's `_use_shard_kernel`
     (engine/volume.py:202-237) on a CUDA mesh: 'xla' never, 'pallas'
-    always, 'auto' on the card.  The reference's (8, 128) alignment rule
-    and its VMEM caps on the extended block are Mosaic's and are not
-    carried: the CUDA kernel takes any H, W >= 3 and leaves the block to
-    device memory.  kernel='pallas' on a CPU mesh raises."""
+    always, 'auto' on the card, for every model (the reference's 'auto'
+    keeps Luo-Rudy and tp06 on XLA, :228; the card's kernel hosts them);
+    Courtemanche's table mode never ('pallas' raises, as the reference's
+    does on the TPU).  The reference's (8, 128) alignment rule and its VMEM
+    caps on the extended block are Mosaic's and are not carried: the CUDA
+    kernel takes any H, W >= 3 and leaves the block to device memory.
+    kernel='pallas' on a CPU mesh raises."""
     if kernel not in ("auto", "pallas", "xla"):
         raise ValueError(f"kernel must be auto|pallas|xla, got {kernel!r}")
     if kernel == "pallas" and device_type != "cuda":
         raise ValueError(
             "kernel='pallas' runs the hand-written CUDA kernels and needs "
             "a mesh of CUDA devices; use kernel='auto' or 'xla' on the CPU")
+    if model.kernel_free:
+        if kernel == "pallas":
+            raise ValueError(TABLE_KERNEL_MESSAGE)
+        return False
     return kernel != "xla" and device_type == "cuda"
 
 

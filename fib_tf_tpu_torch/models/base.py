@@ -147,9 +147,6 @@ class IonicModel:
     # is ill-conditioned; a kernel's and the plain path's rounding may part
     # there past rtol/atol (tests and chip_smoke.py arbitrate such cells)
     ill_conditioned: tuple = ()
-    # whether the model runs on a mesh: Courtemanche's sharded path (its
-    # block kernels and sharded probes) is not ported yet
-    sharded: bool = True
 
     def __init__(self, cfg: SimConfig):
         self.cfg = cfg

@@ -299,9 +299,6 @@ class Courtemanche(IonicModel):
     pot_key = "V"
     fast_states: Tuple[str, ...] = FAST_STATES
     ultra_slow = False
-    # the sharded path (kernels 3 and 6, the sharded trend / ultra probes)
-    # is ROADMAP Queue 2 item E
-    sharded = False
     # a [0, 1] plane that spatializes the global chronic-AF flag: 1 = fully
     # remodeled, 0 = healthy; overrides cfg.chronic where attached
     HET_PARAMS = ("chronic",)

@@ -162,9 +162,6 @@ class LuoRudy91(SkipSchedule, IonicModel):
     # the slow-inward conductance, per instance: the LR91 spiral literature
     # tunes it down from the paper's 0.09 (examples/lr1_spiral.py: 0.02)
     g_si = G_SI
-    # the model is not ported to the block kernels yet (ROADMAP Queue 2
-    # item E): a mesh raises
-    sharded = False
     SCALE_PARAMS = ("g_Na", "g_si", "g_K", "g_K1", "g_Kp", "g_b")
     positive_states = ("Cai",)
     # where float32 is ill-conditioned, so that a kernel's and the plain

@@ -312,9 +312,6 @@ class TenTusscher06(SkipSchedule, IonicModel):
     default_dt = 0.02
     # 'epi' | 'endo' | 'm', per instance; 'transmural' attaches the planes
     cell_type = "epi"
-    # the model is not ported to the block kernels yet (ROADMAP Queue 2
-    # item E): a mesh raises
-    sharded = False
     # per-pixel planes: g_to and g_ks absolute, endo the s-gate blend, g_kr
     # a relative IKr dose (1.0 = baseline)
     HET_PARAMS = ("g_to", "g_ks", "endo", "g_kr")

@@ -11,7 +11,13 @@ there.  The kernel is csrc/br_block.cu (CUDA C++, built with nvcc and bound
 with ctypes; one entry per cell body of ops/cuda_step.BODIES: K = 5 for
 Beeler-Reuter, 10 for Fenton and Mitchell-Schaeffer), the tile skeleton of
 the tiled outer-step kernel (csrc/br_tile.cuh, on each body's tile shape,
-cuda_tiled.tile_of) reading from the extended block.
+cuda_tiled.tile_of) reading from the extended block; and for the bodies of
+8-23 planes, whose tiles the skeleton's shared memory does not hold
+(Courtemanche, Courtemanche-ultra, Luo-Rudy 1991, tp06; K = 10),
+csrc/large_block.cu (`LargeBlockKernel`): one thread per cell and one
+launch per commit of the outer step (eleven for Courtemanche, ten for the
+others), each on the rows (and columns) that are still exact, V
+double-buffered through a scratch plane.
 
 `block_geometry` is the plain geometry of an extended block (the
 reference's `block_geometry`, pallas_tiled.py:60-175, with its phase field,
@@ -29,7 +35,8 @@ version.
 Update contract: a step reads the extended planes of `ext_in` and writes
 the CENTRE (the shard's own cells) of the extended planes of `ext_out`,
 which must be other memory; `ext_out`'s ghosts are left for the halo
-exchange to fill.  Writing into the other buffer of a double-buffered pair
+exchange to fill (the large bodies' launches leave garbage there, which
+the exchange overwrites).  Writing into the other buffer of a double-buffered pair
 fuses the reference's crop (spmd.py:400-404).
 """
 
@@ -52,6 +59,16 @@ HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh",
            build.CSRC_DIR / "fenton_cell.cuh",
            build.CSRC_DIR / "geometry.cuh",
            build.CSRC_DIR / "ms_cell.cuh")
+# the large bodies' block kernel, built as a library per body library
+# (court_block, lrtp_block) holding the isotropic and the GEOM entries
+LARGE_SOURCE = build.CSRC_DIR / "large_block.cu"
+LARGE_HEADERS = (build.CSRC_DIR / "br_cell.cuh",
+                 build.CSRC_DIR / "cell_traits.cuh",
+                 build.CSRC_DIR / "court_cell.cuh",
+                 build.CSRC_DIR / "geometry.cuh",
+                 build.CSRC_DIR / "lr1_cell.cuh",
+                 build.CSRC_DIR / "torch_rounding.cuh",
+                 build.CSRC_DIR / "tp06_cell.cuh")
 
 
 # -- the plain geometry of an extended block -----------------------------------------
@@ -149,8 +166,10 @@ def block_geometry(
             vxy = 0.25 * (east(s) + west(n) - west(s) - east(n))
             l = 2.0 * (dxx * vxx + 2.0 * dxy * vxy + dyy * vyy)
         else:
+            # ops/stencil.laplace's order, NW + SW + NE + SE: the block
+            # equals the whole grid bit for bit
             l = (n + s + w + e
-                 + 0.5 * (west(n) + east(n) + west(s) + east(s)) - 6.0 * x)
+                 + 0.5 * (west(n) + west(s) + east(n) + east(s)) - 6.0 * x)
         if phase_ext is None and dmap_ext is None:
             return l
         if dmap_ext is not None:
@@ -265,10 +284,142 @@ class BlockKernel:
         self.launches += 1
 
 
+class LargeBlockKernel:
+    """ctypes binding of one large cell body's entry `<body>_block` of
+    csrc/large_block.cu, or with `geom` its GEOM form `<body>_block_geom`:
+    one commit of the outer step per launch.  The library (`library_name`:
+    court_block or lrtp_block, the body's `CellBody.library` with its
+    defines and flags, both forms in one) is built and loaded on the first
+    launch; `launches` counts successful launches per template flag
+    ("slow" = SLOW=true, "frozen" = SLOW=false), as the substep kernel's
+    binding does."""
+
+    def __init__(self, body: str, geom: bool = False):
+        self.body = BODIES[body]
+        self.geom = geom
+        self.entry = f"{body}_block" + ("_geom" if geom else "")
+        self.source = LARGE_SOURCE
+        self.library_name = self.body.library.name("block")
+        self.defines = self.body.library.defines
+        self._lib = None
+        self.reset_launches()
+
+    def reset_launches(self):
+        self.launches = {"slow": 0, "frozen": 0}
+
+    def build(self):
+        """Build the library (if needed) and return its path."""
+        return build.build(self.library_name, [LARGE_SOURCE], LARGE_HEADERS,
+                           self.defines, self.body.library.flags)
+
+    def library(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = build.load(self.library_name, [LARGE_SOURCE],
+                             LARGE_HEADERS, self.defines,
+                             self.body.library.flags)
+            fn = getattr(lib, self.entry)
+            fn.argtypes = (
+                [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,  # slow, params
+                 ctypes.c_void_p, ctypes.c_void_p,   # v_in, v_out
+                 ctypes.c_void_p, ctypes.c_void_p,   # planes in / out
+                 ctypes.c_int,                       # n_planes
+                 ctypes.c_int, ctypes.c_int,         # ext_h, ext_w
+                 ctypes.c_int, ctypes.c_int,         # rstart, cstart
+                 ctypes.c_int, ctypes.c_int,         # halo, two_d
+                 ctypes.c_int, ctypes.c_int,         # domain height, width
+                 ctypes.c_int, ctypes.c_int,         # shrink, copy_all
+                 ctypes.c_void_p,                    # probe (may be null)
+                 ctypes.c_int, ctypes.c_int,         # probe row, col (global)
+                 ctypes.c_longlong,                  # probe index
+                 ctypes.c_int,                       # device ordinal
+                 ctypes.c_void_p]                    # cudaStream_t
+                + (cuda_step.GEOMETRY_ARGTYPES if self.geom else [])
+            )
+            fn.restype = ctypes.c_int
+            cuda_step.check_layout(lib, f"{self.body.name}_block", self.body)
+            self._lib = lib
+        return self._lib
+
+    def launch(self, params: np.ndarray, slow: bool, v_in: torch.Tensor,
+               v_out: Optional[torch.Tensor], planes_in: State,
+               planes_out: State, rstart: int, cstart: int, halo: int,
+               two_d: bool, h_total: int, w_total: int, shrink: int,
+               copy_all: bool, probe: Optional[torch.Tensor], probe_pixel,
+               probe_index: int, stream: int, geometry: tuple = ()):
+        """One commit on CUDA tensors already validated by the caller,
+        after `shrink` substeps of the outer step: V from `v_in` to `v_out`
+        (None for a form that keeps it), the other planes from `planes_in`
+        to `planes_out` (the same dict updates in place; `copy_all` copies
+        the planes the form does not commit).  `geometry` is a GEOM entry's
+        trailing arguments, the maps of the extended layout."""
+        fn = getattr(self.library(), self.entry)
+        planes = self.body.planes
+        ext_h, ext_w = v_in.shape
+        err = fn(
+            int(slow), params.ctypes.data, params.size,
+            v_in.data_ptr(), None if v_out is None else v_out.data_ptr(),
+            cuda_step.plane_pointers(planes_in, planes),
+            cuda_step.plane_pointers(planes_out, planes),
+            len(planes), ext_h, ext_w, rstart, cstart, halo, int(two_d),
+            h_total, w_total, shrink, int(copy_all),
+            probe.data_ptr() if probe is not None else None,
+            probe_pixel[0], probe_pixel[1], probe_index,
+            v_in.device.index, stream, *geometry,
+        )
+        if err != 0:
+            raise RuntimeError(
+                f"{self.entry} launch failed with CUDA error {err} "
+                f"({ext_h}x{ext_w} block at ({rstart}, {cstart}) of "
+                f"{h_total}x{w_total}, after {shrink} substeps, "
+                f"slow={slow})")
+        self.launches["slow" if slow else "frozen"] += 1
+
+    def step(self, params: np.ndarray, schedule, ext_in: State,
+             ext_out: State, rstart: int, cstart: int, halo: int,
+             two_d: bool, h_total: int, w_total: int,
+             probe: Optional[torch.Tensor], probe_pixel, probe_index: int,
+             stream: torch.cuda.Stream, geometry: tuple = ()) -> State:
+        """One outer step, one launch per entry of `schedule`: the first
+        reads `ext_in` and writes every plane of `ext_out`, the others
+        update `ext_out` in place; V alternates between a scratch plane and
+        `ext_out`'s so that the last write lands in `ext_out`.  `ext_in` is
+        not written."""
+        pot = self.body.model.pot_key
+        writes = [self.body.writes_potential(s) for s in schedule]
+        with torch.cuda.stream(stream):
+            scratch = torch.empty_like(ext_out[pot])
+        # an even number of writes starts in the scratch plane
+        targets = ((scratch, ext_out[pot]) if sum(writes) % 2 == 0
+                   else (ext_out[pot], scratch))
+        v, planes, done = ext_in[pot], ext_in, 0
+        for i, (slow, w) in enumerate(zip(schedule, writes)):
+            v_out = targets[done % 2] if w else None
+            self.launch(params, slow, v, v_out, planes, ext_out, rstart,
+                        cstart, halo, two_d, h_total, w_total, done, i == 0,
+                        probe if i == len(schedule) - 1 else None,
+                        probe_pixel, probe_index, stream.cuda_stream,
+                        geometry)
+            planes = ext_out
+            if w:
+                v, done = v_out, done + 1
+        return ext_out
+
+
+def large_body(body: str) -> bool:
+    """Whether cell body `body` takes csrc/large_block.cu: a body of its
+    own library (cuda_step.LARGE_KERNELS), whose planes the tile
+    skeleton's shared memory does not hold."""
+    return BODIES[body].library is not cuda_step.BR_LIBRARY
+
+
+def _binding(body: str, geom: bool = False):
+    return (LargeBlockKernel if large_body(body) else BlockKernel)(body, geom)
+
+
 # the process-wide bindings, one per cell body and form: the built library
 # is process-wide too.  KERNEL is Beeler-Reuter's.
-KERNELS = {name: BlockKernel(name) for name in cuda_step.hosted(3)}
-GEOM_KERNELS = {name: BlockKernel(name, geom=True)
+KERNELS = {name: _binding(name) for name in cuda_step.hosted(3)}
+GEOM_KERNELS = {name: _binding(name, geom=True)
                 for name in cuda_step.hosted(3)}
 KERNEL = KERNELS["br"]
 
@@ -322,7 +473,9 @@ def make_block_step(model: IonicModel, two_d: bool,
     """Build `step(ext_in, ext_out, rstart, cstart, probe=None,
     probe_index=0, stream=None, phase_ext=None, dmap_ext=None) -> ext_out`:
     one outer step of one shard's extended block in one launch of the
-    block kernel.  `rstart` / `cstart` are the global indices of the
+    block kernel (for the large bodies, one launch of csrc/large_block.cu
+    per commit; `ext_in` is not written).  `rstart` / `cstart` are the
+    global indices of the
     block's element (0, 0), ghosts included (`cstart` is 0 on a 1D mesh).
     Pass `probe` only on the shard that owns the model's probe pixel.
     `stream` is the CUDA stream to launch on (default: the device's
@@ -337,7 +490,7 @@ def make_block_step(model: IonicModel, two_d: bool,
     body = cuda_step.body_on(model, 3).name
     schedule = cuda_step.slow_schedule(model)
     halo = model.dt_per_step
-    for geom in (False, True):
+    for geom in () if large_body(body) else (False, True):
         if min(cuda_tiled.tile_interior(len(schedule), body, geom)) < 1:
             raise ValueError(
                 f"tile {cuda_tiled.tile_of(body, geom)} has no interior "
@@ -373,11 +526,15 @@ def make_block_step(model: IonicModel, two_d: bool,
                                     fiber, dmap_ext)
         s = stream if stream is not None else torch.cuda.current_stream(dev)
         kernel = (GEOM_KERNELS if geom else KERNELS)[body]
+        args = (cuda_step.kernel_geometry_args(phase_ext, dmap_ext, fiber)
+                if geom else ())
+        if large_body(body):
+            return kernel.step(params, schedule, ext_in, ext_out, rstart,
+                               cstart, halo, two_d, h_total, w_total, probe,
+                               model.probe_pixel, probe_index, s, args)
         kernel.launch(params, ext_in, ext_out, rstart, cstart, halo, two_d,
                       h_total, w_total, schedule, probe, model.probe_pixel,
-                      probe_index, s.cuda_stream,
-                      cuda_step.kernel_geometry_args(phase_ext, dmap_ext,
-                                                     fiber) if geom else ())
+                      probe_index, s.cuda_stream, args)
         return ext_out
 
     return step

@@ -346,6 +346,11 @@ COURT_LIBRARY = Library("court", ("FIBTORCH_COURT_ENTRIES",),
 # Luo-Rudy's and tp06's entries of kernels 1 and 4, their sources' third
 # library, with the same rounding rule (csrc/lr1_cell.cuh, tp06_cell.cuh)
 LRTP_LIBRARY = Library("lrtp", ("FIBTORCH_LRTP_ENTRIES",), ("-fmad=false",))
+# the kernels that host the bodies of their own libraries (Courtemanche's,
+# Luo-Rudy's and tp06's): 1 and 4, and on the sharded paths 3
+# (csrc/large_block.cu, not the tile skeleton, whose shared memory does
+# not hold their planes) and 6
+LARGE_KERNELS = (1, 3, 4, 6)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -358,7 +363,8 @@ class CellBody:
     `pack` returns its parameter block of `param_floats` float32s, and
     `kernels` are the numbers of the kernels that host it (1 the substep
     kernel, 2 the tiled, 3 the block, 4 the volume substep, 6 the volume
-    block kernel; kernel 5 hosts BR's main body alone).  With
+    block kernel; kernel 5 hosts BR's main body alone; the bodies of their
+    own libraries take LARGE_KERNELS).  With
     `slow_keeps_potential`, a SLOW launch commits other planes only and
     writes no potential (csrc/cell_traits.cuh).  `library` says how its
     kernels' sources are built: BR_LIBRARY, COURT_LIBRARY for the
@@ -401,16 +407,16 @@ BODIES = {b.name: b for b in (
              _pack_ms),
     # table mode has no body: the engine routes it to the plain path
     CellBody("court", Courtemanche, lambda m: not m.kernel_free,
-             COURT_PLANES, COURT_PARAM_FLOATS, _pack_court, (1, 4), True,
-             COURT_LIBRARY),
+             COURT_PLANES, COURT_PARAM_FLOATS, _pack_court, LARGE_KERNELS,
+             True, COURT_LIBRARY),
     CellBody("court_ultra", CourtemancheUltra,
              lambda m: not m.kernel_free, COURT_ULTRA_PLANES,
-             COURT_PARAM_FLOATS, _pack_court, (1, 4), False,
+             COURT_PARAM_FLOATS, _pack_court, LARGE_KERNELS, False,
              COURT_LIBRARY),
     CellBody("lr1", LuoRudy91, lambda m: True, LR1_PLANES, 17, _pack_lr1,
-             (1, 4), False, LRTP_LIBRARY),
+             LARGE_KERNELS, False, LRTP_LIBRARY),
     CellBody("tp06", TenTusscher06, lambda m: True, TP06_PLANES, 24,
-             _pack_tp06, (1, 4), False, LRTP_LIBRARY),
+             _pack_tp06, LARGE_KERNELS, False, LRTP_LIBRARY),
 )}
 
 # what each kernel is, for the message of a body it does not host
@@ -435,8 +441,8 @@ def body_on(model: IonicModel, kernel: int) -> CellBody:
     if kernel not in body.kernels:
         raise NotImplementedError(
             f"the {body.name!r} body is not ported to the "
-            f"{KERNEL_NAMES[kernel]} kernel (kernel {kernel}) yet (ROADMAP "
-            f"Queue 2 item E)")
+            f"{KERNEL_NAMES[kernel]} kernel (kernel {kernel}): the "
+            f"reference never routes it there")
     return body
 
 

@@ -11,8 +11,11 @@ volume's depth decide where the z faces reflect, so only a shard that owns
 a z face reflects there; in the plane each shard owns the whole sheet.  The
 kernel is csrc/br_volume_block.cu (CUDA C++, built with nvcc and bound with
 ctypes; a template over the cell body, one entry per body of
-ops/cuda_step.BODIES): one launch per substep of the group, as the volume
-substep kernel, each on the slices that are still exact.
+ops/cuda_step.BODIES, the Courtemanche bodies and Luo-Rudy's and tp06's in
+libraries of their own, `CellBody.library`): one launch per substep of the
+group, as the volume substep kernel, each on the slices that are still
+exact; Courtemanche's substep 0 is two launches on the same slices (the
+fast commit, then the slow commit, which keeps the potential).
 
 `zblock_geometry` is the plain geometry of an extended block (the
 reference's `zblock_geometry`, pallas_volume.py:310-394, without phase
@@ -52,8 +55,12 @@ HEADERS = (build.CSRC_DIR / "br_cell.cuh",
            build.CSRC_DIR / "br_variant_cell.cuh",
            build.CSRC_DIR / "br_volume_cell.cuh",
            build.CSRC_DIR / "cell_traits.cuh",
+           build.CSRC_DIR / "court_cell.cuh",
            build.CSRC_DIR / "fenton_cell.cuh",
-           build.CSRC_DIR / "ms_cell.cuh")
+           build.CSRC_DIR / "lr1_cell.cuh",
+           build.CSRC_DIR / "ms_cell.cuh",
+           build.CSRC_DIR / "torch_rounding.cuh",
+           build.CSRC_DIR / "tp06_cell.cuh")
 
 
 # -- the plain geometry of a z-extended block -----------------------------------------
@@ -114,14 +121,18 @@ def zblock_geometry(zg: torch.Tensor, d_total: int,
 
 class VolumeBlockKernel:
     """ctypes binding of one cell body's entry `<body>_volume_block` of
-    csrc/br_volume_block.cu.  The library is built and loaded on the first
-    launch; `launches` counts successful launches per template flag
-    ("slow" = SLOW=true, "frozen" = SLOW=false; Fenton and
-    Mitchell-Schaeffer launch SLOW=true alone)."""
+    csrc/br_volume_block.cu.  The library (`library_name`:
+    br_volume_block, court_volume_block for the Courtemanche bodies or
+    lrtp_volume_block for Luo-Rudy's and tp06's) is built and loaded on the
+    first launch; `launches` counts successful launches per template flag
+    ("slow" = SLOW=true, "frozen" = SLOW=false; Fenton,
+    Mitchell-Schaeffer and Courtemanche-ultra launch SLOW=true alone,
+    Courtemanche's slow commit is SLOW=true)."""
 
     def __init__(self, body: str):
         self.body = BODIES[body]
         self.entry = f"{body}_volume_block"
+        self.library_name = self.body.library.name("volume_block")
         self._lib = None
         self.reset_launches()
 
@@ -130,11 +141,15 @@ class VolumeBlockKernel:
 
     def build(self):
         """Build the library (if needed) and return its path."""
-        return build.build("br_volume_block", [SOURCE], HEADERS)
+        lib = self.body.library
+        return build.build(self.library_name, [SOURCE], HEADERS,
+                           lib.defines, lib.flags)
 
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = build.load("br_volume_block", [SOURCE], HEADERS)
+            lib = build.load(self.library_name, [SOURCE], HEADERS,
+                             self.body.library.defines,
+                             self.body.library.flags)
             fn = getattr(lib, self.entry)
             fn.argtypes = (
                 [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,  # slow, params
@@ -154,20 +169,22 @@ class VolumeBlockKernel:
             self._lib = lib
         return self._lib
 
-    def launch(self, params: np.ndarray, state: State, v_out: torch.Tensor,
-               slow: bool, dz_ratio: float, zstart: int, d_total: int,
-               z_lo: int, z_hi: int, probe: Optional[torch.Tensor], pixel,
-               probe_index: int, stream: int):
+    def launch(self, params: np.ndarray, state: State,
+               v_out: Optional[torch.Tensor], slow: bool, dz_ratio: float,
+               zstart: int, d_total: int, z_lo: int, z_hi: int,
+               probe: Optional[torch.Tensor], pixel, probe_index: int,
+               stream: int):
         """One substep on the slices [z_lo, z_hi) of CUDA tensors already
         validated by the caller: the potential goes from the state's to
-        `v_out`, the other planes are updated in place."""
+        `v_out` (None for a form that keeps it), the other planes are
+        updated in place."""
         fn = getattr(self.library(), self.entry)
         v_in = state[self.body.model.pot_key]
         ext_d, h, w = v_in.shape
         planes = self.body.planes
         err = fn(
             int(slow), params.ctypes.data, params.size, dz_ratio,
-            v_in.data_ptr(), v_out.data_ptr(),
+            v_in.data_ptr(), None if v_out is None else v_out.data_ptr(),
             cuda_step.plane_pointers(state, planes), len(planes),
             ext_d, h, w, zstart, d_total, z_lo, z_hi,
             probe.data_ptr() if probe is not None else None,
@@ -191,9 +208,11 @@ KERNEL = KERNELS["br"]
 
 
 def group_schedule(model: IonicModel, substeps: Optional[int]):
-    """`slow` flag of each substep of one group: the whole outer step's
-    schedule (`substeps=None`), or `substeps` uniform substeps, which only a
-    model with uniform substeps has (no-skip BR: all SLOW)."""
+    """`slow` flag of each launch of one group: the whole outer step's
+    schedule (`substeps=None`; Courtemanche's eleven launches for ten
+    substeps), or `substeps` uniform substeps, which only a model with
+    uniform substeps has (no-skip BR, LR1 and tp06, Courtemanche-ultra: all
+    SLOW)."""
     schedule = cuda_step.slow_schedule(model)
     if substeps is None:
         return schedule
@@ -243,15 +262,18 @@ def make_volume_block_step(model: IonicModel, ext_d: int, d_total: int,
     """Build `step(state, spare, zstart, probe=None, probe_index=0,
     probe_slice=0, stream=None) -> (state, spare)`: one group of substeps
     on one shard's `[ext_d, H, W]` extended block whose slice 0 is global
-    slice `zstart` (ghosts included), one launch per substep.  `spare` is
-    the block's second V buffer; the pair comes back swapped when the group
-    has an odd number of substeps.  Pass `probe` only on the shard that
+    slice `zstart` (ghosts included), one launch per substep (and
+    Courtemanche's slow commit).  `spare` is the block's second V buffer;
+    the pair comes back swapped when the group has an odd number of
+    substeps.  Pass `probe` only on the shard that
     owns the probe pixel, with its LOCAL slice; the group's last launch
     writes it.  `stream` is the CUDA stream to launch on (default: the
     device's current one).  CPU blocks take `plain_volume_block_step`."""
-    kernel = KERNELS[cuda_step.body_on(model, 6).name]
+    body = cuda_step.body_on(model, 6)
+    kernel = KERNELS[body.name]
     schedule = group_schedule(model, substeps)
-    n = len(schedule)
+    # the substeps: a launch that keeps the potential shrinks nothing
+    n = sum(map(body.writes_potential, schedule))
     if ext_d <= 2 * n:
         raise ValueError(f"a {ext_d}-slice block has no centre left after "
                          f"{n} substeps")
@@ -287,13 +309,18 @@ def make_volume_block_step(model: IonicModel, ext_d: int, d_total: int,
                 f"spare must be another contiguous float32 {shape} tensor "
                 f"on {dev}")
         s = stream if stream is not None else torch.cuda.current_stream(dev)
+        done = 0    # substeps of the group launched so far
         for i, slow in enumerate(schedule):
-            # substep i is exact on [i + 1, ext_d - 1 - i)
-            kernel.launch(params, state, spare, slow, dz_ratio, zstart,
-                          d_total, i + 1, ext_d - 1 - i,
-                          probe if i == n - 1 else None,
+            writes = body.writes_potential(slow)
+            # substep `done` is exact on [done + 1, ext_d - 1 - done)
+            kernel.launch(params, state, spare if writes else None, slow,
+                          dz_ratio, zstart, d_total, done + 1,
+                          ext_d - 1 - done,
+                          probe if i == len(schedule) - 1 else None,
                           (probe_slice,) + pixel, probe_index, s.cuda_stream)
-            state[pot], spare = spare, state[pot]
+            if writes:
+                state[pot], spare = spare, state[pot]
+                done += 1
         return state, spare
 
     return step

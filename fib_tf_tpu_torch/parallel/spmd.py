@@ -1,20 +1,23 @@
 """The sharded chunk: `length` outer steps of a grid sharded over a mesh,
 with explicit halo exchange between neighbouring shards (counterpart of
-fib_tf_tpu/parallel/spmd.py::make_spmd_chunk, without the sharded
-observables).
+fib_tf_tpu/parallel/spmd.py::make_spmd_chunk, with its "v", "trend" and
+"ultra" streams; its electrode, ECG and rotor observables are not ported).
 
 Layout: every `[H, W]` state plane is sharded by rows over a 1D mesh, or by
 rows and columns over a 2D mesh.  Two comm schedules:
 
-  * per substep (`wide_halo=False`): one ghost ring per substep
-    (parallel/halo.py), plain PyTorch only;
+  * per substep (`wide_halo=False`): one ghost ring per kernel launch of
+    the outer step (`model.launch_schedule`, each launch's plain work
+    `model.commit`; Courtemanche's substep 0 is two), parallel/halo.py,
+    plain PyTorch only;
   * wide halo (`wide_halo=True`): each shard's block is extended by
     K = dt_per_step ghost rows (and columns), exchanged once per OUTER step;
     the whole fused substep group then runs on the extension, whose ghosts
     turn to garbage one ring per substep, and the still-valid centre is
     kept.  Per shard the group is the block kernel (`use_kernel=True`,
-    ops/cuda_block.py; csrc/br_block.cu on CUDA tensors) or the plain step
-    under `block_geometry`.
+    ops/cuda_block.py; csrc/br_block.cu, or csrc/large_block.cu for the
+    four large models, on CUDA tensors) or the plain step under
+    `block_geometry`.
 
 Geometry: a phase field and a diffusion map are static, so each shard's
 block of them is extended once (`shard_maps`: by K rings for the wide halo,
@@ -29,9 +32,20 @@ stream, also when shards share a card, and `torch.cuda.Event`s order a
 shard's step against its neighbours' halo copies (see `_WideHalo`); on the
 CPU the same calls run in turn.
 
-The "v" probe is written by the shard that owns the probe pixel (the
-reference's masked psum): the kernel gets the probe buffer on that shard
-only.
+Probes (the reference's masked psums, spmd.py:452-479), all in buffers on
+the device of the shard that owns the "v" probe pixel, read back with one
+copy per chunk:
+  * "v": written by the shard that owns the probe pixel: the kernel gets
+    the probe buffer on that shard only;
+  * "trend" (`trend_points`, ((state key, row, column), ...); the engine
+    passes the model's): `[length, n_points]`, each point copied after the
+    step by the shard that owns its pixel;
+  * "ultra" (a model with `ultra_fields`, Courtemanche-ultra):
+    `[length, 5]` phase-weighted means; each shard sums x * w over its own
+    cells (w its block of the phase field, or ones) after the step, and
+    the partial sums are added and divided by the weight total, reduced
+    once per chunk, when the chunk ends.  The order of the sum differs
+    from the unsharded one, so the means may differ in the last bits.
 """
 
 from __future__ import annotations
@@ -141,7 +155,13 @@ def probe_owner(model: IonicModel, mesh: Mesh, h_local: int,
                 w_local: int) -> Tuple[int, int, int]:
     """(shard index, local row, local column) of the model's probe
     pixel."""
-    row, col = model.probe_pixel
+    return pixel_owner(model.probe_pixel, mesh, h_local, w_local)
+
+
+def pixel_owner(pixel, mesh: Mesh, h_local: int,
+                w_local: int) -> Tuple[int, int, int]:
+    """(shard index, local row, local column) of the global `pixel`."""
+    row, col = pixel
     n_rows, n_cols = mesh.grid
     if not (0 <= row < h_local * n_rows and 0 <= col < w_local * n_cols):
         raise ValueError(f"probe pixel {(row, col)} outside the "
@@ -287,11 +307,14 @@ class ShardMaps:
     """The static maps of a sharded run, extended once per shard:
     `phase` / `dmap` are None or object arrays of the mesh's shape of
     per-shard tensors, `[h + 2K, w (+ 2K)]` (`wide_halo`, the blocks'
-    layout) or `[h + 2, w + 2]` (the per-substep exchange)."""
+    layout) or `[h + 2, w + 2]` (the per-substep exchange); `own_phase`
+    the shards' own `[h, w]` blocks of the phase field (the "ultra"
+    probe's weights), or None."""
 
     phase: Optional[np.ndarray]
     dmap: Optional[np.ndarray]
     wide_halo: bool
+    own_phase: Optional[np.ndarray] = None
 
 
 def _wide_map(a: np.ndarray, mesh: Mesh, k: int) -> np.ndarray:
@@ -336,7 +359,9 @@ def shard_maps(model: IonicModel, mesh: Mesh,
         return (halo.extend_phase_2d(blocks) if n_cols > 1
                 else halo.extend_phase(blocks))
 
-    return ShardMaps(extend(phase), extend(dmap), wide_halo)
+    own = None if phase is None else shard_array(
+        np.asarray(phase, np.float32), mesh)
+    return ShardMaps(extend(phase), extend(dmap), wide_halo, own)
 
 
 def make_spmd_chunk(
@@ -357,7 +382,10 @@ def make_spmd_chunk(
     """Build `chunk(state) -> (state, probes)` running `length` outer steps
     of a sharded state (`parallel.shard_state`) over `mesh`; `probes["v"]`
     is a `[length]` tensor on the device of the shard that owns the probe
-    pixel.  The input's shards are not modified.
+    pixel, and beside it `probes["trend"]` (with `trend_points`,
+    ((state key, row, column), ...)) a `[length, n_points]` one and
+    `probes["ultra"]` (a model with `ultra_fields`) a `[length, 5]` one.
+    The input's shards are not modified.
 
     `wide_halo=True` switches the comm schedule from one 1-row exchange per
     SUBSTEP to one K-row exchange per OUTER step (K = dt_per_step);
@@ -371,8 +399,8 @@ def make_spmd_chunk(
     (`shard_maps`) their extensions built beforehand; `fiber` = (dxx, dxy,
     dyy) selects the anisotropic operator and requires `wide_halo`.
 
-    `egm_masks`, `trend_points`, `ecg_weights` and `rotor` are the
-    reference's and raise NotImplementedError: not ported yet."""
+    `egm_masks`, `ecg_weights` and `rotor` are the reference's and raise
+    NotImplementedError: not ported yet."""
     if use_kernel and not wide_halo:
         raise ValueError(
             "use_kernel requires wide_halo=True (the per-substep "
@@ -385,7 +413,6 @@ def make_spmd_chunk(
             "the isotropic stencil only)"
         )
     for name, value in (("egm_masks", egm_masks),
-                        ("trend_points", trend_points),
                         ("ecg_weights", ecg_weights), ("rotor", rotor)):
         if value is not None:
             raise NotImplementedError(
@@ -405,19 +432,58 @@ def make_spmd_chunk(
     block_step = (cuda_block.make_block_step(model, is_2d, fiber)
                   if use_kernel else None)
 
+    has_ultra = hasattr(model, "ultra_fields")
+    trend_points = tuple(trend_points or ())
+
     def shard_map(m, i):
         return None if m is None else m.flat[i]
 
-    def probe_buffer(shards):
+    def probe_buffers(shards):
+        """(owner, owner's local pixel, {stream: buffer}, trend pixels, the
+        ultra weights and their total) of one chunk."""
         h, w = shards[0][keys[0]].shape
         owner, lr, lc = probe_owner(model, mesh, h, w)
-        buf = torch.empty(length, dtype=torch.float32,
-                          device=streams.devices[owner])
-        return owner, (lr, lc), buf
+        dev = streams.devices[owner]
+        bufs = {"v": torch.empty(length, dtype=torch.float32, device=dev)}
+        # (point, state key, shard, local row, local column)
+        trend_at = [(j, key, *pixel_owner((r, c), mesh, h, w))
+                    for j, (key, r, c) in enumerate(trend_points)]
+        if trend_points:
+            bufs["trend"] = torch.empty((length, len(trend_points)),
+                                        dtype=torch.float32, device=dev)
+        weights, wsum = None, None
+        if has_ultra:
+            bufs["ultra"] = torch.empty((length, mesh.size, 5),
+                                        dtype=torch.float32, device=dev)
+            weights = [shard_map(maps.own_phase, i) for i in range(mesh.size)]
+            weights = [torch.ones((h, w), dtype=torch.float32, device=d)
+                       if wt is None else wt
+                       for wt, d in zip(weights, streams.devices)]
+            wsum = torch.stack([torch.sum(wt).to(dev) for wt in weights]
+                               ).sum()
+        return owner, (lr, lc), bufs, trend_at, weights, wsum
+
+    def take_probes(bufs, trend_at, weights, i, t, own):
+        """Shard i's part of step t's trend and ultra streams, from `own`,
+        its own cells."""
+        for j, key, shard, lr, lc in trend_at:
+            if shard == i:
+                bufs["trend"][t, j].copy_(own[key][lr, lc])
+        if weights is not None:
+            bufs["ultra"][t, i].copy_(torch.stack([
+                torch.sum(x * weights[i])
+                for x in model.ultra_fields(own)]))
+
+    def finish(bufs, wsum):
+        """The chunk's probe streams: the ultra partial sums added."""
+        if wsum is not None:
+            bufs["ultra"] = bufs["ultra"].sum(dim=1) / wsum
+        return bufs
 
     def wide_chunk(state):
         shards = shards_of(state, mesh, keys)
-        owner, _, probe = probe_buffer(shards)
+        owner, _, bufs, trend_at, weights, wsum = probe_buffers(shards)
+        probe = bufs["v"]
         blocks = _WideHalo(model, mesh, streams, shards, is_2d)
         for t in range(length):
             for i in range(mesh.size):
@@ -436,27 +502,32 @@ def make_spmd_chunk(
                             cstart, is_2d, own, t, phase_ext, fiber,
                             dmap_ext)
                     blocks.mark_stepped(i)
+                    if trend_at or weights is not None:
+                        take_probes(bufs, trend_at, weights, i, t, {
+                            key: cuda_block.centre(x, blocks.k, is_2d)
+                            for key, x in blocks.nxt[i].items()})
             blocks.exchange(blocks.nxt_stacks)
             blocks.swap()
         streams.end()
-        return reshard(blocks.centres(), mesh), {"v": probe}
+        return reshard(blocks.centres(), mesh), finish(bufs, wsum)
 
     def ring_chunk(state):
         shards = [dict(s) for s in shards_of(state, mesh, keys)]
-        owner, pixel, probe = probe_buffer(shards)
+        owner, pixel, bufs, trend_at, weights, wsum = probe_buffers(shards)
         pot = model.pot_key
         for t in range(length):
-            for sub in range(model.dt_per_step):
+            for slow in model.launch_schedule:
                 ring = halo.HaloExchange(
                     object_array([s[pot] for s in shards],
                                  (n_rows, n_cols)), is_2d, maps.phase,
                     maps.dmap)
                 for i in range(mesh.size):
-                    fns, _ = model.substep_fns(
-                        ring.geometry(*divmod(i, n_cols)))
-                    shards[i] = fns[sub](shards[i])
+                    shards[i] = model.commit(
+                        shards[i], ring.geometry(*divmod(i, n_cols)), slow)
             v = shards[owner][pot][pixel]
-            probe[t] = (v - model.min_v) / (model.max_v - model.min_v)
-        return reshard(shards, mesh), {"v": probe}
+            bufs["v"][t] = (v - model.min_v) / (model.max_v - model.min_v)
+            for i in range(mesh.size):
+                take_probes(bufs, trend_at, weights, i, t, shards[i])
+        return reshard(shards, mesh), finish(bufs, wsum)
 
     return wide_chunk if wide_halo else ring_chunk

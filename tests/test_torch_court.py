@@ -363,7 +363,7 @@ def test_pack_court_folds_every_scale_factor():
 def test_cell_body_and_schedule():
     _, tm = models()
     body = cuda_step.cell_body(tm)
-    assert body.name == "court" and body.kernels == (1, 4)
+    assert body.name == "court" and body.kernels == (1, 3, 4, 6)
     assert body.planes == cuda_step.COURT_PLANES
     assert set(body.planes) - {"_p_chronic"} == set(tm.state_keys()) - {"V"}
     assert not body.writes_potential(True) and body.writes_potential(False)
@@ -392,10 +392,10 @@ def test_cell_body_and_schedule():
     _, tab = models(table=True)
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
         cuda_step.cell_body(tab)
-    for make in (lambda: cuda_tiled.make_tiled_cuda_step(tm),
-                 lambda: cuda_block.make_block_step(tm, False)):
-        with pytest.raises(NotImplementedError, match="Queue 2 item E"):
-            make()
+    with pytest.raises(NotImplementedError, match="never routes"):
+        cuda_tiled.make_tiled_cuda_step(tm)
+    cuda_block.make_block_step(tm, False)
+    assert cuda_block.KERNELS["court"].library_name == "court_block"
     assert "court" not in cuda_tiled.KERNELS
     assert cuda_volume.KERNELS["court"].library_name == "court_volume"
     assert cuda_step.KERNELS["court"].library_name == "court_substep"
@@ -453,7 +453,8 @@ def test_het_planes_are_checked():
 def test_routes():
     """Kernel 1 at every size on a CUDA device (the reference runs XLA
     past its 32 MB VMEM cap); table mode on the plain path, and raising
-    under kernel='pallas'; a mesh raises."""
+    under kernel='pallas'; on a mesh the block kernel, and table mode the
+    plain step."""
     big = tc.Courtemanche(cfg(width=2048, height=2048))
     assert simulation.state_mb(big) == 21 * 16.0
     assert simulation.route(big, "cuda", "auto") == "substep"
@@ -463,9 +464,13 @@ def test_routes():
     assert simulation.route(tab, "cuda", "auto") == "plain"
     with pytest.raises(ValueError, match="table-mode gathers"):
         simulation.route(tab, "cuda", "pallas")
-    with pytest.raises(NotImplementedError, match="Queue 2 item E"):
-        Simulation(tc.Courtemanche(cfg(width=32, height=32)),
-                   mesh=make_mesh(devices=["cpu"] * 4), wide_halo=True)
+    sim = Simulation(tc.Courtemanche(cfg(width=32, height=40)),
+                     mesh=make_mesh(devices=["cpu"] * 4), wide_halo=True)
+    assert sim.route == "plain" and sim._mesh.grid == (4, 1)
+    assert simulation.spmd_route(big, "cuda", "auto", True) == "block"
+    assert simulation.spmd_route(tab, "cuda", "auto", True) == "plain"
+    with pytest.raises(ValueError, match="table-mode gathers"):
+        simulation.spmd_route(tab, "cuda", "pallas", True)
     for kw in (dict(ab2=True), dict(adaptive_dv=10.0)):
         with pytest.raises(NotImplementedError):
             tc.Courtemanche(cfg(**kw))

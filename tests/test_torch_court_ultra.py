@@ -180,9 +180,13 @@ def test_run_volume_matches_jax():
     assert volume.volume_route(tab, 4, "cuda", "auto") == "plain"
     with pytest.raises(ValueError, match="table-mode gathers"):
         volume.volume_route(tab, 4, "cuda", "pallas")
-    with pytest.raises(NotImplementedError, match="Queue 2 item E"):
-        run_volume(tm, 8, 1, mesh=make_mesh(devices=["cpu"] * 2),
-                   wide_halo=True)
+    assert volume._use_shard_kernel(tm, "cuda", "auto")
+    assert not volume._use_shard_kernel(tab, "cuda", "auto")
+    with pytest.raises(ValueError, match="table-mode gathers"):
+        volume._use_shard_kernel(tab, "cuda", "pallas")
+    final, probes, _ = run_volume(tm, 20, 1, mesh=make_mesh(
+        devices=["cpu"] * 2), wide_halo=True)
+    assert final["V"].shape == (20,) + tm.state_shape()
 
 
 @pytest.mark.parametrize("cls", ["Courtemanche", "CourtemancheUltra"])

@@ -986,3 +986,189 @@ def test_lrtp_auto_launches_kernels_1_and_4(device):
         run_volume(cls(cfg), 4, 3, device=device)
         assert cuda_volume.KERNELS[name].launches == {"slow": 3,
                                                       "frozen": 27}
+
+
+# -- the large bodies on the sharded paths: kernels 3 and 6 --------------------------
+
+# (model class, flags, a g_kr plane): every large body, both of LR1's and
+# tp06's forms (skip), tp06 with all four het planes and Courtemanche with
+# its chronic plane
+LARGE_CASES = {
+    "court": (Courtemanche, dict(dt=0.1), False),
+    "court_ultra": (CourtemancheUltra, dict(dt=0.1), False),
+    "lr1-skip": (LuoRudy91, dict(skip=True), False),
+    "tp06-transmural-g_kr-skip": (TenTusscher06, dict(
+        cell_type="transmural", skip=True), True),
+}
+LARGE_H, LARGE_W = 40, 48
+
+
+def _large_model(case, **kw):
+    cls, flags, kr = LARGE_CASES[case]
+    model = cls(LRTP_CFG.replace(height=LARGE_H, width=LARGE_W,
+                                 **dict(flags, **kw)))
+    h, w = model.state_shape()
+    if cls is Courtemanche:
+        plane = np.zeros((h, w), np.float32)
+        plane[:, :w // 2] = 1.0
+        model.set_het(chronic=plane)
+    if kr:
+        model.set_het(g_kr=np.random.RandomState(3).uniform(
+            0.2, 1.0, (h, w)).astype(np.float32))
+    return model
+
+
+@pytest.mark.parametrize("geometry", [False, True], ids=["iso", "geom"])
+@pytest.mark.parametrize("origin", [(0, None), (10, None), (30, None),
+                                    (0, 0), (20, 24)],
+                         ids=lambda o: f"r{o[0]}c{o[1]}")
+@pytest.mark.parametrize("case", sorted(LARGE_CASES))
+def test_large_block_kernel_matches_plain_version(device, case, origin,
+                                                  geometry):
+    """csrc/large_block.cu: one outer step of one shard's extended block
+    of a 40x48 domain (4x1: the top, an interior and the bottom shard of
+    10 rows; 2x2: two 20x24 shards), isotropic and under an annulus with
+    fibers, equal to plain_block_step bit for bit; one launch per commit;
+    the input block is left as it was."""
+    from fib_tf_tpu_torch.ops import stencil
+    model = _large_model(case)
+    k = model.dt_per_step
+    two_d = origin[1] is not None
+    h_own, w_own = (20, 24) if two_d else (10, LARGE_W)
+    rstart = origin[0] - k
+    cstart = origin[1] - k if two_d else 0
+    ext_h, ext_w = cuda_block.block_shape(h_own, w_own, k, two_d)
+    full = _lrtp_state(model, device)
+    rows = torch.arange(rstart, rstart + ext_h, device=device) % LARGE_H
+    cols = torch.arange(cstart, cstart + ext_w, device=device) % LARGE_W
+    ext = {key: v[rows][:, cols].contiguous() for key, v in full.items()}
+    fiber, maps = None, {}
+    if geometry:
+        phase = stencil.add_hole_to_phase_field(None, LARGE_H, LARGE_W, 24,
+                                                20, 4)
+        phase = stencil.add_hole_to_phase_field(phase, LARGE_H, LARGE_W, 24,
+                                                20, 18, neg=True)
+        fiber = stencil.fiber_tensor(np.deg2rad(30.0), 0.25)
+        p = torch.tensor(phase, device=device)
+        maps = dict(phase_ext=p[rows][:, cols].contiguous())
+    r, c = model.probe_pixel
+    owns = (rstart + k <= r < rstart + ext_h - k
+            and (not two_d or cstart + k <= c < cstart + ext_w - k))
+    before = {key: v.clone() for key, v in ext.items()}
+    outs, probes = [], []
+    name = cuda_step.cell_body(model).name
+    kernel = (cuda_block.GEOM_KERNELS if geometry else cuda_block.KERNELS)[
+        name]
+    kernel.reset_launches()
+    for step in (cuda_block.make_block_step(model, two_d, fiber),
+                 lambda *a, **kw: cuda_block.plain_block_step(
+                     model, a[0], a[1], a[2], a[3], two_d, kw["probe"], 0,
+                     kw.get("phase_ext"), fiber)):
+        out = {key: torch.zeros_like(v) for key, v in ext.items()}
+        probe = torch.zeros(1, device=device)
+        step(ext, out, rstart, cstart, probe=probe if owns else None,
+             **maps)
+        outs.append(out)
+        probes.append(probe)
+    torch.cuda.synchronize()
+    schedule = cuda_step.slow_schedule(model)
+    assert kernel.launches == {"slow": sum(schedule),
+                               "frozen": len(schedule) - sum(schedule)}
+    for key in ext:
+        got = cuda_block.centre(outs[0][key], k, two_d)
+        want = cuda_block.centre(outs[1][key], k, two_d)
+        assert bool(got.isfinite().all()), key
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(ext[key], before[key], rtol=0, atol=0)
+    torch.testing.assert_close(probes[0], probes[1], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("zstart", [-10, 10, 20])
+@pytest.mark.parametrize("case", sorted(LARGE_CASES))
+def test_large_volume_block_kernel_matches_plain_version(device, case,
+                                                         zstart):
+    """csrc/br_volume_block.cu's large bodies: one group on a shard's
+    30-slice block (10 slices and 10 ghost slices each way) of a 40x40x48
+    volume, the top, the interior one that owns the probe and the bottom
+    shard, equal to
+    plain_volume_block_step bit for bit on the centre; Courtemanche's
+    group is eleven launches."""
+    model = _large_model(case, dt=0.05 if case.startswith("court")
+                         else 0.02)
+    k, depth = model.dt_per_step, 40
+    base = _lrtp_state(model, device, depth=depth)
+    idx = torch.arange(zstart, zstart + 30, device=device).clamp(0, depth - 1)
+    block = {key: v[idx].contiguous() for key, v in base.items()}
+    name = cuda_step.cell_body(model).name
+    kernel = cuda_volume_block.KERNELS[name]
+    kernel.reset_launches()
+    got = {key: v.clone() for key, v in block.items()}
+    spare = torch.empty_like(got[model.pot_key])
+    probe = torch.zeros(1, device=device)
+    owns = zstart + k <= depth // 2 < zstart + 30 - k
+    got, _ = cuda_volume_block.make_volume_block_step(model, 30, depth)(
+        got, spare, zstart, probe if owns else None, 0,
+        depth // 2 - zstart)
+    want = cuda_volume_block.plain_volume_block_step(
+        model, {key: v.clone() for key, v in block.items()}, zstart, depth,
+        probe=torch.zeros(1, device=device) if owns else None,
+        probe_slice=depth // 2 - zstart)
+    torch.cuda.synchronize()
+    schedule = cuda_step.slow_schedule(model)
+    assert kernel.launches == {"slow": sum(schedule),
+                               "frozen": len(schedule) - sum(schedule)}
+    for key in want:
+        torch.testing.assert_close(got[key][k:-k], want[key][k:-k], rtol=0,
+                                   atol=0)
+
+
+def test_large_models_auto_launch_kernels_3_and_6(device):
+    """kernel='auto' on four shards of one card: Simulation launches the
+    large block kernel (one launch per commit per shard, no other kernel)
+    and equals the unsharded kernel-1 run bit for bit, probes included;
+    run_volume on four z shards launches kernel 6 and equals kernel 4,
+    Courtemanche-ultra's also in groups of five substeps (halo_k=5)."""
+    for case in sorted(LARGE_CASES):
+        model = _large_model(case, duration=1.0)
+        name = cuda_step.cell_body(model).name
+        sim = Simulation(model, mesh=make_mesh(devices=[device] * 4),
+                         wide_halo=True).define()
+        assert sim.route == "block"
+        cuda_block.KERNELS[name].reset_launches()
+        cuda_step.KERNELS[name].reset_launches()
+        res = sim.simulate()
+        schedule = cuda_step.slow_schedule(model)
+        assert cuda_block.KERNELS[name].launches == {
+            "slow": 4 * res.steps * sum(schedule),
+            "frozen": 4 * res.steps * (len(schedule) - sum(schedule))}
+        assert cuda_step.KERNELS[name].launches == {"slow": 0, "frozen": 0}
+        want = Simulation(_large_model(case, duration=1.0),
+                          device=device).simulate()
+        for key in want.state:
+            np.testing.assert_array_equal(res.state[key], want.state[key])
+        for key in want.probes:
+            if key == "ultra":
+                np.testing.assert_allclose(res.probes[key], want.probes[key],
+                                           rtol=1e-5)
+            else:
+                np.testing.assert_array_equal(res.probes[key],
+                                              want.probes[key])
+        vmodel = _large_model(case, dt=0.05 if case.startswith("court")
+                              else 0.02)
+        cuda_volume_block.KERNELS[name].reset_launches()
+        sharded = run_volume(vmodel, 40, 2, mesh=make_mesh(
+            devices=[device] * 4), wide_halo=True)
+        assert cuda_volume_block.KERNELS[name].launches == {
+            "slow": 8 * sum(schedule),
+            "frozen": 8 * (len(schedule) - sum(schedule))}
+        whole = run_volume(vmodel, 40, 2, device=device)
+        for key in whole[0]:
+            np.testing.assert_array_equal(sharded[0][key], whole[0][key])
+        np.testing.assert_array_equal(sharded[1], whole[1])
+        if case == "court_ultra":
+            # uniform substeps: groups of five, the pair of V buffers
+            # swapped after each
+            split = run_volume(vmodel, 40, 2, mesh=make_mesh(
+                devices=[device] * 4), wide_halo=True, halo_k=5)
+            for key in whole[0]:
+                np.testing.assert_array_equal(split[0][key], whole[0][key])

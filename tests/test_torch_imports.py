@@ -131,12 +131,21 @@ def test_defines_reach_nvcc_and_the_library_path(monkeypatch, tmp_path):
 
 
 def test_geom_libraries_are_the_sources_with_a_define():
+    """The tile skeleton's GEOM entries are a second library of their
+    source; kernel 3's large bodies keep both forms in the library of their
+    body (csrc/large_block.cu)."""
     from fib_tf_tpu_torch.ops import cuda_block, cuda_step, cuda_tiled
     for mod, name in ((cuda_tiled, "br_tiled"), (cuda_block, "br_block")):
         for body, kernel in mod.GEOM_KERNELS.items():
+            assert kernel.entry == f"{body}_{name[3:]}_geom"
+            if mod is cuda_block and cuda_block.large_body(body):
+                lib = cuda_step.BODIES[body].library
+                assert kernel.library_name == lib.name("block")
+                assert kernel.defines == mod.KERNELS[body].defines
+                assert kernel.library_name == mod.KERNELS[body].library_name
+                continue
             assert kernel.library_name == f"{name}_geom"
             assert kernel.defines == ("FIBTORCH_GEOM_ENTRIES",)
-            assert kernel.entry == f"{body}_{name[3:]}_geom"
             assert mod.KERNELS[body].defines == ()
         assert "FIBTORCH_GEOM_ENTRIES" in mod.SOURCE.read_text()
     assert all(k.entry.endswith("_substep_geom")
@@ -156,22 +165,26 @@ def test_bindings_hash_every_header_their_sources_include():
     """A source names every header it depends on, also those that reach it
     through another header, and its binding hashes them all."""
     import importlib
-    for name in BINDINGS:
-        mod = importlib.import_module(f"fib_tf_tpu_torch.ops.{name}")
-        included = _quoted_includes(mod.SOURCE)
-        assert included == {h.name for h in mod.HEADERS}, mod.__name__
-        for hdr in mod.HEADERS:
-            assert hdr.parent == mod.SOURCE.parent and hdr.is_file()
+    from fib_tf_tpu_torch.ops import cuda_block
+    sources = [(mod.SOURCE, mod.HEADERS) for mod in (
+        importlib.import_module(f"fib_tf_tpu_torch.ops.{name}")
+        for name in BINDINGS)]
+    sources.append((cuda_block.LARGE_SOURCE, cuda_block.LARGE_HEADERS))
+    for source, headers in sources:
+        included = _quoted_includes(source)
+        assert included == {h.name for h in headers}, source.name
+        for hdr in headers:
+            assert hdr.parent == source.parent and hdr.is_file()
             assert _quoted_includes(hdr) <= included, hdr.name
 
 
 def test_block_kernels_share_the_earlier_kernels_headers():
-    """Kernel 3 hosts the same cell bodies as kernel 2, and kernel 6 the
-    same as kernel 4 but Courtemanche's two, Luo-Rudy's and tp06's, which
-    kernels 1 and 4 host alone (kernels 3 and 6 are ROADMAP Queue 2 item
-    E's next slice)."""
-    from fib_tf_tpu_torch.ops import (cuda_block, cuda_tiled, cuda_volume,
-                                      cuda_volume_block)
+    """Kernel 3 hosts kernel 2's cell bodies on the tile skeleton and
+    Courtemanche's two, Luo-Rudy's and tp06's, which kernel 2 does not
+    host, in csrc/large_block.cu with kernel 1's bodies; kernel 6 hosts
+    every body of kernel 4, with its headers."""
+    from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
+                                      cuda_volume, cuda_volume_block)
     assert set(cuda_block.HEADERS) == set(cuda_tiled.HEADERS)
     bodies = {build.CSRC_DIR / name for name in (
         "br_cell.cuh", "br_variant_cell.cuh", "fenton_cell.cuh",
@@ -180,10 +193,12 @@ def test_block_kernels_share_the_earlier_kernels_headers():
     large = {build.CSRC_DIR / name for name in (
         "court_cell.cuh", "lr1_cell.cuh", "tp06_cell.cuh",
         "torch_rounding.cuh")}
-    assert set(cuda_volume_block.HEADERS) == set(cuda_volume.HEADERS) - large
-    assert set(cuda_volume_block.KERNELS) == set(cuda_volume.KERNELS) - {
-        "court", "court_ultra", "lr1", "tp06"}
-    assert set(cuda_block.KERNELS) == set(cuda_tiled.KERNELS)
+    assert large <= set(cuda_block.LARGE_HEADERS) <= set(cuda_step.HEADERS)
+    assert set(cuda_volume_block.HEADERS) == set(cuda_volume.HEADERS)
+    assert set(cuda_volume_block.KERNELS) == set(cuda_volume.KERNELS)
+    large_bodies = {"court", "court_ultra", "lr1", "tp06"}
+    assert set(cuda_block.KERNELS) == set(cuda_tiled.KERNELS) | large_bodies
+    assert not large_bodies & set(cuda_tiled.KERNELS)
 
 
 def test_failed_build_raises_with_log(monkeypatch, tmp_path):
@@ -204,6 +219,7 @@ def test_kernel_sources_ship_with_the_package():
                  "br_volume_tiled.cu", "br_cell.cuh", "br_block.cu",
                  "br_volume_block.cu", "br_tile.cuh", "br_volume_cell.cuh",
                  "br_variant_cell.cuh", "fenton_cell.cuh", "ms_cell.cuh",
-                 "geometry.cuh", "cell_traits.cuh", "court_cell.cuh"):
+                 "geometry.cuh", "cell_traits.cuh", "court_cell.cuh",
+                 "large_block.cu"):
         assert (build.CSRC_DIR / name).is_file()
     assert os.path.commonpath([build.BUILD_DIR, ROOT]) == str(ROOT)

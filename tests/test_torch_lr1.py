@@ -205,8 +205,8 @@ def golden_trace(model, stim, n_outer):
 def check_routes(tm, small_kw):
     """Kernel 1 at every size on a CUDA device (the reference runs XLA
     past its 32 MB cap) and kernel 4 under 'auto' (the reference runs
-    XLA), the plain path on the CPU and under kernel='xla', and a mesh
-    raising."""
+    XLA), the plain path on the CPU and under kernel='xla', and on a mesh
+    kernels 3 and 6 on the card, the plain step on the CPU."""
     cls = type(tm)
     big = cls(cfg(width=2048, height=2048, **small_kw))
     assert simulation.state_mb(big) > Simulation.WHOLE_GRID_STATE_MB_MAX
@@ -218,18 +218,20 @@ def check_routes(tm, small_kw):
         assert simulation.route(m, "cuda", "xla") == "plain"
         assert volume.volume_route(m, 8, "cpu", "auto") == "plain"
         assert volume.volume_route(m, 8, "cuda", "xla") == "plain"
-    with pytest.raises(NotImplementedError, match="Queue 2 item E"):
-        Simulation(cls(cfg(width=32, height=32, **small_kw)),
-                   mesh=make_mesh(devices=["cpu"] * 4), wide_halo=True)
-    with pytest.raises(NotImplementedError, match="Queue 2 item E"):
-        volume.run_volume(cls(cfg(width=32, height=32, **small_kw)), 8, 1,
-                          mesh=make_mesh(devices=["cpu"] * 2),
-                          wide_halo=True)
+    sim = Simulation(cls(cfg(width=32, height=40, **small_kw)),
+                     mesh=make_mesh(devices=["cpu"] * 4), wide_halo=True)
+    assert sim.route == "plain" and sim._mesh.grid == (4, 1)
+    assert simulation.spmd_route(tm, "cuda", "auto", True) == "block"
+    assert volume._use_shard_kernel(tm, "cuda", "auto")
+    final, probes, _ = volume.run_volume(
+        cls(cfg(width=32, height=32, **small_kw)), 20, 1,
+        mesh=make_mesh(devices=["cpu"] * 2), wide_halo=True)
+    assert final["V"].shape == (20, 32, 32) and probes.shape == (1,)
     with pytest.raises(ValueError, match="explicit-Euler unstable"):
         cls(cfg(dt=0.1))
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         cls(cfg(adaptive_dv=10.0))
-    assert not tm.sharded and not tm.kernel_free
+    assert not hasattr(tm, "sharded") and not tm.kernel_free
 
 
 # -- the pinned copies -------------------------------------------------------------
@@ -393,7 +395,7 @@ def test_pack_lr1_reads_g_si_when_the_step_is_built():
     construction reaches the block and the plain step."""
     tm = tl.LuoRudy91(cfg(skip=True, g_scale=G_SCALE))
     body = cuda_step.cell_body(tm)
-    assert body.name == "lr1" and body.kernels == (1, 4)
+    assert body.name == "lr1" and body.kernels == (1, 3, 4, 6)
     assert body.planes == cuda_step.LR1_PLANES
     assert set(body.planes) == set(tm.state_keys()) - {"V"}
     assert body.library is cuda_step.LRTP_LIBRARY

@@ -461,8 +461,19 @@ def test_unported_spmd_arguments_raise(kw):
     The geometry is ported: phase / dmap / fiber run one outer step within
     the kernel tolerance of the unsharded plain step under the same
     geometry (tests/test_torch_geometry_spmd.py holds them further), and
-    the fiber tensor raises, as the reference does, without wide halos."""
+    the fiber tensor raises, as the reference does, without wide halos.
+    The trend stream is ported: it is the unsharded step's pixel, bit for
+    bit (tests/test_torch_large_spmd.py holds it further)."""
     tm = tbr.BeelerReuter(cfg())
+    if "trend_points" in kw:
+        st = seeded_state(tm, seed=2)
+        _, probes = spmd.make_spmd_chunk(tm, cpu_mesh((4,)), 1,
+                                         wide_halo=True, **kw)(
+            shard_state(st, cpu_mesh((4,))))
+        ref, _ = unsharded_steps(tm, st, 1)
+        np.testing.assert_array_equal(probes["trend"].numpy(),
+                                      ref["V"][3:4, 3:4])
+        return
     if next(iter(kw)) not in ("phase", "dmap", "fiber"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             spmd.make_spmd_chunk(tm, cpu_mesh((4,)), 1, wide_halo=True, **kw)

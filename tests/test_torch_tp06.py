@@ -331,7 +331,7 @@ def test_pack_tp06_reads_cell_type_when_the_step_is_built():
     follow the attached planes."""
     tm = tt.TenTusscher06(cfg(skip=True, g_scale=G_SCALE))
     body = cuda_step.cell_body(tm)
-    assert body.name == "tp06" and body.kernels == (1, 4)
+    assert body.name == "tp06" and body.kernels == (1, 3, 4, 6)
     assert body.planes == cuda_step.TP06_PLANES
     assert set(body.planes) - set(cuda_step.TP06_HET_PLANES) == (
         set(tm.state_keys()) - {"V"})

@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -67,7 +68,7 @@ import numpy as np
 import torch
 
 from fib_tf_tpu_torch.config import SimConfig
-from fib_tf_tpu_torch import interop
+from fib_tf_tpu_torch import interop, tracing
 from fib_tf_tpu_torch.engine.observers import CycleLengthDetector
 from fib_tf_tpu_torch.models.base import IonicModel, grid_geometry
 from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled, stencil
@@ -127,8 +128,8 @@ class Simulation:
         device = resolve_device(device)
         if cfg.rotor_probe:
             _not_ported("the rotor probe (SimConfig.rotor_probe)", _ENGINE)
-        if cfg.timeline or cfg.save_graph:
-            _not_ported("timeline / save_graph export", _ENGINE)
+        if cfg.save_graph:
+            _not_ported("save_graph export", _ENGINE)
         if model.fast_slow_ratio:
             _not_ported("fast_slow_ratio dispatch", _ENGINE)
         if mesh is not None:
@@ -157,6 +158,7 @@ class Simulation:
         self._phase_t: Optional[torch.Tensor] = None
         # (first step, host probes) of the chunk simulate() is consuming
         self._probe_window: Optional[Tuple[int, Dict[str, np.ndarray]]] = None
+        self._timeline_done = False
 
     # Whole-grid vs tiled cutover in MB of state (planes x H x W x 4): the
     # JAX engine's value (fib_tf_tpu/engine/simulation.py:507), where its
@@ -287,19 +289,20 @@ class Simulation:
         pot <- max(pot, mask), shard by shard on a mesh (the mask is
         sharded with the state).  With ab2 the derivative planes are
         refreshed at the paced pixels (`pace`).  Returns the state."""
-        mask = self._pace_masks[name]
-        if self._mesh is None:
-            state.update(pace(self.model, state, mask))
+        with tracing.span("fibtorch.event"):
+            mask = self._pace_masks[name]
+            if self._mesh is None:
+                state.update(pace(self.model, state, mask))
+                return state
+            keys = list(state)
+            planes = {k: state[k].copy() for k in keys}
+            for i in range(mask.size):
+                new = pace(self.model, {k: planes[k].flat[i] for k in keys},
+                           mask.flat[i])
+                for k, t in new.items():
+                    planes[k].flat[i] = t
+            state.update(planes)
             return state
-        keys = list(state)
-        planes = {k: state[k].copy() for k in keys}
-        for i in range(mask.size):
-            new = pace(self.model, {k: planes[k].flat[i] for k in keys},
-                       mask.flat[i])
-            for k, t in new.items():
-                planes[k].flat[i] = t
-        state.update(planes)
-        return state
 
     def millisecond_to_step(self, t_ms: float) -> int:
         return self.cfg.millisecond_to_step(t_ms, self.model.dt_per_step)
@@ -317,15 +320,17 @@ class Simulation:
         of the potential (on a mesh, the AND of the shards' own cells,
         gathered on the probe's device).  Returns ({stream: host array},
         finite)."""
-        pot = state[self.model.pot_key]
-        if self._mesh is None:
-            finite = torch.isfinite(pot).all()
-        else:
-            finite = torch.stack([torch.isfinite(t).all().to(probe.device)
-                                  for t in pot.flat]).all()
-        extra = extra or {}
-        flat = torch.cat([probe] + [t.reshape(-1) for t in extra.values()]
-                         + [finite.to(probe.dtype).reshape(1)]).cpu().numpy()
+        with tracing.span("fibtorch.readback"):
+            pot = state[self.model.pot_key]
+            if self._mesh is None:
+                finite = torch.isfinite(pot).all()
+            else:
+                finite = torch.stack([torch.isfinite(t).all().to(probe.device)
+                                      for t in pot.flat]).all()
+            extra = extra or {}
+            flat = torch.cat([probe] + [t.reshape(-1) for t in extra.values()]
+                             + [finite.to(probe.dtype).reshape(1)]
+                             ).cpu().numpy()
         out, at = {"v": flat[:probe.numel()]}, probe.numel()
         for key, t in extra.items():
             out[key] = flat[at:at + t.numel()].reshape(tuple(t.shape))
@@ -344,12 +349,13 @@ class Simulation:
         if self._mesh is None:
             probe = torch.empty(n, dtype=torch.float32, device=self.device)
             extra: Dict[str, torch.Tensor] = {}
-            for k in range(n):
-                state = self._step(state, probe, k)
-                for key, value in self._extra_probes(state).items():
-                    if key not in extra:
-                        extra[key] = value.new_empty((n,) + value.shape)
-                    extra[key][k] = value
+            with tracing.span("fibtorch.enqueue"):
+                for k in range(n):
+                    state = self._step(state, probe, k)
+                    for key, value in self._extra_probes(state).items():
+                        if key not in extra:
+                            extra[key] = value.new_empty((n,) + value.shape)
+                        extra[key][k] = value
             return (state, *self._read_chunk(probe, state, extra))
         if n not in self._spmd_chunks:
             self._spmd_chunks[n] = spmd.make_spmd_chunk(
@@ -357,7 +363,8 @@ class Simulation:
                 use_kernel=self.route == "block", fiber=self._fiber(),
                 trend_points=getattr(self.model, "trend_points", None),
                 maps=self._shard_maps)
-        state, probes = self._spmd_chunks[n](state)
+        with tracing.span("fibtorch.enqueue"):
+            state, probes = self._spmd_chunks[n](state)
         extra = {k: t for k, t in probes.items() if k != "v"}
         return (state, *self._read_chunk(probes["v"], state, extra))
 
@@ -382,7 +389,17 @@ class Simulation:
 
         `schedule` is a list of (ms, op_name); ops fire between outer
         steps, after the step that contains `ms` (the reference's run()
-        loop fires at i == step, after step + 1 outer steps)."""
+        loop fires at i == step, after step + 1 outer steps).
+
+        With `SimConfig.timeline`, the first call profiles one 1-step
+        chunk from the final state after the timed run and writes its
+        Chrome trace under `timeline_name` with `.json` -> `_trace`."""
+        with tracing.span("fibtorch.simulate"):
+            return self._simulate(schedule, state, record_frames_every_ms,
+                                  check_finite, max_chunk_steps)
+
+    def _simulate(self, schedule, state, record_frames_every_ms,
+                  check_finite, max_chunk_steps) -> SimResult:
         if record_frames_every_ms is not None:
             _not_ported("frame recording", _ENGINE)
         if not self._defined:
@@ -406,8 +423,9 @@ class Simulation:
         if state is not None and set(state) != set(model.state_keys()):
             raise ValueError(f"state planes {sorted(state)} != model planes "
                              f"{sorted(model.state_keys())}")
-        dev_state = self._to_device(
-            state if state is not None else self._initial)
+        with tracing.span("fibtorch.state_in"):
+            dev_state = self._to_device(
+                state if state is not None else self._initial)
         detector = CycleLengthDetector(
             cfg.dt, model.dt_per_step, plot_interval, self.cl_observer)
         if self.device.type == "cuda":
@@ -448,9 +466,12 @@ class Simulation:
         total_substeps = step * model.dt_per_step
         cups = cfg.height * cfg.width * total_substeps / max(elapsed, 1e-9)
         sim_s = total_substeps * cfg.dt / 1000.0
-        self.state = (interop.state_to_numpy(dev_state)
-                      if self._mesh is None
-                      else interop.gather_state(dev_state))
+        with tracing.span("fibtorch.state_out"):
+            self.state = (interop.state_to_numpy(dev_state)
+                          if self._mesh is None
+                          else interop.gather_state(dev_state))
+        if cfg.timeline and not self._timeline_done:
+            self._capture_timeline(dev_state)
         probes = {k: np.concatenate(v) for k, v in probes_acc.items()}
         return SimResult(
             state=self.state,
@@ -462,6 +483,24 @@ class Simulation:
             sim_seconds_per_wall_second=sim_s / max(elapsed, 1e-9),
             cycle_lengths=detector.cycle_lengths,
         )
+
+    def _capture_timeline(self, dev_state):
+        """Profile one 1-step chunk from the final device state, after its
+        copy to `self.state` (CPU activity, and CUDA on a card), and write
+        its Chrome trace, as the JAX engine's `_capture_timeline` profiles
+        one chunk (the reference wrote a Chrome trace of one extra
+        sess.run, ionic.py:231-241)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        self._timeline_done = True
+        logdir = self.cfg.timeline_name.replace(".json", "_trace")
+        os.makedirs(logdir, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            self._run_chunk(dev_state, 1)
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
     def probe_at_step(self, i: int, key: str) -> np.ndarray:
         """Probe stream `key` at outer step `i` of the chunk simulate() is

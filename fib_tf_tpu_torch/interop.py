@@ -25,8 +25,10 @@ def state_from_numpy(state: Mapping[str, np.ndarray],
 
 
 def state_to_numpy(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """Copy a state's tensors back to numpy."""
-    return {k: v.detach().cpu().numpy() for k, v in state.items()}
+    """Copy a state's tensors back to numpy (a copy on the CPU too: the
+    arrays never share memory with the tensors)."""
+    return {k: v.detach().to("cpu", copy=True).numpy()
+            for k, v in state.items()}
 
 
 def shard_state(state: Mapping[str, np.ndarray],

@@ -48,6 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from fib_tf_tpu_torch import tracing
 from fib_tf_tpu_torch.kernels import build
 from fib_tf_tpu_torch.models.base import Geometry, IonicModel
 from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled
@@ -209,6 +210,7 @@ class BlockKernel:
         self.body = BODIES[body]
         self.geom = geom
         self.entry = f"{body}_block" + ("_geom" if geom else "")
+        self.span_name = f"fibtorch.launch.{self.entry}"
         # the GEOM entries are a second library of the same source
         self.library_name = "br_block" + ("_geom" if geom else "")
         self.defines = ("FIBTORCH_GEOM_ENTRIES",) if geom else ()
@@ -261,27 +263,29 @@ class BlockKernel:
         caller: reads `ext_in`, writes the centre of `ext_out`.
         `geometry` is a GEOM entry's trailing arguments, the maps of the
         extended layout (`cuda_step.kernel_geometry_args`)."""
-        fn = getattr(self.library(), self.entry)
-        pot, planes = self.body.model.pot_key, self.body.planes
-        v_in = ext_in[pot]
-        ext_h, ext_w = v_in.shape
-        err = fn(
-            params.ctypes.data, params.size,
-            v_in.data_ptr(), ext_out[pot].data_ptr(),
-            cuda_step.plane_pointers(ext_in, planes),
-            cuda_step.plane_pointers(ext_out, planes),
-            len(planes), ext_h, ext_w, rstart, cstart, halo, int(two_d),
-            h_total, w_total, len(schedule), cuda_tiled.slow_mask(schedule),
-            probe.data_ptr() if probe is not None else None,
-            probe_pixel[0], probe_pixel[1], probe_index,
-            v_in.device.index, stream, *geometry,
-        )
-        if err != 0:
-            raise RuntimeError(
-                f"{self.entry} launch failed with CUDA error {err} "
-                f"({ext_h}x{ext_w} block at ({rstart}, {cstart}) of "
-                f"{h_total}x{w_total}, {len(schedule)} substeps)")
-        self.launches += 1
+        with tracing.span(self.span_name):
+            fn = getattr(self.library(), self.entry)
+            pot, planes = self.body.model.pot_key, self.body.planes
+            v_in = ext_in[pot]
+            ext_h, ext_w = v_in.shape
+            err = fn(
+                params.ctypes.data, params.size,
+                v_in.data_ptr(), ext_out[pot].data_ptr(),
+                cuda_step.plane_pointers(ext_in, planes),
+                cuda_step.plane_pointers(ext_out, planes),
+                len(planes), ext_h, ext_w, rstart, cstart, halo, int(two_d),
+                h_total, w_total, len(schedule),
+                cuda_tiled.slow_mask(schedule),
+                probe.data_ptr() if probe is not None else None,
+                probe_pixel[0], probe_pixel[1], probe_index,
+                v_in.device.index, stream, *geometry,
+            )
+            if err != 0:
+                raise RuntimeError(
+                    f"{self.entry} launch failed with CUDA error {err} "
+                    f"({ext_h}x{ext_w} block at ({rstart}, {cstart}) of "
+                    f"{h_total}x{w_total}, {len(schedule)} substeps)")
+            self.launches += 1
 
 
 class LargeBlockKernel:
@@ -298,6 +302,7 @@ class LargeBlockKernel:
         self.body = BODIES[body]
         self.geom = geom
         self.entry = f"{body}_block" + ("_geom" if geom else "")
+        self.span_name = f"fibtorch.launch.{self.entry}"
         self.source = LARGE_SOURCE
         self.library_name = self.body.library.name("block")
         self.defines = self.body.library.defines
@@ -352,27 +357,28 @@ class LargeBlockKernel:
         to `planes_out` (the same dict updates in place; `copy_all` copies
         the planes the form does not commit).  `geometry` is a GEOM entry's
         trailing arguments, the maps of the extended layout."""
-        fn = getattr(self.library(), self.entry)
-        planes = self.body.planes
-        ext_h, ext_w = v_in.shape
-        err = fn(
-            int(slow), params.ctypes.data, params.size,
-            v_in.data_ptr(), None if v_out is None else v_out.data_ptr(),
-            cuda_step.plane_pointers(planes_in, planes),
-            cuda_step.plane_pointers(planes_out, planes),
-            len(planes), ext_h, ext_w, rstart, cstart, halo, int(two_d),
-            h_total, w_total, shrink, int(copy_all),
-            probe.data_ptr() if probe is not None else None,
-            probe_pixel[0], probe_pixel[1], probe_index,
-            v_in.device.index, stream, *geometry,
-        )
-        if err != 0:
-            raise RuntimeError(
-                f"{self.entry} launch failed with CUDA error {err} "
-                f"({ext_h}x{ext_w} block at ({rstart}, {cstart}) of "
-                f"{h_total}x{w_total}, after {shrink} substeps, "
-                f"slow={slow})")
-        self.launches["slow" if slow else "frozen"] += 1
+        with tracing.span(self.span_name):
+            fn = getattr(self.library(), self.entry)
+            planes = self.body.planes
+            ext_h, ext_w = v_in.shape
+            err = fn(
+                int(slow), params.ctypes.data, params.size,
+                v_in.data_ptr(), None if v_out is None else v_out.data_ptr(),
+                cuda_step.plane_pointers(planes_in, planes),
+                cuda_step.plane_pointers(planes_out, planes),
+                len(planes), ext_h, ext_w, rstart, cstart, halo, int(two_d),
+                h_total, w_total, shrink, int(copy_all),
+                probe.data_ptr() if probe is not None else None,
+                probe_pixel[0], probe_pixel[1], probe_index,
+                v_in.device.index, stream, *geometry,
+            )
+            if err != 0:
+                raise RuntimeError(
+                    f"{self.entry} launch failed with CUDA error {err} "
+                    f"({ext_h}x{ext_w} block at ({rstart}, {cstart}) of "
+                    f"{h_total}x{w_total}, after {shrink} substeps, "
+                    f"slow={slow})")
+            self.launches["slow" if slow else "frozen"] += 1
 
     def step(self, params: np.ndarray, schedule, ext_in: State,
              ext_out: State, rstart: int, cstart: int, halo: int,

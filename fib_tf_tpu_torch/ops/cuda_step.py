@@ -51,6 +51,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from fib_tf_tpu_torch import tracing
 from fib_tf_tpu_torch.kernels import build
 from fib_tf_tpu_torch.models.base import (Geometry, IonicModel,
                                           grid_geometry, tissue_geometry)
@@ -574,6 +575,7 @@ class SubstepKernel:
         self.body = BODIES[body]
         self.geom = geom
         self.entry = f"{body}_substep" + ("_geom" if geom else "")
+        self.span_name = f"fibtorch.launch.{self.entry}"
         self.library_name = self.body.library.name("substep")
         self._lib = None
         self.reset_launches()
@@ -615,29 +617,30 @@ class SubstepKernel:
         """One substep on CUDA tensors already validated by the caller;
         `geometry` is a GEOM entry's trailing arguments
         (`kernel_geometry_args`)."""
-        fn = getattr(self.library(), self.entry)
-        pot = self.body.model.pot_key
-        v_in = state[pot]
-        writes = self.body.writes_potential(slow)
-        v_out = torch.empty_like(v_in) if writes else None
-        h, w = v_in.shape
-        err = fn(
-            int(slow), params.ctypes.data, params.size,
-            v_in.data_ptr(), v_out.data_ptr() if writes else None,
-            plane_pointers(state, self.body.planes), len(self.body.planes),
-            h, w,
-            probe.data_ptr() if probe is not None else None,
-            probe_pixel[0], probe_pixel[1], probe_index,
-            v_in.device.index, stream, *geometry,
-        )
-        if err != 0:
-            raise RuntimeError(
-                f"{self.entry} launch failed with CUDA error {err} "
-                f"({h}x{w}, slow={slow})"
+        with tracing.span(self.span_name):
+            fn = getattr(self.library(), self.entry)
+            pot = self.body.model.pot_key
+            v_in = state[pot]
+            writes = self.body.writes_potential(slow)
+            v_out = torch.empty_like(v_in) if writes else None
+            h, w = v_in.shape
+            err = fn(
+                int(slow), params.ctypes.data, params.size,
+                v_in.data_ptr(), v_out.data_ptr() if writes else None,
+                plane_pointers(state, self.body.planes), len(self.body.planes),
+                h, w,
+                probe.data_ptr() if probe is not None else None,
+                probe_pixel[0], probe_pixel[1], probe_index,
+                v_in.device.index, stream, *geometry,
             )
-        self.launches["slow" if slow else "frozen"] += 1
-        if writes:
-            state[pot] = v_out
+            if err != 0:
+                raise RuntimeError(
+                    f"{self.entry} launch failed with CUDA error {err} "
+                    f"({h}x{w}, slow={slow})"
+                )
+            self.launches["slow" if slow else "frozen"] += 1
+            if writes:
+                state[pot] = v_out
 
 
 def check_layout(lib: ctypes.CDLL, entry: str, body: CellBody):

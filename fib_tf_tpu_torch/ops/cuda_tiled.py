@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from fib_tf_tpu_torch import tracing
 from fib_tf_tpu_torch.kernels import build
 from fib_tf_tpu_torch.models.base import IonicModel
 from fib_tf_tpu_torch.ops import cuda_step
@@ -112,6 +113,7 @@ class TiledKernel:
         self.body = BODIES[body]
         self.geom = geom
         self.entry = f"{body}_tiled" + ("_geom" if geom else "")
+        self.span_name = f"fibtorch.launch.{self.entry}"
         # the GEOM entries are a second library of the same source
         self.library_name = "br_tiled" + ("_geom" if geom else "")
         self.defines = ("FIBTORCH_GEOM_ENTRIES",) if geom else ()
@@ -162,29 +164,30 @@ class TiledKernel:
         the state's planes are replaced by the new ones.  `geometry` is a
         GEOM entry's trailing arguments
         (`cuda_step.kernel_geometry_args`)."""
-        fn = getattr(self.library(), self.entry)
-        pot, planes = self.body.model.pot_key, self.body.planes
-        v_in = state[pot]
-        h, w = v_in.shape
-        out = dict(zip((pot,) + planes, torch.empty(
-            (1 + len(planes), h, w), dtype=v_in.dtype,
-            device=v_in.device).unbind(0)))
-        err = fn(
-            params.ctypes.data, params.size,
-            v_in.data_ptr(), out[pot].data_ptr(),
-            cuda_step.plane_pointers(state, planes),
-            cuda_step.plane_pointers(out, planes),
-            len(planes), h, w, len(schedule), slow_mask(schedule),
-            probe.data_ptr() if probe is not None else None,
-            probe_pixel[0], probe_pixel[1], probe_index,
-            v_in.device.index, stream, *geometry,
-        )
-        if err != 0:
-            raise RuntimeError(
-                f"{self.entry} launch failed with CUDA error {err} "
-                f"({h}x{w}, {len(schedule)} substeps)")
-        self.launches += 1
-        state.update(out)
+        with tracing.span(self.span_name):
+            fn = getattr(self.library(), self.entry)
+            pot, planes = self.body.model.pot_key, self.body.planes
+            v_in = state[pot]
+            h, w = v_in.shape
+            out = dict(zip((pot,) + planes, torch.empty(
+                (1 + len(planes), h, w), dtype=v_in.dtype,
+                device=v_in.device).unbind(0)))
+            err = fn(
+                params.ctypes.data, params.size,
+                v_in.data_ptr(), out[pot].data_ptr(),
+                cuda_step.plane_pointers(state, planes),
+                cuda_step.plane_pointers(out, planes),
+                len(planes), h, w, len(schedule), slow_mask(schedule),
+                probe.data_ptr() if probe is not None else None,
+                probe_pixel[0], probe_pixel[1], probe_index,
+                v_in.device.index, stream, *geometry,
+            )
+            if err != 0:
+                raise RuntimeError(
+                    f"{self.entry} launch failed with CUDA error {err} "
+                    f"({h}x{w}, {len(schedule)} substeps)")
+            self.launches += 1
+            state.update(out)
 
 
 def check_tile_shape(lib, entry: str, body: str, geom: bool = False):

@@ -1172,3 +1172,55 @@ def test_large_models_auto_launch_kernels_3_and_6(device):
                 devices=[device] * 4), wide_halo=True, halo_k=5)
             for key in whole[0]:
                 np.testing.assert_array_equal(split[0][key], whole[0][key])
+
+
+def _launches_by_entry():
+    """The launches every 2D binding has counted so far, by C entry."""
+    out = {}
+    for module in (cuda_step, cuda_tiled, cuda_block):
+        for kernels in (module.KERNELS, module.GEOM_KERNELS):
+            for k in kernels.values():
+                n = k.launches
+                out[k.entry] = sum(n.values()) if isinstance(n, dict) else n
+    return out
+
+
+@pytest.mark.parametrize("case", ["substep", "tiled", "court_geom", "block",
+                                  "large_block"])
+def test_launch_spans_equal_the_launch_counters(device, monkeypatch, case):
+    """Over a short simulate() with one pacing event, the trace holds one
+    `fibtorch.launch.<entry>` span per launch each binding counts (kernels
+    1-3 and the large block kernel, through all four wrappers), and no
+    device-side record carries a `fibtorch.` name."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = CFG.replace(duration=2)
+    if case == "tiled":
+        monkeypatch.setattr(Simulation, "WHOLE_GRID_STATE_MB_MAX", 0.01)
+    model = (Courtemanche(cfg) if case in ("court_geom", "large_block")
+             else BeelerReuter(cfg))
+    kw = (dict(mesh=make_mesh(devices=[device] * 4), wide_halo=True)
+          if case.endswith("block") else dict(device=device))
+    sim = Simulation(model, **kw)
+    if case == "court_geom":
+        sim.add_hole_to_phase_field(48, 32, 8)
+    sim.define()
+    sim.add_pace_op("s2", "luq", 10.0)
+    before = _launches_by_entry()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = sim.simulate(schedule=[(1.0, "s2")])
+    after = _launches_by_entry()
+    assert res.steps == (2 if case in ("court_geom", "large_block") else 4)
+    launched = {f"fibtorch.launch.{e}": after[e] - before[e] for e in after
+                if after[e] != before[e]}
+    events = prof.profiler.kineto_results.events()
+    spans = Counter(e.name() for e in events
+                    if e.name().startswith("fibtorch.launch."))
+    assert launched and spans == launched
+    assert not [e.name() for e in events
+                if e.device_type() == DeviceType.CUDA
+                and "fibtorch." in e.name()]

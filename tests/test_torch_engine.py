@@ -2,6 +2,7 @@
 plus its routing rules and the features it does not carry yet."""
 
 import dataclasses
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -167,7 +168,7 @@ def test_unported_engine_features_raise(call, request):
     dict(mesh_shape=(2,), mesh_mode="gspmd"),
     dict(fiber_angle=0.5, fiber_ratio=0.5),
     dict(rotor_probe=True),
-    dict(timeline=True),
+    dict(save_graph=True),
 ])
 def test_unported_config_features_raise(kw):
     """The configuration features not ported yet raise NotImplementedError.
@@ -230,3 +231,25 @@ def test_non_finite_state_raises():
         sim.simulate(state=st)
     res = sim.simulate(state=st, check_finite=False)
     assert np.isnan(res.state["V"]).any()
+
+
+def test_timeline_trace_written(tmp_path, monkeypatch):
+    """cfg.timeline -> a Chrome trace of one 1-step chunk from the final
+    state, in the directory the JAX engine names (its
+    test_timeline_trace_written), holding the chunk's spans; the run's
+    own result is the run without it."""
+    monkeypatch.chdir(tmp_path)
+    cfg = CFG.replace(duration=3, timeline=True, timeline_name="tl.json")
+    sim = Simulation(BeelerReuter(cfg), device="cpu")
+    res = sim.simulate()
+    plain = Simulation(BeelerReuter(cfg.replace(timeline=False)),
+                       device="cpu").simulate()
+    assert (tmp_path / "tl_trace").is_dir()
+    names = {e["name"] for e in json.loads(
+        (tmp_path / "tl_trace" / "trace.json").read_text())["traceEvents"]
+        if "name" in e}
+    assert {"fibtorch.enqueue", "fibtorch.readback"} <= names
+    assert "fibtorch.simulate" not in names
+    for k in plain.state:
+        np.testing.assert_array_equal(res.state[k], plain.state[k])
+    np.testing.assert_array_equal(res.probes["v"], plain.probes["v"])

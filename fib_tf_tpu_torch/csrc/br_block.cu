@@ -55,6 +55,11 @@
 // Built by fib_tf_tpu_torch/kernels/build.py with nvcc into a shared library
 // with a plain C interface (no --use_fast_math: logf feeds e_Ca).
 
+// The GEOM entries' BR reads its fits from BrParams::rows (br_cell.cuh)
+#ifdef FIBTORCH_GEOM_ENTRIES
+#define FIBTORCH_BR_FIT_ROWS
+#endif
+
 #include <cuda_runtime.h>
 #include <string.h>
 

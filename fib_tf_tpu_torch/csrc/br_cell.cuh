@@ -31,21 +31,39 @@ namespace fibtorch {
 constexpr int kDeg = 8;
 constexpr int kTerms = kDeg + 1;
 
-// Order of the fits in BrParams::coef; fib_tf_tpu_torch/ops/cuda_step.py
-// packs them in the same order (FIT_ORDER).
+// Order of the fits in BrParams; fib_tf_tpu_torch/ops/cuda_step.py packs
+// them in the same order (FIT_ORDER).
 enum Fit {
   X1_INF, X1_RL, M_INF, M_RL, H_INF, H_RL, J_INF, J_RL,
   D_INF, D_RL, F_INF, F_RL, I_K1, I_X1F, kFits
 };
 
+// A fit is d0 + d1*S1 + ... + d8*S8, summed in that order (cheb).  ptxas
+// takes no FFMA operand from the constant bank here: a coefficient reaches
+// its FFMA in a uniform register (ULDC, one load for a warp) or in a
+// register of every thread (LDC), and an FFMA takes one uniform register at
+// most, so the first FFMA of a fit, d0 + d1*S1, takes one of the two in a
+// thread's register.  BrParams holds each fit twice.  In `d0` and `coef`
+// the constant terms lie apart, two fits' to a pair, so that one LDC.64
+// serves both fits of a gate, and d1..d8 in pairs of one fit, which ptxas
+// keeps in uniform registers: the tile kernels' 64-register body issues
+// 4 LDC per frozen and 8 per SLOW cell-substep there, against 7 and 15 on
+// `rows`, and kernels 2 and 3 ran 3.7% and 2.1% faster for it; kernels 4
+// and 5 read it too.  In `rows` each fit's nine terms lie together; kernel
+// 1, kernel 6 and the GEOM tiles, which have registers to spare, ran up to
+// 1.8% slower on the split terms and read these (FIBTORCH_BR_FIT_ROWS,
+// defined by their sources).  PERF.md has the times.
 struct BrParams {
-  float coef[kFits][kTerms];
+  float d0[kFits];            // each fit's constant term
+  float coef[kFits][kDeg];    // each fit's d1..d8
   // conductances with their g_scale factors folded in: g_Na*4, g_NaC*0.005,
   // g_s*0.09, and the iK1 / ix1 factors
   float g_na, g_nac, g_s, s_k1, s_x1;
   float dt, diff_dt;      // dt and diff*dt, rounded from double once
   float cheb_mid, cheb_half;   // Chebyshev domain: x = (v - mid) / half
   float v_min, v_span;    // probe normalisation: (v - v_min) / v_span
+  float pad;              // `rows` at an even float, as the loads pair them
+  float rows[kFits][kTerms];   // each fit's d0..d8
 };
 
 constexpr int kParamFloats = sizeof(BrParams) / sizeof(float);
@@ -82,10 +100,23 @@ __device__ __forceinline__ float cheb(const float* d, const float* s) {
   return r;
 }
 
+// Fit `fit` of BrParams at the powers s.
+__device__ __forceinline__ float br_fit(const BrParams& p, int fit,
+                                        const float* s) {
+#ifdef FIBTORCH_BR_FIT_ROWS
+  return cheb(p.rows[fit], s);
+#else
+  float r = p.d0[fit];
+#pragma unroll
+  for (int k = 1; k < kTerms; ++k) r = r + p.coef[fit][k - 1] * s[k];
+  return r;
+#endif
+}
+
 __device__ __forceinline__ float gate(const BrParams& p, int fit_inf,
                                       float g, const float* s) {
-  const float inf = cheb(p.coef[fit_inf], s);
-  const float rl = cheb(p.coef[fit_inf + 1], s);
+  const float inf = br_fit(p, fit_inf, s);
+  const float rl = br_fit(p, fit_inf + 1, s);
   return clip(g + (g - inf) * rl, 0.00001f, 0.99999f);
 }
 
@@ -135,8 +166,8 @@ struct BeelerReuterCell {
     }
 
     // currents from the pre-update gates
-    const float i_k1 = p.s_k1 * cheb(p.coef[I_K1], s);
-    const float i_x1 = p.s_x1 * (x1 * cheb(p.coef[I_X1F], s));
+    const float i_k1 = p.s_k1 * br_fit(p, I_K1, s);
+    const float i_x1 = p.s_x1 * (x1 * br_fit(p, I_X1F, s));
     const float i_na = (p.g_na * (m * m * m) * h * jg + p.g_nac) * (v0 - 50.0f);
     const float e_ca = -82.3f - 13.0278f * logf(c);
     const float i_ca = p.g_s * d * f * (v0 - e_ca);

@@ -56,9 +56,13 @@
 // tile per block: load, compute, store in turn) spent about 88 ns per tile
 // on load and store (the intercept of its time per tile against the
 // substeps run) beside 26 / 41 ns per frozen / SLOW substep; this one,
-// whose copies and stores overlap the compute, takes 234-240 us of its
+// whose copies and stores overlap the compute, took 234-240 us of its
 // 265-268 us at 2048^2 with no copies and no stores at all: the cell
 // body's instructions bind, at about two thirds of the peak issue rate.
+// Its time per tile splits into about 95-108 ns of copies and switch and
+// 11.8 / 30.4 ns per frozen / SLOW substep of a whole ring; BR's per-thread
+// constant loads (br_cell.cuh BrParams) set much of the frozen part: 13.8
+// ns with 7 LDC a cell-substep, 11.8 with 4.
 //
 // Where the cells live.  Every plane is an array of `pitch` floats per row
 // whose element (0, 0) is the global cell (rstart, cstart): cell (gi, gj) is

@@ -43,19 +43,28 @@
 // compute in the rings, and for BR that is what binds: measured on
 // an NVIDIA H100 80GB HBM3 at a 700 W limit (tools/torch_tile_bench.py,
 // PERF.md), the skeleton runs at the SM clock's 1980 MHz, 64 registers a
-// thread and no spills, and a variant with no copies and no stores takes
+// thread and no spills, and a variant with no copies and no stores took
 // 234-240 us of the kernel's 265-268 us at 2048^2: the cell body's
-// instructions (in SASS about 300 per SLOW and 170 per frozen
-// cell-substep in the clamp-free body, 1.27 lane-substeps per useful
-// cell-substep) on 1024 threads that meet at a barrier after every
-// substep, issued at about two thirds of the SMs' peak rate.  The copies of the
-// next tile, spread over the substeps, add about 16-30 us; the stores,
-// issued from the last substep, add nothing measurable.  The previous,
-// non-persistent skeleton (one tile per block, load, compute, store in
-// turn, clamps on every cell) took 327-331 us.
+// instructions on 1024 threads that meet at a barrier after every
+// substep, issued at about two thirds of the SMs' peak rate.  In SASS the
+// clamp-free body is 174.5 instructions a frozen and 303 a SLOW
+// cell-substep (the form's code over its rows, the last substep's stores
+// left out; 1.27 lane-substeps per useful cell-substep), 4 and 8 of them
+// LDC, loads of a coefficient into every thread's registers; with
+// BrParams laid out for that (br_cell.cuh) the kernel takes 255-258 us,
+// where 7 and 15 LDC took 265-268.  The copies of the next tile, spread
+// over the substeps, add about 16-30 us; the stores, issued from the last
+// substep, add nothing measurable.  The previous, non-persistent skeleton
+// (one tile per block, load, compute, store in turn, clamps on every
+// cell) took 327-331 us.
 //
 // Built by fib_tf_tpu_torch/kernels/build.py with nvcc into a shared library
 // with a plain C interface (no --use_fast_math: logf feeds e_Ca).
+
+// The GEOM entries' BR reads its fits from BrParams::rows (br_cell.cuh)
+#ifdef FIBTORCH_GEOM_ENTRIES
+#define FIBTORCH_BR_FIT_ROWS
+#endif
 
 #include <cuda_runtime.h>
 #include <string.h>

@@ -52,6 +52,9 @@
 // Built by fib_tf_tpu_torch/kernels/build.py with nvcc into a shared library
 // with a plain C interface (no --use_fast_math: logf feeds e_Ca).
 
+// BR reads its fits from BrParams::rows (br_cell.cuh)
+#define FIBTORCH_BR_FIT_ROWS
+
 #include <cuda_runtime.h>
 #include <string.h>
 

@@ -91,15 +91,17 @@ HEADERS = (build.CSRC_DIR / "br_cell.cuh",
 # tensor flag, dxx, dxy, dyy (csrc/geometry.cuh Geometry)
 GEOMETRY_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                      ctypes.c_float, ctypes.c_float, ctypes.c_float]
-# BrParams::coef order in br_cell.cuh
+# the order of BrParams' fits in br_cell.cuh
 FIT_ORDER = (
     "x1_inf", "x1_rl", "m_inf", "m_rl", "h_inf", "h_rl", "j_inf", "j_rl",
     "d_inf", "d_rl", "f_inf", "f_rl", "i_k1", "i_x1f",
 )
 # the per-cell planes, in the kernels' order (BeelerReuterCell::Plane)
 CELL_PLANES = ("C", "m", "h", "j", "d", "f", "x1")
-# 14 fits of 9 coefficients, then 11 scalars (pack_params)
-PARAM_FLOATS = len(FIT_ORDER) * 9 + 11
+# BrParams (pack_params): the 14 fits' constant terms, their other eight
+# coefficients fit by fit, 11 scalars, a pad, then the fits' nine
+# coefficients again fit by fit
+PARAM_FLOATS = len(FIT_ORDER) * 18 + 12
 # BrVariantCell<AB2>::Plane: BR's planes, then with ab2 the derivatives
 BR_VARIANT_AB2_PLANES = CELL_PLANES + ("_dC_", "_dV_")
 # BrVariantParams: 14 fit slots of 9 coefficients, the 12 x 7 rate table,
@@ -138,10 +140,12 @@ TP06_PLANES = ("CaSR", "CaSS", "Cai", "Ki", "Nai", "Rq", "d", "f", "f2",
 
 
 def _pack_br(model: BeelerReuter) -> np.ndarray:
-    """BrParams as a float32 array: the 14 fits, then the conductances
-    with their g_scale factors folded in (in double, as the plain path's
-    Python constants are), dt, diff*dt, the Chebyshev domain and the probe
-    normalisation."""
+    """BrParams as a float32 array: the 14 fits' constant terms, their
+    other eight coefficients fit by fit, the conductances with their
+    g_scale factors folded in (in double, as the plain path's Python
+    constants are), dt, diff*dt, the Chebyshev domain, the probe
+    normalisation, a pad, then the 14 fits' nine coefficients again
+    (br_cell.cuh says which kernels read which)."""
     cfg = model.cfg
     coef = np.stack([np.asarray(model.cheby_coef[k], np.float32)
                      for k in FIT_ORDER])
@@ -158,7 +162,8 @@ def _pack_br(model: BeelerReuter) -> np.ndarray:
         model.min_v,
         model.max_v - model.min_v,
     ], np.float32)
-    return np.concatenate([coef.ravel(), scalars])
+    return np.concatenate([coef[:, 0], coef[:, 1:].ravel(), scalars,
+                           np.zeros(1, np.float32), coef.ravel()])
 
 
 def _pack_br_variant(model: BeelerReuter) -> np.ndarray:

@@ -225,11 +225,18 @@ def test_pack_params_layout():
     tm = tbr.BeelerReuter(cfg())
     p = cuda_step.pack_params(tm)
     assert p.dtype == np.float32 and p.size == cuda_step.PARAM_FLOATS
-    coef = p[:len(cuda_step.FIT_ORDER) * 9].reshape(-1, 9)
-    for row, key in zip(coef, cuda_step.FIT_ORDER):
-        np.testing.assert_array_equal(row, tm.cheby_coef[key].astype(np.float32))
+    # each fit twice: its constant term apart and d1..d8, then all nine
+    n = len(cuda_step.FIT_ORDER)
+    rest = p[n:n * 9].reshape(-1, 8)
+    rows = p[n * 9 + 12:].reshape(-1, 9)
+    for i, key in enumerate(cuda_step.FIT_ORDER):
+        want = tm.cheby_coef[key].astype(np.float32)
+        np.testing.assert_array_equal(np.concatenate([p[i:i + 1], rest[i]]),
+                                      want)
+        np.testing.assert_array_equal(rows[i], want)
     np.testing.assert_array_equal(
-        p[-6:], np.float32([0.1, 0.809 * 0.1, -30.0, 60.0, -90.0, 120.0]))
+        p[n * 9 + 5:n * 9 + 12],
+        np.float32([0.1, 0.809 * 0.1, -30.0, 60.0, -90.0, 120.0, 0.0]))
 
 
 def test_wrapper_routes_cpu_tensors_to_plain_version():

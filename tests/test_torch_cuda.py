@@ -9,6 +9,9 @@ Tusscher-Panfilov 2006 on kernels 1 (with GEOM) and 4.
 Marked `cuda`: without a CUDA device (and nvcc) every test here skips.  On
 the card:  python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q"""
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +32,16 @@ pytestmark = pytest.mark.cuda
 
 CFG = SimConfig(width=96, height=64, dt=0.1, dt_per_plot=10, diff=0.809,
                 duration=20, cheby=True, skip=True)
+
+
+def tile_bench():
+    """tools/torch_tile_bench.py, whose SASS parser the tests share."""
+    tools = Path(__file__).resolve().parents[1] / "tools"
+    path = tools / "torch_tile_bench.py"
+    spec = importlib.util.spec_from_file_location("torch_tile_bench", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 @pytest.fixture
@@ -1224,3 +1237,31 @@ def test_launch_spans_equal_the_launch_counters(device, monkeypatch, case):
     assert not [e.name() for e in events
                 if e.device_type() == DeviceType.CUDA
                 and "fibtorch." in e.name()]
+
+
+def test_br_tiled_body_loads_few_constants_per_thread(device):
+    """Kernel 2's clamp-free BR body, in the SASS that cuobjdump prints and
+    tools/torch_tile_bench.py counts: at most 4 LDC (a load into every
+    thread's registers) per frozen cell-substep and 8 per SLOW one, the
+    division's divisor and one LDC.64 for each gate's pair of constant
+    terms (br_cell.cuh BrParams); 64 registers and no spill."""
+    from fib_tf_tpu_torch.kernels import build
+
+    try:
+        cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
+    except RuntimeError:
+        pytest.skip("needs nvcc")
+    if not cuobjdump.exists():
+        pytest.skip("needs cuobjdump")
+    bench = tile_bench()
+    lib = cuda_tiled.KERNEL.build()
+    sass = bench.sass_functions(bench.cuobjdump_sass(lib), lines=True)
+    (name, lines), = [(fn, ls) for fn, ls in sass.items()
+                      if "tile_kernel" in fn and "BeelerReuterCell" in fn]
+    kinds = bench.per_kind(bench.cell_substeps(bench.sass_instructions(lines)))
+    assert kinds["frozen_clamp_free"]["ldc"] <= 4
+    assert kinds["slow_clamp_free"]["ldc"] <= 8
+    log = lib.with_name(lib.name + ".log").read_text()
+    report = log[log.index(name):].split("Compiling entry function")[0]
+    assert "Used 64 registers" in report
+    assert "0 bytes spill stores, 0 bytes spill loads" in report

@@ -16,8 +16,11 @@ numpy (the same in every run): kernel 1 (`make_cuda_step`) and kernel 2
 4x1 mesh, kernel 4 (`make_volume_step`) and kernel 5
 (`make_tiled_volume_step`) two outer steps at 8x128x512 and 8x512x512,
 kernel 6 (`make_volume_block_step`) one group on the interior 18x128x512
-block of a 32x128x512 volume.  It writes the SHA-256 of every output plane
-and the device time per call of each step (chip_smoke.device_us) with the
+block of a 32x128x512 volume; and the GEOM entries of kernels 1-3 under
+chip_smoke.py's geometry (c) (a hole, a diffusion map and fibers at 30
+degrees): kernel 1 two outer steps at 512x512, kernel 2 one at 2048x2048,
+kernel 3 one on the 522x2048 block.  It writes the SHA-256 of every output
+plane and the device time per call of each step (chip_smoke.device_us) with the
 card's name and power limit to `--out`.  `--compare` prints, for each
 kernel, whether all runs' planes are bit-equal and each run's time, and
 exits 1 when a plane differs.  Needs a CUDA card and nvcc; imports no JAX.
@@ -62,7 +65,7 @@ def run(args):
     from fib_tf_tpu_torch.models import BeelerReuter
     from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
                                       cuda_volume, cuda_volume_block,
-                                      cuda_volume_tiled)
+                                      cuda_volume_tiled, stencil)
 
     smoke = load_smoke()
     if not torch.cuda.is_available():
@@ -139,6 +142,37 @@ def run(args):
 
     zext_timed = smoke.clone(zext)
     record("kernel 6 (18x128x512 block)", group_step, zext, 1, timed_group)
+
+    def geometry(h, w):
+        """chip_smoke.geometry_maps' geometry (c) as the steps take it."""
+        phase = stencil.add_hole_to_phase_field(
+            None, h, w, w * 150 // 512, h * 200 // 512, max(w * 40 // 512, 4))
+        phase = stencil.add_hole_to_phase_field(
+            phase, h, w, w / 2, h / 2, min(h, w) / 2 + 10, neg=True)
+        return dict(phase=phase, dmap=stencil.fibrosis_map(
+            h, w, density=0.25, strength=0.8, seed=0),
+            fiber=stencil.fiber_tensor(np.deg2rad(smoke.FIBER_DEG),
+                                       smoke.FIBER_RATIO))
+
+    record("kernel 1 GEOM (512x512)",
+           cuda_step.make_cuda_step(small, **geometry(512, 512)), base, 2)
+    geo = geometry(2048, 2048)
+    record("kernel 2 GEOM (2048x2048)",
+           cuda_tiled.make_tiled_cuda_step(large, **geo), base_large, 1)
+    gblock = cuda_block.make_block_step(large, False, fiber=geo["fiber"])
+    rows = slice(512 - k, 1024 + k)
+    maps = {name: torch.as_tensor(np.ascontiguousarray(geo[name][rows]),
+                                  dtype=torch.float32, device=dev)
+            for name in ("phase", "dmap")}
+
+    def gblock_step(state):
+        nxt = {kk: torch.zeros_like(v) for kk, v in state.items()}
+        return gblock(state, nxt, 512 - k, 0, phase_ext=maps["phase"],
+                      dmap_ext=maps["dmap"])
+
+    record("kernel 3 GEOM (522x2048 block)", gblock_step, ext, 1,
+           lambda: gblock(ext_timed, ext_out, 512 - k, 0,
+                          phase_ext=maps["phase"], dmap_ext=maps["dmap"]))
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(out, indent=1))
     print(json.dumps({"tag": args.tag, "kernels": len(out["kernels"])}))

@@ -7,6 +7,15 @@ card, and show what the compiler made of it.
   python tools/torch_tile_bench.py --root DIR --tag parent
                                                        # DIR's package
   python tools/torch_tile_bench.py --volume [--root DIR --tag T]
+  python tools/torch_tile_bench.py --sass [--root DIR --tag T]
+  python tools/torch_tile_bench.py --compare-sass A_sass.json B_sass.json
+
+With --sass it builds every library of the package and times nothing: it
+writes each library's SASS, a hash of each function's SASS and the class
+counts per cell-substep of BR's tile kernels to `<out>/<tag>_sass.json`;
+--compare-sass lists the functions of two such censuses whose SASS
+differs, and exits 1 when one differs that does not hold BR's main body
+(kernel 5 hosts it alone): every other function must be identical.
 
 With --volume it prints the `-Xptxas -v` lines and SASS instruction
 counts of kernels 5 and 4, and device times per outer step at 8x512x512,
@@ -25,7 +34,10 @@ It prints, after the card's name and power limit:
   * the `-Xptxas -v` lines of both libraries (registers, spills, stack);
   * from `cuobjdump -sass`, the instructions of each `tile_kernel` and
     the instruction counts between its shared-memory stores of V (one
-    per cell-substep), written in full to `<out>/<tag>_*.sass`;
+    per cell-substep), written in full to `<out>/<tag>_*.sass`, and per
+    cell-substep (frozen and SLOW, clamp-free and edge body) the
+    instructions by class: constant loads (ULDC, LDC), FFMA / FMUL /
+    FADD, MUFU, LDS / STS, branches and barriers, and the rest;
   * device times (CUDA events around a queue held by a spin kernel, as in
     chip_smoke.py): kernel 2 at 2048^2 and 2047^2, the substep route (five
     launches of csrc/br_substep.cu) at 2048^2 and the ratio of the two,
@@ -75,9 +87,9 @@ def ptxas_lines(lib: Path):
 INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
-def sass_functions(text: str):
+def sass_functions(text: str, lines: bool = False):
     """{mangled name: [opcode, ...]} of every function in cuobjdump's
-    -sass output."""
+    -sass output (`lines`: the whole instruction lines instead)."""
     funcs, name = {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
@@ -87,34 +99,252 @@ def sass_functions(text: str):
             continue
         m = INSN.search(line)
         if name and m:
-            funcs[name].append(m.group(2))
+            # cuobjdump pads its columns to the file's longest line
+            funcs[name].append(" ".join(line.split()) if lines
+                               else m.group(2))
     return funcs
 
 
-def sass_report(lib: Path, out: Path, match: str = "tile_kernel"):
-    """Instruction counts of each kernel of `lib` whose name holds `match`:
-    the total, and the gaps between consecutive shared stores (STS), one
-    per cell-substep of a 2D substep body."""
+# The classes of SASS instructions counted per cell-substep, by opcode
+# (without its modifiers); every other opcode is "other".
+OP_CLASSES = {
+    "const_load": ("ULDC", "LDC"),
+    "float": ("FFMA", "FMUL", "FADD"),
+    "mufu": ("MUFU",),
+    "shared": ("LDS", "STS"),
+    "control": ("BRA", "BRX", "JMP", "JMX", "CALL", "RET", "EXIT", "BSSY",
+                "BSYNC", "BREAK", "BAR", "WARPSYNC"),
+}
+
+
+def op_class(op: str) -> str:
+    base = op.split(".")[0]
+    for cls, names in OP_CLASSES.items():
+        if base in names:
+            return cls
+    return "other"
+
+
+def classify(ops):
+    """{class: count} of a run of opcodes, with their total and, among the
+    constant loads, the LDC ones: a load into every thread's registers,
+    where ULDC loads a uniform register once for the warp."""
+    counts = dict.fromkeys((*OP_CLASSES, "other"), 0)
+    for op in ops:
+        counts[op_class(op)] += 1
+    counts["total"] = len(ops)
+    counts["ldc"] = sum(op.split(".")[0] == "LDC" for op in ops)
+    return counts
+
+
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_instructions(lines):
+    """(address, predicate, opcode, operands) of cuobjdump's instruction
+    lines."""
+    out = []
+    for line in lines:
+        m = SASS_LINE.search(line)
+        if m:
+            out.append((int(m.group(1), 16), (m.group(2) or "").strip(),
+                        m.group(3), m.group(4).strip()))
+    return out
+
+
+def cell_substeps(insns):
+    """Class counts per cell-substep of a 2D tile kernel, from its
+    instructions (`sass_instructions`).  The function is cut into runs at
+    every unconditional jump, barrier and exit and at its target, at loop
+    heads and before each run of cp.async copies (LDGSTS), so that a run
+    holds one form of the substep: its rows, each ending in the shared
+    store of the new V (STS to a register address; the walk's stores use a
+    uniform one), and what the form does once for all of them.  Code that
+    only the last substep runs (a forward conditional jump over global
+    stores, STG) is left out.  Each run with rows is labelled SLOW (100 or
+    more FFMA a row: fourteen fits of eight terms; a frozen one computes
+    six) or frozen, and edge (integer min / max: the clamps of the edge
+    body) or clamp-free, with its class counts over its rows."""
+    index = {a: i for i, (a, *_) in enumerate(insns)}
+    n = len(insns)
+
+    def v_store(i):
+        return insns[i][2].startswith("STS") and "[R" in insns[i][3]
+
+    cuts, skipped = {0, n}, [False] * n
+    for i, (_, pred, op, args) in enumerate(insns):
+        base = op.split(".")[0]
+        if base in ("BRA", "EXIT", "RET", "BAR") and not pred:
+            cuts.add(i + 1)
+        if base == "LDGSTS" and not insns[i - 1][2].startswith("LDGSTS"):
+            cuts.add(i)
+        if base != "BRA":
+            continue
+        t = index.get(int(args.split()[-1], 16))
+        if t is None:
+            continue
+        if t <= i or not pred:
+            cuts.add(t)   # a loop head, or where two forms join
+            continue
+        if not any(insns[k][2].startswith("STG") for k in range(i + 1, t)):
+            continue
+        # skip the last substep's stores: past them, up to the next row
+        stores = [k for k in range(i + 1, t) if v_store(k)]
+        stop = t if not stores else max(
+            [k + 1 for k in range(i + 1, stores[0])
+             if insns[k][2].startswith("STG")], default=i + 1)
+        for k in range(i + 1, stop):
+            skipped[k] = True
+    cuts = sorted(cuts)
+    runs = []
+    for a, b in zip(cuts, cuts[1:]):
+        kept = [insns[k][2] for k in range(a, b) if not skipped[k]]
+        rows = sum(v_store(k) for k in range(a, b) if not skipped[k])
+        if not rows:
+            continue
+        bases = [op.split(".")[0] for op in kept]
+        slow = bases.count("FFMA") >= 100 * rows
+        edge = any(op in ("IMNMX", "VIMNMX") for op in bases)
+        counts = classify(kept)
+        runs.append({"kind": ("slow" if slow else "frozen") +
+                     ("_edge" if edge else "_clamp_free"), "rows": rows,
+                     **{k: v / rows for k, v in counts.items()}})
+    return runs
+
+
+def per_kind(runs):
+    """{kind: {class: count per cell-substep}} over the runs of each kind
+    (their rows' mean), with the runs and rows counted."""
+    out = {}
+    for kind in sorted({r["kind"] for r in runs}):
+        these = [r for r in runs if r["kind"] == kind]
+        rows = sum(r["rows"] for r in these)
+        out[kind] = {k: round(sum(r[k] * r["rows"] for r in these) / rows, 2)
+                     for k in these[0] if k not in ("kind", "rows")}
+        out[kind].update(runs=len(these), rows=rows)
+    return out
+
+
+def cuobjdump_sass(lib: Path) -> str:
     cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
     proc = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         raise RuntimeError(f"cuobjdump failed: {proc.stderr}")
-    out.write_text(proc.stdout)
+    return proc.stdout
+
+
+def sass_report(lib: Path, out: Path, match: str = "tile_kernel"):
+    """Instruction counts of each kernel of `lib` whose name holds `match`:
+    the total, the gaps between consecutive shared stores (STS), one per
+    cell-substep of a 2D substep body, and the class counts of the
+    cell-substeps among them (`cell_substeps`, `per_kind`)."""
+    text = cuobjdump_sass(lib)
+    out.write_text(text)
     report = {}
-    for name, ops in sass_functions(proc.stdout).items():
+    for name, lines in sass_functions(text, lines=True).items():
         if match not in name:
             continue
+        insns = sass_instructions(lines)
+        ops = [op for _, _, op, _ in insns]
         sts = [i for i, op in enumerate(ops) if op.startswith("STS")]
         gaps = [b - a for a, b in zip(sts, sts[1:])]
         hist = {}
         for op in ops:
             key = op.split(".")[0]
             hist[key] = hist.get(key, 0) + 1
+        runs = cell_substeps(insns)
         report[name] = {"instructions": len(ops), "sts_gaps": gaps,
+                        "cell_substeps": runs,
+                        "per_cell_substep": per_kind(runs),
                         "opcodes": dict(sorted(hist.items(),
                                                key=lambda kv: -kv[1]))}
     return report
+
+
+def print_per_kind(label: str, fn: str, kinds):
+    for kind, c in kinds.items():
+        parts = ", ".join(f"{k} {v:g}" for k, v in c.items())
+        print(f"  {label} SASS {fn[:72]} per {kind} cell-substep: {parts}",
+              flush=True)
+
+
+def all_libraries():
+    """{library name: kernel binding} of every library of the port's six
+    kernel modules (as chip_smoke.py's phase 1 builds them)."""
+    from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
+                                      cuda_volume, cuda_volume_block,
+                                      cuda_volume_tiled)
+    libraries = {}
+    for mod in (cuda_step, cuda_tiled, cuda_volume, cuda_volume_tiled,
+                cuda_block, cuda_volume_block):
+        for kernel in (*getattr(mod, "KERNELS", {"br": mod.KERNEL}).values(),
+                       *getattr(mod, "GEOM_KERNELS", {}).values()):
+            name = getattr(kernel, "library_name", mod.SOURCE.stem)
+            libraries.setdefault(name, kernel)
+    return libraries
+
+
+def sass_census(args, out_dir: Path):
+    """--sass: build every library, hash each function's SASS and count
+    the cell-substeps of BR's tile kernels by class; no timing."""
+    import concurrent.futures
+    import hashlib
+
+    libraries = all_libraries()
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        paths = dict(zip(libraries, pool.map(lambda k: k.build(),
+                                             libraries.values())))
+    result = {"tag": args.tag, "functions": {}, "tile_kernels": {},
+              "ptxas": {}}
+    for name, lib in sorted(paths.items()):
+        text = cuobjdump_sass(lib)
+        (out_dir / f"{args.tag}_{name}.sass").write_text(text)
+        result["ptxas"][name] = ptxas_lines(lib)
+        for fn, lines in sass_functions(text, lines=True).items():
+            result["functions"][f"{name}:{fn}"] = hashlib.sha256(
+                "\n".join(lines).encode()).hexdigest()
+        for fn, lines in sass_functions(text, lines=True).items():
+            if "tile_kernel" in fn and "BeelerReuterCell" in fn:
+                kinds = per_kind(cell_substeps(sass_instructions(lines)))
+                result["tile_kernels"][f"{name}:{fn}"] = kinds
+                print_per_kind(name, fn, kinds)
+    for name, lines in result["ptxas"].items():
+        for ln in lines:
+            print(f"  {name} ptxas: {ln}", flush=True)
+    print(f"[{args.tag}] {len(result['functions'])} functions in "
+          f"{len(paths)} libraries", flush=True)
+    (out_dir / f"{args.tag}_sass.json").write_text(
+        json.dumps(result, indent=1))
+
+
+# The functions that hold BR's main body (its kernel 5 hosts no other):
+# the only ones whose SASS a change of that body may alter.
+BR_MAIN_BODY = r"BeelerReuterCell|^br_volume_tiled:"
+
+
+def compare_sass(paths, match: str = BR_MAIN_BODY):
+    """--compare-sass A B: the functions whose SASS differs between two
+    --sass censuses; false when one whose `library:name` the regular
+    expression `match` does not find differs or is missing from either."""
+    # an anonymous namespace's mangled name carries a hash of the source's
+    # path: two checkouts name the same function apart
+    anon = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_[0-9a-f]{8}(?=\d)")
+    a, b = ({anon.sub("<anon>", fn): h
+             for fn, h in json.loads(Path(p).read_text())["functions"].items()}
+            for p in paths)
+    ok = True
+    for fn in sorted(set(a) | set(b)):
+        if a.get(fn) == b.get(fn):
+            continue
+        expected = re.search(match, fn) is not None
+        ok = ok and expected
+        print(f"{'changed' if expected else 'DIFFERS'}: {fn}", flush=True)
+    same = sum(a.get(fn) == b.get(fn) for fn in a)
+    print(f"{same} of {len(a)} functions identical; none but those naming "
+          f"{match!r} differ: {ok}", flush=True)
+    return ok
 
 
 def find_nvcc():
@@ -232,7 +462,15 @@ def main():
                    help="directory for the SASS and the JSON")
     p.add_argument("--volume", action="store_true",
                    help="time the tiled volume kernel (kernel 5)")
+    p.add_argument("--sass", action="store_true",
+                   help="build every library, hash its SASS and count BR's "
+                   "tile kernels per cell-substep; no timing")
+    p.add_argument("--compare-sass", nargs=2, metavar="JSON",
+                   help="the functions whose SASS differs between two "
+                   "--sass censuses")
     args = p.parse_args()
+    if args.compare_sass:
+        sys.exit(0 if compare_sass(args.compare_sass) else 1)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
 
@@ -256,6 +494,9 @@ def main():
     print(f"[{args.tag}] package {root / 'fib_tf_tpu_torch'}", flush=True)
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
+    if args.sass:
+        sass_census(args, out_dir)
+        return
     if args.volume:
         volume_bench(args, smoke, card, out_dir)
         return
@@ -274,6 +515,7 @@ def main():
         for fn, r in rep.items():
             print(f"  {name} SASS {fn}: {r['instructions']} instructions; "
                   f"gaps between STS {r['sts_gaps']}", flush=True)
+            print_per_kind(name, fn, r["per_cell_substep"])
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(smoke.SEED)

@@ -1199,12 +1199,13 @@ def _launches_by_entry():
 
 
 @pytest.mark.parametrize("case", ["substep", "tiled", "court_geom", "block",
-                                  "large_block"])
+                                  "large_block", "tp06"])
 def test_launch_spans_equal_the_launch_counters(device, monkeypatch, case):
     """Over a short simulate() with one pacing event, the trace holds one
     `fibtorch.launch.<entry>` span per launch each binding counts (kernels
-    1-3 and the large block kernel, through all four wrappers), and no
-    device-side record carries a `fibtorch.` name."""
+    1-3 and the large block kernel, through all four wrappers; tp06's
+    `tp06_substep`, ten a step), and no device-side record carries a
+    `fibtorch.` name."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -1213,8 +1214,11 @@ def test_launch_spans_equal_the_launch_counters(device, monkeypatch, case):
     cfg = CFG.replace(duration=2)
     if case == "tiled":
         monkeypatch.setattr(Simulation, "WHOLE_GRID_STATE_MB_MAX", 0.01)
-    model = (Courtemanche(cfg) if case in ("court_geom", "large_block")
-             else BeelerReuter(cfg))
+    if case == "tp06":
+        model = TenTusscher06(cfg.replace(dt=0.02, cheby=False, skip=False))
+    else:
+        model = (Courtemanche(cfg) if case in ("court_geom", "large_block")
+                 else BeelerReuter(cfg))
     kw = (dict(mesh=make_mesh(devices=[device] * 4), wide_halo=True)
           if case.endswith("block") else dict(device=device))
     sim = Simulation(model, **kw)
@@ -1227,9 +1231,12 @@ def test_launch_spans_equal_the_launch_counters(device, monkeypatch, case):
                              ProfilerActivity.CUDA]) as prof:
         res = sim.simulate(schedule=[(1.0, "s2")])
     after = _launches_by_entry()
-    assert res.steps == (2 if case in ("court_geom", "large_block") else 4)
+    assert res.steps == {"court_geom": 2, "large_block": 2,
+                         "tp06": 10}.get(case, 4)
     launched = {f"fibtorch.launch.{e}": after[e] - before[e] for e in after
                 if after[e] != before[e]}
+    if case == "tp06":
+        assert launched == {"fibtorch.launch.tp06_substep": 100}
     events = prof.profiler.kineto_results.events()
     spans = Counter(e.name() for e in events
                     if e.name().startswith("fibtorch.launch."))

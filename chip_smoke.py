@@ -3893,6 +3893,12 @@ COURT_FLOPS = {"fast": 10 + 99 + 79, "slow": 99 + 383,
                "full": 10 + 99 + 79 + 383 + 23}
 # the planes each form reads besides V, and writes (V included)
 COURT_IO = {"fast": (15, 4), "slow": (18, 17), "full": (21, 22)}
+# kernel 1's cached forms of court (court_cell.cuh kCachePlanes): the slow
+# commit also writes the six planes of the cache, which a cached fast
+# commit reads in place of seven; the slow commit adds, and the cached fast
+# commit leaves out, the 18 operations of the six terms (E_K, E_Ca and
+# I_pCa 3 each, I_to's gate prefix 4, I_Ks's 2, I_CaL's 3)
+COURT_CACHE_PLANES, COURT_CACHE_FLOPS = 6, 18
 
 
 def court_form(model, slow: bool) -> str:
@@ -3900,15 +3906,24 @@ def court_form(model, slow: bool) -> str:
             else ("slow" if slow else "fast"))
 
 
-def court_bound(model, cells: int, slow: bool, volume=False, maps=None):
+def court_bound(model, cells: int, slow: bool, volume=False, maps=None,
+                cached=False):
     """(bound_ms, bound_by) of one launch of a Courtemanche form on
     `cells` cells: V and the planes the form reads (the chronic plane
     where attached; a GEOM entry's maps where it takes the Laplacian), read
-    once, the planes it commits written once, and its operations."""
+    once, the planes it commits written once, and its operations.  With
+    `cached`, kernel 1's cached form: the slow commit that stores the
+    cache, or a fast commit that reads it."""
     form = court_form(model, slow)
     reads, writes = COURT_IO[form]
     reads += 1 + len(model.het)
     flops = COURT_FLOPS[form]
+    if cached and slow:
+        writes += COURT_CACHE_PLANES
+        flops += COURT_CACHE_FLOPS
+    elif cached:
+        reads += COURT_CACHE_PLANES - 7
+        flops -= COURT_CACHE_FLOPS
     if form != "slow":
         flops += 4 if volume else 0
         if maps is not None:
@@ -4038,6 +4053,50 @@ def court_arbitrate(name, res, ref, ex_v):
           f"the float32 plain run {pe}")
 
 
+def check_cached_form(torch, k1, kernel, model, slowed, maps, geom, name,
+                      windows):
+    """Kernel 1's cached forms of a body with a cache (`kernel.cache`),
+    after one slow commit gave `slowed`: the cache that commit stored
+    against the model's `fast_invariants` of `slowed`, then one fast commit
+    that reads it against `plain_cached_substep` from `slowed`, the probe
+    included.  A direct-rate launch equals its plain version bit for bit.
+    Returns the max abs error."""
+    dev = slowed["V"].device
+    plain = model.fast_invariants(slowed)
+    planes = kernel.cache.planes(slowed["V"])
+    stored = {k: planes[i] for i, k in enumerate(kernel.cache.names)}
+    err = compare(f"{name}, the cache it stored", stored, plain)
+    check_rounding(f"{name}, the cache", model, stored, plain)
+    pk = torch.zeros(1, device=dev)
+    pp = torch.zeros(1, device=dev)
+    got = clone(slowed)
+    kernel.launch(k1.pack_params(model), got, False, pk, model.probe_pixel,
+                  0, torch.cuda.current_stream(dev).cuda_stream,
+                  () if maps is None else maps.args(dev), True)
+    want = k1.plain_cached_substep(model, clone(slowed), plain, pp, 0, geom)
+    torch.cuda.synchronize()
+    name = f"{name}, then a fast commit that reads the cache"
+
+    def exact():
+        ex = {k: v.double() for k, v in slowed.items()}
+        return k1.plain_cached_substep(model, ex, model.fast_invariants(ex),
+                                       geom=geom), slowed
+
+    err = max(err, compare(f"{name}, one launch", got, want, exact,
+                           windows))
+    check_rounding(name, model, got, want)
+    compare_probes(name, pk, pp)
+    return err
+
+
+def expected_cached(k1, model, n_steps: int) -> int:
+    """Fast commits that read the cache in `n_steps` outer steps of kernel
+    1 (9 a step for court, 0 for a body without a cache)."""
+    if not k1.cell_body(model).cache:
+        return 0
+    return n_steps * sum(k1.cache_schedule(k1.slow_schedule(model)))
+
+
 def court_phases(torch, m, card, rng):
     """Phases 38-43: Courtemanche and Courtemanche-ultra on kernels 1
     (isotropic and GEOM) and 4.  `m` carries the port's modules and
@@ -4046,6 +4105,8 @@ def court_phases(torch, m, card, rng):
     k1, k4, st_ = m.cuda_step, m.cuda_volume, m.stencil
     classes = {"court": m.Courtemanche, "court_ultra": m.CourtemancheUltra}
     errs, launches, runs = {}, {}, {}
+    bindings = {k.entry: k for k in (*k1.KERNELS.values(),
+                                     *k1.GEOM_KERNELS.values())}
     t0 = time.perf_counter()
 
     def stamp(phase):
@@ -4059,10 +4120,20 @@ def court_phases(torch, m, card, rng):
     def note(entry, err):
         errs[entry] = max(errs.get(entry, 0.0), err)
 
-    def count(entry, counts):
-        old = launches.setdefault(entry, {"slow": 0, "frozen": 0})
+    def count(entry, counts, model=None, n_steps=0):
+        """Add a run's launches of `entry`; for kernel 1's entries (given
+        the run's model and outer steps) check and add its fast commits
+        that read the cache."""
+        old = launches.setdefault(entry, {"slow": 0, "frozen": 0,
+                                          "cached": 0})
         for kk in counts[entry]:
             old[kk] += counts[entry][kk]
+        if entry in bindings:
+            n = bindings[entry].cached_launches
+            check(n == expected_cached(k1, model, n_steps),
+                  f"{entry}: {n} fast commits read the cache in "
+                  f"{n_steps} outer steps")
+            old["cached"] += n
 
     # -- phase 38 ---------------------------------------------------------------
     print("phase 38: every Courtemanche entry vs plain PyTorch, every rate "
@@ -4082,6 +4153,7 @@ def court_phases(torch, m, card, rng):
             geom = (k1.grid_geometry(device=dev) if maps is None
                     else maps.plain(dev))
             entry = f"{body}_substep" + ("" if maps is None else "_geom")
+            kernel = bindings[entry]
             m.reset_counts()
             for slow in sorted(set(k1.slow_schedule(model))):
                 name = f"{entry} 512x512 {label} ({key}) slow={slow}"
@@ -4100,6 +4172,10 @@ def court_phases(torch, m, card, rng):
                                     windows))
                 check_rounding(name, model, got, want)
                 compare_probes(name, pk, pp)
+                if slow and kernel.cache is not None:
+                    note(entry, check_cached_form(
+                        torch, k1, kernel, model, got, maps, geom, name,
+                        windows))
             step = (k1.make_cuda_step(model) if maps is None else
                     k1.make_cuda_step(model, maps.phase, maps.fiber,
                                       maps.dmap))
@@ -4110,8 +4186,14 @@ def court_phases(torch, m, card, rng):
             want_n = expected_launches(k1, model, 2)
             for slow in set(k1.slow_schedule(model)):
                 want_n["slow" if slow else "frozen"] += 1
+            n_read = int(kernel.cache is not None)
+            want_n["frozen"] += n_read
             check_launched(m.read_counts(), entry, want_n,
                            f"{entry} ({key}, {label})")
+            check(kernel.cached_launches
+                  == expected_cached(k1, model, 2) + n_read,
+                  f"{entry} ({key}, {label}): {kernel.cached_launches} "
+                  f"fast commits read the cache")
         vmodel = model_of(key, height=128)
         vbase = court_seeded(torch, m, vmodel, dev, rng, depth=DEPTH)
         entry = f"{body}_volume"
@@ -4172,7 +4254,7 @@ def court_phases(torch, m, card, rng):
             check_launched(counts, entry,
                            expected_launches(k1, sim.model, res.steps),
                            f"the {body} annulus run")
-            count(entry, counts)
+            count(entry, counts, sim.model, res.steps)
             print(f"  {body}: route {sim.route}, steps {res.steps}, launches "
                   f"{counts[entry]}, cycle_lengths {res.cycle_lengths}, "
                   f"{1.0 / res.sim_seconds_per_wall_second:.6f} "
@@ -4252,7 +4334,7 @@ def court_phases(torch, m, card, rng):
                 check_launched(counts, f"{body}_substep",
                                expected_launches(k1, model, res.steps),
                                f"the {body} chronic-plane run")
-                count(f"{body}_substep", counts)
+                count(f"{body}_substep", counts, model, res.steps)
                 check(all(np.isfinite(v).all() for v in res.state.values())
                       and len(res.cycle_lengths) >= 1,
                       f"the {body} chronic-plane run is not finite or saw "
@@ -4347,23 +4429,37 @@ def court_phases(torch, m, card, rng):
             geom = (k1.grid_geometry(device=dev) if maps is None
                     else maps.plain(dev))
             args = () if maps is None else maps.args(dev)
-            for slow in sorted(set(k1.slow_schedule(model)), reverse=True):
+            # the slow commit (which stores a body's cache) first, then the
+            # fast commit that computes its terms, and the one that reads
+            # the cache
+            has_cache = kernel.cache is not None
+            n = launches.get(f"{body}_substep{label}", {})
+            for slow, reads in [(s, False) for s in sorted(
+                    set(k1.slow_schedule(model)), reverse=True)] + (
+                    [(False, True)] if has_cache else []):
                 state = clone(base)
                 us = device_us(torch, lambda: kernel.launch(
                     params, state, slow, None, model.probe_pixel, 0, stream,
-                    args), reps=100)
-                plain = stream_us(torch, lambda: k1.plain_substep(
-                    model, state, slow, geom=geom), reps=5)
-                b = court_bound(model, cells, slow, maps=maps)
-                name = f"{body}_substep{label}<SLOW={str(slow).lower()}>"
+                    args, reads), reps=100)
+                if reads:
+                    inv = model.fast_invariants(state)
+                    plain = stream_us(torch, lambda: k1.plain_cached_substep(
+                        model, state, inv, geom=geom), reps=5)
+                else:
+                    plain = stream_us(torch, lambda: k1.plain_substep(
+                        model, state, slow, geom=geom), reps=5)
+                b = court_bound(model, cells, slow, maps=maps,
+                                cached=has_cache and (slow or reads))
+                name = (f"{body}_substep{label}<SLOW={str(slow).lower()}"
+                        f"{',cached' if reads else ''}>")
                 print(f"  {name} 512x512: {us:.3f} us/launch, plain "
                       f"{plain:.1f} us, bound {b[0] * 1e3:.3f} us ({b[1]}) "
                       f"[{card}]", flush=True)
                 entries.append(kernel_entry(
                     name, "fib_tf_tpu_torch/csrc/br_substep.cu",
                     "fib_tf_tpu/ops/pallas_step.py:205",
-                    launches.get(f"{body}_substep{label}", {}).get(
-                        "slow" if slow else "frozen", 0),
+                    n.get("slow", 0) if slow else n.get("cached", 0) if reads
+                    else n.get("frozen", 0) - n.get("cached", 0),
                     errs[f"{body}_substep{label}"], us, plain, b))
         vmodel = model_of(body, height=128)
         vbase = court_seeded(torch, m, vmodel, dev, rng, depth=DEPTH)

@@ -7,12 +7,13 @@
 // br_variant_ab2_substep, fenton_substep, fenton_ab2_substep, ms_substep);
 // and, as a second library of this source (-DFIBTORCH_COURT_ENTRIES
 // -fmad=false), court_substep and court_ultra_substep (court_cell.cuh:
-// Courtemanche's fast and slow commits, eleven launches per outer step,
-// and Courtemanche-ultra's full commit, ten); and, as a third
-// (-DFIBTORCH_LRTP_ENTRIES -fmad=false), lr1_substep and tp06_substep
-// (lr1_cell.cuh, tp06_cell.cuh: Luo-Rudy 1991 and ten Tusscher-Panfilov
-// 2006, one SLOW launch and nine frozen ones per outer step under skip,
-// ten SLOW ones without).
+// Courtemanche's fast and slow commits, eleven launches per outer step, the
+// slow commit and the nine fast commits after it in their cached forms,
+// cached_substep_kernel; and Courtemanche-ultra's full commit, ten); and,
+// as a third (-DFIBTORCH_LRTP_ENTRIES -fmad=false), lr1_substep and
+// tp06_substep (lr1_cell.cuh, tp06_cell.cuh: Luo-Rudy 1991 and ten
+// Tusscher-Panfilov 2006, one SLOW launch and nine frozen ones per outer
+// step under skip, ten SLOW ones without).
 //
 // Replaces the TPU kernel fib_tf_tpu/ops/pallas_step.py::make_pallas_step as
 // the engine launches it for Beeler-Reuter cheby+skip (one substep per
@@ -103,15 +104,16 @@ struct CellPlanes {
   float* p[N];
 };
 
-template <class Body, bool SLOW, bool GEOM>
-__global__ void substep_kernel(const typename Body::Params p,
-                               const float* __restrict__ v_in,
-                               float* __restrict__ v_out,
-                               const CellPlanes<Body::kPlanes> planes,
-                               int height, int width,
-                               float* __restrict__ probe, int probe_row,
-                               int probe_col, long long probe_index,
-                               const fibtorch::GeometryArg<GEOM> geo) {
+// One cell of one launch.  With CACHED (a body with a cache,
+// cell_traits.cuh kCachePlanes), `cache` is its planes: the SLOW form
+// stores them, the other reads them.
+template <class Body, bool SLOW, bool GEOM, bool CACHED>
+__device__ __forceinline__ void substep_cell(
+    const typename Body::Params& p, const float* __restrict__ v_in,
+    float* __restrict__ v_out, float* const* planes, int height, int width,
+    float* __restrict__ probe, int probe_row, int probe_col,
+    long long probe_index, const fibtorch::GeometryArg<GEOM>& geo,
+    float* const* cache) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (row >= height || col >= width) return;
@@ -141,45 +143,110 @@ __global__ void substep_kernel(const typename Body::Params p,
 
   const long long idx = (long long)row * width + col;
   float q[Body::kPlanes];
-  fibtorch::load_planes<Body>(planes.p, idx, q);
-  const float v1 = Body::template update<SLOW>(p, v0, v_in[idx], lap, q);
+  fibtorch::load_planes<Body>(planes, idx, q);
+  float v1;
+  if constexpr (CACHED) {
+    constexpr int kCache = fibtorch::cache_planes<Body>();
+    float c[kCache];
+    if constexpr (!SLOW) {
+#pragma unroll
+      for (int k = 0; k < kCache; ++k) c[k] = cache[k][idx];
+    }
+    v1 = Body::template update<SLOW, true>(p, v0, v_in[idx], lap, q, c);
+    if constexpr (SLOW) {
+#pragma unroll
+      for (int k = 0; k < kCache; ++k) cache[k][idx] = c[k];
+    }
+  } else {
+    v1 = Body::template update<SLOW>(p, v0, v_in[idx], lap, q);
+  }
   if constexpr (fibtorch::writes_potential<Body, SLOW>()) v_out[idx] = v1;
 #pragma unroll
   for (int k = 0; k < Body::kPlanes; ++k) {
-    if (Body::template stores<SLOW>(k)) planes.p[k][idx] = q[k];
+    if (Body::template stores<SLOW>(k)) planes[k][idx] = q[k];
   }
   if (probe != nullptr && row == probe_row && col == probe_col) {
     probe[probe_index] = Body::probe(p, v1);
   }
 }
 
+template <class Body, bool SLOW, bool GEOM>
+__global__ void substep_kernel(const typename Body::Params p,
+                               const float* __restrict__ v_in,
+                               float* __restrict__ v_out,
+                               const CellPlanes<Body::kPlanes> planes,
+                               int height, int width,
+                               float* __restrict__ probe, int probe_row,
+                               int probe_col, long long probe_index,
+                               const fibtorch::GeometryArg<GEOM> geo) {
+  substep_cell<Body, SLOW, GEOM, false>(p, v_in, v_out, planes.p, height,
+                                        width, probe, probe_row, probe_col,
+                                        probe_index, geo, nullptr);
+}
+
+// The threads of a block of every entry below.
+constexpr int kBlockX = 32, kBlockY = 8;
+
+// The cached forms of a body with a cache.  A fast commit that reads it is
+// held to five blocks an SM (48 registers), as its uncached form compiles:
+// at 49 registers it held four and ran slower than that form (PERF.md §6).
+// The slow commit keeps the four blocks its uncached form holds.
+template <class Body, bool SLOW, bool GEOM>
+__global__ void __launch_bounds__(kBlockX * kBlockY, SLOW ? 4 : 5)
+    cached_substep_kernel(const typename Body::Params p,
+                          const float* __restrict__ v_in,
+                          float* __restrict__ v_out,
+                          const CellPlanes<Body::kPlanes> planes, int height,
+                          int width, float* __restrict__ probe,
+                          int probe_row, int probe_col, long long probe_index,
+                          const fibtorch::GeometryArg<GEOM> geo,
+                          const CellPlanes<fibtorch::cache_planes<Body>()>
+                              cache) {
+  substep_cell<Body, SLOW, GEOM, true>(p, v_in, v_out, planes.p, height,
+                                       width, probe, probe_row, probe_col,
+                                       probe_index, geo, cache.p);
+}
+
 // Launch one substep of body `Body` (see the entries below); with GEOM,
-// under the geometry `geo`, whose maps no output may alias.
+// under the geometry `geo`, whose maps no output may alias.  `form` is the
+// flag SLOW (bit 0), plus 2 for a cached form of a body with a cache, whose
+// planes then follow the body's in `planes`; such a body's slow commit is
+// always the cached form, the one that stores the cache.
 template <class Body, bool GEOM>
-int launch_substep(int slow, const float* params, int n_params,
+int launch_substep(int form, const float* params, int n_params,
                    const float* v_in, float* v_out, void* const* planes,
                    int n_planes, int height, int width, float* probe,
                    int probe_row, int probe_col, long long probe_index,
                    int device, void* stream,
                    const fibtorch::GeometryArg<GEOM>& geo) {
+  constexpr int kCache = fibtorch::cache_planes<Body>();
+  const bool slow = (form & 1) != 0;
+  const bool cached = form >= 2;
+  // a body with a cache stores it in every slow commit: it has no form 1
+  if (form < 0 || form > 3 || (cached && kCache == 0) ||
+      (slow && !cached && kCache > 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
   // v_out is null exactly for a form that keeps the potential
   const bool writes = slow ? fibtorch::writes_potential<Body, true>()
                            : fibtorch::writes_potential<Body, false>();
   if (n_params != fibtorch::param_floats<Body>() ||
-      n_planes != Body::kPlanes || height < 3 || width < 3 ||
-      v_in == v_out || writes != (v_out != nullptr)) {
+      n_planes != Body::kPlanes + (cached ? kCache : 0) || height < 3 ||
+      width < 3 || v_in == v_out || writes != (v_out != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   CellPlanes<Body::kPlanes> pl;
-  for (int k = 0; k < Body::kPlanes; ++k) {
-    pl.p[k] = static_cast<float*>(planes[k]);
-    if ((pl.p[k] == nullptr && !fibtorch::nullable<Body>(k)) ||
-        pl.p[k] == v_in || (pl.p[k] != nullptr && pl.p[k] == v_out)) {
+  for (int k = 0; k < n_planes; ++k) {
+    float* plane = static_cast<float*>(planes[k]);
+    if ((plane == nullptr &&
+         (k >= Body::kPlanes || !fibtorch::nullable<Body>(k))) ||
+        plane == v_in || (plane != nullptr && plane == v_out)) {
       return (int)cudaErrorInvalidValue;
     }
+    if (k < Body::kPlanes) pl.p[k] = plane;
   }
   if constexpr (GEOM) {
-    if (!fibtorch::maps_apart(geo, v_out, planes, Body::kPlanes)) {
+    if (!fibtorch::maps_apart(geo, v_out, planes, n_planes)) {
       return (int)cudaErrorInvalidValue;
     }
   }
@@ -187,11 +254,31 @@ int launch_substep(int slow, const float* params, int n_params,
   if (err != cudaSuccess) return (int)err;
   typename Body::Params p;
   memcpy(&p, params, sizeof(p));
-  const dim3 block(32, 8);
+  const dim3 block(kBlockX, kBlockY);
   const dim3 grid((width + block.x - 1) / block.x,
                   (height + block.y - 1) / block.y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (slow) {
+  if constexpr (kCache > 0) {
+    if (cached) {
+      CellPlanes<kCache> cache;
+      for (int k = 0; k < kCache; ++k) {
+        cache.p[k] = static_cast<float*>(planes[Body::kPlanes + k]);
+      }
+      if (slow) {
+        cached_substep_kernel<Body, true, GEOM><<<grid, block, 0, s>>>(
+            p, v_in, v_out, pl, height, width, probe, probe_row, probe_col,
+            probe_index, geo, cache);
+      } else {
+        cached_substep_kernel<Body, false, GEOM><<<grid, block, 0, s>>>(
+            p, v_in, v_out, pl, height, width, probe, probe_row, probe_col,
+            probe_index, geo, cache);
+      }
+    } else {
+      substep_kernel<Body, false, GEOM><<<grid, block, 0, s>>>(
+          p, v_in, v_out, pl, height, width, probe, probe_row, probe_col,
+          probe_index, geo);
+    }
+  } else if (slow) {
     substep_kernel<Body, true, GEOM><<<grid, block, 0, s>>>(
         p, v_in, v_out, pl, height, width, probe, probe_row, probe_col,
         probe_index, geo);
@@ -208,32 +295,40 @@ int launch_substep(int slow, const float* params, int n_params,
 // Per body <m> (br, br_variant, br_variant_ab2, fenton, fenton_ab2, ms):
 //   <m>_substep_param_floats()  floats the host passes as `params`;
 //   <m>_substep_planes()        per-cell planes besides the potential;
+//   <m>_substep_cache_planes()  planes of the body's cache (0: none);
 //   <m>_substep(...)            launch one substep on `stream` of device
-//     `device` and return cudaGetLastError().  `params` is a host array of
-//     <m>_substep_param_floats() floats, copied into the kernel's by-value
-//     argument; `planes` a host array of <m>_substep_planes() device
-//     pointers in the body's Plane order (cuda_step's plane tuples),
-//     updated in place.  The new potential goes to `v_out`, which must not
-//     alias `v_in`.  `probe` may be null; otherwise the thread at
-//     (probe_row, probe_col) writes the normalised new potential to
-//     probe[probe_index];
+//     `device` and return cudaGetLastError().  `form` is 0 (SLOW = false)
+//     or 1 (SLOW = true); for a body with a cache 0 (a fast commit that
+//     computes its terms from the planes), 2 (a fast commit that reads the
+//     cache) or 3 (the slow commit, which stores it).
+//     `params` is a host array of <m>_substep_param_floats() floats,
+//     copied into the kernel's by-value argument; `planes` a host array of
+//     <m>_substep_planes() device pointers in the body's Plane order
+//     (cuda_step's plane tuples), updated in place, then for forms 2-3 the
+//     <m>_substep_cache_planes() planes of the cache.  The new potential
+//     goes to `v_out`, which must not alias `v_in`.  `probe` may be null;
+//     otherwise the thread at (probe_row, probe_col) writes the normalised
+//     new potential to probe[probe_index];
 //   <m>_substep_geom(...)       the same under a geometry (geometry.cuh):
 //     `phase` and `dmap` are height x width device arrays or null, and
 //     with `tensor` the operator is the fiber tensor's (dxx, dxy, dyy).
 #define SUBSTEP_ENTRIES(m, Body)                                            \
   int m##_substep_param_floats() { return fibtorch::param_floats<Body>(); } \
   int m##_substep_planes() { return Body::kPlanes; }                        \
-  int m##_substep(int slow, const float* params, int n_params,              \
+  int m##_substep_cache_planes() {                                          \
+    return fibtorch::cache_planes<Body>();                                  \
+  }                                                                         \
+  int m##_substep(int form, const float* params, int n_params,              \
                   const float* v_in, float* v_out, void* const* planes,     \
                   int n_planes, int height, int width, float* probe,        \
                   int probe_row, int probe_col, long long probe_index,      \
                   int device, void* stream) {                               \
     return launch_substep<Body, false>(                                     \
-        slow, params, n_params, v_in, v_out, planes, n_planes, height,      \
+        form, params, n_params, v_in, v_out, planes, n_planes, height,      \
         width, probe, probe_row, probe_col, probe_index, device, stream,    \
         fibtorch::NoGeometry{});                                            \
   }                                                                         \
-  int m##_substep_geom(int slow, const float* params, int n_params,         \
+  int m##_substep_geom(int form, const float* params, int n_params,         \
                        const float* v_in, float* v_out,                     \
                        void* const* planes, int n_planes, int height,       \
                        int width, float* probe, int probe_row,              \
@@ -243,7 +338,7 @@ int launch_substep(int slow, const float* params, int n_params,
     const fibtorch::Geometry geo = {phase, dmap, 0, 0, width,              \
                                     tensor, dxx, dxy, dyy};                 \
     return launch_substep<Body, true>(                                      \
-        slow, params, n_params, v_in, v_out, planes, n_planes, height,      \
+        form, params, n_params, v_in, v_out, planes, n_planes, height,      \
         width, probe, probe_row, probe_col, probe_index, device, stream,    \
         geo);                                                               \
   }

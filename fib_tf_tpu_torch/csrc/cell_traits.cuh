@@ -11,7 +11,15 @@
 //                        and must not write the potential (Courtemanche's
 //                        slow commit, which reads the new V that the fast
 //                        commit wrote).  The kernels then store no potential
-//                        and need no Laplacian.  Default: false.
+//                        and need no Laplacian.  Default: false;
+//   kCachePlanes         the number of per-cell planes of the body's cache:
+//                        terms of its fast commit that read only planes its
+//                        slow commit writes (Courtemanche's six), which
+//                        kernel 1's cached forms (br_substep.cu) store and
+//                        read; the cache is not part of the state.  A body
+//                        with one takes `update<SLOW, true>(..., cache)`:
+//                        the SLOW form stores the cache, the other reads it.
+//                        Default: 0, no cache.
 
 #pragma once
 
@@ -46,6 +54,19 @@ struct SlowKeepsPotential<Body,
 template <class Body, bool SLOW>
 __host__ __device__ constexpr bool writes_potential() {
   return !(SLOW && SlowKeepsPotential<Body>::value);
+}
+
+template <class Body, class = void>
+struct CachePlanes : std::integral_constant<int, 0> {};
+
+template <class Body>
+struct CachePlanes<Body, std::void_t<decltype(Body::kCachePlanes)>>
+    : std::integral_constant<int, Body::kCachePlanes> {};
+
+// The number of per-cell planes of `Body`'s cache (0: none).
+template <class Body>
+__host__ __device__ constexpr int cache_planes() {
+  return CachePlanes<Body>::value;
 }
 
 // Load a cell's per-cell planes at element `idx`; the body's nullable

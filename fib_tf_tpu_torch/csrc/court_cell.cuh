@@ -20,6 +20,16 @@
 //     nor its buffer (kSlowKeepsPotential); no Laplacian;
 //   CourtCell<true> (ultra) has one form, the full commit of all 22 planes
 //     every dt (ten launches per outer step, SLOW = true).
+// Kernel 1 (br_substep.cu) runs CourtCell<false> in three forms, by the
+// launch's place in the outer step: substep 0's fast commit computes its
+// terms from the planes, as every other kernel's does; the slow commit
+// also stores the six `invariant`s (E_K, E_Ca, I_pCa and three gate
+// prefixes, which read only slow planes) from the planes it has just
+// written into a cache of six planes outside the state (kCachePlanes,
+// CACHED); the nine fast commits after it read the cache in place of the
+// seven planes those terms come from.  The cache lives for one outer step:
+// substep 0 never reads it, so no value crosses an outer step, a chunk, an
+// event or a simulate() call.
 //
 // Rates (Params::mode, uniform over a launch): 0 direct (the reference's
 // calc_intermediates, with its eps = V*1e-20 guards and branches taken on
@@ -49,9 +59,14 @@
 // The fitted modes sum their series in their own order.
 //
 // What bounds it: per cell the fast commit reads 16 planes (17 with the
-// chronic plane, 18 for ultra) and writes 4; the slow commit reads 19 and
-// writes 17; about 40 exponentials in the slow commit's direct rates.
-// Bytes dominate at 3.35 TB/s; PERF.md keeps the measured times.
+// chronic plane, 18 for ultra) and writes 4, the cached one 15 (the cache's
+// six for seven planes); the slow commit reads 19 and writes 17, 23 with
+// the cache; about 40 exponentials in the slow commit's direct rates.  At
+// 2048x2048 on the H100 neither bytes nor instructions alone set the time:
+// the fast commit runs at 1.5x its byte floor, and taking 8% of its
+// instructions away saved nothing until it kept its five blocks an SM
+// (br_substep.cu); latency at the occupancy its registers allow is what
+// binds.  PERF.md keeps the measured times.
 
 #pragma once
 
@@ -297,6 +312,10 @@ struct CourtCell {
   static constexpr int kPlanes = kChronic + 1;
   static constexpr unsigned kNullablePlanes = 1u << kChronic;
   static constexpr bool kSlowKeepsPotential = !ULTRA;
+  // the fast commit's invariants (store_invariants), the planes of kernel
+  // 1's cache; ultra, which commits every plane every dt, has none
+  enum Invariant { kEk, kECa, kICap, kPTo, kPKs, kPCaL, kInvariants };
+  static constexpr int kCachePlanes = ULTRA ? 0 : kInvariants;
 
   // the fast commit stores Na_i, m, h; the slow commit the 17 slow planes;
   // ultra every plane but the chronic one
@@ -308,10 +327,40 @@ struct CourtCell {
     return SLOW ? !fast : fast;
   }
 
-  template <bool SLOW>
+  // The terms of the currents that read only planes the slow commit
+  // writes, which `update` computes inline in the same order: E_K, E_Ca,
+  // I_pCa and the gate prefixes of I_to, I_Ks and I_CaL (with the chronic
+  // plane, their conductances per cell).  Between two slow commits they do
+  // not change.  Stored from `q` into `cache`.
+  __device__ __forceinline__ static void store_invariants(
+      const Params& p, const float (&q)[kPlanes], float* cache) {
+    const float c = q[kChronic];
+    const bool het = p.het != 0.0f;
+    const float ca = q[kCa];
+    const float to_k = het ? ((1.0f - 0.5f * c) * 100.0f) * p.g_to : p.k_to;
+    const float cal_k =
+        het ? ((1.0f - 0.7f * c) * 100.0f) * p.g_cal : p.k_cal;
+    const float oa = q[kOa];
+    const float xs = q[kXs];
+    cache[kEk] = court::kRtF * logf(5.4f / q[kK]);
+    cache[kECa] = court::kRtF2 * logf(1.8f / ca);
+    cache[kICap] = (p.k_cap * ca) / (0.0005f + ca);
+    cache[kPTo] = (to_k * (oa * oa * oa)) * q[kOi];
+    cache[kPKs] = p.k_ks * (xs * xs);
+    cache[kPCaL] = ((cal_k * q[kD]) * q[kF]) * q[kFca];
+  }
+
+  // One commit.  CACHED (CourtCell<false> only): `cache` holds the
+  // invariants; the slow commit stores them from the planes it has just
+  // written, a fast commit reads them in place of K_i, oa, oi, xs, d, f and
+  // f_Ca.
+  template <bool SLOW, bool CACHED = false>
   __device__ __forceinline__ static float update(const Params& p, float v,
                                                  float /* raw */, float lap,
-                                                 float (&q)[kPlanes]) {
+                                                 float (&q)[kPlanes],
+                                                 float* cache = nullptr) {
+    static_assert(!(CACHED && ULTRA), "ultra has no cache");
+    constexpr bool kLoad = CACHED && !SLOW;
     constexpr bool kFastPart = ULTRA || !SLOW;   // V, Na_i, m, h
     constexpr bool kSlowPart = ULTRA || SLOW;    // the 17 slow planes
     const int mode = (int)p.mode;
@@ -343,12 +392,14 @@ struct CourtCell {
     const float c = q[kChronic];
     const bool het = p.het != 0.0f;
 
-    // the currents both commits need
-    const float e_k = court::kRtF * logf(5.4f / ki);
+    // the currents both commits need; a cached fast commit (kLoad) reads
+    // the invariants (store_invariants) from the cache
+    const float e_k = kLoad ? cache[kEk] : court::kRtF * logf(5.4f / ki);
     const float i_k1 = (p.s_k1 * COURT_INTER(court::I_K1A)) * (v - e_k);
     const float to_k = het ? ((1.0f - 0.5f * c) * 100.0f) * p.g_to : p.k_to;
     const float oa = q[kOa];
-    const float i_to = ((to_k * (oa * oa * oa)) * q[kOi]) * (v - e_k);
+    const float i_to =
+        (kLoad ? cache[kPTo] : (to_k * (oa * oa * oa)) * q[kOi]) * (v - e_k);
     const float kur_k = het ? (1.0f - 0.5f * c) * 100.0f : p.k_kur;
     const float ua = q[kUa];
     const float i_kur = (((kur_k * (p.s_kur * COURT_INTER(court::G_KUR))) *
@@ -356,7 +407,7 @@ struct CourtCell {
     const float i_kr =
         ((p.s_kr * COURT_INTER(court::I_KRA)) * q[kXr]) * (v - e_k);
     const float xs = q[kXs];
-    const float i_ks = (p.k_ks * (xs * xs)) * (v - e_k);
+    const float i_ks = (kLoad ? cache[kPKs] : p.k_ks * (xs * xs)) * (v - e_k);
     const float r = 10.0f / na;
     const float i_nak = ((p.k_nak * COURT_INTER(court::F_NAK)) /
                          (1.0f + sqrtf(r * r * r))) * p.k_nak2;
@@ -366,9 +417,12 @@ struct CourtCell {
     const float cal_k =
         het ? ((1.0f - 0.7f * c) * 100.0f) * p.g_cal : p.k_cal;
     const float i_ca_l =
-        (((cal_k * q[kD]) * q[kF]) * q[kFca]) * (v - 65.0f);
-    const float i_cap = (p.k_cap * ca) / (0.0005f + ca);
-    const float e_ca = court::kRtF2 * logf(1.8f / ca);
+        (kLoad ? cache[kPCaL] : ((cal_k * q[kD]) * q[kF]) * q[kFca]) *
+        (v - 65.0f);
+    const float i_cap =
+        kLoad ? cache[kICap] : (p.k_cap * ca) / (0.0005f + ca);
+    const float e_ca =
+        kLoad ? cache[kECa] : court::kRtF2 * logf(1.8f / ca);
     const float i_b_ca = p.k_bca * (v - e_ca);
 
     float v1 = v;
@@ -463,6 +517,7 @@ struct CourtCell {
       const float n = ca + 0.00238f;
       const float b2 = 1.0f + court::kTrpn / (t * t) + court::kCmdn / (n * n);
       q[kCa] = ca + (b1 / b2) * dt;
+      if constexpr (CACHED) store_invariants(p, q, cache);
     }
 #undef COURT_GATE
 #undef COURT_INTER

@@ -108,6 +108,9 @@ INTER_KEYS = (
 
 FAST_STATES = ("V", "Na_i", "m", "h")
 SLOW_RATIO = 10
+# the terms of the currents that read only slow planes (`fast_invariants`),
+# in the order of the kernels' cache (csrc/court_cell.cuh Invariant)
+FAST_INVARIANTS = ("e_k", "e_ca", "i_cap", "p_to", "p_ks", "p_cal")
 
 
 def calc_intermediates(v, xp=torch, ultra_slow: bool = False) -> Dict:
@@ -469,13 +472,39 @@ class Courtemanche(IonicModel):
         return rush_larsen(g, inter[inf_key], inter[tau_key],
                            self.dt_for(dt_key))
 
-    def solve_full(self, state: State, geom: Geometry):
-        """One substep of every state; returns (new_state,
-        intermediates)."""
+    def fast_invariants(self, state: State) -> State:
+        """The terms of the currents that read only planes the slow commit
+        writes, {FAST_INVARIANTS key: tensor}: E_K, E_Ca, I_pCa and the
+        gate prefixes of I_to, I_Ks and I_CaL (each current is its prefix
+        times its driving force, in this order).  Between two slow
+        commits they do not change."""
+        rt_f = (R_GAS * TEMP) / FARADAY
+        chronic = self.het_param(
+            state, "chronic", 1.0 if self.cfg.chronic else 0.0)
+        ca = state["Ca_i"]
+        return {
+            "e_k": rt_f * torch.log(divide(K_O, state["K_i"])),
+            "e_ca": (rt_f / 2.0) * torch.log(divide(CA_O, ca)),
+            "i_cap": ((CM * self.gscale("g_pCa", I_CAP_MAX) * ca)
+                      / (0.0005 + ca)),
+            "p_to": ((1.0 - 0.5 * chronic) * CM * self.gscale("g_to", G_TO)
+                     * state["oa"] ** 3 * state["oi"]),
+            "p_ks": CM * self.gscale("g_Ks", G_KS) * state["xs"] ** 2,
+            "p_cal": ((1.0 - 0.7 * chronic) * CM
+                      * self.gscale("g_CaL", G_CA_L)
+                      * state["d"] * state["f"] * state["f_Ca"]),
+        }
+
+    def solve_full(self, state: State, geom: Geometry,
+                   invariants: Optional[State] = None):
+        """One substep of every state, with the `fast_invariants` of
+        `state` or those given; returns (new_state, intermediates)."""
         dt_ = self.dt_for
         rt_f = (R_GAS * TEMP) / FARADAY
         chronic = self.het_param(
             state, "chronic", 1.0 if self.cfg.chronic else 0.0)
+        inv = (self.fast_invariants(state) if invariants is None
+               else invariants)
 
         v = geom.enforce_boundary(state["V"])
         inter = self.intermediates(v)
@@ -498,15 +527,14 @@ class Courtemanche(IonicModel):
                                  torch.full_like(f_ca_inf, TAU_F_CA),
                                  dt_("f_Ca"))
 
-        e_k = rt_f * torch.log(divide(K_O, state["K_i"]))
+        e_k = inv["e_k"]
         i_k1 = self.gscale("g_K1", inter["i_K1a"]) * (v - e_k)
-        i_to = ((1.0 - 0.5 * chronic) * CM * self.gscale("g_to", G_TO)
-                * state["oa"] ** 3 * state["oi"] * (v - e_k))
+        i_to = inv["p_to"] * (v - e_k)
         i_kur = ((1.0 - 0.5 * chronic) * CM
                  * self.gscale("g_Kur", inter["g_Kur"])
                  * state["ua"] ** 3 * state["ui"] * (v - e_k))
         i_kr = self.gscale("g_Kr", inter["i_Kra"]) * state["xr"] * (v - e_k)
-        i_ks = CM * self.gscale("g_Ks", G_KS) * state["xs"] ** 2 * (v - e_k)
+        i_ks = inv["p_ks"] * (v - e_k)
         i_nak = (
             (CM * self.gscale("g_NaK", I_NAK_MAX) * inter["f_NaK"])
             / (1.0 + torch.sqrt(divide(KM_NA_I, state["Na_i"]) ** 3))
@@ -535,11 +563,9 @@ class Courtemanche(IonicModel):
             dt_("Na_i"),
         )
 
-        i_ca_l = ((1.0 - 0.7 * chronic) * CM * self.gscale("g_CaL", G_CA_L)
-                  * state["d"] * state["f"] * state["f_Ca"] * (v - 65.0))
-        i_cap = ((CM * self.gscale("g_pCa", I_CAP_MAX) * state["Ca_i"])
-                 / (0.0005 + state["Ca_i"]))
-        e_ca = (rt_f / 2.0) * torch.log(divide(CA_O, state["Ca_i"]))
+        i_ca_l = inv["p_cal"] * (v - 65.0)
+        i_cap = inv["i_cap"]
+        e_ca = inv["e_ca"]
         i_b_ca = CM * self.gscale("g_bCa", G_B_CA) * (v - e_ca)
 
         dv = euler(
@@ -600,17 +626,21 @@ class Courtemanche(IonicModel):
         s1["Ca_i"] = euler(state["Ca_i"], b1 / b2, dt_("Ca_i"))
         return s1, inter
 
-    def solve(self, state: State, geom: Geometry) -> State:
-        return self.carry_het(state, self.solve_full(state, geom)[0])
+    def solve(self, state: State, geom: Geometry,
+              invariants: Optional[State] = None) -> State:
+        return self.carry_het(state,
+                              self.solve_full(state, geom, invariants)[0])
 
     def slow_keys(self, state) -> list:
         """The slow planes of `state`: neither fast nor a het plane."""
         return [k for k in state if k not in self.fast_states
                 and not k.startswith(self.HET_PREFIX)]
 
-    def fast_commit(self, state: State, geom: Geometry) -> State:
-        """A substep that commits the fast states only."""
-        s1 = self.solve(state, geom)
+    def fast_commit(self, state: State, geom: Geometry,
+                    invariants: Optional[State] = None) -> State:
+        """A substep that commits the fast states only, with the
+        `fast_invariants` of `state` or those given."""
+        s1 = self.solve(state, geom, invariants)
         return {**state, **{k: s1[k] for k in self.fast_states}}
 
     def slow_commit(self, state: State, geom: Geometry) -> State:

@@ -121,6 +121,10 @@ COURT_PLANES = ("Na_i", "m", "h", "j", "K_i", "oa", "oi", "ua", "ui", "xr",
                 "xs", "Ca_i", "d", "f", "f_Ca", "Ca_rel", "u_gate", "v_gate",
                 "w_gate", "Ca_up", "_p_chronic")
 COURT_ULTRA_PLANES = COURT_PLANES[:-1] + ("us", "_p_chronic")
+# CourtCell<false>'s cache on kernel 1 (court_cell.cuh Invariant): the fast
+# commit's terms that read only slow planes, stored by every slow commit and
+# read by the fast commits after it (`CommitCache`, `cache_schedule`)
+COURT_CACHE = court.FAST_INVARIANTS
 # CourtParams::coef order (court_cell.cuh court::Fit): the smooth fits,
 # then the folded multipliers
 COURT_FIT_ORDER = court.CHEBY_SMOOTH_KEYS + tuple(
@@ -374,7 +378,9 @@ class CellBody:
     `slow_keeps_potential`, a SLOW launch commits other planes only and
     writes no potential (csrc/cell_traits.cuh).  `library` says how its
     kernels' sources are built: BR_LIBRARY, COURT_LIBRARY for the
-    Courtemanche bodies or LRTP_LIBRARY for Luo-Rudy's and tp06's."""
+    Courtemanche bodies or LRTP_LIBRARY for Luo-Rudy's and tp06's.
+    `cache` names the planes of its cache on kernel 1 (csrc/cell_traits.cuh
+    kCachePlanes; Courtemanche's COURT_CACHE), empty for none."""
 
     name: str
     model: type
@@ -385,6 +391,7 @@ class CellBody:
     kernels: tuple = (1, 2, 3, 4, 6)
     slow_keeps_potential: bool = False
     library: Library = BR_LIBRARY
+    cache: tuple = ()
 
     def writes_potential(self, slow: bool) -> bool:
         """Whether a launch of form `slow` writes the potential."""
@@ -414,7 +421,7 @@ BODIES = {b.name: b for b in (
     # table mode has no body: the engine routes it to the plain path
     CellBody("court", Courtemanche, lambda m: not m.kernel_free,
              COURT_PLANES, COURT_PARAM_FLOATS, _pack_court, LARGE_KERNELS,
-             True, COURT_LIBRARY),
+             True, COURT_LIBRARY, COURT_CACHE),
     CellBody("court_ultra", CourtemancheUltra,
              lambda m: not m.kernel_free, COURT_ULTRA_PLANES,
              COURT_PARAM_FLOATS, _pack_court, LARGE_KERNELS, False,
@@ -473,12 +480,55 @@ def main_body_only(model: IonicModel, kernel: str):
             f"body is not ported to it yet (ROADMAP Queue 2 item D)")
 
 
-def plane_pointers(state: State, planes):
-    """A ctypes array of the device pointers of `state`'s `planes`; a het
-    plane that is not attached is a null pointer."""
-    return (ctypes.c_void_p * len(planes))(
+def plane_pointers(state: State, planes, extra: tuple = ()):
+    """A ctypes array of the device pointers of `state`'s `planes`, then
+    the pointers `extra`; a het plane that is not attached is a null
+    pointer."""
+    return (ctypes.c_void_p * (len(planes) + len(extra)))(
         *[None if k.startswith(IonicModel.HET_PREFIX) and k not in state
-          else state[k].data_ptr() for k in planes])
+          else state[k].data_ptr() for k in planes], *extra)
+
+
+class CommitCache:
+    """A body's cache on kernel 1 (`CellBody.cache`): one float32 plane per
+    name on each device, made at the shape of the state that first uses
+    it there and made anew when that shape changes.  It is never part of
+    the state: every slow commit stores it and the fast commits after it
+    in the outer step read it (`cache_schedule`), so no value outlives the
+    outer step."""
+
+    def __init__(self, names: tuple):
+        self.names = names
+        self._planes: Dict[torch.device, tuple] = {}
+
+    def planes(self, like: torch.Tensor) -> torch.Tensor:
+        """The cache for the state plane `like`, `[len(names), H, W]` on its
+        device."""
+        return self._made(like)[0]
+
+    def pointers(self, like: torch.Tensor) -> tuple:
+        """The device pointers of `planes(like)`, in `names` order."""
+        return self._made(like)[1]
+
+    def _made(self, like: torch.Tensor) -> tuple:
+        made = self._planes.get(like.device)
+        if made is None or made[0].shape[1:] != like.shape:
+            t = torch.empty((len(self.names), *like.shape),
+                            dtype=torch.float32, device=like.device)
+            made = self._planes[like.device] = (
+                t, tuple(p.data_ptr() for p in t))
+        return made
+
+
+def cache_schedule(schedule) -> tuple:
+    """Whether each launch of an outer step (`slow_schedule`) reads its
+    body's cache: every fast commit after the slow commit, which stores
+    it; the fast commit before it computes its terms from the planes."""
+    reads, stored = [], False
+    for slow in schedule:
+        reads.append(stored and not slow)
+        stored = stored or slow
+    return tuple(reads)
 
 
 class GeometryMaps:
@@ -574,7 +624,12 @@ class SubstepKernel:
     `launches` counts successful launches per template flag ("slow" =
     SLOW=true, "frozen" = SLOW=false; Fenton, Mitchell-Schaeffer and
     Courtemanche-ultra launch SLOW=true alone, Courtemanche's slow commit
-    is SLOW=true and its fast commit SLOW=false)."""
+    is SLOW=true and its fast commit SLOW=false), and `cached_launches`
+    the fast commits among them that read the body's cache.  A body with a
+    cache (`CellBody.cache`) keeps it here, in `cache`, a `CommitCache`
+    that every slow launch stores; the launches of one device go to one
+    stream, in order, so that a fast launch reads the last slow launch's
+    cache."""
 
     def __init__(self, body: str, geom: bool = False):
         self.body = BODIES[body]
@@ -582,11 +637,13 @@ class SubstepKernel:
         self.entry = f"{body}_substep" + ("_geom" if geom else "")
         self.span_name = f"fibtorch.launch.{self.entry}"
         self.library_name = self.body.library.name("substep")
+        self.cache = CommitCache(self.body.cache) if self.body.cache else None
         self._lib = None
         self.reset_launches()
 
     def reset_launches(self):
         self.launches = {"slow": 0, "frozen": 0}
+        self.cached_launches = 0
 
     def build(self):
         """Build the library (if needed) and return its path."""
@@ -613,15 +670,26 @@ class SubstepKernel:
             )
             fn.restype = ctypes.c_int
             check_layout(lib, f"{self.body.name}_substep", self.body)
+            n_cache = getattr(lib, f"{self.body.name}_substep_cache_planes")
+            n_cache.argtypes, n_cache.restype = [], ctypes.c_int
+            if n_cache() != len(self.body.cache):
+                raise RuntimeError(
+                    f"{self.entry} has a cache of {n_cache()} planes, this "
+                    f"module names {len(self.body.cache)}")
             self._lib = lib
         return self._lib
 
     def launch(self, params: np.ndarray, state: State, slow: bool,
                probe: Optional[torch.Tensor], probe_pixel, probe_index: int,
-               stream: int, geometry: tuple = ()):
+               stream: int, geometry: tuple = (), cached: bool = False):
         """One substep on CUDA tensors already validated by the caller;
         `geometry` is a GEOM entry's trailing arguments
-        (`kernel_geometry_args`)."""
+        (`kernel_geometry_args`).  A slow launch of a body with a cache
+        stores it; with `cached`, a fast launch reads it in place of the
+        planes its terms come from (`cache_schedule`)."""
+        if cached and (slow or self.cache is None):
+            raise ValueError(f"{self.entry}: only a fast commit of a body "
+                             f"with a cache reads one")
         with tracing.span(self.span_name):
             fn = getattr(self.library(), self.entry)
             pot = self.body.model.pot_key
@@ -629,11 +697,13 @@ class SubstepKernel:
             writes = self.body.writes_potential(slow)
             v_out = torch.empty_like(v_in) if writes else None
             h, w = v_in.shape
+            cache = (self.cache.pointers(v_in)
+                     if self.cache is not None and (slow or cached) else ())
             err = fn(
-                int(slow), params.ctypes.data, params.size,
+                int(slow) + 2 * bool(cache), params.ctypes.data, params.size,
                 v_in.data_ptr(), v_out.data_ptr() if writes else None,
-                plane_pointers(state, self.body.planes), len(self.body.planes),
-                h, w,
+                plane_pointers(state, self.body.planes, cache),
+                len(self.body.planes) + len(cache), h, w,
                 probe.data_ptr() if probe is not None else None,
                 probe_pixel[0], probe_pixel[1], probe_index,
                 v_in.device.index, stream, *geometry,
@@ -641,9 +711,10 @@ class SubstepKernel:
             if err != 0:
                 raise RuntimeError(
                     f"{self.entry} launch failed with CUDA error {err} "
-                    f"({h}x{w}, slow={slow})"
+                    f"({h}x{w}, slow={slow}, cached={cached})"
                 )
             self.launches["slow" if slow else "frozen"] += 1
+            self.cached_launches += int(cached)
             if writes:
                 state[pot] = v_out
 
@@ -763,6 +834,22 @@ def plain_substep(model: IonicModel, state: State, slow: bool,
     return state
 
 
+def plain_cached_substep(model: IonicModel, state: State, cache: State,
+                         probe: Optional[torch.Tensor] = None,
+                         probe_index: int = 0,
+                         geom: Optional[Geometry] = None) -> State:
+    """Plain version of a fast commit that reads the cache in place of
+    the planes its terms come from, written back into `state` as
+    `plain_substep` writes.  The plain version of the cache a slow commit
+    stores is the model's `fast_invariants` of the state it has just
+    written."""
+    geom = grid_geometry() if geom is None else geom
+    write_back(state, model.fast_commit(state, geom, cache), model.pot_key)
+    if probe is not None:
+        probe[probe_index] = model.probe(state)
+    return state
+
+
 def substep(model: IonicModel, state: State, slow: bool,
             probe: Optional[torch.Tensor] = None,
             probe_index: int = 0,
@@ -771,7 +858,8 @@ def substep(model: IonicModel, state: State, slow: bool,
     tensors, under the geometry `maps` if given.  For BR, `slow` advances
     the slow gates (the n=5 substep under skip).  With `probe`, writes the
     normalized new potential at `model.probe_pixel` to
-    `probe[probe_index]`."""
+    `probe[probe_index]`.  On the card a slow substep of a body with a
+    cache also stores it (`SubstepKernel.cache`)."""
     body = body_on(model, 1)
     dev = check_state(model, state)
     _check_probe(model, probe, probe_index, dev)
@@ -819,13 +907,16 @@ def make_cuda_step(model: IonicModel, phase: Optional[np.ndarray] = None,
     Courtemanche-ultra: ten; Courtemanche: eleven, its substep 0 being the
     fast commit and the slow commit).  The last launch writes the probe.
     With a phase field, a fiber tensor (dxx, dxy, dyy) or a diffusion map
-    (make_pallas_step's), each launch is the body's GEOM entry.  CPU
-    states take `plain_step`."""
+    (make_pallas_step's), each launch is the body's GEOM entry.  The fast
+    commits of a body with a cache (Courtemanche) read it as
+    `cache_schedule` says.  CPU states take `plain_step`."""
     maps = GeometryMaps(model.state_shape(), phase, fiber, dmap)
     body = body_on(model, 1).name
     kernel = (KERNELS if maps.empty else GEOM_KERNELS)[body]
     params = pack_params(model)
     schedule = slow_schedule(model)
+    reads = (cache_schedule(schedule) if kernel.cache is not None
+             else (False,) * len(schedule))
     last = len(schedule) - 1
 
     def step(state: State, probe: Optional[torch.Tensor] = None,
@@ -837,10 +928,10 @@ def make_cuda_step(model: IonicModel, phase: Optional[np.ndarray] = None,
                               maps.plain(dev))
         stream = torch.cuda.current_stream(dev).cuda_stream
         geometry = () if maps.empty else maps.args(dev)
-        for i, slow in enumerate(schedule):
+        for i, (slow, cached) in enumerate(zip(schedule, reads)):
             kernel.launch(params, state, slow,
                           probe if i == last else None, model.probe_pixel,
-                          probe_index, stream, geometry)
+                          probe_index, stream, geometry, cached)
         return state
 
     return step

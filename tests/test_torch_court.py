@@ -322,6 +322,92 @@ def test_plain_substeps_are_the_commits():
         assert torch.equal(st[k], want[k]), k
 
 
+# kernel 1's cached forms, on the card test's cases and state
+# (tests/test_torch_cuda.py COURT_FLAGS and _court_state)
+CACHE_CASES = {
+    "direct": {},
+    "blocked": dict(chronic=False, dv_max=2.0, g_scale=(
+        ("g_Na", 0.9), ("g_CaL", 0.7), ("g_Kr", 1.3), ("g_Ks", 1.1),
+        ("g_to", 0.6), ("g_Kur", 0.5), ("g_K1", 1.2), ("g_NaK", 0.95),
+        ("g_NaCa", 1.15), ("g_pCa", 0.85), ("g_bNa", 1.05), ("g_bCa", 0.9),
+        ("g_bK", 2.0))),
+    "chronic-plane": {},
+}
+
+
+def court_state(model):
+    """The initial state with V raised per cell by a seeded N(0, 1) mV,
+    then 12 plain outer steps."""
+    rng = np.random.RandomState(1)
+    st = model.initial_state()
+    st["V"] = st["V"] + rng.normal(0, 1.0, st["V"].shape).astype(np.float32)
+    s = interop.state_from_numpy(st, "cpu")
+    for _ in range(12):
+        cuda_step.plain_step(model, s)
+    return s
+
+
+@pytest.mark.parametrize("case", sorted(CACHE_CASES))
+def test_cached_fast_commits_equal_the_fast_commits(case):
+    """The plain version of kernel 1's cached forms at 67x131: the cache
+    that a slow commit stores (the model's `fast_invariants`) serves the
+    nine fast commits after it (`plain_cached_substep`) bit for bit as the
+    planes
+    serve `plain_substep`'s, since no fast commit writes a plane it reads;
+    and the cache is never part of the state."""
+    model = tc.Courtemanche(SimConfig(height=67, width=131, dt=0.1,
+                                      diff=0.809, **CACHE_CASES[case]))
+    if case == "chronic-plane":
+        plane = np.zeros((67, 131), np.float32)
+        plane[:, :65] = 1.0
+        model.set_het(chronic=plane)
+    st = court_state(model)
+    cuda_step.plain_substep(model, st, False)
+    cuda_step.plain_substep(model, st, True)
+    cache = model.fast_invariants(st)
+    assert tuple(cache) == cuda_step.cell_body(model).cache
+    cached = {k: v.clone() for k, v in st.items()}
+    for i in range(9):
+        cuda_step.plain_substep(model, st, False)
+        cuda_step.plain_cached_substep(model, cached, cache)
+        for k in st:
+            assert torch.equal(cached[k], st[k]), (i, k)
+    assert set(cached) == set(model.state_keys())
+    assert set(interop.state_to_numpy(cached)) == set(model.state_keys())
+    assert not set(cache) & set(model.state_keys())
+
+
+def test_cache_schedule():
+    """Court's outer step on kernel 1: the fast commit computes its terms,
+    the slow commit stores the cache and the nine fast commits read it;
+    ultra and every other body have no cache; the cache is made per
+    device, and anew when the state's shape changes."""
+    _, tm = models()
+    assert cuda_step.cache_schedule(cuda_step.slow_schedule(tm)) == (
+        (False, False) + (True,) * 9)
+    assert cuda_step.COURT_CACHE == ("e_k", "e_ca", "i_cap", "p_to", "p_ks",
+                                     "p_cal")
+    assert [b.name for b in cuda_step.BODIES.values() if b.cache] == [
+        "court"]
+    assert [k.entry for k in (*cuda_step.KERNELS.values(),
+                              *cuda_step.GEOM_KERNELS.values())
+            if k.cache is not None] == ["court_substep",
+                                        "court_substep_geom"]
+    cache = cuda_step.CommitCache(cuda_step.COURT_CACHE)
+    v = torch.zeros(5, 7)
+    planes = cache.planes(v)
+    assert planes.shape == (6, 5, 7) and cache.planes(v) is planes
+    assert cache.pointers(v) == tuple(p.data_ptr() for p in planes)
+    assert cache.planes(torch.zeros(5, 9)).shape == (6, 5, 9)
+    assert cache.planes(v).shape == (6, 5, 7)
+    assert cache.pointers(v) == tuple(p.data_ptr() for p in cache.planes(v))
+    # a cache is read only by a fast commit of a body that has one
+    for name, slow in (("br", False), ("court", True)):
+        with pytest.raises(ValueError, match="reads one"):
+            cuda_step.KERNELS[name].launch(None, {}, slow, None, (0, 0), 0,
+                                           0, (), True)
+
+
 # -- the cell body's host side, interop and routes --------------------------------------
 
 

@@ -815,7 +815,8 @@ def test_court_kernels_match_plain_version(device, flags, ultra):
     67x131 (4x67x131), two outer steps; the direct rates bit for bit
     (csrc/court_cell.cuh rounds as the plain path does, -fmad=false);
     exact launches: eleven per outer step for Courtemanche (one SLOW=true
-    slow commit), ten for ultra."""
+    slow commit, nine fast commits that read the cache on kernel 1), ten
+    for ultra (none cached); no other binding of kernel 1 reads a cache."""
     from fib_tf_tpu_torch.ops import stencil
     cls = CourtemancheUltra if ultra else Courtemanche
     model = cls(CFG.replace(height=67, width=131, **COURT_FLAGS[flags]))
@@ -829,19 +830,26 @@ def test_court_kernels_match_plain_version(device, flags, ultra):
     exact = model.rate_mode == "direct"
     per_step = ({"slow": 10, "frozen": 0} if ultra
                 else {"slow": 1, "frozen": 10})
+    cached_per_step = 0 if ultra else 9
+    bindings = [*cuda_step.KERNELS.values(),
+                *cuda_step.GEOM_KERNELS.values()]
     for m, geo, kernels in ((model, {}, cuda_step.KERNELS),
                             (het, {}, cuda_step.KERNELS),
                             (model, dict(phase=phase),
                              cuda_step.GEOM_KERNELS)):
         maps = cuda_step.GeometryMaps(m.state_shape(), **geo)
         geom = maps.plain(device)
-        kernels[name].reset_launches()
+        for kern in bindings:
+            kern.reset_launches()
         _geom_two_steps(cuda_step.make_cuda_step(m, **geo),
                         lambda s, p, i: cuda_step.plain_step(m, s, p, i,
                                                              geom),
                         _court_state(m, device), exact)
         assert kernels[name].launches == {k: 2 * v
                                           for k, v in per_step.items()}
+        assert kernels[name].cached_launches == 2 * cached_per_step
+        assert sum(k.cached_launches for k in bindings) == (
+            2 * cached_per_step)
     kernel = cuda_volume.KERNELS[name]
     kernel.reset_launches()
     _geom_two_steps(cuda_volume.make_volume_step(model, 4),
@@ -849,6 +857,78 @@ def test_court_kernels_match_plain_version(device, flags, ultra):
                         model, s, p, i),
                     _court_state(model, device, depth=4), exact)
     assert kernel.launches == {k: 2 * v for k, v in per_step.items()}
+
+
+@pytest.mark.parametrize("geometry", [False, True], ids=["iso", "geom"])
+def test_court_cache_crosses_no_outer_step(device, geometry):
+    """Kernel 1's cache holds values for one outer step only: with the
+    cache filled with NaN between two outer steps and an S2 fired there,
+    the second step still equals the plain one bit for bit, and the state
+    holds the model's planes alone."""
+    from fib_tf_tpu_torch.ops import stencil
+    model = Courtemanche(CFG.replace(height=67, width=131))
+    geo = {}
+    if geometry:
+        geo["phase"] = stencil.add_hole_to_phase_field(None, 67, 131, 65,
+                                                       33, 4)
+    maps = cuda_step.GeometryMaps(model.state_shape(), **geo)
+    geom = maps.plain(device)
+    step = cuda_step.make_cuda_step(model, **geo)
+    mask = torch.tensor(stencil.pace_mask(67, 131, "luq", 10.0,
+                                          model.min_v), device=device)
+    got = _court_state(model, device)
+    want = {k: v.clone() for k, v in got.items()}
+    for i in range(2):
+        if i:
+            kernels = cuda_step.GEOM_KERNELS if geometry else cuda_step.KERNELS
+            kernels["court"].cache.planes(got["V"]).fill_(float("nan"))
+            for st in (got, want):
+                st["V"] = torch.maximum(st["V"], mask)
+        got = step(got)
+        want = cuda_step.plain_step(model, want, geom=geom)
+        assert set(got) == set(model.state_keys())
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("geometry", [False, True], ids=["iso", "geom"])
+def test_court_slow_commit_stores_the_cache(device, geometry):
+    """Every slow commit of court on kernel 1 stores the cache (the model's
+    `fast_invariants` of the planes it has just written, bit for bit), and
+    a fast commit that reads it equals `plain_cached_substep`; the entry
+    refuses a slow commit that would not store it (form 1)."""
+    from fib_tf_tpu_torch.ops import stencil
+    model = Courtemanche(CFG.replace(height=67, width=131))
+    maps = cuda_step.GeometryMaps(model.state_shape(), phase=(
+        stencil.add_hole_to_phase_field(None, 67, 131, 65, 33, 4)
+        if geometry else None))
+    geom = maps.plain(device)
+    kernel = (cuda_step.GEOM_KERNELS if geometry
+              else cuda_step.KERNELS)["court"]
+    got = _court_state(model, device)
+    want = {k: v.clone() for k, v in got.items()}
+    got = cuda_step.substep(model, got, True, maps=maps)
+    want = cuda_step.plain_substep(model, want, True, geom=geom)
+    cache = kernel.cache.planes(got["V"])
+    plain_cache = model.fast_invariants(want)
+    for i, k in enumerate(cuda_step.COURT_CACHE):
+        torch.testing.assert_close(cache[i], plain_cache[k], rtol=0, atol=0)
+    kernel.launch(cuda_step.pack_params(model), got, False, None,
+                  model.probe_pixel, 0,
+                  torch.cuda.current_stream(device).cuda_stream,
+                  maps.args(device) if geometry else (), True)
+    cuda_step.plain_cached_substep(model, want, plain_cache, geom=geom)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+    fn = getattr(kernel.library(), kernel.entry)
+    params = cuda_step.pack_params(model)
+    v_in = got["V"]
+    err = fn(1, params.ctypes.data, params.size, v_in.data_ptr(), None,
+             cuda_step.plane_pointers(got, kernel.body.planes),
+             len(kernel.body.planes), 67, 131, None, 0, 0, 0,
+             v_in.device.index, torch.cuda.current_stream(device).cuda_stream,
+             *(maps.args(device) if geometry else ()))
+    assert err == 1  # cudaErrorInvalidValue
 
 
 def test_court_auto_launches_kernels_1_and_4(device):
@@ -863,6 +943,7 @@ def test_court_auto_launches_kernels_1_and_4(device):
     res = sim.simulate()
     assert cuda_step.KERNELS["court"].launches == {"slow": res.steps,
                                                    "frozen": 10 * res.steps}
+    assert cuda_step.KERNELS["court"].cached_launches == 9 * res.steps
     assert res.probes["trend"].shape == (res.steps, 2)
     run_volume(Courtemanche(cfg.replace(dt=0.05)), 4, 3, device=device)
     assert cuda_volume.KERNELS["court"].launches == {"slow": 3,

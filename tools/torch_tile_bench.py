@@ -15,7 +15,9 @@ writes each library's SASS, a hash of each function's SASS and the class
 counts per cell-substep of BR's tile kernels to `<out>/<tag>_sass.json`;
 --compare-sass lists the functions of two such censuses whose SASS
 differs, and exits 1 when one differs that does not hold BR's main body
-(kernel 5 hosts it alone): every other function must be identical.
+(kernel 5 hosts it alone), or with --match REGEX one whose
+`library:function` name REGEX does not find: every other function must
+be identical.
 
 With --volume it prints the `-Xptxas -v` lines and SASS instruction
 counts of kernels 5 and 4, and device times per outer step at 8x512x512,
@@ -468,9 +470,12 @@ def main():
     p.add_argument("--compare-sass", nargs=2, metavar="JSON",
                    help="the functions whose SASS differs between two "
                    "--sass censuses")
+    p.add_argument("--match", default=BR_MAIN_BODY, metavar="REGEX",
+                   help="with --compare-sass, the `library:function` "
+                   "names that may differ (default: BR's main body)")
     args = p.parse_args()
     if args.compare_sass:
-        sys.exit(0 if compare_sass(args.compare_sass) else 1)
+        sys.exit(0 if compare_sass(args.compare_sass, args.match) else 1)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
 

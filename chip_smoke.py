@@ -638,8 +638,9 @@ def main():
                                              LuoRudy91, MitchellSchaeffer,
                                              TenTusscher06)
         from fib_tf_tpu_torch.models.tp06 import transmural_volume_state
-        from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
-                                          cuda_volume, cuda_volume_block,
+        from fib_tf_tpu_torch.ops import (bodies, cuda_block, cuda_step,
+                                          cuda_tiled, cuda_volume,
+                                          cuda_volume_block,
                                           cuda_volume_tiled, stencil)
         from fib_tf_tpu_torch.ops.stencil3d import enforce_boundary3d
         from fib_tf_tpu_torch.parallel import make_mesh
@@ -667,37 +668,31 @@ def main():
           f"count {torch.cuda.device_count()}", flush=True)
     modules = (cuda_step, cuda_tiled, cuda_volume, cuda_volume_tiled,
                cuda_block, cuda_volume_block)
-    # one library per source, named after it; one binding per entry point
-    # (a cell body's: br_substep, fenton_substep, ...; the BR-only
-    # libraries' binding is named after the library)
-    # one library per source, named after it, and for kernels 2 and 3 a
-    # second one of the same source with their GEOM entries
-    # (`library_name`); one binding per entry point (a cell body's:
-    # br_substep, fenton_substep, br_tiled_geom, ...; the BR-only
-    # libraries' binding is named after the library)
+    # one library per source and cell-body library (`library_name`), and
+    # for kernels 2 and 3 a second one of the same source with their GEOM
+    # entries; one binding per entry point (a cell body's: br_substep,
+    # fenton_substep, br_tiled_geom, ...; the tiled volume kernel's one
+    # entry is named after its library)
     libraries, bindings = {}, {}
     for mod in modules:
         for kernel in (*getattr(mod, "KERNELS", {"br": mod.KERNEL}).values(),
                        *getattr(mod, "GEOM_KERNELS", {}).values()):
-            name = getattr(kernel, "library_name", mod.SOURCE.stem)
-            libraries.setdefault(name, (kernel, getattr(kernel, "source",
-                                                        mod.SOURCE)))
-            bindings[getattr(kernel, "entry", mod.SOURCE.stem)] = (kernel,
-                                                                  name)
+            libraries.setdefault(kernel.library_name, kernel)
+            bindings[kernel.entry] = kernel
     t0 = time.perf_counter()
     # one nvcc per library, all started together
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
         futures = {name: pool.submit(kernel.build)
-                   for name, (kernel, _) in libraries.items()}
+                   for name, kernel in libraries.items()}
         lib_paths = {name: f.result() for name, f in futures.items()}
-    for kernel, _ in bindings.values():
+    for kernel in bindings.values():
         kernel.library()
     build_s = time.perf_counter() - t0
-    for name, (_, source) in libraries.items():
+    for name, kernel in libraries.items():
         path = lib_paths[name]
-        print(f"phase 1: built {path.name} from {source.name} "
+        print(f"phase 1: built {path.name} from {kernel.source.name} "
               f"({build_s:.2f} s for all {len(libraries)}; entries "
-              f"{[e for e, (_, lib) in bindings.items() if lib == name]})",
+              f"{[e for e, k in bindings.items() if k.library_name == name]})",
               flush=True)
         for line in path.with_name(path.name + ".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -713,7 +708,7 @@ def main():
               f"{name}: the kernel spills ({spills})")
 
     def reset_counts():
-        for kernel, _ in bindings.values():
+        for kernel in bindings.values():
             kernel.reset_launches()
 
     def read_counts():
@@ -721,7 +716,7 @@ def main():
         return {name: (dict(kernel.launches)
                        if isinstance(kernel.launches, dict)
                        else kernel.launches)
-                for name, (kernel, _) in bindings.items()}
+                for name, kernel in bindings.items()}
 
     # -- phase 2 ----------------------------------------------------------------
     cfg = SimConfig(**CFG)
@@ -779,7 +774,7 @@ def main():
 
     # -- phase 4 ----------------------------------------------------------------
     print(f"phase 4: timings on {card}", flush=True)
-    timing = time_kernels(torch, model, base, cuda_step)
+    timing = time_kernels(torch, model, base, cuda_step, bodies)
     long = Simulation(BeelerReuter(cfg.replace(duration=1000)),
                       device="cuda").define().simulate()
     wall_per_sim = 1.0 / long.sim_seconds_per_wall_second
@@ -865,7 +860,7 @@ def main():
               f"substep route (5 launches) {t['substep_us']:.2f}, ratio "
               f"{t['tiled_us'] / t['substep_us']:.4f}, plain "
               f"{t['plain_us']:.1f} (device) [{card}]", flush=True)
-    tiled_split = split_tiled(torch, cuda_step, cuda_tiled, large,
+    tiled_split = split_tiled(torch, bodies, cuda_tiled, large,
                               base_large)
     print_split("br_tiled at 2048x2048", tiled_split, card)
     print(f"  simulate() on the tiled route at 2048x2048: "
@@ -1043,14 +1038,14 @@ def main():
     # -- phase 12 ---------------------------------------------------------------
     print(f"phase 12: volume timings on {card}", flush=True)
     sname = f"{SHARDED_DEPTH}x{vcfg.height}x{vcfg.width}"
-    vtiming = time_volume(torch, cuda_step, cuda_volume, cuda_volume_tiled,
+    vtiming = time_volume(torch, bodies, cuda_volume, cuda_volume_tiled,
                           ((vname, vmodel, vbase),
                            (vname_large, vlarge, vbase_large),
                            (sname, vmodel, sbase)))
     for size, t in vtiming.items():
         cells = int(np.prod(t["shape"]))
         tb_ms, tb_by = outer_step_bound(
-            cells, cuda_step.slow_schedule(vmodel), volume=True)
+            cells, vmodel.launch_schedule, volume=True)
         print(f"  {size}: volume substep kernel SLOW {t['slow_us']:.3f} / "
               f"frozen {t['frozen_us']:.3f} us/launch, plain "
               f"{t['plain_slow_us']:.1f} / {t['plain_frozen_us']:.1f} "
@@ -1236,7 +1231,7 @@ def main():
 
     # -- phase 17 ---------------------------------------------------------------
     print(f"phase 17: timings of the sharded paths on {card}", flush=True)
-    bt = time_block(torch, cuda_step, cuda_block, cuda_tiled, large,
+    bt = time_block(torch, bodies, cuda_block, cuda_tiled, large,
                     base_large, 512, (512, 0))
     print(f"  br_block, 522x2048 block (interior shard of 4x1): kernel "
           f"{bt['kernel_us']:.2f} us/outer step, plain {bt['plain_us']:.1f}; "
@@ -1248,7 +1243,7 @@ def main():
           f"{t2k['tiled_us']:.2f} us against the substep route's "
           f"{t2k['substep_us']:.2f} us, ratio "
           f"{t2k['tiled_us'] / t2k['substep_us']:.4f} [{card}]", flush=True)
-    vbt = time_volume_block(torch, cuda_step, cuda_volume_block, vmodel,
+    vbt = time_volume_block(torch, bodies, cuda_volume_block, vmodel,
                             sbase, d_own, d_own)
     print(f"  br_volume_block, 18x128x512 block (interior shard): group of "
           f"5 launches {vbt['group_us']:.2f} us/outer step; SLOW launch "
@@ -1276,6 +1271,7 @@ def main():
           f"wall-s/sim-s [{card}]", flush=True)
 
     small_entries = small_model_phases(torch, types.SimpleNamespace(
+        bodies=bodies,
         SimConfig=SimConfig, interop=interop, Simulation=Simulation,
         VolumeEvent=VolumeEvent, run_volume=run_volume, volume=volume,
         CycleLengthDetector=CycleLengthDetector, Fenton4v=Fenton4v,
@@ -1284,6 +1280,7 @@ def main():
         cuda_volume=cuda_volume, make_mesh=make_mesh,
         reset_counts=reset_counts, read_counts=read_counts), card, rng)
     variant_entries = variant_phases(torch, types.SimpleNamespace(
+        bodies=bodies,
         SimConfig=SimConfig, interop=interop, Simulation=Simulation,
         VolumeEvent=VolumeEvent, run_volume=run_volume, volume=volume,
         CycleLengthDetector=CycleLengthDetector, BeelerReuter=BeelerReuter,
@@ -1293,6 +1290,7 @@ def main():
         enforce_boundary3d=enforce_boundary3d, make_mesh=make_mesh,
         reset_counts=reset_counts, read_counts=read_counts), card, rng)
     geometry_entries = geometry_phases(torch, types.SimpleNamespace(
+        bodies=bodies,
         SimConfig=SimConfig, interop=interop, Simulation=Simulation,
         BeelerReuter=BeelerReuter, Fenton4v=Fenton4v,
         MitchellSchaeffer=MitchellSchaeffer, cuda_step=cuda_step,
@@ -1300,12 +1298,14 @@ def main():
         make_mesh=make_mesh, reset_counts=reset_counts,
         read_counts=read_counts), card, rng)
     court_entries = court_phases(torch, types.SimpleNamespace(
+        bodies=bodies,
         SimConfig=SimConfig, interop=interop, Simulation=Simulation,
         run_volume=run_volume, volume=volume, Courtemanche=Courtemanche,
         CourtemancheUltra=CourtemancheUltra, cuda_step=cuda_step,
         cuda_volume=cuda_volume, stencil=stencil,
         reset_counts=reset_counts, read_counts=read_counts), card, rng)
     lrtp_entries = lrtp_phases(torch, types.SimpleNamespace(
+        bodies=bodies,
         SimConfig=SimConfig, interop=interop, Simulation=Simulation,
         run_volume=run_volume, volume=volume, LuoRudy91=LuoRudy91,
         TenTusscher06=TenTusscher06,
@@ -1314,6 +1314,7 @@ def main():
         reset_counts=reset_counts, read_counts=read_counts), card, rng,
         lib_paths)
     large_entries = large_phases(torch, types.SimpleNamespace(
+        bodies=bodies,
         SimConfig=SimConfig, interop=interop, Simulation=Simulation,
         run_volume=run_volume, Courtemanche=Courtemanche,
         CourtemancheUltra=CourtemancheUltra, LuoRudy91=LuoRudy91,
@@ -1339,7 +1340,7 @@ def main():
         "br_tiled", "fib_tf_tpu_torch/csrc/br_tiled.cu",
         "fib_tf_tpu/ops/pallas_tiled.py:342", tiled_launches, tiled_err,
         big["tiled_us"], big["plain_us"],
-        outer_step_bound(cells_large, cuda_step.slow_schedule(large),
+        outer_step_bound(cells_large, large.launch_schedule,
                          volume=False)))
     vt = vtiming[vname]
     for body, slow in (("slow", True), ("frozen", False)):
@@ -1354,14 +1355,14 @@ def main():
         "br_volume_tiled", "fib_tf_tpu_torch/csrc/br_volume_tiled.cu",
         "fib_tf_tpu/ops/pallas_volume.py:659", vt_launches, vt_err,
         vtl["tiled_us"], vtl["plain_us"],
-        outer_step_bound(vcells_large, cuda_step.slow_schedule(vlarge),
+        outer_step_bound(vcells_large, vlarge.launch_schedule,
                          volume=True)))
     kernels.append(kernel_entry(
         "br_block", "fib_tf_tpu_torch/csrc/br_block.cu",
         "fib_tf_tpu/ops/pallas_tiled.py:202", block_launches, block_err,
         bt["kernel_us"], bt["plain_us"],
         block_bound(bt["ext_cells"], bt["own_cells"],
-                    cuda_step.slow_schedule(large))))
+                    large.launch_schedule)))
     for body, slow in (("slow", True), ("frozen", False)):
         kernels.append(kernel_entry(
             f"br_volume_block<SLOW={str(slow).lower()}>",
@@ -1618,7 +1619,7 @@ def check_block(torch, cuda_block, cuda_tiled, model, full, h_own, w_own,
     step the block is cut from the whole grid with its ghosts, the block
     kernel and its plain version advance it, and the whole grid advances
     through the tiled kernel (phase 5); `windows` as in
-    check_outer_steps.  `maps` (cuda_step.GeometryMaps): the geometry, its
+    check_outer_steps.  `maps` (bodies.GeometryMaps): the geometry, its
     phase field and diffusion map cut like the block (the GEOM entries).
     Returns the max abs error."""
     k = model.dt_per_step
@@ -1806,7 +1807,7 @@ def time_copies(torch, state, k, volume):
     return device_us(torch, copies, reps=50)
 
 
-def time_block(torch, cuda_step, cuda_block, cuda_tiled, model, full, h_own,
+def time_block(torch, bodies, cuda_block, cuda_tiled, model, full, h_own,
                origin):
     """Device time per outer step of the block kernel on one row shard's
     extended block, of its plain version (substep by substep, summed over
@@ -1823,7 +1824,7 @@ def time_block(torch, cuda_step, cuda_block, cuda_tiled, model, full, h_own,
     plain = {slow: device_us(torch, lambda: model.solve(
         ext, geom, n=model.slow_n if slow else 0), reps=1)
         for slow in (True, False)}
-    params = cuda_step.pack_params(model)
+    params = bodies.pack_params(model)
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch(schedule):
@@ -1834,7 +1835,7 @@ def time_block(torch, cuda_step, cuda_block, cuda_tiled, model, full, h_own,
         "kernel_us": device_us(torch, lambda: step(ext, out, rstart, 0),
                                reps=50),
         "plain_us": sum(plain[slow]
-                        for slow in cuda_step.slow_schedule(model)),
+                        for slow in model.launch_schedule),
         "copies_us": time_copies(torch, ext, k, volume=False),
         "ext_cells": (h_own + 2 * k) * w, "own_cells": h_own * w,
         "split": time_split(torch, launch, lambda n: tile_count(
@@ -1842,7 +1843,7 @@ def time_block(torch, cuda_step, cuda_block, cuda_tiled, model, full, h_own,
     }
 
 
-def time_volume_block(torch, cuda_step, cuda_volume_block, model, full,
+def time_volume_block(torch, bodies, cuda_volume_block, model, full,
                       d_own, z0):
     """Device times of the volume block kernel on one shard's z-block: the
     group of an outer step, its SLOW launch alone (the frozen launches
@@ -1855,12 +1856,12 @@ def time_volume_block(torch, cuda_step, cuda_volume_block, model, full,
     ext = wrapped_window(full, (zstart,), (ext_d,))
     spare = torch.empty_like(ext["V"])
     step = cuda_volume_block.make_volume_block_step(model, ext_d, depth)
-    params = cuda_step.pack_params(model)
+    params = bodies.pack_params(model)
     stream = torch.cuda.current_stream().cuda_stream
     geom = cuda_volume_block.zblock_geometry(
         cuda_volume_block.global_slices(zstart, ext_d, ext["V"].device),
         depth)
-    schedule = cuda_step.slow_schedule(model)
+    schedule = model.launch_schedule
     check(schedule == (True, False, False, False, False),
           f"the timed model's schedule is {schedule}")
     # substep i runs on the slices [i + 1, ext_d - 1 - i)
@@ -1977,14 +1978,14 @@ def device_us(torch, fn, reps: int) -> float:
          f"ms held, {cycles} cycles)")
 
 
-def time_kernels(torch, model, base, cuda_step):
+def time_kernels(torch, model, base, cuda_step, bodies):
     """Per-launch device times of the model's substep bodies (BR's slow
     and frozen; the other models' one, under "slow") and of the plain
     substeps, and the device and host-paced time of an outer step."""
     state = clone(base)
-    params = cuda_step.pack_params(model)
-    kernel = cuda_step.KERNELS[cuda_step.cell_body(model).name]
-    schedule = cuda_step.slow_schedule(model)
+    params = bodies.pack_params(model)
+    kernel = cuda_step.KERNELS[bodies.cell_body(model).name]
+    schedule = model.launch_schedule
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
     for body, slow in (("slow", True), ("frozen", False)):
@@ -2025,7 +2026,7 @@ def time_tiled(torch, cuda_step, cuda_tiled, large, base_large, model, base):
     out = {}
     for i, (m, b) in enumerate(((large, base_large), (model, base))):
         state = clone(b)
-        schedule = cuda_step.slow_schedule(m)
+        schedule = m.launch_schedule
 
         def run(step):
             return lambda: step(state)
@@ -2093,11 +2094,11 @@ def time_split(torch, launch, tiles, ext_rows: int, reps: int = 30):
     return out
 
 
-def split_tiled(torch, cuda_step, cuda_tiled, model, base):
+def split_tiled(torch, bodies, cuda_tiled, model, base):
     """time_split of the tiled kernel on `base`."""
     state = clone(base)
     h, w = model.state_shape()
-    params = cuda_step.pack_params(model)
+    params = bodies.pack_params(model)
     stream = torch.cuda.current_stream().cuda_stream
     return time_split(
         torch, lambda schedule: cuda_tiled.KERNEL.launch(
@@ -2117,7 +2118,7 @@ def print_split(name, split, card):
               f"ring (device) [{card}]", flush=True)
 
 
-def time_volume(torch, cuda_step, cuda_volume, cuda_volume_tiled, sizes):
+def time_volume(torch, bodies, cuda_volume, cuda_volume_tiled, sizes):
     """Device times at each (name, model, base) of `sizes`: both volume
     substep bodies per launch and their plain versions per substep; per
     outer step, the substep route (5 launches), the tiled volume kernel and
@@ -2127,7 +2128,7 @@ def time_volume(torch, cuda_step, cuda_volume, cuda_volume_tiled, sizes):
     for size, m, b in sizes:
         state = clone(b)
         depth = state["V"].shape[0]
-        params = cuda_step.pack_params(m)
+        params = bodies.pack_params(m)
         pixel = cuda_volume.volume_probe_pixel(m, depth)
         stream = torch.cuda.current_stream().cuda_stream
         t = {}
@@ -2145,7 +2146,7 @@ def time_volume(torch, cuda_step, cuda_volume, cuda_volume_tiled, sizes):
                                     reps=100)
         t["tiled_us"] = device_us(torch, lambda: tiled(state), reps=100)
         t["plain_us"] = sum(t["plain_slow_us" if slow else "plain_frozen_us"]
-                            for slow in cuda_step.slow_schedule(m))
+                            for slow in m.launch_schedule)
         t["shape"] = tuple(state["V"].shape)
         out[size] = t
     return out
@@ -2194,6 +2195,7 @@ def small_model_phases(torch, m, card, rng):
     dev = torch.device("cuda")
     k1, k2, k3, k4 = (m.cuda_step, m.cuda_tiled, m.cuda_block,
                       m.cuda_volume)
+    bodies = m.bodies
     classes = {"fenton": m.Fenton4v, "ms": m.MitchellSchaeffer}
     cfg = m.SimConfig(**SMALL_CFG)
     cfg_large = m.SimConfig(**SMALL_CFG_LARGE)
@@ -2303,7 +2305,7 @@ def small_model_phases(torch, m, card, rng):
     check(m.read_counts() == before, "the kernel='xla' run launched a kernel")
     check_against_plain_run(res, ref, "u", SMALL_ATOL)
     t = times[("fenton", "grid")] = time_kernels(
-        torch, fenton, bases["fenton"]["grid"], k1)
+        torch, fenton, bases["fenton"]["grid"], k1, bodies)
     tt = times[("fenton", "tiled")] = time_tiled(
         torch, k1, k2, m.Fenton4v(cfg_large), bases["fenton"]["large"],
         fenton, bases["fenton"]["grid"])
@@ -2473,7 +2475,8 @@ def small_model_phases(torch, m, card, rng):
     vref = run_volume_timed(m.run_volume, vms, SCROLL_DEPTH, events,
                             kernel="xla", n_outer=MS_SHORT_STEPS)
     check_small_volume(m, vms, vrun, vref, None)
-    times[("ms", "grid")] = time_kernels(torch, ms, bases["ms"]["grid"], k1)
+    times[("ms", "grid")] = time_kernels(torch, ms, bases["ms"]["grid"], k1,
+                                         bodies)
     times[("ms", "tiled")] = time_tiled(
         torch, k1, k2, m.MitchellSchaeffer(cfg_large), bases["ms"]["large"],
         ms, bases["ms"]["grid"])
@@ -2578,7 +2581,7 @@ def time_small_volume(torch, m, model, base):
     state = clone(base)
     depth = state["u"].shape[0]
     kernel = m.cuda_volume.KERNELS[model.name]
-    params = m.cuda_step.pack_params(model)
+    params = m.bodies.pack_params(model)
     pixel = m.cuda_volume.volume_probe_pixel(model, depth)
     stream = torch.cuda.current_stream().cuda_stream
     step = m.cuda_volume.make_volume_step(model, depth)
@@ -2612,9 +2615,9 @@ def variant_flops(model, slow: bool, volume: bool) -> int:
     return n + (22 if model.cfg.ab2 else 11)
 
 
-def body_flops(cuda_step, model, slow: bool, volume: bool) -> int:
+def body_flops(bodies, model, slow: bool, volume: bool) -> int:
     """Float32 operations per cell-substep of the model's cell body."""
-    name = cuda_step.cell_body(model).name
+    name = bodies.cell_body(model).name
     if name == "br":
         return substep_flops(slow, volume)
     if name.startswith("br_variant"):
@@ -2622,11 +2625,11 @@ def body_flops(cuda_step, model, slow: bool, volume: bool) -> int:
     return SMALL_FLOPS[name] + (4 if volume else 0)
 
 
-def body_bytes(cuda_step, model, slow: bool) -> int:
+def body_bytes(bodies, model, slow: bool) -> int:
     """Bytes per cell of one launch of the model's cell body: every plane
     read, the planes that the substep stores written (BR's frozen substep
     leaves the slow gates)."""
-    body = cuda_step.cell_body(model)
+    body = bodies.cell_body(model)
     planes = 1 + len(body.planes)
     writes = planes
     if body.name.startswith("br") and not slow:
@@ -2634,29 +2637,29 @@ def body_bytes(cuda_step, model, slow: bool) -> int:
     return 4 * (planes + writes)
 
 
-def body_launch_bound(cuda_step, model, cells: int, slow: bool,
+def body_launch_bound(bodies, model, cells: int, slow: bool,
                       volume: bool):
     """(bound_ms, bound_by) of one launch of the model's body on `cells`
     cells."""
-    return bound(cells * body_bytes(cuda_step, model, slow),
-                 cells * body_flops(cuda_step, model, slow, volume))
+    return bound(cells * body_bytes(bodies, model, slow),
+                 cells * body_flops(bodies, model, slow, volume))
 
 
-def body_step_bound(cuda_step, model, cells: int, read_cells=None):
+def body_step_bound(bodies, model, cells: int, read_cells=None):
     """(bound_ms, bound_by) of one fused outer step (kernels 2 and 3):
     every plane of `read_cells` (default `cells`) read once, of `cells`
     written once, and the cells' operations over the schedule."""
-    planes = 1 + len(cuda_step.cell_body(model).planes)
+    planes = 1 + len(bodies.cell_body(model).planes)
     read = cells if read_cells is None else read_cells
     return bound(4 * planes * (read + cells),
-                 cells * sum(body_flops(cuda_step, model, s, False)
-                             for s in cuda_step.slow_schedule(model)))
+                 cells * sum(body_flops(bodies, model, s, False)
+                             for s in model.launch_schedule))
 
 
-def expected_launches(cuda_step, model, n_steps: int, shards: int = 1):
+def expected_launches(model, n_steps: int, shards: int = 1):
     """{"slow": ..., "frozen": ...} of `n_steps` outer steps on `shards`
     shards of the substep-launch kernels (1, 4 and 6)."""
-    schedule = cuda_step.slow_schedule(model)
+    schedule = model.launch_schedule
     slow = sum(schedule)
     return {"slow": shards * n_steps * slow,
             "frozen": shards * n_steps * (len(schedule) - slow)}
@@ -2701,9 +2704,9 @@ def time_body_block(torch, m, model, full):
     step = m.cuda_block.make_block_step(model, False)
     geom = m.cuda_block.block_geometry(m.cuda_block.global_rows(
         rstart, row + 2 * k, ext[model.pot_key].device), h)
-    schedule = m.cuda_step.slow_schedule(model)
-    plain = {slow: device_us(torch, lambda: m.cuda_step.solve_substep(
-        model, ext, geom, slow), reps=1) for slow in set(schedule)}
+    schedule = model.launch_schedule
+    plain = {slow: device_us(torch, lambda: model.commit(
+        ext, geom, slow), reps=1) for slow in set(schedule)}
     return {
         "kernel_us": device_us(torch, lambda: step(ext, out, rstart, 0),
                                reps=50),
@@ -2717,12 +2720,12 @@ def time_body_volume(torch, m, model, base):
     volume, and of the plain substeps."""
     state = clone(base)
     depth = state[model.pot_key].shape[0]
-    kernel = m.cuda_volume.KERNELS[m.cuda_step.cell_body(model).name]
-    params = m.cuda_step.pack_params(model)
+    kernel = m.cuda_volume.KERNELS[m.bodies.cell_body(model).name]
+    params = m.bodies.pack_params(model)
     pixel = m.cuda_volume.volume_probe_pixel(model, depth)
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
-    for slow in set(m.cuda_step.slow_schedule(model)):
+    for slow in set(model.launch_schedule):
         out[slow] = {
             "kernel_us": device_us(torch, lambda: kernel.launch(
                 params, state, slow, 1.0, None, pixel, 0, stream), reps=100),
@@ -2744,20 +2747,20 @@ def time_body_volume_block(torch, m, model, full, d_own, z0):
     zstart = z0 - k
     ext = wrapped_window(full, (zstart,), (ext_d,))
     spare = torch.empty_like(ext[pot])
-    kernel = m.cuda_volume_block.KERNELS[m.cuda_step.cell_body(model).name]
-    params = m.cuda_step.pack_params(model)
+    kernel = m.cuda_volume_block.KERNELS[m.bodies.cell_body(model).name]
+    params = m.bodies.pack_params(model)
     stream = torch.cuda.current_stream().cuda_stream
     geom = m.cuda_volume_block.zblock_geometry(
         m.cuda_volume_block.global_slices(zstart, ext_d, ext[pot].device),
         depth)
     out = {"slices": ext_d - 2}
-    for slow in set(m.cuda_step.slow_schedule(model)):
+    for slow in set(model.launch_schedule):
         out[slow] = {
             "kernel_us": device_us(torch, lambda: kernel.launch(
                 params, ext, spare, slow, 1.0, zstart, depth, 1, ext_d - 1,
                 None, (0, 0, 0), 0, stream), reps=100),
-            "plain_us": device_us(torch, lambda: m.cuda_step.solve_substep(
-                model, ext, geom, slow), reps=1)}
+            "plain_us": device_us(torch, lambda: model.commit(
+                ext, geom, slow), reps=1)}
     return out
 
 
@@ -2782,7 +2785,7 @@ def direct_volume_after_s2(torch, m, model, kernel_final, plain_final,
     m.reset_counts()
     launched = {"slow": 0, "frozen": 0}
     for step in range(done, VOL_STEPS):
-        for slow in m.cuda_step.slow_schedule(model):
+        for slow in model.launch_schedule:
             for name, st in runs.items():
                 if name in turned:
                     continue
@@ -2807,7 +2810,7 @@ def direct_volume_after_s2(torch, m, model, kernel_final, plain_final,
         check(dv <= WHOLE_RUN_ATOL_MV,
               f"direct volume: kernel and plain V part by {dv} mV at outer "
               f"step {step + 1}")
-    entry = f"{m.cuda_step.cell_body(model).name}_volume"
+    entry = f"{m.bodies.cell_body(model).name}_volume"
     check_launched(m.read_counts(), entry, launched,
                    "direct volume after the S2")
     print(f"  direct volume after the S2: first non-finite (outer step, "
@@ -2862,8 +2865,9 @@ def variant_phases(torch, m, card, rng):
     dev = torch.device("cuda")
     k1, k2, k3, k4, k6 = (m.cuda_step, m.cuda_tiled, m.cuda_block,
                           m.cuda_volume, m.cuda_volume_block)
+    bodies = m.bodies
     BR, FEN, MS = m.BeelerReuter, m.Fenton4v, m.MitchellSchaeffer
-    body_of = lambda model: k1.cell_body(model).name
+    body_of = lambda model: bodies.cell_body(model).name
     errs, launches = {}, {}
 
     def seeded(model):
@@ -2906,7 +2910,7 @@ def variant_phases(torch, m, card, rng):
                 has_probe=mod.probe_pixel[0] < mod.state_shape()[0],
                 windows=windows))
             check_launched(m.read_counts(), f"{body}_substep",
-                           expected_launches(k1, mod, 2), f"{name} {label}")
+                           expected_launches(mod, 2), f"{name} {label}")
         large = cls(model.cfg.replace(width=2048, height=2048))
         base_large = state(large)
         for mod, base, label in ((large, base_large, "2048x2048"),
@@ -2951,7 +2955,7 @@ def variant_phases(torch, m, card, rng):
                     f"{body}_volume {name} {label} dz_ratio={dz}",
                     has_probe=False, windows=windows))
                 check_launched(m.read_counts(), f"{body}_volume",
-                               expected_launches(k1, mod, 2),
+                               expected_launches(mod, 2),
                                f"{name} {label}")
         deep_model = cls(vmodel.cfg.replace(height=128))
         deep = vstate(deep_model, SHARDED_DEPTH)
@@ -2964,7 +2968,7 @@ def variant_phases(torch, m, card, rng):
                 f"{body}_volume_block {name} {label}", windows))
             counts = m.read_counts()
             check(counts[f"{body}_volume_block"] == expected_launches(
-                k1, deep_model, 2), f"{name} {label}: launches {counts}")
+                deep_model, 2), f"{name} {label}: launches {counts}")
     for name, cls, vol in (("br", BR, VOL_CFG), ("fenton", FEN, SCROLL_CFG),
                            ("ms", MS, SCROLL_CFG)):
         deep_model = cls(m.SimConfig(**dict(vol, height=128)))
@@ -2980,7 +2984,7 @@ def variant_phases(torch, m, card, rng):
                 f"{name}_volume_block {label}", deep_model.ill_conditioned))
             counts = m.read_counts()
             check(counts[f"{name}_volume_block"] == expected_launches(
-                k1, deep_model, 2), f"{name} {label}: launches {counts}")
+                deep_model, 2), f"{name} {label}: launches {counts}")
 
     # -- phase 25 ---------------------------------------------------------------
     print(f"phase 25: Table 1 (python -m fib_tf_tpu bench) on the card: five "
@@ -3003,7 +3007,7 @@ def variant_phases(torch, m, card, rng):
             res = sim.simulate(check_finite=False)
             counts = m.read_counts()
             check_launched(counts, entry, expected_launches(
-                k1, model, res.steps), f"Table 1 {label}")
+                model, res.steps), f"Table 1 {label}")
             check_run(res, model.state_shape(),
                       TABLE1_CROSSINGS[(family,) + tuple(sorted(
                           flags.items()))])
@@ -3079,7 +3083,7 @@ def variant_phases(torch, m, card, rng):
         body = body_of(model)
         atol = WHOLE_RUN_ATOL_MV if family == "br" else SMALL_ATOL
         check(sim.route == "substep", f"{body} 512x512 routes {sim.route!r}")
-        want = expected_launches(k1, model, res.steps)
+        want = expected_launches(model, res.steps)
         check_launched(m.read_counts(), f"{body}_substep", want,
                        f"{family} ab2 512x512")
         launches[(body, "substep")] = want
@@ -3134,7 +3138,7 @@ def variant_phases(torch, m, card, rng):
         m.reset_counts()
         vrun = run_volume_timed(m.run_volume, vmodel, DEPTH, s2,
                                 n_outer=n_outer)
-        want = expected_launches(k1, vmodel, n_outer)
+        want = expected_launches(vmodel, n_outer)
         check_launched(m.read_counts(), f"{body}_volume", want,
                        f"{body} volume")
         launches[(body, "volume")] = want
@@ -3153,10 +3157,10 @@ def variant_phases(torch, m, card, rng):
     vrun = run_volume_timed(m.run_volume, fvol, SCROLL_DEPTH, fevents,
                             n_outer=MS_SHORT_STEPS)
     check_launched(m.read_counts(), "fenton_ab2_volume",
-                   expected_launches(k1, fvol, MS_SHORT_STEPS),
+                   expected_launches(fvol, MS_SHORT_STEPS),
                    "Fenton ab2 volume")
     launches[("fenton_ab2", "volume")] = expected_launches(
-        k1, fvol, MS_SHORT_STEPS)
+        fvol, MS_SHORT_STEPS)
     vref = run_volume_timed(m.run_volume, fvol, SCROLL_DEPTH, fevents,
                             kernel="xla", n_outer=MS_SHORT_STEPS)
     check_small_volume(m, fvol, vrun, vref, None)
@@ -3182,7 +3186,7 @@ def variant_phases(torch, m, card, rng):
         srun = run_or_none(run_volume_timed, m.run_volume, vmodel,
                            SHARDED_DEPTH, ev, n_outer=SHORT_VOL_STEPS,
                            **sharded)
-        want = expected_launches(k1, vmodel, SHORT_VOL_STEPS, N_SHARDS)
+        want = expected_launches(vmodel, SHORT_VOL_STEPS, N_SHARDS)
         check_launched(m.read_counts(), f"{body}_volume_block", want,
                        f"sharded {body} volume")
         launches[(body, "volume_block")] = want
@@ -3237,7 +3241,7 @@ def variant_phases(torch, m, card, rng):
         deep = (seeded_vol(deep_model, SHARDED_DEPTH) if cls is BR else
                 fenton_seeded(torch, m, deep_model, (SHARDED_DEPTH,)
                               + deep_model.state_shape(), dev, rng))
-        t1 = time_kernels(torch, model, base, k1)
+        t1 = time_kernels(torch, model, base, k1, bodies)
         t2 = time_tiled(torch, k1, k2, large, base_large, model,
                         base)["2048x2048"]
         t3 = time_body_block(torch, m, large, base_large)
@@ -3247,7 +3251,7 @@ def variant_phases(torch, m, card, rng):
         cells = int(np.prod(model.state_shape()))
         vcells = vdepth * int(np.prod(vmodel.state_shape()))
         bcells = t6["slices"] * int(np.prod(deep_model.state_shape()))
-        for slow in sorted(set(k1.slow_schedule(model)), reverse=True):
+        for slow in sorted(set(model.launch_schedule), reverse=True):
             form = "slow" if slow else "frozen"
             suffix = (f"<SLOW={str(slow).lower()}>" if cls is BR else "")
             entries.append(kernel_entry(
@@ -3256,13 +3260,13 @@ def variant_phases(torch, m, card, rng):
                 "fib_tf_tpu/ops/pallas_step.py:205",
                 launches[(body, "substep")][form], errs[(body, "substep")],
                 t1[form]["kernel_us"], t1[form]["plain_us"],
-                body_launch_bound(k1, model, cells, slow, False)))
+                body_launch_bound(bodies, model, cells, slow, False)))
             entries.append(kernel_entry(
                 f"{body}_volume{suffix}", "fib_tf_tpu_torch/csrc/br_volume.cu",
                 "fib_tf_tpu/ops/pallas_volume.py:499",
                 launches[(body, "volume")][form], errs[(body, "volume")],
                 t4[slow]["kernel_us"], t4[slow]["plain_us"],
-                body_launch_bound(k1, vmodel, vcells, slow, True)))
+                body_launch_bound(bodies, vmodel, vcells, slow, True)))
             entries.append(kernel_entry(
                 f"{body}_volume_block{suffix}",
                 "fib_tf_tpu_torch/csrc/br_volume_block.cu",
@@ -3270,17 +3274,17 @@ def variant_phases(torch, m, card, rng):
                 launches[(body, "volume_block")][form],
                 errs[(body, "volume_block")], t6[slow]["kernel_us"],
                 t6[slow]["plain_us"],
-                body_launch_bound(k1, deep_model, bcells, slow, True)))
+                body_launch_bound(bodies, deep_model, bcells, slow, True)))
         entries.append(kernel_entry(
             f"{body}_tiled", "fib_tf_tpu_torch/csrc/br_tiled.cu",
             "fib_tf_tpu/ops/pallas_tiled.py:342", launches[(body, "tiled")],
             errs[(body, "tiled")], t2["tiled_us"], t2["plain_us"],
-            body_step_bound(k1, large, int(np.prod(large.state_shape())))))
+            body_step_bound(bodies, large, int(np.prod(large.state_shape())))))
         entries.append(kernel_entry(
             f"{body}_block", "fib_tf_tpu_torch/csrc/br_block.cu",
             "fib_tf_tpu/ops/pallas_tiled.py:202", launches[(body, "block")],
             errs[(body, "block")], t3["kernel_us"], t3["plain_us"],
-            body_step_bound(k1, large, t3["own_cells"], t3["ext_cells"])))
+            body_step_bound(bodies, large, t3["own_cells"], t3["ext_cells"])))
         print(f"  {body}: substep {t1['slow']['kernel_us']:.3f} us/SLOW "
               f"launch at 512x512 (plain {t1['slow']['plain_us']:.1f}), outer "
               f"step device {t1['step_device_us']:.2f} us, host-paced "
@@ -3305,7 +3309,7 @@ def variant_phases(torch, m, card, rng):
             launches[(name, "volume_block")]["slow"],
             errs[(name, "volume_block")], t6[True]["kernel_us"],
             t6[True]["plain_us"],
-            body_launch_bound(k1, deep_model, bcells, True, True)))
+            body_launch_bound(bodies, deep_model, bcells, True, True)))
     return entries
 
 
@@ -3352,8 +3356,8 @@ HOLE_2048 = (600, 800, 160)
 GEOM_ROUTE_STEPS = 10
 
 
-def geometry_maps(cuda_step, stencil, kind, shape):
-    """cuda_step.GeometryMaps of geometry `kind` on a grid of `shape`."""
+def geometry_maps(bodies, stencil, kind, shape):
+    """bodies.GeometryMaps of geometry `kind` on a grid of `shape`."""
     h, w = shape
     phase = stencil.add_hole_to_phase_field(
         None, h, w, w * 150 // 512, h * 200 // 512, max(w * 40 // 512, 4))
@@ -3363,7 +3367,7 @@ def geometry_maps(cuda_step, stencil, kind, shape):
             if kind in "bc" else None)
     fiber = (stencil.fiber_tensor(np.deg2rad(FIBER_DEG), FIBER_RATIO)
              if kind == "c" else None)
-    return cuda_step.GeometryMaps(shape, phase, fiber, dmap)
+    return bodies.GeometryMaps(shape, phase, fiber, dmap)
 
 
 def geometry_flops(maps) -> int:
@@ -3392,7 +3396,7 @@ def float64_run(torch, m, model, hole, s2_ms, stim, n_steps):
     simulate() fires it."""
     dev = torch.device("cuda")
     h, w = model.state_shape()
-    maps = m.cuda_step.GeometryMaps(
+    maps = m.bodies.GeometryMaps(
         (h, w), m.stencil.add_hole_to_phase_field(None, h, w, *hole))
     geom = maps.plain(dev)
     state = {k: torch.tensor(v, dtype=torch.float64, device=dev)
@@ -3415,6 +3419,7 @@ def geometry_phases(torch, m, card, rng):
     counters; returns the GEOM entries of the JSON line."""
     dev = torch.device("cuda")
     k1, k2, k3, st_ = m.cuda_step, m.cuda_tiled, m.cuda_block, m.stencil
+    bodies = m.bodies
     classes = {"br": m.BeelerReuter, "fenton": m.Fenton4v,
                "ms": m.MitchellSchaeffer}
     errs, launches = {}, {}
@@ -3472,7 +3477,7 @@ def geometry_phases(torch, m, card, rng):
                 # the 2047x2047 grid (tiles of two sizes) under (c) alone
                 for kind in (("c",) if shape == (2047, 2047)
                              else GEOM_KINDS):
-                    maps = geometry_maps(k1, st_, kind, shape)
+                    maps = geometry_maps(bodies, st_, kind, shape)
                     geom = maps.plain(dev)
                     ref = (lambda s, p, i, model=model, geom=geom:
                            k1.plain_step(model, s, p, i, geom))
@@ -3503,7 +3508,7 @@ def geometry_phases(torch, m, card, rng):
                             torch, step, ref, base, 2, name,
                             has_probe=has_probe, windows=windows))
                         entry = f"{body}_substep_geom"
-                        want_n = expected_launches(k1, model, 2)
+                        want_n = expected_launches(model, 2)
                         want_n["slow"] += 1
                     else:
                         name = f"{body}_tiled_geom {label} ({kind})"
@@ -3521,7 +3526,7 @@ def geometry_phases(torch, m, card, rng):
         full_model = cases["k2"][0]
         full = bases[(2048, 2048)]
         for kind in GEOM_KINDS:
-            maps = geometry_maps(k1, st_, kind, (2048, 2048))
+            maps = geometry_maps(bodies, st_, kind, (2048, 2048))
             m.reset_counts()
             for h_own, w_own, origin in ((512, None, (0, 0)),
                                          (512, None, (512, 0)),
@@ -3576,7 +3581,7 @@ def geometry_phases(torch, m, card, rng):
                 continue
             entry = f"{family}_substep_geom"
             check_launched(counts, entry,
-                           expected_launches(k1, mod, res.steps),
+                           expected_launches(mod, res.steps),
                            f"the {family} 512x512 hole run")
             count(entry, counts)
             print(f"  {family}: route {sim.route}, steps {res.steps}, "
@@ -3609,7 +3614,7 @@ def geometry_phases(torch, m, card, rng):
         counts = m.read_counts()
         if kernel == "auto":
             check_launched(counts, "fenton_substep_geom",
-                           expected_launches(k1, sim.model, res.steps),
+                           expected_launches(sim.model, res.steps),
                            "the fiber run")
             count("fenton_substep_geom", counts)
             fiber_run = res
@@ -3688,7 +3693,7 @@ def geometry_phases(torch, m, card, rng):
             cfg = model.cfg.replace(
                 duration=GEOM_ROUTE_STEPS * model.dt_per_step * model.cfg.dt,
                 fiber_angle=np.deg2rad(FIBER_DEG), fiber_ratio=FIBER_RATIO)
-            maps = geometry_maps(k1, st_, "c", shape)
+            maps = geometry_maps(bodies, st_, "c", shape)
             kw = (dict(device="cuda") if mesh_shape is None else dict(
                 mesh=m.make_mesh(shape=mesh_shape,
                                  devices=["cuda:0"] * N_SHARDS),
@@ -3701,7 +3706,7 @@ def geometry_phases(torch, m, card, rng):
             m.reset_counts()
             res = sim.simulate()
             counts = m.read_counts()
-            want = (expected_launches(k1, sim.model, res.steps)
+            want = (expected_launches(sim.model, res.steps)
                     if label == "substep" else
                     res.steps * (N_SHARDS if mesh_shape else 1))
             check_launched(counts, entry, want, f"{body} on the {label} route")
@@ -3726,12 +3731,12 @@ def geometry_phases(torch, m, card, rng):
     entries = []
     for body in GEOM_BODIES:
         model = model_of(body)
-        maps = geometry_maps(k1, st_, "c", (512, 512))
+        maps = geometry_maps(bodies, st_, "c", (512, 512))
         base = seeded(body, model)
         state = clone(base)
-        params = k1.pack_params(model)
+        params = bodies.pack_params(model)
         stream = torch.cuda.current_stream().cuda_stream
-        schedule = k1.slow_schedule(model)
+        schedule = model.launch_schedule
         geom = maps.plain(dev)
         cells = 512 * 512
         for slow in sorted(set(schedule), reverse=True):
@@ -3744,9 +3749,9 @@ def geometry_phases(torch, m, card, rng):
                 reps=200)
             plain = device_us(torch, lambda: k1.plain_substep(
                 model, state, slow, geom=geom), reps=2)
-            b = bound(cells * (body_bytes(k1, model, slow)
+            b = bound(cells * (body_bytes(bodies, model, slow)
                                + geometry_bytes(maps)),
-                      cells * (body_flops(k1, model, slow, False)
+                      cells * (body_flops(bodies, model, slow, False)
                                + geometry_flops(maps)))
             print(f"  {body}_substep_geom<SLOW={str(slow).lower()}> 512x512: "
                   f"{us:.3f} us/launch (isotropic entry {iso:.3f}), plain "
@@ -3760,7 +3765,7 @@ def geometry_phases(torch, m, card, rng):
                 errs[("k1", body)], us, plain, b))
         # kernels 2 and 3 at 2048x2048 and on its interior 4x1 block
         large = model_of(body, height=2048, width=2048)
-        maps = geometry_maps(k1, st_, "c", (2048, 2048))
+        maps = geometry_maps(bodies, st_, "c", (2048, 2048))
         full = seeded(body, large)
         state = clone(full)
         geom = maps.plain(dev)
@@ -3771,17 +3776,17 @@ def geometry_phases(torch, m, card, rng):
         iso = device_us(torch, lambda: iso_tiled(state), reps=30)
         # substep by substep: a plain outer step queues more launches than
         # the stream holds behind the spin kernel
-        schedule = k1.slow_schedule(large)
+        schedule = large.launch_schedule
         plain = {slow: device_us(torch, lambda: k1.plain_substep(
             large, state, slow, geom=geom), reps=1) for slow in set(schedule)}
         plain = sum(plain[slow] for slow in schedule)
         cells = 2048 * 2048
-        iso_bound = body_step_bound(k1, large, cells)
-        b = bound(4 * cells * 2 * (1 + len(k1.cell_body(large).planes))
+        iso_bound = body_step_bound(bodies, large, cells)
+        b = bound(4 * cells * 2 * (1 + len(bodies.cell_body(large).planes))
                   + cells * geometry_bytes(maps),
-                  cells * sum(body_flops(k1, large, s, False)
+                  cells * sum(body_flops(bodies, large, s, False)
                               + geometry_flops(maps)
-                              for s in k1.slow_schedule(large)))
+                              for s in large.launch_schedule))
         print(f"  {body}_tiled_geom 2048x2048: {us:.2f} us/outer step "
               f"(isotropic entry {iso:.2f}), plain {plain:.1f}, bound "
               f"{b[0] * 1e3:.3f} us ({b[1]}; isotropic "
@@ -3808,16 +3813,16 @@ def geometry_phases(torch, m, card, rng):
         bgeom = k3.block_geometry(
             k3.global_rows(rstart, sizes[0], dev), 2048, None, None, pe,
             maps.fiber, de)
-        plain = {slow: device_us(torch, lambda: k1.solve_substep(
-            large, ext, bgeom, slow), reps=1) for slow in set(schedule)}
+        plain = {slow: device_us(torch, lambda: large.commit(
+            ext, bgeom, slow), reps=1) for slow in set(schedule)}
         plain = sum(plain[slow] for slow in schedule)
         ext_cells, own = sizes[0] * 2048, row * 2048
-        planes = 1 + len(k1.cell_body(large).planes)
+        planes = 1 + len(bodies.cell_body(large).planes)
         b = bound(4 * planes * (ext_cells + own)
                   + ext_cells * geometry_bytes(maps),
-                  own * sum(body_flops(k1, large, s, False)
+                  own * sum(body_flops(bodies, large, s, False)
                             + geometry_flops(maps)
-                            for s in k1.slow_schedule(large)))
+                            for s in large.launch_schedule))
         print(f"  {body}_block_geom {sizes[0]}x2048 block: {us:.2f} us/outer "
               f"step (isotropic entry {iso:.2f}), plain {plain:.1f}, bound "
               f"{b[0] * 1e3:.3f} us ({b[1]}) [{card}]", flush=True)
@@ -4020,7 +4025,7 @@ def court_float64_run(torch, m, model, phase, s2_ms, n_steps):
     plain path in float64, the S2 fired where simulate() fires it."""
     dev = torch.device("cuda")
     h, w = model.state_shape()
-    geom = m.cuda_step.GeometryMaps((h, w), phase).plain(dev)
+    geom = m.bodies.GeometryMaps((h, w), phase).plain(dev)
     state = {k: torch.tensor(v, dtype=torch.float64, device=dev)
              for k, v in model.initial_state().items()}
     mask = torch.tensor(m.stencil.pace_mask(h, w, "luq", 10.0, model.min_v),
@@ -4053,7 +4058,7 @@ def court_arbitrate(name, res, ref, ex_v):
           f"the float32 plain run {pe}")
 
 
-def check_cached_form(torch, k1, kernel, model, slowed, maps, geom, name,
+def check_cached_form(torch, m, kernel, model, slowed, maps, geom, name,
                       windows):
     """Kernel 1's cached forms of a body with a cache (`kernel.cache`),
     after one slow commit gave `slowed`: the cache that commit stored
@@ -4062,6 +4067,7 @@ def check_cached_form(torch, k1, kernel, model, slowed, maps, geom, name,
     included.  A direct-rate launch equals its plain version bit for bit.
     Returns the max abs error."""
     dev = slowed["V"].device
+    k1 = m.cuda_step
     plain = model.fast_invariants(slowed)
     planes = kernel.cache.planes(slowed["V"])
     stored = {k: planes[i] for i, k in enumerate(kernel.cache.names)}
@@ -4070,8 +4076,9 @@ def check_cached_form(torch, k1, kernel, model, slowed, maps, geom, name,
     pk = torch.zeros(1, device=dev)
     pp = torch.zeros(1, device=dev)
     got = clone(slowed)
-    kernel.launch(k1.pack_params(model), got, False, pk, model.probe_pixel,
-                  0, torch.cuda.current_stream(dev).cuda_stream,
+    kernel.launch(m.bodies.pack_params(model), got, False, pk,
+                  model.probe_pixel, 0,
+                  torch.cuda.current_stream(dev).cuda_stream,
                   () if maps is None else maps.args(dev), True)
     want = k1.plain_cached_substep(model, clone(slowed), plain, pp, 0, geom)
     torch.cuda.synchronize()
@@ -4089,12 +4096,12 @@ def check_cached_form(torch, k1, kernel, model, slowed, maps, geom, name,
     return err
 
 
-def expected_cached(k1, model, n_steps: int) -> int:
+def expected_cached(m, model, n_steps: int) -> int:
     """Fast commits that read the cache in `n_steps` outer steps of kernel
     1 (9 a step for court, 0 for a body without a cache)."""
-    if not k1.cell_body(model).cache:
+    if not m.bodies.cell_body(model).cache:
         return 0
-    return n_steps * sum(k1.cache_schedule(k1.slow_schedule(model)))
+    return n_steps * sum(m.cuda_step.cache_schedule(model.launch_schedule))
 
 
 def court_phases(torch, m, card, rng):
@@ -4103,6 +4110,7 @@ def court_phases(torch, m, card, rng):
     main()'s launch counters; returns their entries of the JSON line."""
     dev = torch.device("cuda")
     k1, k4, st_ = m.cuda_step, m.cuda_volume, m.stencil
+    bodies = m.bodies
     classes = {"court": m.Courtemanche, "court_ultra": m.CourtemancheUltra}
     errs, launches, runs = {}, {}, {}
     bindings = {k.entry: k for k in (*k1.KERNELS.values(),
@@ -4130,7 +4138,7 @@ def court_phases(torch, m, card, rng):
             old[kk] += counts[entry][kk]
         if entry in bindings:
             n = bindings[entry].cached_launches
-            check(n == expected_cached(k1, model, n_steps),
+            check(n == expected_cached(m, model, n_steps),
                   f"{entry}: {n} fast commits read the cache in "
                   f"{n_steps} outer steps")
             old["cached"] += n
@@ -4140,22 +4148,22 @@ def court_phases(torch, m, card, rng):
           "mode: kernel 1 at 512x512 (isotropic, and GEOM under the annulus "
           "of examples/court_run.py and under geometry (c)), kernel 4 at "
           "8x128x512; one launch of each form and 2 outer steps", flush=True)
-    annulus = k1.GeometryMaps((512, 512), court_annulus(st_, 512,
+    annulus = bodies.GeometryMaps((512, 512), court_annulus(st_, 512,
                                                         COURT_HOLE))
     for key in COURT_CHECKS:
         model = model_of(key)
-        body = k1.cell_body(model).name
+        body = bodies.cell_body(model).name
         windows = model.ill_conditioned
         base = court_seeded(torch, m, model, dev, rng)
         for label, maps in (("isotropic", None), ("annulus", annulus),
-                            ("(c)", geometry_maps(k1, st_, "c",
+                            ("(c)", geometry_maps(bodies, st_, "c",
                                                   (512, 512)))):
             geom = (k1.grid_geometry(device=dev) if maps is None
                     else maps.plain(dev))
             entry = f"{body}_substep" + ("" if maps is None else "_geom")
             kernel = bindings[entry]
             m.reset_counts()
-            for slow in sorted(set(k1.slow_schedule(model))):
+            for slow in sorted(set(model.launch_schedule)):
                 name = f"{entry} 512x512 {label} ({key}) slow={slow}"
                 pk = torch.zeros(1, device=dev)
                 pp = torch.zeros(1, device=dev)
@@ -4174,7 +4182,7 @@ def court_phases(torch, m, card, rng):
                 compare_probes(name, pk, pp)
                 if slow and kernel.cache is not None:
                     note(entry, check_cached_form(
-                        torch, k1, kernel, model, got, maps, geom, name,
+                        torch, m, kernel, model, got, maps, geom, name,
                         windows))
             step = (k1.make_cuda_step(model) if maps is None else
                     k1.make_cuda_step(model, maps.phase, maps.fiber,
@@ -4183,22 +4191,22 @@ def court_phases(torch, m, card, rng):
                 torch, step, lambda s, p, i, geom=geom: k1.plain_step(
                     model, s, p, i, geom), base, 2,
                 f"{entry} 512x512 {label} ({key})", windows=windows))
-            want_n = expected_launches(k1, model, 2)
-            for slow in set(k1.slow_schedule(model)):
+            want_n = expected_launches(model, 2)
+            for slow in set(model.launch_schedule):
                 want_n["slow" if slow else "frozen"] += 1
             n_read = int(kernel.cache is not None)
             want_n["frozen"] += n_read
             check_launched(m.read_counts(), entry, want_n,
                            f"{entry} ({key}, {label})")
             check(kernel.cached_launches
-                  == expected_cached(k1, model, 2) + n_read,
+                  == expected_cached(m, model, 2) + n_read,
                   f"{entry} ({key}, {label}): {kernel.cached_launches} "
                   f"fast commits read the cache")
         vmodel = model_of(key, height=128)
         vbase = court_seeded(torch, m, vmodel, dev, rng, depth=DEPTH)
         entry = f"{body}_volume"
         m.reset_counts()
-        for slow in sorted(set(k1.slow_schedule(vmodel))):
+        for slow in sorted(set(vmodel.launch_schedule)):
             name = f"{entry} 8x128x512 ({key}) slow={slow}"
             got = k4.volume_substep(vmodel, clone(vbase), slow)
             want = k4.plain_volume_substep(vmodel, clone(vbase), slow)
@@ -4215,8 +4223,8 @@ def court_phases(torch, m, card, rng):
             torch, k4.make_volume_step(vmodel, DEPTH),
             plain_volume(k4, vmodel), vbase, 2, f"{entry} 8x128x512 ({key})",
             windows=vmodel.ill_conditioned))
-        want_n = expected_launches(k1, vmodel, 2)
-        for slow in set(k1.slow_schedule(vmodel)):
+        want_n = expected_launches(vmodel, 2)
+        for slow in set(vmodel.launch_schedule):
             want_n["slow" if slow else "frozen"] += 1
         check_launched(m.read_counts(), entry, want_n, f"{entry} ({key})")
 
@@ -4252,7 +4260,7 @@ def court_phases(torch, m, card, rng):
                       f"the kernel='xla' {body} run launched a kernel")
                 continue
             check_launched(counts, entry,
-                           expected_launches(k1, sim.model, res.steps),
+                           expected_launches(sim.model, res.steps),
                            f"the {body} annulus run")
             count(entry, counts, sim.model, res.steps)
             print(f"  {body}: route {sim.route}, steps {res.steps}, launches "
@@ -4332,7 +4340,7 @@ def court_phases(torch, m, card, rng):
             if kernel == "auto":
                 check(sim.route == "substep", f"{body} routes {sim.route}")
                 check_launched(counts, f"{body}_substep",
-                               expected_launches(k1, model, res.steps),
+                               expected_launches(model, res.steps),
                                f"the {body} chronic-plane run")
                 count(f"{body}_substep", counts, model, res.steps)
                 check(all(np.isfinite(v).all() for v in res.state.values())
@@ -4385,7 +4393,7 @@ def court_phases(torch, m, card, rng):
                       == "substep", f"the {body} volume does not route "
                                     f"'substep'")
                 check_launched(counts, f"{body}_volume", expected_launches(
-                    k1, model, n_steps), f"the {body} volume run")
+                    model, n_steps), f"the {body} volume run")
                 count(f"{body}_volume", counts)
             else:
                 check(all(total_launches(c) == 0 for c in counts.values()),
@@ -4423,7 +4431,7 @@ def court_phases(torch, m, card, rng):
     for body in ("court", "court_ultra"):
         model = model_of(body)
         base = court_seeded(torch, m, model, dev, rng)
-        params = k1.pack_params(model)
+        params = bodies.pack_params(model)
         for label, maps in (("", None), ("_geom", annulus)):
             kernel = (k1.KERNELS if maps is None else k1.GEOM_KERNELS)[body]
             geom = (k1.grid_geometry(device=dev) if maps is None
@@ -4435,7 +4443,7 @@ def court_phases(torch, m, card, rng):
             has_cache = kernel.cache is not None
             n = launches.get(f"{body}_substep{label}", {})
             for slow, reads in [(s, False) for s in sorted(
-                    set(k1.slow_schedule(model)), reverse=True)] + (
+                    set(model.launch_schedule), reverse=True)] + (
                     [(False, True)] if has_cache else []):
                 state = clone(base)
                 us = device_us(torch, lambda: kernel.launch(
@@ -4463,10 +4471,10 @@ def court_phases(torch, m, card, rng):
                     errs[f"{body}_substep{label}"], us, plain, b))
         vmodel = model_of(body, height=128)
         vbase = court_seeded(torch, m, vmodel, dev, rng, depth=DEPTH)
-        vparams = k1.pack_params(vmodel)
+        vparams = bodies.pack_params(vmodel)
         pixel = k4.volume_probe_pixel(vmodel, DEPTH)
         timing = {}
-        for slow in set(k1.slow_schedule(vmodel)):
+        for slow in set(vmodel.launch_schedule):
             state = clone(vbase)
             timing[slow] = {
                 "kernel_us": device_us(torch, lambda: k4.KERNELS[body].launch(
@@ -4684,6 +4692,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
     their entries of the JSON line."""
     dev = torch.device("cuda")
     k1, k4, st_ = m.cuda_step, m.cuda_volume, m.stencil
+    bodies = m.bodies
     classes = {"lr1": m.LuoRudy91, "tp06": m.TenTusscher06}
     errs, launches, runs = {}, {}, {}
     t0 = time.perf_counter()
@@ -4731,7 +4740,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
         launches."""
         windows = model.ill_conditioned
         m.reset_counts()
-        for slow in sorted(set(k1.slow_schedule(model))):
+        for slow in sorted(set(model.launch_schedule)):
             name = f"{entry} {label} ({key}) slow={slow}"
             got = launch(clone(base), slow)
             want = plain(clone(base), slow)
@@ -4750,8 +4759,8 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
         note(entry, check_outer_steps(torch, step, plain_step, base, 2,
                                       f"{entry} {label} ({key})",
                                       windows=windows))
-        want_n = expected_launches(k1, model, 2)
-        for slow in set(k1.slow_schedule(model)):
+        want_n = expected_launches(model, 2)
+        for slow in set(model.launch_schedule):
             want_n["slow" if slow else "frozen"] += 1
         check_launched(m.read_counts(), entry, want_n, f"{entry} ({key})")
 
@@ -4766,7 +4775,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
     iso = k1.grid_geometry(device=dev)
     for key in LRTP_CHECKS:
         model = lrtp_model(m, key)
-        body = k1.cell_body(model).name
+        body = bodies.cell_body(model).name
         check_entry(
             key, model, seeded(model), f"{body}_substep",
             lambda s, slow, model=model: k1.substep(model, s, slow),
@@ -4778,7 +4787,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
 
     # -- phase 45 ---------------------------------------------------------------
     stamp("phase 45")
-    maps = k1.GeometryMaps(
+    maps = bodies.GeometryMaps(
         (LRTP_SIZE, LRTP_SIZE), court_annulus(st_, LRTP_SIZE, COURT_HOLE),
         st_.fiber_tensor(np.deg2rad(FIBER_DEG), FIBER_RATIO))
     print(f"phase 45: the GEOM entries under the annulus of "
@@ -4789,7 +4798,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
     gplain = maps.plain(dev)
     for key in LRTP_GEOM_CHECKS:
         model = lrtp_model(m, key)
-        body = k1.cell_body(model).name
+        body = bodies.cell_body(model).name
         check_entry(
             key, model, seeded(model), f"{body}_substep_geom",
             lambda s, slow, model=model: k1.substep(model, s, slow,
@@ -4814,7 +4823,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
             if kernel == "auto":
                 check(sim.route == "substep", f"{key} routes {sim.route}")
                 check_launched(counts, f"{body}_substep_geom",
-                               expected_launches(k1, model, res.steps),
+                               expected_launches(model, res.steps),
                                f"the {key} annulus run")
                 count(f"{body}_substep_geom", counts)
             else:
@@ -4834,7 +4843,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
           f"kernel='xla' (tp06's wedge banded along z)", flush=True)
     for key in LRTP_VOL_CHECKS:
         vmodel = lrtp_model(m, key, height=128)
-        body = k1.cell_body(vmodel).name
+        body = bodies.cell_body(vmodel).name
         check_entry(
             key, vmodel, seeded(vmodel, depth=DEPTH), f"{body}_volume",
             lambda s, slow, vm=vmodel: k4.volume_substep(vm, s, slow),
@@ -4857,7 +4866,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
                       == "substep", f"the {key} volume does not route "
                                     f"'substep'")
                 check_launched(counts, f"{body}_volume", expected_launches(
-                    k1, vmodel, LRTP_VOL_STEPS), f"the {key} volume run")
+                    vmodel, LRTP_VOL_STEPS), f"the {key} volume run")
                 count(f"{body}_volume", counts)
             else:
                 check(all(total_launches(c) == 0 for c in counts.values()),
@@ -4904,7 +4913,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
         # kernel='xla'
         stage1, counts = run(lrtp_model(m, key, duration=float(cut_ms)))
         check_launched(counts, entry, expected_launches(
-            k1, lrtp_model(m, key), stage1.steps), f"{label} stage 1")
+            lrtp_model(m, key), stage1.steps), f"{label} stage 1")
         count(entry, counts)
         check(all(np.isfinite(v).all() for v in stage1.state.values()),
               f"{label}: stage 1 is not finite")
@@ -4933,7 +4942,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
             wall = time.perf_counter() - t
             if kernel == "auto":
                 check_launched(counts, entry, expected_launches(
-                    k1, model, stage2[kernel].steps), f"{label} stage 2")
+                    model, stage2[kernel].steps), f"{label} stage 2")
                 count(entry, counts)
             print(f"  {label} stage 2 ({kernel}): {stage2[kernel].steps} "
                   f"outer steps, {wall / (LRTP_STAGE2_MS / 1000.0):.6f} "
@@ -4954,7 +4963,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
     beat, counts = run(classes["tp06"](m.SimConfig(**TRANSMURAL_CFG)))
     strip = classes["tp06"](m.SimConfig(**TRANSMURAL_CFG))
     check_launched(counts, "tp06_substep", expected_launches(
-        k1, strip, beat.steps), "the transmural beat")
+        strip, beat.steps), "the transmural beat")
     count("tp06_substep", counts)
     check(all(np.isfinite(v).all() for v in beat.state.values())
           and len(beat.cycle_lengths) >= 1,
@@ -4993,9 +5002,9 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
     cells = LRTP_SIZE * LRTP_SIZE
     for key in ("lr1-skip", "tp06-transmural-skip"):
         model = lrtp_model(m, key)
-        body = k1.cell_body(model).name
+        body = bodies.cell_body(model).name
         base = seeded(model)
-        params = k1.pack_params(model)
+        params = bodies.pack_params(model)
         for label, gm in (("", None), ("_geom", maps)):
             kernel = (k1.KERNELS if gm is None else k1.GEOM_KERNELS)[body]
             geom = iso if gm is None else gm.plain(dev)
@@ -5030,7 +5039,7 @@ def lrtp_phases(torch, m, card, rng, lib_paths):
                 entries.append(e)
         vmodel = lrtp_model(m, key, height=128)
         vbase = seeded(vmodel, depth=DEPTH)
-        vparams = k1.pack_params(vmodel)
+        vparams = bodies.pack_params(vmodel)
         pixel = k4.volume_probe_pixel(vmodel, DEPTH)
         vcells = DEPTH * 128 * LRTP_SIZE
         for slow in (True, False):
@@ -5134,6 +5143,7 @@ def large_phases(torch, m, card, rng, lib_paths):
     their entries of the JSON line."""
     dev = torch.device("cuda")
     k1, k3, k6, st_ = m.cuda_step, m.cuda_block, m.cuda_volume_block, m.stencil
+    bodies = m.bodies
     classes = {"court": m.Courtemanche, "court_ultra": m.CourtemancheUltra,
                "lr1": m.LuoRudy91, "tp06": m.TenTusscher06}
     errs, launches, runs, unequal = {}, {}, {}, {}
@@ -5222,10 +5232,10 @@ def large_phases(torch, m, card, rng, lib_paths):
     block_cases = {}
     for key in LARGE_CHECKS:
         model = model_of(key)
-        body = k1.cell_body(model).name
+        body = bodies.cell_body(model).name
         full = banded(model)
         k = model.dt_per_step
-        schedule = k1.slow_schedule(model)
+        schedule = model.launch_schedule
         per_step = {"slow": sum(schedule),
                     "frozen": len(schedule) - sum(schedule)}
         for geometry, origins in ((False, LARGE_ORIGINS),
@@ -5336,7 +5346,7 @@ def large_phases(torch, m, card, rng, lib_paths):
             if mesh is not None:
                 entry = f"{body}_block_geom"
                 check_launched(counts, entry, expected_launches(
-                    k1, sim.model, res.steps, shards=4),
+                    sim.model, res.steps, shards=4),
                     f"the sharded {body} annulus run")
                 count(entry, counts)
             check_run(res, (512, 512), COURT_CROSSINGS[body])
@@ -5382,7 +5392,7 @@ def large_phases(torch, m, card, rng, lib_paths):
             counts = m.read_counts()
             if mesh is not None:
                 check_launched(counts, f"{body}_block", expected_launches(
-                    k1, sim.model, iso[label].steps, shards=4),
+                    sim.model, iso[label].steps, shards=4),
                     f"the sharded {body} run")
                 count(f"{body}_block", counts)
         check_equal_runs(f"{body} {LARGE_SHORT_MS:.0f} ms on "
@@ -5417,7 +5427,7 @@ def large_phases(torch, m, card, rng, lib_paths):
             if mesh is not None:
                 check(sim.route == "block", f"{label} routes {sim.route}")
                 check_launched(counts, entry, expected_launches(
-                    k1, model, res.steps, shards=4), f"{label} sharded")
+                    model, res.steps, shards=4), f"{label} sharded")
                 count(entry, counts)
         check_equal_runs(f"{label} on "
                          f"{'x'.join(map(str, mesh_of(shape).grid))}",
@@ -5472,7 +5482,7 @@ def large_phases(torch, m, card, rng, lib_paths):
                      ("tp06-transmural-g_kr-skip",
                       dict(height=128, width=512))):
         vmodel = model_of(key, **vkw)
-        body = k1.cell_body(vmodel).name
+        body = bodies.cell_body(vmodel).name
         entry = f"{body}_volume_block"
         depth, k = LARGE_VOL_DEPTH, vmodel.dt_per_step
         vbase = banded(vmodel, depth)
@@ -5489,7 +5499,7 @@ def large_phases(torch, m, card, rng, lib_paths):
                                           depth, probe=probes[1],
                                           probe_slice=depth // 2 - zstart)
         torch.cuda.synchronize()
-        schedule = k1.slow_schedule(vmodel)
+        schedule = vmodel.launch_schedule
         check_launched(m.read_counts(), entry,
                        {"slow": sum(schedule),
                         "frozen": len(schedule) - sum(schedule)},
@@ -5515,12 +5525,12 @@ def large_phases(torch, m, card, rng, lib_paths):
             counts = m.read_counts()
             if mesh is not None:
                 check_launched(counts, entry, expected_launches(
-                    k1, vmodel, n_steps, shards=4), f"the sharded {key} "
+                    vmodel, n_steps, shards=4), f"the sharded {key} "
                                                     f"volume")
                 count(entry, counts)
             else:
                 check_launched(counts, f"{body}_volume", expected_launches(
-                    k1, vmodel, n_steps), f"the unsharded {key} volume")
+                    vmodel, n_steps), f"the unsharded {key} volume")
             print(f"  {key} run_volume {kind}: {wall:.3f} s for {n_steps} "
                   f"outer steps [{card}]", flush=True)
         same = [kk for kk in vol["unsharded"][0]
@@ -5548,22 +5558,22 @@ def large_phases(torch, m, card, rng, lib_paths):
         for lib in ("court_block", "lrtp_block", "court_volume_block",
                     "lrtp_volume_block")}
     for key, (model, full) in block_cases.items():
-        body = k1.cell_body(model).name
-        lib = k1.BODIES[body].library.name("block")
-        params = k1.pack_params(model)
-        schedule = k1.slow_schedule(model)
+        body = bodies.cell_body(model).name
+        lib = bodies.BODIES[body].library.name("block")
+        params = bodies.pack_params(model)
+        schedule = model.launch_schedule
         k = model.dt_per_step
         two_d, rstart, cstart, rows, cols = block_geom(model, (512, None))
         ext = window(full, rows, cols)
         eh, ew = len(rows), len(cols)
-        gm = k1.GeometryMaps(model.state_shape(), annulus, fiber)
+        gm = bodies.GeometryMaps(model.state_shape(), annulus, fiber)
         for geometry in (False, True):
             entry = f"{body}_block" + ("_geom" if geometry else "")
             kernel = (k3.GEOM_KERNELS if geometry else k3.KERNELS)[body]
             phase_ext = (torch.tensor(annulus, device=dev)[rows][:, cols]
                          .contiguous() if geometry else None)
             fib = fiber if geometry else None
-            args = (k1.kernel_geometry_args(phase_ext, None, fib)
+            args = (bodies.kernel_geometry_args(phase_ext, None, fib)
                     if geometry else ())
             geom = k3.block_geometry(k3.global_rows(rstart, eh, dev),
                                      model.cfg.height, None, None, phase_ext,
@@ -5583,11 +5593,12 @@ def large_phases(torch, m, card, rng, lib_paths):
                 step_b += large_form_bound(
                     model, (eh - 2 - 2 * done) * ew, slow,
                     maps=gm if geometry else None)[0]
-                done += int(k1.BODIES[body].writes_potential(slow))
+                done += int(bodies.BODIES[body].writes_potential(slow))
             for slow in sorted(set(schedule)):
                 state = clone(ext)
                 v_out = (torch.empty_like(state["V"])
-                         if k1.BODIES[body].writes_potential(slow) else None)
+                         if bodies.BODIES[body].writes_potential(slow)
+                         else None)
                 us = device_us(torch, lambda: kernel.launch(
                     params, slow, state["V"], v_out, state, state, rstart,
                     cstart, k, two_d, model.cfg.height, model.cfg.width, 0,
@@ -5620,12 +5631,12 @@ def large_phases(torch, m, card, rng, lib_paths):
                          unequal_cells=unequal.get(entry, 0))
                 entries.append(e)
     for key, (vmodel, block, zstart) in vol_cases.items():
-        body = k1.cell_body(vmodel).name
-        lib = k1.BODIES[body].library.name("volume_block")
+        body = bodies.cell_body(vmodel).name
+        lib = bodies.BODIES[body].library.name("volume_block")
         entry = f"{body}_volume_block"
         kernel = k6.KERNELS[body]
-        params = k1.pack_params(vmodel)
-        schedule = k1.slow_schedule(vmodel)
+        params = bodies.pack_params(vmodel)
+        schedule = vmodel.launch_schedule
         k, depth = vmodel.dt_per_step, LARGE_VOL_DEPTH
         step = k6.make_volume_block_step(vmodel, 30, depth)
         state = clone(block)
@@ -5640,11 +5651,12 @@ def large_phases(torch, m, card, rng, lib_paths):
         for slow in schedule:
             step_b += large_form_bound(vmodel, (28 - 2 * done) * plane_cells,
                                        slow, volume=True)[0]
-            done += int(k1.BODIES[body].writes_potential(slow))
+            done += int(bodies.BODIES[body].writes_potential(slow))
         for slow in sorted(set(schedule)):
             state = clone(block)
             v_out = (torch.empty_like(state["V"])
-                     if k1.BODIES[body].writes_potential(slow) else None)
+                     if bodies.BODIES[body].writes_potential(slow)
+                     else None)
             pixel = (min(vmodel.probe_pixel[0], 127), vmodel.probe_pixel[1])
             us = device_us(torch, lambda: kernel.launch(
                 params, state, v_out, slow, 1.0, zstart, depth, 1, 29, None,

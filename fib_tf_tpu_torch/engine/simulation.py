@@ -71,20 +71,15 @@ from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch import interop, tracing
 from fib_tf_tpu_torch.engine.observers import CycleLengthDetector
 from fib_tf_tpu_torch.models.base import IonicModel, grid_geometry
-from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled, stencil
+from fib_tf_tpu_torch.ops import bodies, cuda_step, cuda_tiled, stencil
 from fib_tf_tpu_torch.parallel import sharding as mesh_sharding
 from fib_tf_tpu_torch.parallel import spmd
+from fib_tf_tpu_torch.unported import not_ported
 
-_ENGINE = "ROADMAP Queue 1 item 14"
-_PARALLEL = "ROADMAP Queue 1 item 19"
 # kernel='pallas' with Courtemanche's table mode (the reference raises the
 # same on its TPU kernels, fib_tf_tpu/engine/simulation.py:435-440)
 TABLE_KERNEL_MESSAGE = ("table-mode gathers don't run in the CUDA kernels; "
                         "use kernel='xla' or drop table=True")
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 @dataclasses.dataclass
@@ -120,18 +115,18 @@ class Simulation:
         `sharding` (the reference's GSPMD mode) is not ported."""
         cfg: SimConfig = model.cfg
         if sharding is not None:
-            _not_ported("the GSPMD path (sharding=...)", _PARALLEL)
+            not_ported("the GSPMD path (sharding=...)", "parallel")
         if mesh is None and cfg.mesh_shape:
             mesh, wide_halo = _config_mesh(model, device), True
         if mesh is not None:
             device = mesh.devices.flat[0]
         device = resolve_device(device)
         if cfg.rotor_probe:
-            _not_ported("the rotor probe (SimConfig.rotor_probe)", _ENGINE)
+            not_ported("the rotor probe (SimConfig.rotor_probe)", "engine")
         if cfg.save_graph:
-            _not_ported("save_graph export", _ENGINE)
+            not_ported("save_graph export", "engine")
         if model.fast_slow_ratio:
-            _not_ported("fast_slow_ratio dispatch", _ENGINE)
+            not_ported("fast_slow_ratio dispatch", "engine")
         if mesh is not None:
             _check_mesh(model, mesh, wide_halo)
         self.model = model
@@ -214,16 +209,16 @@ class Simulation:
     # -- not ported yet --------------------------------------------------------
 
     def add_electrode(self, x, y, radius: float = 5.0):
-        _not_ported("electrogram electrodes", _ENGINE)
+        not_ported("electrogram electrodes", "engine")
 
     def add_ecg_electrode(self, x, y, z: float = 5.0):
-        _not_ported("ECG electrodes", _ENGINE)
+        not_ported("ECG electrodes", "engine")
 
     def run(self, im=None, keep_state: bool = False, block: bool = True):
-        _not_ported("the run() generator", _ENGINE)
+        not_ported("the run() generator", "engine")
 
     def fire_op(self, name: str):
-        _not_ported("fire_op (the run() generator's pacing)", _ENGINE)
+        not_ported("fire_op (the run() generator's pacing)", "engine")
 
     # -- definition --------------------------------------------------------------
 
@@ -401,7 +396,7 @@ class Simulation:
     def _simulate(self, schedule, state, record_frames_every_ms,
                   check_finite, max_chunk_steps) -> SimResult:
         if record_frames_every_ms is not None:
-            _not_ported("frame recording", _ENGINE)
+            not_ported("frame recording", "engine")
         if not self._defined:
             self.define()
         model, cfg = self.model, self.cfg
@@ -580,7 +575,7 @@ def _config_mesh(model: IonicModel, device) -> mesh_sharding.Mesh:
     not ported, so both raise here instead of taking another path."""
     cfg = model.cfg
     if cfg.mesh_mode == "gspmd":
-        _not_ported("the GSPMD path (mesh_mode='gspmd')", _PARALLEL)
+        not_ported("the GSPMD path (mesh_mode='gspmd')", "parallel")
     n = int(np.prod(cfg.mesh_shape))
     if torch.device(device).type == "cpu":
         mesh = mesh_sharding.make_mesh(cfg.mesh_shape, cfg.mesh_axes,
@@ -593,8 +588,8 @@ def _config_mesh(model: IonicModel, device) -> mesh_sharding.Mesh:
         raise ValueError(
             f"mesh_mode='spmd' cannot run this configuration: {reason}")
     if reason:
-        _not_ported(f"mesh_mode='auto' would fall back to the GSPMD path "
-                    f"({reason}), which", _PARALLEL)
+        not_ported(f"mesh_mode='auto' would fall back to the GSPMD path "
+                   f"({reason}), which", "parallel")
     return mesh
 
 
@@ -659,23 +654,35 @@ def spmd_route(model: IonicModel, device_type: str, kernel: str,
     halos, 'xla' runs the plain step; Courtemanche's table mode runs the
     plain step ('pallas' raises), as `route` routes it.  kernel='pallas' on
     a CPU mesh raises."""
-    if kernel == "pallas" and device_type != "cuda":
-        raise ValueError(
-            "kernel='pallas' runs the hand-written CUDA kernels and needs "
-            "a mesh of CUDA devices; use kernel='auto' or 'xla' on the CPU")
-    if model.kernel_free:
-        if kernel == "pallas":
-            raise ValueError(TABLE_KERNEL_MESSAGE)
+    if plain_only(model, device_type, kernel, "a mesh of CUDA devices"):
         return "plain"
-    if kernel == "xla" or device_type != "cuda" or not wide_halo:
-        return "plain"
-    return "block"
+    return "block" if wide_halo else "plain"
 
 
 def state_mb(model: IonicModel) -> float:
     """The model's state in MB (2**20 bytes) on its true grid."""
     h, w = model.state_shape()
     return len(model.state_keys()) * h * w * 4 / 2**20
+
+
+def plain_only(model: IonicModel, device_type: str, kernel: str,
+               devices: str = "a CUDA device") -> bool:
+    """The checks every kernel choice starts with (`route`, `spmd_route`,
+    engine/volume.py's `volume_route` and `_use_shard_kernel`): whether
+    the run takes the plain path at any size, under kernel='xla', off the
+    card, or for a model without a kernel (Courtemanche's table mode).
+    Raises on a kernel name but auto|pallas|xla, on kernel='pallas' off
+    the card (which needs `devices`) and on kernel='pallas' in table
+    mode."""
+    if kernel not in ("auto", "pallas", "xla"):
+        raise ValueError(f"kernel must be auto|pallas|xla, got {kernel!r}")
+    if kernel == "pallas" and device_type != "cuda":
+        raise ValueError(
+            f"kernel='pallas' runs the hand-written CUDA kernels and needs "
+            f"{devices}; use kernel='auto' or 'xla' on the CPU")
+    if model.kernel_free and kernel == "pallas":
+        raise ValueError(TABLE_KERNEL_MESSAGE)
+    return model.kernel_free or kernel == "xla" or device_type != "cuda"
 
 
 def route(model: IonicModel, device_type: str, kernel: str) -> str:
@@ -687,18 +694,10 @@ def route(model: IonicModel, device_type: str, kernel: str) -> str:
     divisibility conditions are Mosaic's and are not carried, since the
     CUDA kernels take any shape.  kernel='pallas' without a CUDA device
     raises."""
-    if kernel == "pallas" and device_type != "cuda":
-        raise ValueError(
-            "kernel='pallas' runs the hand-written CUDA kernels and needs "
-            "a CUDA device; use kernel='auto' or 'xla' on the CPU")
-    if model.kernel_free:
-        if kernel == "pallas":
-            raise ValueError(TABLE_KERNEL_MESSAGE)
-        return "plain"
-    if kernel == "xla" or device_type != "cuda":
+    if plain_only(model, device_type, kernel):
         return "plain"
     if (state_mb(model) <= Simulation.WHOLE_GRID_STATE_MB_MAX
-            or 2 not in cuda_step.cell_body(model).kernels):
+            or 2 not in bodies.cell_body(model).kernels):
         # Courtemanche, LR1 and tp06 take the substep kernel at every
         # size: the reference keeps them off its tiled kernel and runs XLA
         # past its VMEM cap, which the card's substep kernel does not have

@@ -52,17 +52,12 @@ import numpy as np
 import torch
 
 from fib_tf_tpu_torch import interop
-from fib_tf_tpu_torch.engine.simulation import (TABLE_KERNEL_MESSAGE,
-                                                resolve_device)
+from fib_tf_tpu_torch.engine.simulation import plain_only, resolve_device
 from fib_tf_tpu_torch.models.base import IonicModel
-from fib_tf_tpu_torch.ops import (cuda_step, cuda_volume, cuda_volume_tiled,
+from fib_tf_tpu_torch.ops import (bodies, cuda_volume, cuda_volume_tiled,
                                   stencil3d)
 from fib_tf_tpu_torch.parallel import volume_spmd
-
-_GEOMETRY = "ROADMAP Queue 1 items 9 and 18"
-_VOLUME = "ROADMAP Queue 1 item 18"
-_PARALLEL = "ROADMAP Queue 1 item 19"
-_ADAPTIVE = "ROADMAP Queue 1 item 15"
+from fib_tf_tpu_torch.unported import not_ported
 
 # Whole-volume vs tiled cutover in MB of state (planes x D x H x W x 4).
 # The reference's is 32 MB (fib_tf_tpu/engine/volume.py:78).  On the card
@@ -128,49 +123,35 @@ def volume_route(model: IonicModel, depth: int, device_type: str,
     the other bodies raise NotImplementedError there) or 'plain'
     (PyTorch).  Under the card's cutover (no limit) 'auto' never takes
     'tiled'.  Courtemanche's table mode runs 'plain' ('pallas' raises)."""
-    if kernel not in ("auto", "pallas", "xla"):
-        raise ValueError(f"kernel must be auto|pallas|xla, got {kernel!r}")
-    if kernel == "pallas" and device_type != "cuda":
-        raise ValueError(
-            "kernel='pallas' runs the hand-written CUDA kernels and needs "
-            "a CUDA device; use kernel='auto' or 'xla' on the CPU")
-    if model.kernel_free:
-        if kernel == "pallas":
-            raise ValueError(TABLE_KERNEL_MESSAGE)
-        return "plain"
-    if kernel == "xla" or device_type != "cuda":
+    if plain_only(model, device_type, kernel):
         return "plain"
     if (kernel == "pallas"
             or volume_state_mb(model, depth) <= VOLUME_KERNEL_STATE_MB_MAX):
         return "substep"
-    cuda_step.main_body_only(model, "tiled volume")
+    bodies.main_body_only(model, "tiled volume")
     return "tiled"
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 def _check_unported(model, phase, fiber_twist, fiber_angle0, fiber_ratio,
                     fiber_elevation, mesh, probe, rotor_probe, electrodes,
                     wide_halo):
     if phase is not None:
-        _not_ported("phase fields in run_volume", _GEOMETRY)
+        not_ported("phase fields in run_volume", "geometry")
     if (fiber_twist != 0.0 or fiber_angle0 != 0.0 or fiber_ratio != 1.0
             or fiber_elevation != 0.0):
-        _not_ported("fiber twist / ratio / elevation in run_volume",
-                    _GEOMETRY)
+        not_ported("fiber twist / ratio / elevation in run_volume",
+                   "geometry")
     if mesh is not None and not wide_halo:
-        _not_ported("the GSPMD z-sharded volume (mesh without wide_halo)",
-                    _PARALLEL)
+        not_ported("the GSPMD z-sharded volume (mesh without wide_halo)",
+                   "parallel")
     if electrodes:
-        _not_ported("volume ECG electrodes", _VOLUME)
+        not_ported("volume ECG electrodes", "volume")
     if rotor_probe:
-        _not_ported("the volume rotor census (rotor_probe)", _VOLUME)
+        not_ported("the volume rotor census (rotor_probe)", "volume")
     if probe is not None:
-        _not_ported("custom probe callables in run_volume", _VOLUME)
+        not_ported("custom probe callables in run_volume", "volume")
     if model.cfg.adaptive_dv is not None:
-        _not_ported("adaptive_dv", _ADAPTIVE)
+        not_ported("adaptive_dv", "adaptive")
 
 
 def _use_shard_kernel(model: IonicModel, device_type: str,
@@ -186,17 +167,8 @@ def _use_shard_kernel(model: IonicModel, device_type: str,
     caps on the extended block are Mosaic's and are not carried: the CUDA
     kernel takes any H, W >= 3 and leaves the block to device memory.
     kernel='pallas' on a CPU mesh raises."""
-    if kernel not in ("auto", "pallas", "xla"):
-        raise ValueError(f"kernel must be auto|pallas|xla, got {kernel!r}")
-    if kernel == "pallas" and device_type != "cuda":
-        raise ValueError(
-            "kernel='pallas' runs the hand-written CUDA kernels and needs "
-            "a mesh of CUDA devices; use kernel='auto' or 'xla' on the CPU")
-    if model.kernel_free:
-        if kernel == "pallas":
-            raise ValueError(TABLE_KERNEL_MESSAGE)
-        return False
-    return kernel != "xla" and device_type == "cuda"
+    return not plain_only(model, device_type, kernel,
+                          "a mesh of CUDA devices")
 
 
 def make_route_step(model: IonicModel, depth: int, route: str,

@@ -5,7 +5,8 @@ root of the checkout, under a name that carries a hash of its sources, the
 headers they include and the flags, so an edited `.cu` or `.cuh` rebuilds
 and an unchanged one loads at once.  Sources include their headers with
 quoted relative includes (`#include "br_cell.cuh"`), which the compiler
-resolves against the including file's directory.  The
+resolves against the including file's directory; `includes` follows them
+the same way, so the hash covers every header a source reaches.  The
 libraries have a plain C interface (no PyTorch headers), which keeps a
 build to seconds.  A missing nvcc or a failed build raises; nothing falls
 back to the plain PyTorch path.
@@ -58,30 +59,46 @@ def _flags(defines: Sequence[str], flags: Sequence[str]):
     return (*NVCC_FLAGS, *flags, *(f"-D{d}" for d in defines))
 
 
+def includes(sources: Sequence[Path]) -> tuple:
+    """The headers `sources` depend on: the transitive closure of their
+    quoted `#include "..."` lines, each resolved against the including
+    file's directory (and normalised), sorted.  A header reached twice, or
+    through a cycle, is listed once."""
+    found, todo = set(), [Path(src) for src in sources]
+    while todo:
+        path = todo.pop()
+        for line in path.read_text().splitlines():
+            if line.startswith('#include "'):
+                name = line.split('"')[1]
+                hdr = Path(os.path.normpath(path.parent / name))
+                if hdr not in found:
+                    found.add(hdr)
+                    todo.append(hdr)
+    return tuple(sorted(found))
+
+
 def library_path(name: str, sources: Sequence[Path],
-                 headers: Sequence[Path] = (),
                  defines: Sequence[str] = (),
                  flags: Sequence[str] = ()) -> Path:
     """Where `build` puts the library of `sources`: keyed by a hash of
-    their bytes, of the `headers` they include and of the nvcc flags
-    (with the preprocessor `defines` and the extra `flags`)."""
+    their bytes, of the headers they include (`includes`) and of the nvcc
+    flags (with the preprocessor `defines` and the extra `flags`)."""
     h = hashlib.sha256(" ".join(_flags(defines, flags)).encode())
-    for src in [*sources, *headers]:
+    for src in [*sources, *includes(sources)]:
         h.update(Path(src).name.encode())
         h.update(Path(src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str, sources: Sequence[Path],
-          headers: Sequence[Path] = (), defines: Sequence[str] = (),
-          flags: Sequence[str] = ()) -> Path:
+          defines: Sequence[str] = (), flags: Sequence[str] = ()) -> Path:
     """Compile `sources` into one shared library unless a library of the
-    same sources, `headers`, `defines` (macros set with -D, which select
-    what a source compiles) and extra nvcc `flags` exists; return its
-    path.  The headers are hashed, not passed to nvcc.  The compiler's
-    output (with the -Xptxas -v resource report) is kept beside it as
-    `<lib>.log`."""
-    out = library_path(name, sources, headers, defines, flags)
+    same sources, headers (`includes`), `defines` (macros set with -D,
+    which select what a source compiles) and extra nvcc `flags` exists;
+    return its path.  The headers are hashed, not passed to nvcc.  The
+    compiler's output (with the -Xptxas -v resource report) is kept
+    beside it as `<lib>.log`."""
+    out = library_path(name, sources, defines, flags)
     if out.exists():
         return out
     nvcc = find_nvcc()
@@ -102,7 +119,7 @@ def build(name: str, sources: Sequence[Path],
 
 
 def load(name: str, sources: Sequence[Path],
-         headers: Sequence[Path] = (), defines: Sequence[str] = (),
+         defines: Sequence[str] = (),
          flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (if needed) and load the library of `sources`."""
-    return ctypes.CDLL(str(build(name, sources, headers, defines, flags)))
+    return ctypes.CDLL(str(build(name, sources, defines, flags)))

@@ -19,6 +19,7 @@ import torch
 
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.ops import stencil, stencil3d
+from fib_tf_tpu_torch.unported import QUEUE1, not_ported
 
 State = Dict[str, torch.Tensor]
 
@@ -100,12 +101,10 @@ def volume_geometry(
     fields and fiber tensors are not ported yet."""
     if phase is not None:
         raise NotImplementedError(
-            f"phase fields in 3D are not ported yet "
-            f"({stencil3d.GEOMETRY_ITEM})")
+            f"phase fields in 3D are not ported yet ({QUEUE1['geometry']})")
     if fiber is not None:
         raise NotImplementedError(
-            f"fiber tensors in 3D are not ported yet "
-            f"({stencil3d.GEOMETRY_ITEM})")
+            f"fiber tensors in 3D are not ported yet ({QUEUE1['geometry']})")
     return Geometry(
         laplace=lambda x: stencil3d.laplace3d(x, dz_ratio=dz_ratio),
         enforce_boundary=stencil3d.enforce_boundary3d,
@@ -121,8 +120,7 @@ def check_unported(cfg: SimConfig):
     """Reject the variant a small model's port does not carry yet:
     adaptive_dv."""
     if cfg.adaptive_dv is not None:
-        raise NotImplementedError(
-            "adaptive_dv is not ported yet (ROADMAP Queue 1 item 15)")
+        not_ported("adaptive_dv", "adaptive")
 
 
 class IonicModel:

@@ -42,6 +42,7 @@ from fib_tf_tpu_torch.ops.chebyshev import (
 from fib_tf_tpu_torch.ops.integrators import (GATE_MAX, GATE_MIN,
                                                adams_bashforth2, rdiv,
                                                rush_larsen)
+from fib_tf_tpu_torch.unported import not_ported
 
 GATES = ("x1", "m", "h", "j", "d", "f")
 FAST_GATES = ("m", "h")
@@ -115,8 +116,7 @@ FAST_CURRENTS: Dict[str, float] = {
 def _check_variant(cfg: SimConfig):
     """Reject the one BR variant the port does not carry yet."""
     if cfg.adaptive_dv is not None:
-        raise NotImplementedError(
-            "adaptive_dv is not ported yet (ROADMAP Queue 1 item 15)")
+        not_ported("adaptive_dv", "adaptive")
 
 
 class BeelerReuter(SkipSchedule, IonicModel):

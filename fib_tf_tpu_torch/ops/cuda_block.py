@@ -8,7 +8,7 @@ The ghosts came from the neighbouring shards; the block's global origin
 (`rstart`, `cstart`) and the domain's size decide where the REFLECT /
 SYMMETRIC edge rules apply, so only a shard that owns a domain edge reflects
 there.  The kernel is csrc/br_block.cu (CUDA C++, built with nvcc and bound
-with ctypes; one entry per cell body of ops/cuda_step.BODIES: K = 5 for
+with ctypes; one entry per cell body of ops/bodies.BODIES: K = 5 for
 Beeler-Reuter, 10 for Fenton and Mitchell-Schaeffer), the tile skeleton of
 the tiled outer-step kernel (csrc/br_tile.cuh, on each body's tile shape,
 cuda_tiled.tile_of) reading from the extended block; and for the bodies of
@@ -49,27 +49,19 @@ import numpy as np
 import torch
 
 from fib_tf_tpu_torch import tracing
-from fib_tf_tpu_torch.kernels import build
+from fib_tf_tpu_torch.kernels import binding, build
 from fib_tf_tpu_torch.models.base import Geometry, IonicModel
-from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled
-from fib_tf_tpu_torch.ops.cuda_step import BODIES, State
+from fib_tf_tpu_torch.ops import bodies, cuda_tiled
+from fib_tf_tpu_torch.ops.bodies import BODIES, State, plane_pointers
 
 SOURCE = build.CSRC_DIR / "br_block.cu"
-HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh",
-           build.CSRC_DIR / "br_variant_cell.cuh",
-           build.CSRC_DIR / "fenton_cell.cuh",
-           build.CSRC_DIR / "geometry.cuh",
-           build.CSRC_DIR / "ms_cell.cuh")
 # the large bodies' block kernel, built as a library per body library
 # (court_block, lrtp_block) holding the isotropic and the GEOM entries
 LARGE_SOURCE = build.CSRC_DIR / "large_block.cu"
-LARGE_HEADERS = (build.CSRC_DIR / "br_cell.cuh",
-                 build.CSRC_DIR / "cell_traits.cuh",
-                 build.CSRC_DIR / "court_cell.cuh",
-                 build.CSRC_DIR / "geometry.cuh",
-                 build.CSRC_DIR / "lr1_cell.cuh",
-                 build.CSRC_DIR / "torch_rounding.cuh",
-                 build.CSRC_DIR / "tp06_cell.cuh")
+# the arguments both block kernels take after their first ones
+_BLOCK_ARGS = ("v_in:p v_out:p planes_in:p planes_out:p n_planes:i ext_h:i "
+               "ext_w:i rstart:i cstart:i halo:i two_d:i h_total:i "
+               "w_total:i")
 
 
 # -- the plain geometry of an extended block -----------------------------------------
@@ -200,59 +192,24 @@ def block_geometry(
 # -- the binding --------------------------------------------------------------------------
 
 
-class BlockKernel:
+class BlockKernel(binding.Binding):
     """ctypes binding of one cell body's entry `<body>_block` of
-    csrc/br_block.cu, or with `geom` its GEOM form `<body>_block_geom`.
-    The library is built and loaded on the first launch; `launches` counts
-    successful launches."""
+    csrc/br_block.cu, or with `geom` its GEOM form `<body>_block_geom`,
+    which a second library of the same source holds (`br_block_geom`,
+    built with FIBTORCH_GEOM_ENTRIES); `launches` counts successful
+    launches."""
+
+    ARGS = f"params:p n_params:i {_BLOCK_ARGS} n_sub:i slow_mask:u"
 
     def __init__(self, body: str, geom: bool = False):
-        self.body = BODIES[body]
-        self.geom = geom
-        self.entry = f"{body}_block" + ("_geom" if geom else "")
-        self.span_name = f"fibtorch.launch.{self.entry}"
-        # the GEOM entries are a second library of the same source
-        self.library_name = "br_block" + ("_geom" if geom else "")
-        self.defines = ("FIBTORCH_GEOM_ENTRIES",) if geom else ()
-        self._lib = None
-        self.reset_launches()
+        suffix = "_geom" if geom else ""
+        super().__init__(f"{body}_block{suffix}", SOURCE, f"br_block{suffix}",
+                         BODIES[body], geom,
+                         ("FIBTORCH_GEOM_ENTRIES",) if geom else ())
 
-    def reset_launches(self):
-        self.launches = 0
-
-    def build(self):
-        """Build the library (if needed) and return its path."""
-        return build.build(self.library_name, [SOURCE], HEADERS,
-                           self.defines)
-
-    def library(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = build.load(self.library_name, [SOURCE], HEADERS,
-                             self.defines)
-            fn = getattr(lib, self.entry)
-            fn.argtypes = (
-                [ctypes.c_void_p, ctypes.c_int,      # params, n_params
-                 ctypes.c_void_p, ctypes.c_void_p,   # v_in, v_out
-                 ctypes.c_void_p, ctypes.c_void_p,   # planes in / out
-                 ctypes.c_int,                       # n_planes
-                 ctypes.c_int, ctypes.c_int,         # ext_h, ext_w
-                 ctypes.c_int, ctypes.c_int,         # rstart, cstart
-                 ctypes.c_int, ctypes.c_int,         # halo, two_d
-                 ctypes.c_int, ctypes.c_int,         # domain height, width
-                 ctypes.c_int, ctypes.c_uint,        # n_sub, slow_mask
-                 ctypes.c_void_p,                    # probe (may be null)
-                 ctypes.c_int, ctypes.c_int,         # probe row, col (global)
-                 ctypes.c_longlong,                  # probe index
-                 ctypes.c_int,                       # device ordinal
-                 ctypes.c_void_p]                    # cudaStream_t
-                + (cuda_step.GEOMETRY_ARGTYPES if self.geom else [])
-            )
-            fn.restype = ctypes.c_int
-            cuda_step.check_layout(lib, self.entry, self.body)
-            cuda_tiled.check_tile_shape(lib, self.entry, self.body.name,
-                                        self.geom)
-            self._lib = lib
-        return self._lib
+    def check(self, lib: ctypes.CDLL):
+        cuda_tiled.check_tile_shape(lib, self.entry, self.body.name,
+                                    self.geom)
 
     def launch(self, params: np.ndarray, ext_in: State, ext_out: State,
                rstart: int, cstart: int, halo: int, two_d: bool,
@@ -262,33 +219,25 @@ class BlockKernel:
         """One outer step on CUDA tensors already validated by the
         caller: reads `ext_in`, writes the centre of `ext_out`.
         `geometry` is a GEOM entry's trailing arguments, the maps of the
-        extended layout (`cuda_step.kernel_geometry_args`)."""
+        extended layout (`bodies.kernel_geometry_args`)."""
         with tracing.span(self.span_name):
-            fn = getattr(self.library(), self.entry)
             pot, planes = self.body.model.pot_key, self.body.planes
             v_in = ext_in[pot]
             ext_h, ext_w = v_in.shape
-            err = fn(
+            self.call(
                 params.ctypes.data, params.size,
                 v_in.data_ptr(), ext_out[pot].data_ptr(),
-                cuda_step.plane_pointers(ext_in, planes),
-                cuda_step.plane_pointers(ext_out, planes),
+                plane_pointers(ext_in, planes),
+                plane_pointers(ext_out, planes),
                 len(planes), ext_h, ext_w, rstart, cstart, halo, int(two_d),
                 h_total, w_total, len(schedule),
                 cuda_tiled.slow_mask(schedule),
                 probe.data_ptr() if probe is not None else None,
                 probe_pixel[0], probe_pixel[1], probe_index,
-                v_in.device.index, stream, *geometry,
-            )
-            if err != 0:
-                raise RuntimeError(
-                    f"{self.entry} launch failed with CUDA error {err} "
-                    f"({ext_h}x{ext_w} block at ({rstart}, {cstart}) of "
-                    f"{h_total}x{w_total}, {len(schedule)} substeps)")
-            self.launches += 1
+                v_in.device.index, stream, *geometry)
 
 
-class LargeBlockKernel:
+class LargeBlockKernel(binding.Binding):
     """ctypes binding of one large cell body's entry `<body>_block` of
     csrc/large_block.cu, or with `geom` its GEOM form `<body>_block_geom`:
     one commit of the outer step per launch.  The library (`library_name`:
@@ -298,52 +247,15 @@ class LargeBlockKernel:
     ("slow" = SLOW=true, "frozen" = SLOW=false), as the substep kernel's
     binding does."""
 
+    ARGS = f"slow:i params:p n_params:i {_BLOCK_ARGS} shrink:i copy_all:i"
+    PER_FORM = True
+
     def __init__(self, body: str, geom: bool = False):
-        self.body = BODIES[body]
-        self.geom = geom
-        self.entry = f"{body}_block" + ("_geom" if geom else "")
-        self.span_name = f"fibtorch.launch.{self.entry}"
-        self.source = LARGE_SOURCE
-        self.library_name = self.body.library.name("block")
-        self.defines = self.body.library.defines
-        self._lib = None
-        self.reset_launches()
-
-    def reset_launches(self):
-        self.launches = {"slow": 0, "frozen": 0}
-
-    def build(self):
-        """Build the library (if needed) and return its path."""
-        return build.build(self.library_name, [LARGE_SOURCE], LARGE_HEADERS,
-                           self.defines, self.body.library.flags)
-
-    def library(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = build.load(self.library_name, [LARGE_SOURCE],
-                             LARGE_HEADERS, self.defines,
-                             self.body.library.flags)
-            fn = getattr(lib, self.entry)
-            fn.argtypes = (
-                [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,  # slow, params
-                 ctypes.c_void_p, ctypes.c_void_p,   # v_in, v_out
-                 ctypes.c_void_p, ctypes.c_void_p,   # planes in / out
-                 ctypes.c_int,                       # n_planes
-                 ctypes.c_int, ctypes.c_int,         # ext_h, ext_w
-                 ctypes.c_int, ctypes.c_int,         # rstart, cstart
-                 ctypes.c_int, ctypes.c_int,         # halo, two_d
-                 ctypes.c_int, ctypes.c_int,         # domain height, width
-                 ctypes.c_int, ctypes.c_int,         # shrink, copy_all
-                 ctypes.c_void_p,                    # probe (may be null)
-                 ctypes.c_int, ctypes.c_int,         # probe row, col (global)
-                 ctypes.c_longlong,                  # probe index
-                 ctypes.c_int,                       # device ordinal
-                 ctypes.c_void_p]                    # cudaStream_t
-                + (cuda_step.GEOMETRY_ARGTYPES if self.geom else [])
-            )
-            fn.restype = ctypes.c_int
-            cuda_step.check_layout(lib, f"{self.body.name}_block", self.body)
-            self._lib = lib
-        return self._lib
+        b = BODIES[body]
+        super().__init__(f"{body}_block" + ("_geom" if geom else ""),
+                         LARGE_SOURCE, b.library.name("block"), b, geom,
+                         b.library.defines, b.library.flags,
+                         layout=f"{body}_block")
 
     def launch(self, params: np.ndarray, slow: bool, v_in: torch.Tensor,
                v_out: Optional[torch.Tensor], planes_in: State,
@@ -358,27 +270,18 @@ class LargeBlockKernel:
         the planes the form does not commit).  `geometry` is a GEOM entry's
         trailing arguments, the maps of the extended layout."""
         with tracing.span(self.span_name):
-            fn = getattr(self.library(), self.entry)
             planes = self.body.planes
             ext_h, ext_w = v_in.shape
-            err = fn(
+            self.call(
                 int(slow), params.ctypes.data, params.size,
                 v_in.data_ptr(), None if v_out is None else v_out.data_ptr(),
-                cuda_step.plane_pointers(planes_in, planes),
-                cuda_step.plane_pointers(planes_out, planes),
+                plane_pointers(planes_in, planes),
+                plane_pointers(planes_out, planes),
                 len(planes), ext_h, ext_w, rstart, cstart, halo, int(two_d),
                 h_total, w_total, shrink, int(copy_all),
                 probe.data_ptr() if probe is not None else None,
                 probe_pixel[0], probe_pixel[1], probe_index,
-                v_in.device.index, stream, *geometry,
-            )
-            if err != 0:
-                raise RuntimeError(
-                    f"{self.entry} launch failed with CUDA error {err} "
-                    f"({ext_h}x{ext_w} block at ({rstart}, {cstart}) of "
-                    f"{h_total}x{w_total}, after {shrink} substeps, "
-                    f"slow={slow})")
-            self.launches["slow" if slow else "frozen"] += 1
+                v_in.device.index, stream, *geometry, slow=slow)
 
     def step(self, params: np.ndarray, schedule, ext_in: State,
              ext_out: State, rstart: int, cstart: int, halo: int,
@@ -413,9 +316,9 @@ class LargeBlockKernel:
 
 def large_body(body: str) -> bool:
     """Whether cell body `body` takes csrc/large_block.cu: a body of its
-    own library (cuda_step.LARGE_KERNELS), whose planes the tile
+    own library (bodies.LARGE_KERNELS), whose planes the tile
     skeleton's shared memory does not hold."""
-    return BODIES[body].library is not cuda_step.BR_LIBRARY
+    return BODIES[body].library is not bodies.BR_LIBRARY
 
 
 def _binding(body: str, geom: bool = False):
@@ -424,9 +327,9 @@ def _binding(body: str, geom: bool = False):
 
 # the process-wide bindings, one per cell body and form: the built library
 # is process-wide too.  KERNEL is Beeler-Reuter's.
-KERNELS = {name: _binding(name) for name in cuda_step.hosted(3)}
+KERNELS = {name: _binding(name) for name in bodies.hosted(3)}
 GEOM_KERNELS = {name: _binding(name, geom=True)
-                for name in cuda_step.hosted(3)}
+                for name in bodies.hosted(3)}
 KERNEL = KERNELS["br"]
 
 
@@ -493,8 +396,8 @@ def make_block_step(model: IonicModel, two_d: bool,
     `SimConfig.substeps_per_launch`, which the reference's block kernel
     takes to bound its compile time, has no effect here: the launch always
     fuses the whole outer step."""
-    body = cuda_step.body_on(model, 3).name
-    schedule = cuda_step.slow_schedule(model)
+    body = bodies.body_on(model, 3).name
+    schedule = model.launch_schedule
     halo = model.dt_per_step
     for geom in () if large_body(body) else (False, True):
         if min(cuda_tiled.tile_interior(len(schedule), body, geom)) < 1:
@@ -503,7 +406,7 @@ def make_block_step(model: IonicModel, two_d: bool,
                 f"left after a {len(schedule)}-ring halo")
     if fiber is not None:
         fiber = tuple(float(f) for f in fiber)
-    params = cuda_step.pack_params(model)
+    params = bodies.pack_params(model)
     h_total, w_total = model.state_shape()
 
     def step(ext_in: State, ext_out: State, rstart: int, cstart: int = 0,
@@ -512,11 +415,11 @@ def make_block_step(model: IonicModel, two_d: bool,
              phase_ext: Optional[torch.Tensor] = None,
              dmap_ext: Optional[torch.Tensor] = None) -> State:
         shape = tuple(ext_in[model.pot_key].shape)
-        dev = cuda_step.check_state(model, ext_in, shape)
-        if cuda_step.check_state(model, ext_out, shape) != dev:
+        dev = bodies.check_state(model, ext_in, shape)
+        if bodies.check_state(model, ext_out, shape) != dev:
             raise ValueError("ext_in and ext_out are on different devices")
         _check_block(shape, rstart, cstart, halo, two_d, h_total, w_total)
-        cuda_step.check_maps((phase_ext, dmap_ext), shape, dev)
+        bodies.check_maps((phase_ext, dmap_ext), shape, dev)
         geom = (fiber is not None or phase_ext is not None
                 or dmap_ext is not None)
         if probe is not None:
@@ -524,15 +427,15 @@ def make_block_step(model: IonicModel, two_d: bool,
             lr, lc = r - rstart - halo, c - cstart - (halo if two_d else 0)
             own_h = shape[0] - 2 * halo
             own_w = shape[1] - (2 * halo if two_d else 0)
-            cuda_step.check_probe(probe, probe_index, dev, (lr, lc),
-                                  (own_h, own_w))
+            bodies.check_probe(probe, probe_index, dev, (lr, lc),
+                               (own_h, own_w))
         if dev.type == "cpu":
             return plain_block_step(model, ext_in, ext_out, rstart, cstart,
                                     two_d, probe, probe_index, phase_ext,
                                     fiber, dmap_ext)
         s = stream if stream is not None else torch.cuda.current_stream(dev)
         kernel = (GEOM_KERNELS if geom else KERNELS)[body]
-        args = (cuda_step.kernel_geometry_args(phase_ext, dmap_ext, fiber)
+        args = (bodies.kernel_geometry_args(phase_ext, dmap_ext, fiber)
                 if geom else ())
         if large_body(body):
             return kernel.step(params, schedule, ext_in, ext_out, rstart,

@@ -5,7 +5,7 @@ kernel the JAX engine runs past its 32 MB whole-grid cutover: one launch
 per outer step, all its substeps fused over 2D tiles with a halo of one
 ring per substep (Beeler-Reuter five, Fenton and Mitchell-Schaeffer ten).
 The kernel is csrc/br_tiled.cu (CUDA C++, built with nvcc and bound with
-ctypes; one entry per cell body of ops/cuda_step.BODIES) over the tile
+ctypes; one entry per cell body of ops/bodies.BODIES) over the tile
 skeleton of csrc/br_tile.cuh, which the per-shard block kernel shares; its
 source note says what bounds it and why the tiles are 2D.
 
@@ -32,17 +32,12 @@ import numpy as np
 import torch
 
 from fib_tf_tpu_torch import tracing
-from fib_tf_tpu_torch.kernels import build
+from fib_tf_tpu_torch.kernels import binding, build
 from fib_tf_tpu_torch.models.base import IonicModel
-from fib_tf_tpu_torch.ops import cuda_step
-from fib_tf_tpu_torch.ops.cuda_step import BODIES, State
+from fib_tf_tpu_torch.ops import bodies, cuda_step
+from fib_tf_tpu_torch.ops.bodies import BODIES, State, plane_pointers
 
 SOURCE = build.CSRC_DIR / "br_tiled.cu"
-HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh",
-           build.CSRC_DIR / "br_variant_cell.cuh",
-           build.CSRC_DIR / "fenton_cell.cuh",
-           build.CSRC_DIR / "geometry.cuh",
-           build.CSRC_DIR / "ms_cell.cuh")
 # The tile shape of a body's entry in br_tiled.cu and br_block.cu: (threads
 # in x, threads in y, cells per thread along y).  The extended tile is
 # x-threads wide and y-threads x cells tall; its interior loses one ring
@@ -103,59 +98,25 @@ def slow_mask(schedule) -> int:
     return sum(1 << s for s, slow in enumerate(schedule) if slow)
 
 
-class TiledKernel:
+class TiledKernel(binding.Binding):
     """ctypes binding of one cell body's entry `<body>_tiled` of
-    csrc/br_tiled.cu, or with `geom` its GEOM form `<body>_tiled_geom`.
-    The library is built and loaded on the first launch; `launches` counts
-    successful launches."""
+    csrc/br_tiled.cu, or with `geom` its GEOM form `<body>_tiled_geom`,
+    which a second library of the same source holds (`br_tiled_geom`,
+    built with FIBTORCH_GEOM_ENTRIES); `launches` counts successful
+    launches."""
+
+    ARGS = ("params:p n_params:i v_in:p v_out:p planes_in:p planes_out:p "
+            "n_planes:i height:i width:i n_sub:i slow_mask:u")
 
     def __init__(self, body: str, geom: bool = False):
-        self.body = BODIES[body]
-        self.geom = geom
-        self.entry = f"{body}_tiled" + ("_geom" if geom else "")
-        self.span_name = f"fibtorch.launch.{self.entry}"
-        # the GEOM entries are a second library of the same source
-        self.library_name = "br_tiled" + ("_geom" if geom else "")
-        self.defines = ("FIBTORCH_GEOM_ENTRIES",) if geom else ()
-        self._lib = None
-        self.reset_launches()
+        suffix = "_geom" if geom else ""
+        super().__init__(f"{body}_tiled{suffix}", SOURCE, f"br_tiled{suffix}",
+                         BODIES[body], geom,
+                         ("FIBTORCH_GEOM_ENTRIES",) if geom else ())
 
-    def reset_launches(self):
-        self.launches = 0
-
-    def build(self):
-        """Build the library (if needed) and return its path."""
-        return build.build(self.library_name, [SOURCE], HEADERS,
-                           self.defines)
-
-    def library(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = build.load(self.library_name, [SOURCE], HEADERS,
-                             self.defines)
-            lib.br_tiled_split.argtypes = [ctypes.c_int, ctypes.c_int] + [
-                ctypes.POINTER(ctypes.c_int)] * 3
-            lib.br_tiled_split.restype = None
-            fn = getattr(lib, self.entry)
-            fn.argtypes = (
-                [ctypes.c_void_p, ctypes.c_int,      # params, n_params
-                 ctypes.c_void_p, ctypes.c_void_p,   # v_in, v_out
-                 ctypes.c_void_p, ctypes.c_void_p,   # planes in / out
-                 ctypes.c_int,                       # n_planes
-                 ctypes.c_int, ctypes.c_int,         # height, width
-                 ctypes.c_int, ctypes.c_uint,        # n_sub, slow_mask
-                 ctypes.c_void_p,                    # probe (may be null)
-                 ctypes.c_int, ctypes.c_int,         # probe row, col
-                 ctypes.c_longlong,                  # probe index
-                 ctypes.c_int,                       # device ordinal
-                 ctypes.c_void_p]                    # cudaStream_t
-                + (cuda_step.GEOMETRY_ARGTYPES if self.geom else [])
-            )
-            fn.restype = ctypes.c_int
-            cuda_step.check_layout(lib, self.entry, self.body)
-            check_tile_shape(lib, self.entry, self.body.name, self.geom)
-            _check_split(lib)
-            self._lib = lib
-        return self._lib
+    def check(self, lib: ctypes.CDLL):
+        check_tile_shape(lib, self.entry, self.body.name, self.geom)
+        _check_split(lib)
 
     def launch(self, params: np.ndarray, state: State, schedule,
                probe: Optional[torch.Tensor], probe_pixel, probe_index: int,
@@ -163,30 +124,22 @@ class TiledKernel:
         """One outer step on CUDA tensors already validated by the caller;
         the state's planes are replaced by the new ones.  `geometry` is a
         GEOM entry's trailing arguments
-        (`cuda_step.kernel_geometry_args`)."""
+        (`bodies.kernel_geometry_args`)."""
         with tracing.span(self.span_name):
-            fn = getattr(self.library(), self.entry)
             pot, planes = self.body.model.pot_key, self.body.planes
             v_in = state[pot]
             h, w = v_in.shape
             out = dict(zip((pot,) + planes, torch.empty(
                 (1 + len(planes), h, w), dtype=v_in.dtype,
                 device=v_in.device).unbind(0)))
-            err = fn(
+            self.call(
                 params.ctypes.data, params.size,
                 v_in.data_ptr(), out[pot].data_ptr(),
-                cuda_step.plane_pointers(state, planes),
-                cuda_step.plane_pointers(out, planes),
+                plane_pointers(state, planes), plane_pointers(out, planes),
                 len(planes), h, w, len(schedule), slow_mask(schedule),
                 probe.data_ptr() if probe is not None else None,
                 probe_pixel[0], probe_pixel[1], probe_index,
-                v_in.device.index, stream, *geometry,
-            )
-            if err != 0:
-                raise RuntimeError(
-                    f"{self.entry} launch failed with CUDA error {err} "
-                    f"({h}x{w}, {len(schedule)} substeps)")
-            self.launches += 1
+                v_in.device.index, stream, *geometry)
             state.update(out)
 
 
@@ -206,6 +159,9 @@ def check_tile_shape(lib, entry: str, body: str, geom: bool = False):
 
 def _check_split(lib):
     """The library's split must be the one `tile_spans` mirrors."""
+    lib.br_tiled_split.argtypes = [ctypes.c_int, ctypes.c_int] + [
+        ctypes.POINTER(ctypes.c_int)] * 3
+    lib.br_tiled_split.restype = None
     for length, max_tile in ((2048, 54), (512, 54), (1024, 54), (131, 62),
                              (9, 54), (2047, 60), (2048, 44), (532, 44)):
         n, base, rem = (ctypes.c_int() for _ in range(3))
@@ -221,9 +177,9 @@ def _check_split(lib):
 
 # the process-wide bindings, one per cell body and form: the built library
 # is process-wide too.  KERNEL is Beeler-Reuter's.
-KERNELS = {name: TiledKernel(name) for name in cuda_step.hosted(2)}
+KERNELS = {name: TiledKernel(name) for name in bodies.hosted(2)}
 GEOM_KERNELS = {name: TiledKernel(name, geom=True)
-                for name in cuda_step.hosted(2)}
+                for name in bodies.hosted(2)}
 KERNEL = KERNELS["br"]
 
 
@@ -236,8 +192,8 @@ def make_tiled_cuda_step(model: IonicModel,
     `fiber` (dxx, dxy, dyy), `dmap` if given (the GEOM entry).  The kernel
     writes the probe after the last substep.  CPU states take
     `plain_tiled_step`."""
-    maps = cuda_step.GeometryMaps(model.state_shape(), phase, fiber, dmap)
-    body = cuda_step.body_on(model, 2).name
+    maps = bodies.GeometryMaps(model.state_shape(), phase, fiber, dmap)
+    body = bodies.body_on(model, 2).name
     geom = not maps.empty
     kernel = (GEOM_KERNELS if geom else KERNELS)[body]
     if model.cfg.substeps_per_launch is not None:
@@ -247,16 +203,17 @@ def make_tiled_cuda_step(model: IonicModel,
             "block kernels; the tiled kernel's temporal halo is sized for "
             "the full substep group and cannot split — drop the knob or "
             "stay under the whole-grid state budget")
-    schedule = cuda_step.slow_schedule(model)
+    schedule = model.launch_schedule
     if min(tile_interior(len(schedule), body, geom)) < 1:
         raise ValueError(f"tile {tile_of(body, geom)} has no interior left "
                          f"after a {len(schedule)}-ring halo")
-    params = cuda_step.pack_params(model)
+    params = bodies.pack_params(model)
 
     def step(state: State, probe: Optional[torch.Tensor] = None,
              probe_index: int = 0) -> State:
-        dev = cuda_step.check_state(model, state)
-        cuda_step._check_probe(model, probe, probe_index, dev)
+        dev = bodies.check_state(model, state)
+        bodies.check_probe(probe, probe_index, dev, model.probe_pixel,
+                           model.state_shape())
         if dev.type == "cpu":
             return plain_tiled_step(model, state, probe, probe_index,
                                     maps.plain(dev))

@@ -8,7 +8,7 @@ substep that advances the slow gates, the n=0 substep that freezes them)
 and the one form of the Fenton and Mitchell-Schaeffer bodies (ten launches
 per outer step).
 The kernel is csrc/br_volume.cu (CUDA C++, built with nvcc and bound with
-ctypes; one entry per cell body of ops/cuda_step.BODIES); its source note
+ctypes; one entry per cell body of ops/bodies.BODIES); its source note
 says what bounds it.
 
 Routing is by the device of the state's tensors, as in ops/cuda_step.py:
@@ -27,28 +27,18 @@ model's probe pixel on the mid-depth slice, clamped to the grid
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import numpy as np
 import torch
 
-from fib_tf_tpu_torch.kernels import build
+from fib_tf_tpu_torch import tracing
+from fib_tf_tpu_torch.kernels import binding, build
 from fib_tf_tpu_torch.models.base import IonicModel, volume_geometry
-from fib_tf_tpu_torch.ops import cuda_step
-from fib_tf_tpu_torch.ops.cuda_step import BODIES, State
+from fib_tf_tpu_torch.ops import bodies
+from fib_tf_tpu_torch.ops.bodies import BODIES, State, plane_pointers
 
 SOURCE = build.CSRC_DIR / "br_volume.cu"
-HEADERS = (build.CSRC_DIR / "br_cell.cuh",
-           build.CSRC_DIR / "br_variant_cell.cuh",
-           build.CSRC_DIR / "br_volume_cell.cuh",
-           build.CSRC_DIR / "cell_traits.cuh",
-           build.CSRC_DIR / "court_cell.cuh",
-           build.CSRC_DIR / "fenton_cell.cuh",
-           build.CSRC_DIR / "lr1_cell.cuh",
-           build.CSRC_DIR / "ms_cell.cuh",
-           build.CSRC_DIR / "torch_rounding.cuh",
-           build.CSRC_DIR / "tp06_cell.cuh")
 
 
 def volume_shape(model: IonicModel, depth: int):
@@ -78,88 +68,54 @@ def check_volume(model: IonicModel, state: State, depth: int,
     if depth < 3:
         raise ValueError(f"a volume needs depth >= 3, got {depth}")
     shape = volume_shape(model, depth)
-    dev = cuda_step.check_state(model, state, shape)
-    cuda_step.check_probe(probe, probe_index, dev,
-                          volume_probe_pixel(model, depth), shape)
+    dev = bodies.check_state(model, state, shape)
+    bodies.check_probe(probe, probe_index, dev,
+                       volume_probe_pixel(model, depth), shape)
     return dev
 
 
-class VolumeKernel:
+class VolumeKernel(binding.Binding):
     """ctypes binding of one cell body's entry `<body>_volume` of
-    csrc/br_volume.cu.  The library (`library_name`: br_volume,
-    court_volume for the Courtemanche bodies or lrtp_volume for Luo-Rudy's
-    and tp06's) is built and loaded on the
-    first launch; `launches` counts successful launches per template flag
-    ("slow" = SLOW=true, "frozen" = SLOW=false, as ops/cuda_step.py's)."""
+    csrc/br_volume.cu, in the library of the body's `CellBody.library`
+    (`library_name`: br_volume, court_volume for the Courtemanche bodies or
+    lrtp_volume for Luo-Rudy's and tp06's); `launches` counts successful
+    launches per template flag ("slow" = SLOW=true, "frozen" = SLOW=false,
+    as ops/cuda_step.py's)."""
+
+    ARGS = ("slow:i params:p n_params:i dz_ratio:f v_in:p v_out:p planes:p "
+            "n_planes:i depth:i height:i width:i")
+    PROBE = binding.PROBE_3D
+    PER_FORM = True
 
     def __init__(self, body: str):
-        self.body = BODIES[body]
-        self.entry = f"{body}_volume"
-        self.library_name = self.body.library.name("volume")
-        self._lib = None
-        self.reset_launches()
-
-    def reset_launches(self):
-        self.launches = {"slow": 0, "frozen": 0}
-
-    def build(self):
-        """Build the library (if needed) and return its path."""
-        lib = self.body.library
-        return build.build(self.library_name, [SOURCE], HEADERS,
-                           lib.defines, lib.flags)
-
-    def library(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = build.load(self.library_name, [SOURCE], HEADERS,
-                             self.body.library.defines,
-                             self.body.library.flags)
-            fn = getattr(lib, self.entry)
-            fn.argtypes = (
-                [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,  # slow, params
-                 ctypes.c_float]                               # dz_ratio
-                + [ctypes.c_void_p] * 3              # v_in, v_out, planes
-                + [ctypes.c_int] * 4                 # n_planes, depth, h, w
-                + [ctypes.c_void_p,                  # probe (may be null)
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,  # probe z, r, c
-                   ctypes.c_longlong,                # probe index
-                   ctypes.c_int,                     # device ordinal
-                   ctypes.c_void_p]                  # cudaStream_t
-            )
-            fn.restype = ctypes.c_int
-            cuda_step.check_layout(lib, self.entry, self.body)
-            self._lib = lib
-        return self._lib
+        b = BODIES[body]
+        super().__init__(f"{body}_volume", SOURCE, b.library.name("volume"),
+                         b, False, b.library.defines, b.library.flags)
 
     def launch(self, params: np.ndarray, state: State, slow: bool,
                dz_ratio: float, probe: Optional[torch.Tensor], pixel,
                probe_index: int, stream: int):
         """One substep on CUDA tensors already validated by the caller."""
-        fn = getattr(self.library(), self.entry)
-        pot = self.body.model.pot_key
-        v_in = state[pot]
-        writes = self.body.writes_potential(slow)
-        v_out = torch.empty_like(v_in) if writes else None
-        d, h, w = v_in.shape
-        err = fn(
-            int(slow), params.ctypes.data, params.size, dz_ratio,
-            v_in.data_ptr(), v_out.data_ptr() if writes else None,
-            cuda_step.plane_pointers(state, self.body.planes),
-            len(self.body.planes), d, h, w,
-            probe.data_ptr() if probe is not None else None,
-            *pixel, probe_index, v_in.device.index, stream,
-        )
-        if err != 0:
-            raise RuntimeError(
-                f"{self.entry} launch failed with CUDA error {err} "
-                f"({d}x{h}x{w}, slow={slow})")
-        self.launches["slow" if slow else "frozen"] += 1
-        if writes:
-            state[pot] = v_out
+        with tracing.span(self.span_name):
+            pot = self.body.model.pot_key
+            v_in = state[pot]
+            writes = self.body.writes_potential(slow)
+            v_out = torch.empty_like(v_in) if writes else None
+            d, h, w = v_in.shape
+            self.call(
+                int(slow), params.ctypes.data, params.size, dz_ratio,
+                v_in.data_ptr(), v_out.data_ptr() if writes else None,
+                plane_pointers(state, self.body.planes),
+                len(self.body.planes), d, h, w,
+                probe.data_ptr() if probe is not None else None,
+                *pixel, probe_index, v_in.device.index, stream, slow=slow)
+            if writes:
+                state[pot] = v_out
 
 
 # the process-wide bindings, one per cell body: the built library is
 # process-wide too.  KERNEL is Beeler-Reuter's.
-KERNELS = {name: VolumeKernel(name) for name in cuda_step.hosted(4)}
+KERNELS = {name: VolumeKernel(name) for name in bodies.hosted(4)}
 KERNEL = KERNELS["br"]
 
 
@@ -167,12 +123,11 @@ def plain_volume_substep(model: IonicModel, state: State, slow: bool,
                          probe: Optional[torch.Tensor] = None,
                          probe_index: int = 0,
                          dz_ratio: float = 1.0) -> State:
-    """Plain PyTorch version of one kernel launch: `solve_substep` on
+    """Plain PyTorch version of one kernel launch: the model's `commit` on
     `volume_geometry(dz_ratio=dz_ratio)`, written back into `state` under
     the kernel's contract."""
-    cuda_step.write_back(state, cuda_step.solve_substep(
-        model, state, volume_geometry(dz_ratio=dz_ratio), slow),
-        model.pot_key)
+    bodies.write_back(state, model.commit(
+        state, volume_geometry(dz_ratio=dz_ratio), slow), model.pot_key)
     if probe is not None:
         probe[probe_index] = volume_probe(model, state)
     return state
@@ -182,9 +137,10 @@ def plain_volume_step(model: IonicModel, state: State,
                       probe: Optional[torch.Tensor] = None,
                       probe_index: int = 0,
                       dz_ratio: float = 1.0) -> State:
-    """Plain version of one outer step of a volume (`dt_per_step`
-    `plain_volume_substep`s; the probe is taken after the last)."""
-    for slow in cuda_step.slow_schedule(model):
+    """Plain version of one outer step of a volume (a
+    `plain_volume_substep` per launch of the model's `launch_schedule`;
+    the probe is taken after the last)."""
+    for slow in model.launch_schedule:
         plain_volume_substep(model, state, slow, dz_ratio=dz_ratio)
     if probe is not None:
         probe[probe_index] = volume_probe(model, state)
@@ -196,7 +152,7 @@ def volume_substep(model: IonicModel, state: State, slow: bool,
                    probe_index: int = 0, dz_ratio: float = 1.0) -> State:
     """One substep of a volume: the kernel on CUDA tensors, the plain
     version on CPU tensors."""
-    body = cuda_step.body_on(model, 4)
+    body = bodies.body_on(model, 4)
     pot = state[model.pot_key]
     if pot.dim() != 3:
         raise ValueError(f"{model.pot_key} has shape {tuple(pot.shape)}, "
@@ -207,7 +163,7 @@ def volume_substep(model: IonicModel, state: State, slow: bool,
         return plain_volume_substep(model, state, slow, probe, probe_index,
                                     dz_ratio)
     KERNELS[body.name].launch(
-        cuda_step.pack_params(model), state, slow, dz_ratio, probe,
+        bodies.pack_params(model), state, slow, dz_ratio, probe,
         volume_probe_pixel(model, depth), probe_index,
         torch.cuda.current_stream(dev).cuda_stream)
     return state
@@ -221,9 +177,9 @@ def make_volume_step(model: IonicModel, depth: int,
     without; Fenton, Mitchell-Schaeffer and Courtemanche-ultra: ten;
     Courtemanche: eleven, as ops/cuda_step.make_cuda_step).  The last
     launch writes the probe.  CPU states take `plain_volume_step`."""
-    kernel = KERNELS[cuda_step.body_on(model, 4).name]
-    params = cuda_step.pack_params(model)
-    schedule = cuda_step.slow_schedule(model)
+    kernel = KERNELS[bodies.body_on(model, 4).name]
+    params = bodies.pack_params(model)
+    schedule = model.launch_schedule
     last = len(schedule) - 1
     pixel = volume_probe_pixel(model, depth)
 

@@ -11,7 +11,7 @@ volume's depth decide where the z faces reflect, so only a shard that owns
 a z face reflects there; in the plane each shard owns the whole sheet.  The
 kernel is csrc/br_volume_block.cu (CUDA C++, built with nvcc and bound with
 ctypes; a template over the cell body, one entry per body of
-ops/cuda_step.BODIES, the Courtemanche bodies and Luo-Rudy's and tp06's in
+ops/bodies.BODIES, the Courtemanche bodies and Luo-Rudy's and tp06's in
 libraries of their own, `CellBody.library`): one launch per substep of the
 group, as the volume substep kernel, each on the slices that are still
 exact; Courtemanche's substep 0 is two launches on the same slices (the
@@ -39,28 +39,18 @@ overwrites all of them.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from fib_tf_tpu_torch.kernels import build
+from fib_tf_tpu_torch import tracing
+from fib_tf_tpu_torch.kernels import binding, build
 from fib_tf_tpu_torch.models.base import Geometry, IonicModel
-from fib_tf_tpu_torch.ops import cuda_step, stencil
-from fib_tf_tpu_torch.ops.cuda_step import BODIES, State
+from fib_tf_tpu_torch.ops import bodies, stencil
+from fib_tf_tpu_torch.ops.bodies import BODIES, State, plane_pointers
 
 SOURCE = build.CSRC_DIR / "br_volume_block.cu"
-HEADERS = (build.CSRC_DIR / "br_cell.cuh",
-           build.CSRC_DIR / "br_variant_cell.cuh",
-           build.CSRC_DIR / "br_volume_cell.cuh",
-           build.CSRC_DIR / "cell_traits.cuh",
-           build.CSRC_DIR / "court_cell.cuh",
-           build.CSRC_DIR / "fenton_cell.cuh",
-           build.CSRC_DIR / "lr1_cell.cuh",
-           build.CSRC_DIR / "ms_cell.cuh",
-           build.CSRC_DIR / "torch_rounding.cuh",
-           build.CSRC_DIR / "tp06_cell.cuh")
 
 
 # -- the plain geometry of a z-extended block -----------------------------------------
@@ -119,55 +109,27 @@ def zblock_geometry(zg: torch.Tensor, d_total: int,
 # -- the binding --------------------------------------------------------------------------
 
 
-class VolumeBlockKernel:
+class VolumeBlockKernel(binding.Binding):
     """ctypes binding of one cell body's entry `<body>_volume_block` of
-    csrc/br_volume_block.cu.  The library (`library_name`:
-    br_volume_block, court_volume_block for the Courtemanche bodies or
-    lrtp_volume_block for Luo-Rudy's and tp06's) is built and loaded on the
-    first launch; `launches` counts successful launches per template flag
-    ("slow" = SLOW=true, "frozen" = SLOW=false; Fenton,
-    Mitchell-Schaeffer and Courtemanche-ultra launch SLOW=true alone,
-    Courtemanche's slow commit is SLOW=true)."""
+    csrc/br_volume_block.cu, in the library of the body's
+    `CellBody.library` (`library_name`: br_volume_block, court_volume_block
+    for the Courtemanche bodies or lrtp_volume_block for Luo-Rudy's and
+    tp06's); `launches` counts successful launches per template flag
+    ("slow" = SLOW=true, "frozen" = SLOW=false; Fenton, Mitchell-Schaeffer
+    and Courtemanche-ultra launch SLOW=true alone, Courtemanche's slow
+    commit is SLOW=true)."""
+
+    ARGS = ("slow:i params:p n_params:i dz_ratio:f v_in:p v_out:p planes:p "
+            "n_planes:i ext_d:i height:i width:i zstart:i d_total:i z_lo:i "
+            "z_hi:i")
+    PROBE = binding.PROBE_3D
+    PER_FORM = True
 
     def __init__(self, body: str):
-        self.body = BODIES[body]
-        self.entry = f"{body}_volume_block"
-        self.library_name = self.body.library.name("volume_block")
-        self._lib = None
-        self.reset_launches()
-
-    def reset_launches(self):
-        self.launches = {"slow": 0, "frozen": 0}
-
-    def build(self):
-        """Build the library (if needed) and return its path."""
-        lib = self.body.library
-        return build.build(self.library_name, [SOURCE], HEADERS,
-                           lib.defines, lib.flags)
-
-    def library(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = build.load(self.library_name, [SOURCE], HEADERS,
-                             self.body.library.defines,
-                             self.body.library.flags)
-            fn = getattr(lib, self.entry)
-            fn.argtypes = (
-                [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,  # slow, params
-                 ctypes.c_float,                               # dz_ratio
-                 ctypes.c_void_p, ctypes.c_void_p,   # v_in, v_out
-                 ctypes.c_void_p, ctypes.c_int]      # planes, n_planes
-                + [ctypes.c_int] * 3                 # ext_d, height, width
-                + [ctypes.c_int] * 4                 # zstart, d_total, z_lo/hi
-                + [ctypes.c_void_p,                  # probe (may be null)
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,  # local z, r, c
-                   ctypes.c_longlong,                # probe index
-                   ctypes.c_int,                     # device ordinal
-                   ctypes.c_void_p]                  # cudaStream_t
-            )
-            fn.restype = ctypes.c_int
-            cuda_step.check_layout(lib, self.entry, self.body)
-            self._lib = lib
-        return self._lib
+        b = BODIES[body]
+        super().__init__(f"{body}_volume_block", SOURCE,
+                         b.library.name("volume_block"), b, False,
+                         b.library.defines, b.library.flags)
 
     def launch(self, params: np.ndarray, state: State,
                v_out: Optional[torch.Tensor], slow: bool, dz_ratio: float,
@@ -178,29 +140,22 @@ class VolumeBlockKernel:
         validated by the caller: the potential goes from the state's to
         `v_out` (None for a form that keeps it), the other planes are
         updated in place."""
-        fn = getattr(self.library(), self.entry)
-        v_in = state[self.body.model.pot_key]
-        ext_d, h, w = v_in.shape
-        planes = self.body.planes
-        err = fn(
-            int(slow), params.ctypes.data, params.size, dz_ratio,
-            v_in.data_ptr(), None if v_out is None else v_out.data_ptr(),
-            cuda_step.plane_pointers(state, planes), len(planes),
-            ext_d, h, w, zstart, d_total, z_lo, z_hi,
-            probe.data_ptr() if probe is not None else None,
-            *pixel, probe_index, v_in.device.index, stream,
-        )
-        if err != 0:
-            raise RuntimeError(
-                f"{self.entry} launch failed with CUDA error {err} "
-                f"({ext_d}x{h}x{w} block at slice {zstart} of {d_total}, "
-                f"slices [{z_lo}, {z_hi}), slow={slow})")
-        self.launches["slow" if slow else "frozen"] += 1
+        with tracing.span(self.span_name):
+            v_in = state[self.body.model.pot_key]
+            ext_d, h, w = v_in.shape
+            planes = self.body.planes
+            self.call(
+                int(slow), params.ctypes.data, params.size, dz_ratio,
+                v_in.data_ptr(), None if v_out is None else v_out.data_ptr(),
+                plane_pointers(state, planes), len(planes),
+                ext_d, h, w, zstart, d_total, z_lo, z_hi,
+                probe.data_ptr() if probe is not None else None,
+                *pixel, probe_index, v_in.device.index, stream, slow=slow)
 
 
 # the process-wide bindings, one per cell body: the built library is
 # process-wide too.  KERNEL is Beeler-Reuter's.
-KERNELS = {name: VolumeBlockKernel(name) for name in cuda_step.hosted(6)}
+KERNELS = {name: VolumeBlockKernel(name) for name in bodies.hosted(6)}
 KERNEL = KERNELS["br"]
 
 
@@ -213,7 +168,7 @@ def group_schedule(model: IonicModel, substeps: Optional[int]):
     substeps), or `substeps` uniform substeps, which only a model with
     uniform substeps has (no-skip BR, LR1 and tp06, Courtemanche-ultra: all
     SLOW)."""
-    schedule = cuda_step.slow_schedule(model)
+    schedule = model.launch_schedule
     if substeps is None:
         return schedule
     if not model.has_uniform_substeps:
@@ -269,7 +224,7 @@ def make_volume_block_step(model: IonicModel, ext_d: int, d_total: int,
     owns the probe pixel, with its LOCAL slice; the group's last launch
     writes it.  `stream` is the CUDA stream to launch on (default: the
     device's current one).  CPU blocks take `plain_volume_block_step`."""
-    body = cuda_step.body_on(model, 6)
+    body = bodies.body_on(model, 6)
     kernel = KERNELS[body.name]
     schedule = group_schedule(model, substeps)
     # the substeps: a launch that keeps the potential shrinks nothing
@@ -277,7 +232,7 @@ def make_volume_block_step(model: IonicModel, ext_d: int, d_total: int,
     if ext_d <= 2 * n:
         raise ValueError(f"a {ext_d}-slice block has no centre left after "
                          f"{n} substeps")
-    params = cuda_step.pack_params(model)
+    params = bodies.pack_params(model)
     pot = model.pot_key
     h, w = model.state_shape()
     shape = (ext_d, h, w)
@@ -288,14 +243,13 @@ def make_volume_block_step(model: IonicModel, ext_d: int, d_total: int,
              probe_slice: int = 0,
              stream: Optional[torch.cuda.Stream] = None
              ) -> Tuple[State, torch.Tensor]:
-        dev = cuda_step.check_state(model, state, shape)
+        dev = bodies.check_state(model, state, shape)
         if not (zstart + n >= 0 and zstart + ext_d - n <= d_total):
             raise ValueError(
                 f"a {ext_d}-slice block at slice {zstart} with a {n}-slice "
                 f"halo is not a window of the {d_total}-slice volume")
-        cuda_step.check_probe(probe, probe_index, dev,
-                              (probe_slice - n,) + pixel,
-                              (ext_d - 2 * n, h, w))
+        bodies.check_probe(probe, probe_index, dev,
+                           (probe_slice - n,) + pixel, (ext_d - 2 * n, h, w))
         if dev.type == "cpu":
             plain_volume_block_step(model, state, zstart, d_total, dz_ratio,
                                     substeps, probe, probe_index,

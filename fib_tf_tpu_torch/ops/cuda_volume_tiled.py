@@ -37,15 +37,14 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from fib_tf_tpu_torch.kernels import build
+from fib_tf_tpu_torch import tracing
+from fib_tf_tpu_torch.kernels import binding, build
 from fib_tf_tpu_torch.models.beeler_reuter import BeelerReuter
-from fib_tf_tpu_torch.ops import cuda_step, cuda_volume
-from fib_tf_tpu_torch.ops.cuda_step import CELL_PLANES, PARAM_FLOATS, State
+from fib_tf_tpu_torch.ops import bodies, cuda_volume
+from fib_tf_tpu_torch.ops.bodies import BODIES, CELL_PLANES, State
 from fib_tf_tpu_torch.ops.cuda_tiled import slow_mask, tile_spans, tile_walk
 
 SOURCE = build.CSRC_DIR / "br_volume_tiled.cu"
-HEADERS = (build.CSRC_DIR / "br_cell.cuh", build.CSRC_DIR / "br_tile.cuh",
-           build.CSRC_DIR / "geometry.cuh")
 # The layout br_volume_tiled.cu is built for (checked against the library):
 # the extended in-plane tile (rows, columns), its threads (one per cell),
 # the most substeps per launch, the ring slots of the loaded V, of each
@@ -234,107 +233,70 @@ def tile_plan(depth: int, height: int, width: int, n_sub: int,
                     tuple(rows), tuple(cols))
 
 
-class VolumeTiledKernel:
-    """ctypes binding of csrc/br_volume_tiled.cu.  The library is built and
-    loaded on the first launch; `launches` counts successful launches."""
+class VolumeTiledKernel(binding.Binding):
+    """ctypes binding of csrc/br_volume_tiled.cu's one entry,
+    `br_volume_tiled` (Beeler-Reuter's main body), in the library of the
+    same name; `launches` counts successful launches."""
+
+    ARGS = ("params:p n_params:i dz_ratio:f v_in:p v_out:p planes_in:p "
+            "planes_out:p n_planes:i depth:i height:i width:i n_sub:i "
+            "slow_mask:u")
+    PROBE = binding.PROBE_3D
 
     def __init__(self):
-        self._lib = None
-        self.reset_launches()
+        super().__init__("br_volume_tiled", SOURCE, "br_volume_tiled",
+                         BODIES["br"])
 
-    def reset_launches(self):
-        self.launches = 0
-
-    def build(self):
-        """Build the library (if needed) and return its path."""
-        return build.build("br_volume_tiled", [SOURCE], HEADERS)
-
-    def library(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = build.load("br_volume_tiled", [SOURCE], HEADERS)
-            for fn in ("br_volume_tiled_param_floats",
-                       "br_volume_tiled_planes"):
-                getattr(lib, fn).argtypes = []
-                getattr(lib, fn).restype = ctypes.c_int
-            lib.br_volume_tiled_layout.argtypes = [
-                ctypes.POINTER(ctypes.c_int)] * 8
-            lib.br_volume_tiled_layout.restype = None
-            lib.br_volume_tiled_rows.argtypes = [ctypes.c_int] * 4 + [
-                ctypes.POINTER(ctypes.c_int)] * 3
-            lib.br_volume_tiled_rows.restype = None
-            lib.br_volume_tiled.argtypes = (
-                [ctypes.c_void_p, ctypes.c_int,      # params, n_params
-                 ctypes.c_float,                     # dz_ratio
-                 ctypes.c_void_p, ctypes.c_void_p,   # v_in, v_out
-                 ctypes.c_void_p, ctypes.c_void_p,   # planes in / out
-                 ctypes.c_int]                       # n_planes
-                + [ctypes.c_int] * 3                 # depth, height, width
-                + [ctypes.c_int, ctypes.c_uint,      # n_sub, slow_mask
-                   ctypes.c_void_p,                  # probe (may be null)
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,  # probe z, r, c
-                   ctypes.c_longlong,                # probe index
-                   ctypes.c_int,                     # device ordinal
-                   ctypes.c_void_p]                  # cudaStream_t
-            )
-            lib.br_volume_tiled.restype = ctypes.c_int
-            _check_layout(lib)
-            self._lib = lib
-        return self._lib
+    def check(self, lib: ctypes.CDLL):
+        """The library's layout and row split must be the ones this
+        module mirrors (tile_plan)."""
+        lib.br_volume_tiled_layout.argtypes = [
+            ctypes.POINTER(ctypes.c_int)] * 8
+        lib.br_volume_tiled_layout.restype = None
+        lib.br_volume_tiled_rows.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_int)] * 3
+        lib.br_volume_tiled_rows.restype = None
+        layout = [ctypes.c_int() for _ in range(8)]
+        lib.br_volume_tiled_layout(*map(ctypes.byref, layout))
+        got = tuple(v.value for v in layout)
+        want = (TILE[1], TILE[0], THREADS, MAX_SUB, V_IN_SLOTS, V_SLOTS,
+                PLANE_SLOTS, smem_bytes())
+        if got != want:
+            raise RuntimeError(f"br_volume_tiled.cu is laid out as {got}, "
+                               f"this module mirrors {want}")
+        for height, n_cols, blocks in ((512, 24, 132), (128, 24, 132),
+                                       (67, 6, 7), (9, 1, 132)):
+            n, base, rem = (ctypes.c_int() for _ in range(3))
+            lib.br_volume_tiled_rows(height, 5, n_cols, blocks,
+                                     *map(ctypes.byref, (n, base, rem)))
+            spans = [(i * base.value + min(i, rem.value),
+                      base.value + (i < rem.value)) for i in range(n.value)]
+            if spans != balanced_rows(height, 5, n_cols, blocks):
+                raise RuntimeError(
+                    f"br_volume_tiled.cu cuts {height} rows into tiles "
+                    f"{spans}, tile_plan into "
+                    f"{balanced_rows(height, 5, n_cols, blocks)}")
 
     def launch(self, params: np.ndarray, state: State, schedule,
                dz_ratio: float, probe: Optional[torch.Tensor], pixel,
                probe_index: int, stream: int):
         """One outer step on CUDA tensors already validated by the caller;
         the state's planes are replaced by the new ones."""
-        lib = self.library()
-        v_in = state["V"]
-        d, h, w = v_in.shape
-        out = dict(zip(("V",) + CELL_PLANES, torch.empty(
-            (1 + len(CELL_PLANES), d, h, w), dtype=v_in.dtype,
-            device=v_in.device).unbind(0)))
-        ptrs = ctypes.c_void_p * len(CELL_PLANES)
-        err = lib.br_volume_tiled(
-            params.ctypes.data, params.size, dz_ratio,
-            v_in.data_ptr(), out["V"].data_ptr(),
-            ptrs(*[state[k].data_ptr() for k in CELL_PLANES]),
-            ptrs(*[out[k].data_ptr() for k in CELL_PLANES]),
-            len(CELL_PLANES), d, h, w, len(schedule), slow_mask(schedule),
-            probe.data_ptr() if probe is not None else None,
-            *pixel, probe_index, v_in.device.index, stream,
-        )
-        if err != 0:
-            raise RuntimeError(
-                f"br_volume_tiled launch failed with CUDA error {err} "
-                f"({d}x{h}x{w}, {len(schedule)} substeps)")
-        self.launches += 1
-        state.update(out)
-
-
-def _check_layout(lib):
-    """The library's parameter block, planes, layout and row split must be
-    the ones this module packs and mirrors (tile_plan)."""
-    layout = [ctypes.c_int() for _ in range(8)]
-    lib.br_volume_tiled_layout(*map(ctypes.byref, layout))
-    got = (lib.br_volume_tiled_param_floats(), lib.br_volume_tiled_planes(),
-           tuple(v.value for v in layout))
-    want = (PARAM_FLOATS, len(CELL_PLANES),
-            (TILE[1], TILE[0], THREADS, MAX_SUB, V_IN_SLOTS, V_SLOTS,
-             PLANE_SLOTS, smem_bytes()))
-    if got != want:
-        raise RuntimeError(
-            f"br_volume_tiled.cu takes (param floats, planes, layout) = "
-            f"{got}, this module packs {want}")
-    for height, n_cols, blocks in ((512, 24, 132), (128, 24, 132),
-                                   (67, 6, 7), (9, 1, 132)):
-        n, base, rem = (ctypes.c_int() for _ in range(3))
-        lib.br_volume_tiled_rows(height, 5, n_cols, blocks,
-                                 *map(ctypes.byref, (n, base, rem)))
-        spans = [(i * base.value + min(i, rem.value),
-                  base.value + (i < rem.value)) for i in range(n.value)]
-        if spans != balanced_rows(height, 5, n_cols, blocks):
-            raise RuntimeError(
-                f"br_volume_tiled.cu cuts {height} rows into tiles {spans}, "
-                f"tile_plan into {balanced_rows(height, 5, n_cols, blocks)}")
+        with tracing.span(self.span_name):
+            v_in = state["V"]
+            d, h, w = v_in.shape
+            out = dict(zip(("V",) + CELL_PLANES, torch.empty(
+                (1 + len(CELL_PLANES), d, h, w), dtype=v_in.dtype,
+                device=v_in.device).unbind(0)))
+            self.call(
+                params.ctypes.data, params.size, dz_ratio,
+                v_in.data_ptr(), out["V"].data_ptr(),
+                bodies.plane_pointers(state, CELL_PLANES),
+                bodies.plane_pointers(out, CELL_PLANES),
+                len(CELL_PLANES), d, h, w, len(schedule), slow_mask(schedule),
+                probe.data_ptr() if probe is not None else None,
+                *pixel, probe_index, v_in.device.index, stream)
+            state.update(out)
 
 
 # the process-wide binding: the built library is process-wide too
@@ -347,11 +309,11 @@ def make_tiled_volume_step(model: BeelerReuter, depth: int,
     step of a `[depth, H, W]` volume (any depth >= 3) in one launch of the
     tiled volume kernel.  The kernel writes the probe after the last
     substep.  CPU states take `plain_tiled_volume_step`."""
-    cuda_step.main_body_only(model, "tiled volume")
-    schedule = cuda_step.slow_schedule(model)
+    bodies.main_body_only(model, "tiled volume")
+    schedule = model.launch_schedule
     h, w = model.state_shape()
     tile_plan(depth, h, w, len(schedule))   # raises on what it cannot run
-    params = cuda_step.pack_params(model)
+    params = bodies.pack_params(model)
     pixel = cuda_volume.volume_probe_pixel(model, depth)
 
     def step(state: State, probe: Optional[torch.Tensor] = None,

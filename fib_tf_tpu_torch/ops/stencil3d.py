@@ -29,8 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from fib_tf_tpu_torch.ops import stencil
-
-GEOMETRY_ITEM = "ROADMAP Queue 1 items 9 and 18"
+from fib_tf_tpu_torch.unported import QUEUE1
 
 
 def laplace3d(
@@ -44,10 +43,10 @@ def laplace3d(
     isotropic).  A phase field or fiber tensor raises: not ported yet."""
     if phase_padded is not None:
         raise NotImplementedError(
-            f"phase fields in 3D are not ported yet ({GEOMETRY_ITEM})")
+            f"phase fields in 3D are not ported yet ({QUEUE1['geometry']})")
     if fiber is not None:
         raise NotImplementedError(
-            f"fiber tensors in 3D are not ported yet ({GEOMETRY_ITEM})")
+            f"fiber tensors in 3D are not ported yet ({QUEUE1['geometry']})")
     planar = stencil.laplace(x)
     xp = torch.cat([x[1:2], x, x[-2:-1]])
     z = xp[:-2] - 2.0 * x + xp[2:]

@@ -62,10 +62,9 @@ from fib_tf_tpu_torch.ops import cuda_block
 from fib_tf_tpu_torch.parallel import halo
 from fib_tf_tpu_torch.parallel.sharding import (Mesh, object_array,
                                                 shard_array, shard_bounds)
+from fib_tf_tpu_torch.unported import not_ported
 
 State = Dict[str, torch.Tensor]
-
-_OBSERVABLES = "ROADMAP Queue 1 item 19"
 
 
 def check_wide_halo_shards(h_local: int, w_local: int, k: int,
@@ -415,9 +414,7 @@ def make_spmd_chunk(
     for name, value in (("egm_masks", egm_masks),
                         ("ecg_weights", ecg_weights), ("rotor", rotor)):
         if value is not None:
-            raise NotImplementedError(
-                f"{name} on the sharded path is not ported yet "
-                f"({_OBSERVABLES})")
+            not_ported(f"{name} on the sharded path", "parallel")
     if maps is None:
         maps = shard_maps(model, mesh, phase, dmap, wide_halo)
     elif phase is not None or dmap is not None:

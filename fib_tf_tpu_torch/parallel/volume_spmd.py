@@ -40,9 +40,7 @@ from fib_tf_tpu_torch.parallel.spmd import (
     reshard,
     shards_of,
 )
-
-_GEOMETRY = "ROADMAP Queue 1 items 9 and 18"
-_OBSERVABLES = "ROADMAP Queue 1 item 19"
+from fib_tf_tpu_torch.unported import not_ported
 
 
 def check_volume_shards(depth: int, n_shards: int, k: int) -> None:
@@ -115,14 +113,12 @@ def make_volume_spmd_chunk(
 
     `phase`, `fiber`, `rotor` and `ecg_weights` are the reference's and
     raise NotImplementedError: not ported yet."""
-    for name, value, item in (("phase", phase, _GEOMETRY),
-                              ("fiber", fiber, _GEOMETRY),
-                              ("rotor", rotor or None, _OBSERVABLES),
-                              ("ecg_weights", ecg_weights, _OBSERVABLES)):
+    for name, value, item in (("phase", phase, "geometry"),
+                              ("fiber", fiber, "geometry"),
+                              ("rotor", rotor or None, "parallel"),
+                              ("ecg_weights", ecg_weights, "parallel")):
         if value is not None:
-            raise NotImplementedError(
-                f"{name} on the sharded volume path is not ported yet "
-                f"({item})")
+            not_ported(f"{name} on the sharded volume path", item)
     n_shards, n_cols = mesh.grid
     if n_cols > 1:
         raise ValueError("a volume shards over a 1D (z) mesh, got mesh "

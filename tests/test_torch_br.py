@@ -18,7 +18,7 @@ from fib_tf_tpu.ops.pallas_step import make_pallas_step
 from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.models import cell_geometry, grid_geometry
-from fib_tf_tpu_torch.ops import cuda_step
+from fib_tf_tpu_torch.ops import bodies, cuda_step
 from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 
@@ -153,7 +153,7 @@ def test_g_scale_matches_jax():
         got = cuda_step.plain_step(tm, got)
     assert_states_close(got, want, **MODEL_TOL)
     # the kernel's parameters carry the same folded factors
-    p = cuda_step.pack_params(tm)[len(cuda_step.FIT_ORDER) * 9:]
+    p = bodies.pack_params(tm)[len(bodies.FIT_ORDER) * 9:]
     np.testing.assert_array_equal(
         p[:5], np.float32([0.8 * 4.0, 0.9 * 0.005, 1.2 * 0.09, 0.5, 0.7]))
     with pytest.raises(ValueError):
@@ -215,21 +215,21 @@ def test_fold_guard_raises_on_mismatched_n():
 
 def test_substep_schedule_and_state_keys():
     tm = tbr.BeelerReuter(cfg(skip=True))
-    assert cuda_step.slow_schedule(tm) == (True, False, False, False, False)
-    assert cuda_step.slow_schedule(
-        tbr.BeelerReuter(cfg(skip=False))) == (True,) * 5
+    assert tm.launch_schedule == (True, False, False, False, False)
+    assert tbr.BeelerReuter(
+        cfg(skip=False)).launch_schedule == (True,) * 5
     assert tm.state_keys() == jbr.BeelerReuter(jax_cfg(cfg())).state_keys()
 
 
 def test_pack_params_layout():
     tm = tbr.BeelerReuter(cfg())
-    p = cuda_step.pack_params(tm)
-    assert p.dtype == np.float32 and p.size == cuda_step.PARAM_FLOATS
+    p = bodies.pack_params(tm)
+    assert p.dtype == np.float32 and p.size == bodies.PARAM_FLOATS
     # each fit twice: its constant term apart and d1..d8, then all nine
-    n = len(cuda_step.FIT_ORDER)
+    n = len(bodies.FIT_ORDER)
     rest = p[n:n * 9].reshape(-1, 8)
     rows = p[n * 9 + 12:].reshape(-1, 9)
-    for i, key in enumerate(cuda_step.FIT_ORDER):
+    for i, key in enumerate(bodies.FIT_ORDER):
         want = tm.cheby_coef[key].astype(np.float32)
         np.testing.assert_array_equal(np.concatenate([p[i:i + 1], rest[i]]),
                                       want)

@@ -48,7 +48,7 @@ from fib_tf_tpu.ops.pallas_volume import (make_pallas_volume_step,
 from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.models import cell_geometry, grid_geometry
-from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
+from fib_tf_tpu_torch.ops import (bodies, cuda_block, cuda_step, cuda_tiled,
                                   cuda_volume, cuda_volume_block)
 from fib_tf_tpu_torch.ops.chebyshev import (chebyshev_eval, chebyshev_terms,
                                             normalize_voltage)
@@ -323,11 +323,11 @@ def test_variant_modes_and_bodies():
         for ab2 in (False, True):
             tm = br_models(**flags, ab2=ab2)[1]
             assert (tm.gate_mode, tm.current_mode) == (gate, current)
-            body = cuda_step.cell_body(tm).name
+            body = bodies.cell_body(tm).name
             main = (gate, current) == ("fold", "cheby") and not ab2
             assert body == ("br" if main else
                             "br_variant_ab2" if ab2 else "br_variant")
-            assert cuda_step.pack_params(tm).size == cuda_step.cell_body(
+            assert bodies.pack_params(tm).size == bodies.cell_body(
                 tm).param_floats
     # Table 1's direct rows keep cheby_currents on: the fast form runs
     assert br_models(cheby=False)[1].current_mode == "fast"

@@ -32,7 +32,7 @@ from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import Simulation, simulation
 from fib_tf_tpu_torch.kernels import build
 from fib_tf_tpu_torch.models import MODEL_REGISTRY, cell_geometry, grid_geometry
-from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
+from fib_tf_tpu_torch.ops import (bodies, cuda_block, cuda_step, cuda_tiled,
                                   cuda_volume, stencil, table)
 from fib_tf_tpu_torch.parallel import make_mesh
 from test_torch_fixtures import one_torch_thread  # noqa: F401
@@ -365,7 +365,7 @@ def test_cached_fast_commits_equal_the_fast_commits(case):
     cuda_step.plain_substep(model, st, False)
     cuda_step.plain_substep(model, st, True)
     cache = model.fast_invariants(st)
-    assert tuple(cache) == cuda_step.cell_body(model).cache
+    assert tuple(cache) == bodies.cell_body(model).cache
     cached = {k: v.clone() for k, v in st.items()}
     for i in range(9):
         cuda_step.plain_substep(model, st, False)
@@ -383,17 +383,17 @@ def test_cache_schedule():
     ultra and every other body have no cache; the cache is made per
     device, and anew when the state's shape changes."""
     _, tm = models()
-    assert cuda_step.cache_schedule(cuda_step.slow_schedule(tm)) == (
+    assert cuda_step.cache_schedule(tm.launch_schedule) == (
         (False, False) + (True,) * 9)
-    assert cuda_step.COURT_CACHE == ("e_k", "e_ca", "i_cap", "p_to", "p_ks",
+    assert bodies.COURT_CACHE == ("e_k", "e_ca", "i_cap", "p_to", "p_ks",
                                      "p_cal")
-    assert [b.name for b in cuda_step.BODIES.values() if b.cache] == [
+    assert [b.name for b in bodies.BODIES.values() if b.cache] == [
         "court"]
     assert [k.entry for k in (*cuda_step.KERNELS.values(),
                               *cuda_step.GEOM_KERNELS.values())
             if k.cache is not None] == ["court_substep",
                                         "court_substep_geom"]
-    cache = cuda_step.CommitCache(cuda_step.COURT_CACHE)
+    cache = cuda_step.CommitCache(bodies.COURT_CACHE)
     v = torch.zeros(5, 7)
     planes = cache.planes(v)
     assert planes.shape == (6, 5, 7) and cache.planes(v) is planes
@@ -442,19 +442,19 @@ def test_pack_court_folds_every_scale_factor():
         2.0, 1.0,                              # the dV cap, and set
         -25.0, 75.0, -100.0, 1.0 / 150.0,      # Chebyshev domain, probe
     ]
-    got = cuda_step.pack_params(tm)[36 * 13:]
+    got = bodies.pack_params(tm)[36 * 13:]
     np.testing.assert_allclose(got, np.float32(want), rtol=1e-7, atol=0)
 
 
 def test_cell_body_and_schedule():
     _, tm = models()
-    body = cuda_step.cell_body(tm)
+    body = bodies.cell_body(tm)
     assert body.name == "court" and body.kernels == (1, 3, 4, 6)
-    assert body.planes == cuda_step.COURT_PLANES
+    assert body.planes == bodies.COURT_PLANES
     assert set(body.planes) - {"_p_chronic"} == set(tm.state_keys()) - {"V"}
     assert not body.writes_potential(True) and body.writes_potential(False)
-    assert cuda_step.slow_schedule(tm) == (False, True) + (False,) * 9
-    params = cuda_step.pack_params(tm)
+    assert tm.launch_schedule == (False, True) + (False,) * 9
+    params = bodies.pack_params(tm)
     assert params.size == body.param_floats == 36 * 13 + 28
     # the fits are zero with direct rates; the mode, the het flag and the
     # chronic prefactors follow the scalars' order (_pack_court)
@@ -468,16 +468,16 @@ def test_cell_body_and_schedule():
                                     np.float32(0.809 * 0.1)]
     for key, mode in (("cheby", 2), ("cheby-unfolded", 1)):
         _, m = models(**FLAGS[key])
-        p = cuda_step.pack_params(m)
+        p = bodies.pack_params(m)
         assert p[36 * 13] == mode
         assert p[:26 * 13].any() and p[26 * 13:36 * 13].any() == (mode == 2)
     _, het = models(chronic_plane=np.ones((16, 16), np.float32))
-    assert cuda_step.pack_params(het)[36 * 13 + 1] == 1.0
+    assert bodies.pack_params(het)[36 * 13 + 1] == 1.0
     assert het.state_keys() == tuple(sorted(tm.state_keys()
                                             + ("_p_chronic",)))
     _, tab = models(table=True)
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        cuda_step.cell_body(tab)
+        bodies.cell_body(tab)
     with pytest.raises(NotImplementedError, match="never routes"):
         cuda_tiled.make_tiled_cuda_step(tm)
     cuda_block.make_block_step(tm, False)
@@ -486,10 +486,10 @@ def test_cell_body_and_schedule():
     assert cuda_volume.KERNELS["court"].library_name == "court_volume"
     assert cuda_step.KERNELS["court"].library_name == "court_substep"
     # the court library rounds as the plain path: no FMA contraction
-    court_lib = cuda_step.BODIES["court"].library
-    assert court_lib is cuda_step.BODIES["court_ultra"].library
+    court_lib = bodies.BODIES["court"].library
+    assert court_lib is bodies.BODIES["court_ultra"].library
     assert court_lib.flags == ("-fmad=false",)
-    assert cuda_step.BODIES["br"].library.flags == ()
+    assert bodies.BODIES["br"].library.flags == ()
     src = [cuda_step.SOURCE]
     assert (build.library_path("k", src, flags=court_lib.flags)
             != build.library_path("k", src))

@@ -29,7 +29,7 @@ from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import Simulation, run_volume, volume
 from fib_tf_tpu_torch.models import cell_geometry
-from fib_tf_tpu_torch.ops import cuda_step, cuda_volume
+from fib_tf_tpu_torch.ops import bodies, cuda_step, cuda_volume
 from fib_tf_tpu_torch.parallel import make_mesh
 
 from test_torch_court import (GOLDEN, TOL, V_ATOL, assert_states_close, cfg,
@@ -51,10 +51,10 @@ def test_ultra_constants_and_probes_equal_jax():
     for k, v in tm.initial_state().items():
         np.testing.assert_array_equal(v, st[k])
     assert {tm.dt_for(k) for k in tm.state_keys()} == {0.1}
-    assert cuda_step.slow_schedule(tm) == (True,) * 10
-    body = cuda_step.cell_body(tm)
+    assert tm.launch_schedule == (True,) * 10
+    body = bodies.cell_body(tm)
     assert body.name == "court_ultra" and body.writes_potential(True)
-    assert body.planes == cuda_step.COURT_ULTRA_PLANES
+    assert body.planes == bodies.COURT_ULTRA_PLANES
     assert set(body.planes) - {"_p_chronic"} == set(tm.state_keys()) - {"V"}
     with pytest.raises(ValueError, match="one substep body"):
         cuda_step.plain_substep(tm, interop.state_from_numpy(

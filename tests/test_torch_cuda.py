@@ -22,7 +22,7 @@ from fib_tf_tpu_torch.engine import (Simulation, VolumeEvent, run_volume,
 from fib_tf_tpu_torch.models import (BeelerReuter, Courtemanche,
                                      CourtemancheUltra, Fenton4v, LuoRudy91,
                                      MitchellSchaeffer, TenTusscher06)
-from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
+from fib_tf_tpu_torch.ops import (bodies, cuda_block, cuda_step, cuda_tiled,
                                   cuda_volume, cuda_volume_block,
                                   cuda_volume_tiled)
 from fib_tf_tpu_torch.parallel import make_mesh
@@ -165,12 +165,12 @@ def test_tiled_kernel_for_every_substep_count(device, n_sub, skip):
     schedule) against n_sub plain substeps, on 131 x 200 cells: tiles of
     every interior size the halo leaves."""
     model = BeelerReuter(CFG.replace(height=131, width=200, skip=skip))
-    schedule = cuda_step.slow_schedule(model)[:n_sub]
+    schedule = model.launch_schedule[:n_sub]
     base = _seeded(model, device, 5)
     got = {k: v.clone() for k, v in base.items()}
     want = {k: v.clone() for k, v in base.items()}
     pk, pp = torch.zeros(1, device=device), torch.zeros(1, device=device)
-    cuda_tiled.KERNEL.launch(cuda_step.pack_params(model), got, schedule, pk,
+    cuda_tiled.KERNEL.launch(bodies.pack_params(model), got, schedule, pk,
                              model.probe_pixel, 0,
                              torch.cuda.current_stream(device).cuda_stream)
     for s, slow in enumerate(schedule):
@@ -680,7 +680,7 @@ def test_geometry_kernels_match_plain_version(device, name, kind):
     model = _geom_model(name, hw)
     phase, fiber, dmap = _geometry(kind, hw)
     base = _geom_state(model, device, 7)
-    geom = cuda_step.GeometryMaps(hw, phase, fiber, dmap).plain(device)
+    geom = bodies.GeometryMaps(hw, phase, fiber, dmap).plain(device)
     plain = lambda st, p, i: cuda_step.plain_step(model, st, p, i, geom)
     kernels = [cuda_step.KERNELS[name], cuda_step.GEOM_KERNELS[name],
                cuda_tiled.KERNELS[name], cuda_tiled.GEOM_KERNELS[name]]
@@ -690,7 +690,7 @@ def test_geometry_kernels_match_plain_version(device, name, kind):
                     plain, base)
     _geom_two_steps(cuda_tiled.make_tiled_cuda_step(model, phase, fiber,
                                                     dmap), plain, base)
-    n = 2 * len(cuda_step.slow_schedule(model))
+    n = 2 * len(model.launch_schedule)
     assert sum(kernels[1].launches.values()) == n
     assert sum(kernels[0].launches.values()) == 0
     assert kernels[3].launches == 2 and kernels[2].launches == 0
@@ -826,7 +826,7 @@ def test_court_kernels_match_plain_version(device, flags, ultra):
     phase = stencil.add_hole_to_phase_field(None, 67, 131, 65, 33, 4)
     phase = stencil.add_hole_to_phase_field(phase, 67, 131, 65, 33, 27,
                                             neg=True)
-    name = cuda_step.cell_body(model).name
+    name = bodies.cell_body(model).name
     exact = model.rate_mode == "direct"
     per_step = ({"slow": 10, "frozen": 0} if ultra
                 else {"slow": 1, "frozen": 10})
@@ -837,7 +837,7 @@ def test_court_kernels_match_plain_version(device, flags, ultra):
                             (het, {}, cuda_step.KERNELS),
                             (model, dict(phase=phase),
                              cuda_step.GEOM_KERNELS)):
-        maps = cuda_step.GeometryMaps(m.state_shape(), **geo)
+        maps = bodies.GeometryMaps(m.state_shape(), **geo)
         geom = maps.plain(device)
         for kern in bindings:
             kern.reset_launches()
@@ -871,7 +871,7 @@ def test_court_cache_crosses_no_outer_step(device, geometry):
     if geometry:
         geo["phase"] = stencil.add_hole_to_phase_field(None, 67, 131, 65,
                                                        33, 4)
-    maps = cuda_step.GeometryMaps(model.state_shape(), **geo)
+    maps = bodies.GeometryMaps(model.state_shape(), **geo)
     geom = maps.plain(device)
     step = cuda_step.make_cuda_step(model, **geo)
     mask = torch.tensor(stencil.pace_mask(67, 131, "luq", 10.0,
@@ -899,7 +899,7 @@ def test_court_slow_commit_stores_the_cache(device, geometry):
     refuses a slow commit that would not store it (form 1)."""
     from fib_tf_tpu_torch.ops import stencil
     model = Courtemanche(CFG.replace(height=67, width=131))
-    maps = cuda_step.GeometryMaps(model.state_shape(), phase=(
+    maps = bodies.GeometryMaps(model.state_shape(), phase=(
         stencil.add_hole_to_phase_field(None, 67, 131, 65, 33, 4)
         if geometry else None))
     geom = maps.plain(device)
@@ -911,9 +911,9 @@ def test_court_slow_commit_stores_the_cache(device, geometry):
     want = cuda_step.plain_substep(model, want, True, geom=geom)
     cache = kernel.cache.planes(got["V"])
     plain_cache = model.fast_invariants(want)
-    for i, k in enumerate(cuda_step.COURT_CACHE):
+    for i, k in enumerate(bodies.COURT_CACHE):
         torch.testing.assert_close(cache[i], plain_cache[k], rtol=0, atol=0)
-    kernel.launch(cuda_step.pack_params(model), got, False, None,
+    kernel.launch(bodies.pack_params(model), got, False, None,
                   model.probe_pixel, 0,
                   torch.cuda.current_stream(device).cuda_stream,
                   maps.args(device) if geometry else (), True)
@@ -921,10 +921,10 @@ def test_court_slow_commit_stores_the_cache(device, geometry):
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
     fn = getattr(kernel.library(), kernel.entry)
-    params = cuda_step.pack_params(model)
+    params = bodies.pack_params(model)
     v_in = got["V"]
     err = fn(1, params.ctypes.data, params.size, v_in.data_ptr(), None,
-             cuda_step.plane_pointers(got, kernel.body.planes),
+             bodies.plane_pointers(got, kernel.body.planes),
              len(kernel.body.planes), 67, 131, None, 0, 0, 0,
              v_in.device.index, torch.cuda.current_stream(device).cuda_stream,
              *(maps.args(device) if geometry else ()))
@@ -1017,19 +1017,19 @@ def test_lrtp_kernels_match_plain_version(device, case):
     per outer step under skip, ten SLOW without)."""
     from fib_tf_tpu_torch.ops import stencil
     model = _lrtp_model(case)
-    name = cuda_step.cell_body(model).name
+    name = bodies.cell_body(model).name
     phase = stencil.add_hole_to_phase_field(None, 67, 131, 65, 33, 4)
     phase = stencil.add_hole_to_phase_field(phase, 67, 131, 65, 33, 27,
                                             neg=True)
     fiber = stencil.fiber_tensor(np.deg2rad(30.0), 0.25)
-    schedule = cuda_step.slow_schedule(model)
+    schedule = model.launch_schedule
     per_step = {"slow": sum(schedule),
                 "frozen": len(schedule) - sum(schedule)}
     base = _lrtp_state(model, device)
     for geo, kernels in (({}, cuda_step.KERNELS),
                          (dict(phase=phase, fiber=fiber),
                           cuda_step.GEOM_KERNELS)):
-        maps = cuda_step.GeometryMaps(model.state_shape(), **geo)
+        maps = bodies.GeometryMaps(model.state_shape(), **geo)
         geom = maps.plain(device)
         for slow in sorted(set(schedule)):
             got = cuda_step.substep(model, {k: v.clone()
@@ -1150,7 +1150,7 @@ def test_large_block_kernel_matches_plain_version(device, case, origin,
             and (not two_d or cstart + k <= c < cstart + ext_w - k))
     before = {key: v.clone() for key, v in ext.items()}
     outs, probes = [], []
-    name = cuda_step.cell_body(model).name
+    name = bodies.cell_body(model).name
     kernel = (cuda_block.GEOM_KERNELS if geometry else cuda_block.KERNELS)[
         name]
     kernel.reset_launches()
@@ -1165,7 +1165,7 @@ def test_large_block_kernel_matches_plain_version(device, case, origin,
         outs.append(out)
         probes.append(probe)
     torch.cuda.synchronize()
-    schedule = cuda_step.slow_schedule(model)
+    schedule = model.launch_schedule
     assert kernel.launches == {"slow": sum(schedule),
                                "frozen": len(schedule) - sum(schedule)}
     for key in ext:
@@ -1193,7 +1193,7 @@ def test_large_volume_block_kernel_matches_plain_version(device, case,
     base = _lrtp_state(model, device, depth=depth)
     idx = torch.arange(zstart, zstart + 30, device=device).clamp(0, depth - 1)
     block = {key: v[idx].contiguous() for key, v in base.items()}
-    name = cuda_step.cell_body(model).name
+    name = bodies.cell_body(model).name
     kernel = cuda_volume_block.KERNELS[name]
     kernel.reset_launches()
     got = {key: v.clone() for key, v in block.items()}
@@ -1208,7 +1208,7 @@ def test_large_volume_block_kernel_matches_plain_version(device, case,
         probe=torch.zeros(1, device=device) if owns else None,
         probe_slice=depth // 2 - zstart)
     torch.cuda.synchronize()
-    schedule = cuda_step.slow_schedule(model)
+    schedule = model.launch_schedule
     assert kernel.launches == {"slow": sum(schedule),
                                "frozen": len(schedule) - sum(schedule)}
     for key in want:
@@ -1224,14 +1224,14 @@ def test_large_models_auto_launch_kernels_3_and_6(device):
     Courtemanche-ultra's also in groups of five substeps (halo_k=5)."""
     for case in sorted(LARGE_CASES):
         model = _large_model(case, duration=1.0)
-        name = cuda_step.cell_body(model).name
+        name = bodies.cell_body(model).name
         sim = Simulation(model, mesh=make_mesh(devices=[device] * 4),
                          wide_halo=True).define()
         assert sim.route == "block"
         cuda_block.KERNELS[name].reset_launches()
         cuda_step.KERNELS[name].reset_launches()
         res = sim.simulate()
-        schedule = cuda_step.slow_schedule(model)
+        schedule = model.launch_schedule
         assert cuda_block.KERNELS[name].launches == {
             "slow": 4 * res.steps * sum(schedule),
             "frozen": 4 * res.steps * (len(schedule) - sum(schedule))}

@@ -30,7 +30,7 @@ from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import Simulation, simulation
 from fib_tf_tpu_torch.models import MODEL_REGISTRY, cell_geometry, grid_geometry
-from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
+from fib_tf_tpu_torch.ops import (bodies, cuda_block, cuda_step, cuda_tiled,
                                   integrators)
 from test_torch_fixtures import one_torch_thread  # noqa: F401
 
@@ -285,7 +285,7 @@ def test_g_scale_matches_jax():
         got = cuda_step.plain_step(tm, got)
     assert_states_close(got, want, **TOL)
     np.testing.assert_array_equal(
-        cuda_step.pack_params(tm),
+        bodies.pack_params(tm),
         np.float32([0.1, 1.5 * 0.1, 0.8, 1.2, 0.9, 0.0, 1.0]))
     with pytest.raises(ValueError):
         tm.set_scale(g_Na=0.5)
@@ -296,12 +296,12 @@ def test_g_scale_matches_jax():
 
 def test_cell_body_and_schedule():
     _, tm = models()
-    body = cuda_step.cell_body(tm)
+    body = bodies.cell_body(tm)
     assert body.name == "fenton" and body.planes == ("v", "w", "s")
-    assert cuda_step.pack_params(tm).size == body.param_floats == 7
-    assert cuda_step.slow_schedule(tm) == (True,) * 10
+    assert bodies.pack_params(tm).size == body.param_floats == 7
+    assert tm.launch_schedule == (True,) * 10
     assert cuda_tiled.tile_interior(10) == (44, 44)
-    assert cuda_tiled.slow_mask(cuda_step.slow_schedule(tm)) == 0x3FF
+    assert cuda_tiled.slow_mask(tm.launch_schedule) == 0x3FF
     for mod in (cuda_step, cuda_tiled, cuda_block):
         assert mod.KERNELS["fenton"].entry.startswith("fenton_")
     with pytest.raises(ValueError, match="one substep body"):

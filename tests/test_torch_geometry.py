@@ -40,7 +40,7 @@ from fib_tf_tpu_torch.engine import Simulation
 from fib_tf_tpu_torch.models import (BeelerReuter, Fenton4v,
                                      MitchellSchaeffer, grid_geometry)
 from fib_tf_tpu_torch.models.base import tissue_geometry
-from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled, stencil
+from fib_tf_tpu_torch.ops import bodies, cuda_step, cuda_tiled, stencil
 from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 OP_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -456,20 +456,20 @@ def test_variant_bodies_under_geometry_match_jax(ab2):
 
 
 def test_geometry_maps_checks():
-    maps = cuda_step.GeometryMaps((8, 9))
+    maps = bodies.GeometryMaps((8, 9))
     assert maps.empty
     with pytest.raises(ValueError, match="shape"):
-        cuda_step.GeometryMaps((8, 9), phase=np.ones((9, 8)))
+        bodies.GeometryMaps((8, 9), phase=np.ones((9, 8)))
     with pytest.raises(ValueError, match="dxx, dxy, dyy"):
-        cuda_step.GeometryMaps((8, 9), fiber=(1.0, 0.0))
-    full = cuda_step.GeometryMaps((8, 9), np.ones((8, 9)), (1.0, 0.0, 1.0),
+        bodies.GeometryMaps((8, 9), fiber=(1.0, 0.0))
+    full = bodies.GeometryMaps((8, 9), np.ones((8, 9)), (1.0, 0.0, 1.0),
                                   np.ones((8, 9)))
     assert not full.empty
     p, d = full.tensors("cpu")
     assert p.dtype == d.dtype == torch.float32 and p.shape == (8, 9)
     assert full.tensors("cpu")[0] is p and full.plain("cpu") is full.plain(
         "cpu")
-    args = cuda_step.kernel_geometry_args(p, None, None)
+    args = bodies.kernel_geometry_args(p, None, None)
     assert args == (p.data_ptr(), None, 0, 1.0, 0.0, 1.0)
 
 

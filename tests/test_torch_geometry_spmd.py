@@ -33,7 +33,7 @@ from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import Simulation
 from fib_tf_tpu_torch.models import BeelerReuter
-from fib_tf_tpu_torch.ops import cuda_block, cuda_step, stencil
+from fib_tf_tpu_torch.ops import bodies, cuda_block, cuda_step, stencil
 from fib_tf_tpu_torch.parallel import (gather_state, halo, make_mesh,
                                        shard_state, spmd)
 from fib_tf_tpu_torch.parallel.sharding import (gather_array,
@@ -187,7 +187,7 @@ def test_plain_block_step_matches_jax_block_kernel(name, kind, origin):
                                        np.asarray(want[kk])[own],
                                        err_msg=kk, **KERNEL_TOL)
         # advance the whole grid under the unsharded geometry
-        geom = cuda_step.GeometryMaps((H, W), phase, fiber, dmap).plain("cpu")
+        geom = bodies.GeometryMaps((H, W), phase, fiber, dmap).plain("cpu")
         st = interop.state_from_numpy(full, "cpu")
         cuda_step.plain_step(tm, st, geom=geom)
         full = interop.state_to_numpy(st)
@@ -204,7 +204,7 @@ def test_plain_block_step_matches_the_unsharded_step(name, kind):
     phase, fiber, dmap = geometry(kind)
     full = seeded(tm, 6)
     st = interop.state_from_numpy(full, "cpu")
-    cuda_step.plain_step(tm, st, geom=cuda_step.GeometryMaps(
+    cuda_step.plain_step(tm, st, geom=bodies.GeometryMaps(
         (H, W), phase, fiber, dmap).plain("cpu"))
     for origin in ((0, 32), (16, None)):
         if fiber is not None and origin[1] is None and name != "br":
@@ -292,7 +292,7 @@ def test_halo_laplace_with_maps_equals_the_stencil(shape):
 def _unsharded(tm, st, n, phase, fiber, dmap):
     ref = interop.state_from_numpy(st, "cpu")
     probe = torch.zeros(n)
-    geom = cuda_step.GeometryMaps((H, W), phase, fiber, dmap).plain("cpu")
+    geom = bodies.GeometryMaps((H, W), phase, fiber, dmap).plain("cpu")
     for i in range(n):
         cuda_step.plain_step(tm, ref, probe, i, geom)
     return interop.state_to_numpy(ref), probe.numpy()

@@ -103,13 +103,13 @@ def test_edited_header_changes_the_library_path(monkeypatch, tmp_path):
     src, hdr = tmp_path / "k.cu", tmp_path / "cell.cuh"
     src.write_text('#include "cell.cuh"\n')
     hdr.write_text("// v1\n")
-    lib = build.build("k", [src], [hdr])
+    lib = build.build("k", [src])
     assert str(src) in lib.read_text() and "cell.cuh" not in lib.read_text()
-    assert build.library_path("k", [src], [hdr]) == lib
+    assert build.library_path("k", [src]) == lib
     hdr.write_text("// v2\n")
-    edited = build.library_path("k", [src], [hdr])
+    edited = build.library_path("k", [src])
     assert edited != lib and not edited.exists()
-    assert build.build("k", [src], [hdr]) == edited
+    assert build.build("k", [src]) == edited
 
 
 def test_defines_reach_nvcc_and_the_library_path(monkeypatch, tmp_path):
@@ -134,12 +134,12 @@ def test_geom_libraries_are_the_sources_with_a_define():
     """The tile skeleton's GEOM entries are a second library of their
     source; kernel 3's large bodies keep both forms in the library of their
     body (csrc/large_block.cu)."""
-    from fib_tf_tpu_torch.ops import cuda_block, cuda_step, cuda_tiled
+    from fib_tf_tpu_torch.ops import bodies, cuda_block, cuda_step, cuda_tiled
     for mod, name in ((cuda_tiled, "br_tiled"), (cuda_block, "br_block")):
         for body, kernel in mod.GEOM_KERNELS.items():
             assert kernel.entry == f"{body}_{name[3:]}_geom"
             if mod is cuda_block and cuda_block.large_body(body):
-                lib = cuda_step.BODIES[body].library
+                lib = bodies.BODIES[body].library
                 assert kernel.library_name == lib.name("block")
                 assert kernel.defines == mod.KERNELS[body].defines
                 assert kernel.library_name == mod.KERNELS[body].library_name
@@ -161,21 +161,54 @@ BINDINGS = ("cuda_step", "cuda_tiled", "cuda_volume", "cuda_volume_tiled",
             "cuda_block", "cuda_volume_block")
 
 
+def _bindings():
+    """Every kernel binding of the port, GEOM forms included."""
+    import importlib
+    for name in BINDINGS:
+        mod = importlib.import_module(f"fib_tf_tpu_torch.ops.{name}")
+        yield from getattr(mod, "KERNELS", {"br": mod.KERNEL}).values()
+        yield from getattr(mod, "GEOM_KERNELS", {}).values()
+
+
 def test_bindings_hash_every_header_their_sources_include():
     """A source names every header it depends on, also those that reach it
-    through another header, and its binding hashes them all."""
-    import importlib
+    through another header, and its binding hashes them all: the headers
+    build.includes finds, which are the source's own includes."""
     from fib_tf_tpu_torch.ops import cuda_block
-    sources = [(mod.SOURCE, mod.HEADERS) for mod in (
-        importlib.import_module(f"fib_tf_tpu_torch.ops.{name}")
-        for name in BINDINGS)]
-    sources.append((cuda_block.LARGE_SOURCE, cuda_block.LARGE_HEADERS))
-    for source, headers in sources:
+    sources = {k.source for k in _bindings()}
+    assert cuda_block.LARGE_SOURCE in sources and len(sources) == 7
+    for source in sources:
+        headers = build.includes([source])
         included = _quoted_includes(source)
         assert included == {h.name for h in headers}, source.name
+        assert list(headers) == sorted(headers)
         for hdr in headers:
             assert hdr.parent == source.parent and hdr.is_file()
             assert _quoted_includes(hdr) <= included, hdr.name
+
+
+def test_includes_is_the_closure_of_the_quoted_includes(tmp_path):
+    """A nested include is found, one reached through two paths is listed
+    once, a cycle ends, an angle-bracket include is the compiler's, and
+    the headers hash into the library's name."""
+    (tmp_path / "sub").mkdir()
+    files = {
+        "k.cu": '#include "a.cuh"\n#include "b.cuh"\n#include <cstdio>\n',
+        "a.cuh": '#include "sub/c.cuh"\n',
+        "b.cuh": '#include "sub/c.cuh"\n#include "a.cuh"\n',
+        "sub/c.cuh": '#include "d.cuh"\n',
+        "sub/d.cuh": '#include "../a.cuh"\n',
+    }
+    for name, text in files.items():
+        (tmp_path / name).write_text(text)
+    src = tmp_path / "k.cu"
+    got = build.includes([src])
+    assert [h.resolve() for h in got] == sorted(
+        (tmp_path / n).resolve() for n in files if n != "k.cu")
+    assert len(got) == 4
+    path = build.library_path("k", [src])
+    (tmp_path / "sub" / "d.cuh").write_text('#include "../a.cuh"\n// v2\n')
+    assert build.library_path("k", [src]) != path
 
 
 def test_block_kernels_share_the_earlier_kernels_headers():
@@ -185,16 +218,21 @@ def test_block_kernels_share_the_earlier_kernels_headers():
     every body of kernel 4, with its headers."""
     from fib_tf_tpu_torch.ops import (cuda_block, cuda_step, cuda_tiled,
                                       cuda_volume, cuda_volume_block)
-    assert set(cuda_block.HEADERS) == set(cuda_tiled.HEADERS)
+
+    def headers(source):
+        return set(build.includes([source]))
+
+    assert headers(cuda_block.SOURCE) == headers(cuda_tiled.SOURCE)
     bodies = {build.CSRC_DIR / name for name in (
         "br_cell.cuh", "br_variant_cell.cuh", "fenton_cell.cuh",
         "ms_cell.cuh")}
-    assert bodies <= set(cuda_volume.HEADERS)
+    assert bodies <= headers(cuda_volume.SOURCE)
     large = {build.CSRC_DIR / name for name in (
         "court_cell.cuh", "lr1_cell.cuh", "tp06_cell.cuh",
         "torch_rounding.cuh")}
-    assert large <= set(cuda_block.LARGE_HEADERS) <= set(cuda_step.HEADERS)
-    assert set(cuda_volume_block.HEADERS) == set(cuda_volume.HEADERS)
+    assert (large <= headers(cuda_block.LARGE_SOURCE)
+            <= headers(cuda_step.SOURCE))
+    assert headers(cuda_volume_block.SOURCE) == headers(cuda_volume.SOURCE)
     assert set(cuda_volume_block.KERNELS) == set(cuda_volume.KERNELS)
     large_bodies = {"court", "court_ultra", "lr1", "tp06"}
     assert set(cuda_block.KERNELS) == set(cuda_tiled.KERNELS) | large_bodies

@@ -37,7 +37,8 @@ from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import Simulation, run_volume, simulation, volume
 from fib_tf_tpu_torch.models import (Courtemanche, CourtemancheUltra,
                                      LuoRudy91, TenTusscher06)
-from fib_tf_tpu_torch.ops import cuda_block, cuda_step, cuda_volume_block
+from fib_tf_tpu_torch.ops import (bodies, cuda_block, cuda_step,
+                                  cuda_volume_block)
 from fib_tf_tpu_torch.ops import stencil
 from fib_tf_tpu_torch.parallel import (gather_state, make_mesh, shard_state,
                                        spmd)
@@ -364,10 +365,10 @@ def test_routes_on_a_mesh(name):
     assert not volume._use_shard_kernel(tm, "cpu", "auto")
     with pytest.raises(ValueError, match="CUDA"):
         simulation.spmd_route(tm, "cpu", "pallas", True)
-    body = cuda_step.body_on(tm, 3)
-    assert cuda_step.body_on(tm, 6) is body and body.kernels == (1, 3, 4, 6)
+    body = bodies.body_on(tm, 3)
+    assert bodies.body_on(tm, 6) is body and body.kernels == (1, 3, 4, 6)
     with pytest.raises(NotImplementedError, match="never routes"):
-        cuda_step.body_on(tm, 2)
+        bodies.body_on(tm, 2)
 
 
 @pytest.mark.parametrize("name", list(MODELS))
@@ -421,8 +422,8 @@ def test_nullable_planes_and_the_clamped_probe():
     for s in shards:
         assert "_p_g_kr" in s and not {"_p_endo", "_p_g_ks",
                                        "_p_g_to"} & set(s)
-        ptrs = list(cuda_step.plane_pointers(s, cuda_step.TP06_PLANES))
-        absent = [cuda_step.TP06_PLANES.index(k)
+        ptrs = list(bodies.plane_pointers(s, bodies.TP06_PLANES))
+        absent = [bodies.TP06_PLANES.index(k)
                   for k in ("_p_endo", "_p_g_ks", "_p_g_to")]
         assert all(ptrs[i] is None for i in absent)
     got = Simulation(tm, mesh=cpu_mesh((4,)), wide_halo=True).simulate()

@@ -35,7 +35,7 @@ from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import Simulation, simulation, volume
 from fib_tf_tpu_torch.models import MODEL_REGISTRY, cell_geometry, grid_geometry
-from fib_tf_tpu_torch.ops import cuda_step, cuda_volume, stencil
+from fib_tf_tpu_torch.ops import bodies, cuda_step, cuda_volume, stencil
 from fib_tf_tpu_torch.parallel import make_mesh
 from test_torch_fixtures import one_torch_thread  # noqa: F401
 
@@ -333,7 +333,7 @@ def test_plain_step_matches_jax_step(skip):
     JAX model's step; and under the annulus, with and without fibers (the
     GEOM entries' plain version)."""
     jm, tm = models(jl.LuoRudy91, tl.LuoRudy91, skip=skip)
-    assert cuda_step.slow_schedule(tm) == (True,) + (not skip,) * 9
+    assert tm.launch_schedule == (True,) + (not skip,) * 9
     st = seeded_state(tm, seed=2)
     check_plain_step_matches_jax(jm, tm, st)
     for _, phase, angle in geometries(24, 40):
@@ -394,11 +394,11 @@ def test_pack_lr1_reads_g_si_when_the_step_is_built():
     path's double products, rounded to float32 once), and g_si set after
     construction reaches the block and the plain step."""
     tm = tl.LuoRudy91(cfg(skip=True, g_scale=G_SCALE))
-    body = cuda_step.cell_body(tm)
+    body = bodies.cell_body(tm)
     assert body.name == "lr1" and body.kernels == (1, 3, 4, 6)
-    assert body.planes == cuda_step.LR1_PLANES
+    assert body.planes == bodies.LR1_PLANES
     assert set(body.planes) == set(tm.state_keys()) - {"V"}
-    assert body.library is cuda_step.LRTP_LIBRARY
+    assert body.library is bodies.LRTP_LIBRARY
     assert body.library.flags == ("-fmad=false",)
     assert cuda_step.KERNELS["lr1"].library_name == "lrtp_substep"
     assert cuda_step.GEOM_KERNELS["lr1"].entry == "lr1_substep_geom"
@@ -408,11 +408,11 @@ def test_pack_lr1_reads_g_si_when_the_step_is_built():
             0.8 * 0.0183, 1.3 * 0.03921, tl.E_NA, tl.E_K, tl.E_K1, tl.E_KP,
             -59.87, tl.XI_LIM, 0.02, 0.2, 0.809 * 0.02, -90.0, 1.0 / 140.0]
     assert f["g_si"] == 0.5
-    params = cuda_step.pack_params(tm)
+    params = bodies.pack_params(tm)
     assert params.size == body.param_floats == 17
     np.testing.assert_array_equal(params, np.float32(want))
     tm.g_si = 0.02
-    assert cuda_step.pack_params(tm)[1] == np.float32(0.5 * 0.02)
+    assert bodies.pack_params(tm)[1] == np.float32(0.5 * 0.02)
     st = interop.state_from_numpy(seeded_state(tm, seed=6), "cpu")
     ref = tl.LuoRudy91(tm.cfg)
     ref.g_si = 0.02
@@ -420,7 +420,7 @@ def test_pack_lr1_reads_g_si_when_the_step_is_built():
     want = ref.step(st, grid_geometry())
     for k in want:
         assert torch.equal(got[k], want[k]), k
-    assert cuda_step.pack_params(tl.LuoRudy91(cfg(skip=False)))[13] == \
+    assert bodies.pack_params(tl.LuoRudy91(cfg(skip=False)))[13] == \
         np.float32(0.02)
 
 

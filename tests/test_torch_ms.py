@@ -29,7 +29,7 @@ from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import Simulation, simulation
 from fib_tf_tpu_torch.models import MODEL_REGISTRY, cell_geometry, grid_geometry
-from fib_tf_tpu_torch.ops import cuda_block, cuda_step, cuda_tiled
+from fib_tf_tpu_torch.ops import bodies, cuda_block, cuda_step, cuda_tiled
 from test_torch_fixtures import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-3, atol=1e-5)
@@ -236,17 +236,17 @@ def test_g_scale_matches_jax():
         got = cuda_step.plain_step(tm, got)
     assert_states_close(got, want, **TOL)
     np.testing.assert_array_equal(
-        cuda_step.pack_params(tm),
+        bodies.pack_params(tm),
         np.float32([0.1, 1.5 * 0.1, 0.7, 1.3, tm.decay_open, tm.decay_close,
                     0.0, 1.0]))
 
 
 def test_cell_body_schedule_and_routes():
     _, tm = models()
-    body = cuda_step.cell_body(tm)
+    body = bodies.cell_body(tm)
     assert body.name == "ms" and body.planes == ("h",)
     assert body.param_floats == 8
-    assert cuda_step.slow_schedule(tm) == (True,) * 10
+    assert tm.launch_schedule == (True,) * 10
     large = tms.MitchellSchaeffer(cfg(width=4096, height=2048))
     assert simulation.state_mb(large) == 64.0
     assert simulation.route(large, "cuda", "auto") == "tiled"

@@ -29,7 +29,7 @@ from fib_tf_tpu.ops.pallas_tiled import make_block_kernel
 from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import Simulation, simulation
-from fib_tf_tpu_torch.ops import cuda_block, cuda_step
+from fib_tf_tpu_torch.ops import bodies, cuda_block, cuda_step
 from fib_tf_tpu_torch.parallel import (gather_state, halo, make_mesh,
                                        shard_state, spmd)
 from test_torch_fixtures import one_torch_thread  # noqa: F401
@@ -484,7 +484,7 @@ def test_unported_spmd_arguments_raise(kw):
     st = seeded_state(tm, seed=2)
     chunk = spmd.make_spmd_chunk(tm, cpu_mesh((4,)), 1, wide_halo=True, **kw)
     got = gather_state(chunk(shard_state(st, cpu_mesh((4,))))[0])
-    maps = cuda_step.GeometryMaps((64, 64), kw.get("phase"), kw.get("fiber"),
+    maps = bodies.GeometryMaps((64, 64), kw.get("phase"), kw.get("fiber"),
                                   kw.get("dmap"))
     ref = interop.state_from_numpy(st, "cpu")
     cuda_step.plain_step(tm, ref, geom=maps.plain("cpu"))

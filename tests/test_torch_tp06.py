@@ -29,7 +29,7 @@ from fib_tf_tpu.config import SimConfig as JaxSimConfig
 from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.models import MODEL_REGISTRY, grid_geometry
-from fib_tf_tpu_torch.ops import cuda_step
+from fib_tf_tpu_torch.ops import bodies, cuda_step
 from test_torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_lr1 import (GOLDEN, RATE_TOL, SOLVE_TOL, TOL, V_SWEEP,
                             assert_states_close, cfg, check_pallas_step,
@@ -267,7 +267,7 @@ def test_plain_step_matches_jax_step(case, skip):
     model's step; the transmural case also under the annulus, with and
     without fibers (the GEOM entries' plain version)."""
     jm, tm = case_models(case, skip=skip)
-    assert cuda_step.slow_schedule(tm) == (True,) + (not skip,) * 9
+    assert tm.launch_schedule == (True,) + (not skip,) * 9
     st = seeded_state(tm, seed=2)
     check_plain_step_matches_jax(jm, tm, st)
     if case == "transmural":
@@ -330,12 +330,12 @@ def test_pack_tp06_reads_cell_type_when_the_step_is_built():
     after construction reaches the block and the plain step; the het flags
     follow the attached planes."""
     tm = tt.TenTusscher06(cfg(skip=True, g_scale=G_SCALE))
-    body = cuda_step.cell_body(tm)
+    body = bodies.cell_body(tm)
     assert body.name == "tp06" and body.kernels == (1, 3, 4, 6)
-    assert body.planes == cuda_step.TP06_PLANES
-    assert set(body.planes) - set(cuda_step.TP06_HET_PLANES) == (
+    assert body.planes == bodies.TP06_PLANES
+    assert set(body.planes) - set(bodies.TP06_HET_PLANES) == (
         set(tm.state_keys()) - {"V"})
-    assert body.library is cuda_step.LRTP_LIBRARY
+    assert body.library is bodies.LRTP_LIBRARY
     assert cuda_step.KERNELS["tp06"].library_name == "lrtp_substep"
     f = G_SCALE
     want = [f["g_Na"] * 14.838, f["g_bNa"] * 0.00029, f["g_CaL"] * 3.98e-5,
@@ -344,11 +344,11 @@ def test_pack_tp06_reads_cell_type_when_the_step_is_built():
             f["g_NaK"] * 2.724 * 5.4, f["g_pCa"] * 0.1238,
             f["g_pK"] * 0.0146, f["g_to"], f["g_Ks"], 0.0, 0.0, 0.0, 0.0,
             0.0, 0.02, 0.2, 0.809 * 0.02, -90.0, 1.0 / 140.0]
-    params = cuda_step.pack_params(tm)
+    params = bodies.pack_params(tm)
     assert params.size == body.param_floats == 24
     np.testing.assert_array_equal(params, np.float32(want))
     tm.cell_type = "endo"
-    params = cuda_step.pack_params(tm)
+    params = bodies.pack_params(tm)
     assert params[4] == np.float32(f["g_to"] * 0.073) and params[18] == 1.0
     st = interop.state_from_numpy(seeded_state(tt.TenTusscher06(tm.cfg),
                                                seed=6), "cpu")
@@ -359,11 +359,11 @@ def test_pack_tp06_reads_cell_type_when_the_step_is_built():
     for k in want:
         assert torch.equal(got[k], want[k]), k
     trans = tt.TenTusscher06(cfg(cell_type="transmural"))
-    assert list(cuda_step.pack_params(trans)[14:19]) == [1, 1, 1, 0, 0]
+    assert list(bodies.pack_params(trans)[14:19]) == [1, 1, 1, 0, 0]
     trans.set_het(g_kr=kr_plane(trans.state_shape()))
-    assert list(cuda_step.pack_params(trans)[14:19]) == [1, 1, 1, 1, 0]
+    assert list(bodies.pack_params(trans)[14:19]) == [1, 1, 1, 1, 0]
     alone = tt.TenTusscher06(cfg()).set_het(g_kr=kr_plane((24, 40)))
-    assert list(cuda_step.pack_params(alone)[14:19]) == [0, 0, 0, 1, 0]
+    assert list(bodies.pack_params(alone)[14:19]) == [0, 0, 0, 1, 0]
     assert alone.state_keys() == tuple(sorted(
         tt.TenTusscher06(cfg()).state_keys() + ("_p_g_kr",)))
 

@@ -21,9 +21,9 @@ from fib_tf_tpu_torch import interop
 from fib_tf_tpu_torch.config import SimConfig
 from fib_tf_tpu_torch.engine import volume
 from fib_tf_tpu_torch.models.base import Geometry
-from fib_tf_tpu_torch.ops import cuda_step, cuda_volume
+from fib_tf_tpu_torch.ops import cuda_volume
 from fib_tf_tpu_torch.ops import cuda_volume_tiled as cvt
-from fib_tf_tpu_torch.ops.cuda_step import CELL_PLANES
+from fib_tf_tpu_torch.ops.bodies import CELL_PLANES
 from fib_tf_tpu_torch.ops.cuda_tiled import tile_spans
 from test_torch_fixtures import one_torch_thread  # noqa: F401
 
@@ -187,7 +187,7 @@ def emulate(model, state, plan, dz_ratio):
     those cells, so each cell's arithmetic is the plain path's."""
     d, h, w = plan.depth, plan.height, plan.width
     eh_max, ew_max = plan.tile
-    schedule = cuda_step.slow_schedule(model)
+    schedule = model.launch_schedule
     base = {k: v.clone() for k, v in state.items()}
     out = {k: torch.full_like(v, float("nan")) for k, v in state.items()}
     for block in range(len(plan.walk)):

@@ -192,7 +192,7 @@ def main():
         t["fast_load_us"] = us(lambda st: launch(st, False, True))
 
     def outer(reads):
-        sched = cuda_step.slow_schedule(model)
+        sched = model.launch_schedule
         flags = (cuda_step.cache_schedule(sched) if reads
                  else (False,) * len(sched))
         return lambda st: [launch(st, s, r) for s, r in zip(sched, flags)]

@@ -48,7 +48,7 @@ def tiles(torch, cs, card):
     from fib_tf_tpu_torch import SimConfig, interop
     from fib_tf_tpu_torch.kernels import build
     from fib_tf_tpu_torch.models import BeelerReuter
-    from fib_tf_tpu_torch.ops import cuda_step, cuda_tiled, stencil
+    from fib_tf_tpu_torch.ops import bodies, cuda_step, cuda_tiled, stencil
 
     dev = torch.device("cuda")
     repo = cuda_tiled.GEOM_KERNELS["br"]
@@ -61,18 +61,15 @@ def tiles(torch, cs, card):
         sys.exit(f"{src} has no line {old!r}")
     src.write_text(text.replace(
         old, "GEOM_ENTRIES(br, fibtorch::BeelerReuterCell, 64, 16, 4)"))
-    saved = (cuda_tiled.SOURCE, cuda_tiled.HEADERS,
-             dict(cuda_tiled.GEOM_TILES))
+    saved = dict(cuda_tiled.GEOM_TILES)
     try:
-        cuda_tiled.SOURCE = src
-        cuda_tiled.HEADERS = tuple(copy_dir / h.name for h in saved[1])
         cuda_tiled.GEOM_TILES.pop("br", None)
         wide = cuda_tiled.TiledKernel("br", geom=True)
+        wide.source = src      # its headers are the copies beside it
         wide.library()
         wide_path = wide.build()
     finally:
-        cuda_tiled.SOURCE, cuda_tiled.HEADERS = saved[0], saved[1]
-        cuda_tiled.GEOM_TILES.update(saved[2])
+        cuda_tiled.GEOM_TILES.update(saved)
     repo.library()
     kernels = (("512 threads (the package's)", repo, repo.build()),
                ("1024 threads (copy)", wide, wide_path))
@@ -84,9 +81,9 @@ def tiles(torch, cs, card):
     model = BeelerReuter(SimConfig(**dict(cs.CFG, width=2048, height=2048)))
     base = cs.seeded_state(torch, interop, model, dev, cuda_step.plain_step,
                            rng)
-    maps = cs.geometry_maps(cuda_step, stencil, "c", (2048, 2048))
-    params = cuda_step.pack_params(model)
-    schedule = cuda_step.slow_schedule(model)
+    maps = cs.geometry_maps(bodies, stencil, "c", (2048, 2048))
+    params = bodies.pack_params(model)
+    schedule = model.launch_schedule
     stream = torch.cuda.current_stream().cuda_stream
     want = cs.clone(base)
     cuda_step.plain_step(model, want, geom=maps.plain(dev))
@@ -112,7 +109,7 @@ def tiles(torch, cs, card):
 def float64(torch, card):
     from fib_tf_tpu_torch import SimConfig, interop
     from fib_tf_tpu_torch.models import Fenton4v
-    from fib_tf_tpu_torch.ops import cuda_step, stencil
+    from fib_tf_tpu_torch.ops import bodies, cuda_step, stencil
 
     dev = torch.device("cuda")
     cfg = SimConfig(width=512, height=512, dt=0.1, dt_per_plot=10, diff=1.5,
@@ -125,7 +122,7 @@ def float64(torch, card):
                         ("no hole", None)):
         phase = (stencil.add_hole_to_phase_field(None, 512, 512, *hole)
                  if hole else None)
-        geom = cuda_step.GeometryMaps((512, 512), phase).plain(dev)
+        geom = bodies.GeometryMaps((512, 512), phase).plain(dev)
         init = model.initial_state()
         kernel = interop.state_from_numpy(init, dev)
         plain = interop.state_from_numpy(init, dev)

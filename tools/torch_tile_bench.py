@@ -283,8 +283,7 @@ def all_libraries():
                 cuda_block, cuda_volume_block):
         for kernel in (*getattr(mod, "KERNELS", {"br": mod.KERNEL}).values(),
                        *getattr(mod, "GEOM_KERNELS", {}).values()):
-            name = getattr(kernel, "library_name", mod.SOURCE.stem)
-            libraries.setdefault(name, kernel)
+            libraries.setdefault(kernel.library_name, kernel)
     return libraries
 
 
@@ -530,7 +529,7 @@ def main():
                               cuda_step.plain_step, rng)
     params = cuda_step.pack_params(large)
     stream = torch.cuda.current_stream().cuda_stream
-    sched = cuda_step.slow_schedule(large)
+    sched = large.launch_schedule
     clone = smoke.clone
     us = smoke.device_us
 
